@@ -18,18 +18,23 @@ through the hand-written CUDA kernel ``pim_matvec``.  Phases:
    logits must agree with the overlay path (``x @ dq(w)``, dispatch "off")
    within LOGIT_TOL; greedy tokens must agree with the overlay path's
    wherever the top-2 margin exceeds the two paths' difference.  A shorter
-   int4 generation is checked the same way;
+   int4 generation is checked the same way.  The same path in f32 must give
+   the logits of its plain version (every decode linear through
+   ``pim_matvec_plain`` on the card) within PATH_TOL, and a planted fault
+   (one layer's ``down`` loses its last K split) must fail that check;
 4. times on the card with CUDA events over CUDA-graph replays (device
    time, free of the host's issue rate): per shape, kernel / bound / plain /
    overlay yardstick (``torch.matmul`` on a pre-dequantized bf16 weight: it
-   reads 2 bytes a weight where the kernel reads 1 or 0.5), cycling through
-   all 28 layers' weights so no weight is timed out of L2; and one decode
-   step's 196 kernel launches in the path's order.  The kernel is also
-   timed as the eager loop issues it.
+   reads 2 bytes a weight where the kernel reads 1 or 0.5) / library
+   (``torch._weight_int8pack_mm``, int8 only), cycling through all 28
+   layers' weights so no weight is timed out of L2; and one decode step's
+   196 kernel launches in the path's order.  The kernel is also timed as the
+   eager loop issues it.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
 """
+import contextlib
 import functools
 import json
 import subprocess
@@ -42,7 +47,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain  # noqa: E402
+from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain, split_rows  # noqa: E402
 from repro_torch.models import common, decode_step, init_cache, init_params, prefill  # noqa: E402
 from repro_torch.serving import ServingEngine, quantize_tree  # noqa: E402
 
@@ -55,8 +60,15 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of the same products, reorde
 # differ by about an ulp at every one of 28 layers.  A narrow 28-layer bf16
 # model on the CPU gave 0.03 over 1/70 as many logits; the H100 gave 0.154
 # with cuBLAS's reduced-precision bf16 reductions on (now off, below).
-# A wrong kernel moves logits by their own scale, several units.
+# This check catches gross faults only: the planted fault of against_plain
+# (1% of one layer's `down` product dropped) moved these logits by 0.23 on
+# the H100, under it.  PATH_TOL below catches that fault.
 LOGIT_TOL = 0.25
+# Full-width f32 logits, kernel path vs the same path with every decode
+# linear through pim_matvec_plain on the card: the two differ only in the
+# order of f32 sums inside each linear.  The H100 gave 1.1e-5; the planted
+# fault gave 0.17.
+PATH_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 LINEARS = (("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
@@ -88,7 +100,7 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    lib = build.build(["pim_matvec"])["pim_matvec"]
+    lib = build.build("pim_matvec")
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
     print(lib.with_name(lib.name + ".log").read_text(), file=sys.stderr)
 
@@ -126,7 +138,7 @@ def main() -> int:
     check(tuple(toks.shape) == (BATCH, N_NEW), f"tokens shape {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token ids out of range")
 
-    diff8, t_gen_off = against_overlay(eng8, prompt, toks, N_NEW, "int8")
+    diff8, t_gen_off, lo8 = against_overlay(eng8, prompt, toks, N_NEW, "int8")
     decode_off_s = (t_gen_off - t_prefill) / (N_NEW - 1)
     print(json.dumps({"path": "qwen2-1.5b int8 generate", "batch": BATCH,
                       "prompt": PROMPT, "n_new": N_NEW, "launches": launches,
@@ -142,9 +154,10 @@ def main() -> int:
     launches4 = pim_matvec.launches
     want4 = len(LINEARS) * cfg.n_layers * (N_NEW_INT4 - 1)
     check(launches4 == want4, f"int4 path: {launches4} launches, expected {want4}")
-    diff4, _ = against_overlay(eng4, prompt, toks4, N_NEW_INT4, "int4")
+    diff4, _, _ = against_overlay(eng4, prompt, toks4, N_NEW_INT4, "int4")
     print(json.dumps({"path": "qwen2-1.5b int4 generate", "n_new": N_NEW_INT4,
                       "launches": launches4, "max_abs_logit_diff_vs_overlay": diff4}))
+    against_plain(eng8, gen, prompt, toks, lo8)
 
     # ---- 4. times ------------------------------------------------------------
     shapes, step = timings(eng8, eng4, gen)
@@ -158,7 +171,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
-        "library_ms": None, "overlay_ms": step["overlay_ms"],
+        "library_ms": step["library_ms"], "overlay_ms": step["overlay_ms"],
         "eager_ms": step["kernel_eager_ms"], "per": step["per"],
     }]}))
     print(f"card: {smi}")
@@ -246,7 +259,8 @@ def forced_logits(eng, prompt, toks, n_new):
 def against_overlay(eng, prompt, toks, n_new, label):
     """Hold the kernel path's generation against the overlay path's.
 
-    Returns (max |logit difference|, seconds of the overlay generation)."""
+    Returns (max |logit difference|, seconds of the overlay generation, the
+    overlay path's teacher-forced logits)."""
     lk = forced_logits(eng, prompt, toks, n_new)
     prev = common.set_matvec_dispatch("off")
     try:
@@ -285,7 +299,71 @@ def against_overlay(eng, prompt, toks, n_new, label):
                       "logit_std": lk.std().item(),
                       "tokens_agreeing_before_first_flip": agree,
                       "tokens": toks.numel()}))
-    return diff, t_off
+    return diff, t_off, lo
+
+
+@contextlib.contextmanager
+def decode_linears_through(fn):
+    """Route the decode linears through ``fn`` in place of the wrapper."""
+    prev, common.pim_matvec = common.pim_matvec, fn
+    try:
+        yield
+    finally:
+        common.pim_matvec = prev
+
+
+def dropped_split(n_layers, layer, index):
+    """The wrapper with one planted fault: in linear ``index`` (of LINEARS)
+    of ``layer``, the last K split of the kernel's first pass adds nothing
+    (the activations it multiplies are zeroed).  Counts decode calls, so it
+    holds for a prefill (which makes none) and then decode steps."""
+    calls = 0
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def faulty(x, w_codes, scale, *, bits=8, **kw):
+        nonlocal calls
+        if calls % (n_layers * len(LINEARS)) == layer * len(LINEARS) + index:
+            splits, per = split_rows(w_codes.shape[0], w_codes.shape[1], sm)
+            x = x.clone()
+            x[:, (splits - 1) * per * (8 // bits):] = 0
+        calls += 1
+        return pim_matvec(x, w_codes, scale, bits=bits, **kw)
+    return faulty
+
+
+def against_plain(eng8, gen, prompt, toks, lo8):
+    """The int8 path at full width in f32, kernel vs plain version: the
+    teacher-forced logits through the kernel against the same path with
+    every decode linear through ``pim_matvec_plain`` on the card, within
+    PATH_TOL.  Then a planted fault (layer n/2's ``down`` loses its last K
+    split) must fail that check; its size under the bf16 overlay check is
+    printed beside LOGIT_TOL."""
+    cfg = eng8.cfg.replace(param_dtype="float32")
+    eng = ServingEngine(cfg, init_params(cfg, gen, device=gen.device),
+                        max_seq=eng8.max_seq, pim_bits=8, device=gen.device)
+    lk = forced_logits(eng, prompt, toks, N_NEW)
+    with decode_linears_through(pim_matvec_plain):
+        lp = forced_logits(eng, prompt, toks, N_NEW)
+    down = [name for _, name, _ in LINEARS].index("down")
+    with decode_linears_through(dropped_split(cfg.n_layers, cfg.n_layers // 2, down)):
+        lf = forced_logits(eng, prompt, toks, N_NEW)
+    with decode_linears_through(dropped_split(cfg.n_layers, cfg.n_layers // 2, down)):
+        lf8 = forced_logits(eng8, prompt, toks, N_NEW)
+    diff = (lk - lp).abs().max().item()
+    fault = (lf - lp).abs().max().item()
+    fault8 = (lf8 - lo8).abs().max().item()
+    print(json.dumps({"check": "int8 f32 kernel path vs plain path",
+                      "max_abs_logit_diff": diff, "tol": PATH_TOL,
+                      "logit_std": lp.std().item(),
+                      "planted_fault": f"layer {cfg.n_layers // 2} down: last K split dropped",
+                      "planted_fault_f32_diff_vs_plain": fault,
+                      "planted_fault_bf16_diff_vs_overlay": fault8,
+                      "logit_tol": LOGIT_TOL}))
+    check(bool(torch.isfinite(lk).all()), "f32 path: non-finite logits")
+    check(diff <= PATH_TOL, f"f32 path: kernel logits differ from the plain "
+          f"version's by {diff:.4g} > {PATH_TOL}")
+    check(fault > PATH_TOL, f"the planted fault moved the f32 logits by only "
+          f"{fault:.4g} <= {PATH_TOL}: the check cannot see it")
 
 
 def _bound_terms_ms(m, k, n, bits, x_bytes, bias_bytes):
@@ -326,13 +404,31 @@ def _time_ms(calls, reps, graph=True):
     return start.elapsed_time(end) / (reps * len(calls))
 
 
+def library_calls(x, ws):
+    """One PyTorch call per layer computing the int8 kernel's function:
+    ``torch._weight_int8pack_mm(x, codes^T, scale)`` = (x @ codes) * scale
+    in x's dtype (the scale cast to it), without the bias (wq/wk/wv add it
+    in a second call, left out).  The port never calls it.  Checked once
+    against the plain version; returns (calls, None), or (None, the error)
+    where this PyTorch has no CUDA kernel for it."""
+    lib = [(w["codes"].T.contiguous(), w["scale"].reshape(-1).to(x.dtype)) for w in ws]
+    try:
+        got = torch._weight_int8pack_mm(x, *lib[0]).float()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    ref = pim_matvec_plain(x, ws[0]["codes"], ws[0]["scale"], bits=8)
+    check(bool(torch.allclose(got, ref, rtol=1e-2, atol=1e-2)),
+          f"_weight_int8pack_mm vs plain: max err {(got - ref).abs().max().item():.3g}")
+    return [functools.partial(torch._weight_int8pack_mm, x, c, s) for c, s in lib], None
+
+
 def timings(eng8, eng4, gen):
     """Per-shape times at the path's M = 4 with bf16 inputs, cycling through
     all layers' weights; then one decode step's 196 launches in order."""
     dev, m = gen.device, BATCH
     n_layers = eng8.cfg.n_layers
     rows = []
-    step = {"kernel": [], "plain": [], "overlay": []}
+    step = {"kernel": [], "plain": [], "overlay": [], "library": []}
     step_bytes = step_ops = 0.0
     for eng, bits in ((eng8, 8), (eng4, 4)):
         for group, name, bname in LINEARS:
@@ -350,6 +446,11 @@ def timings(eng8, eng4, gen):
                 "overlay": [functools.partial(torch.matmul, x, common.dq(w, torch.bfloat16))
                             for w in ws],
             }
+            lib_err = library_us = None
+            if bits == 8:
+                calls["library"], lib_err = library_calls(x, ws)
+                if calls["library"] is not None:
+                    library_us = _time_ms(calls["library"], 20) * 1e3
             by_bytes, by_ops = _bound_terms_ms(m, k, n, bits, 2, 0 if bname is None else 2 * n)
             rows.append({"shape": name, "K": k, "N": n, "bits": bits, "M": m,
                          "kernel_us": _time_ms(calls["kernel"], 20) * 1e3,
@@ -357,10 +458,11 @@ def timings(eng8, eng4, gen):
                          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                          "plain_us": _time_ms(calls["plain"], 5) * 1e3,
                          "overlay_yardstick_us": _time_ms(calls["overlay"], 20) * 1e3,
+                         "library_us": library_us, "library_error": lib_err,
                          "kernel_eager_us": _time_ms(calls["kernel"], 5, graph=False) * 1e3})
             if bits == 8:
                 for key in step:
-                    step[key].append(calls[key])
+                    step[key].append(calls.get(key))
                 step_bytes += by_bytes * n_layers
                 step_ops += by_ops * n_layers
 
@@ -376,6 +478,7 @@ def timings(eng8, eng4, gen):
                "(CUDA graph replay)",
         "kernel_ms": step_ms("kernel", 20), "plain_ms": step_ms("plain", 5),
         "overlay_ms": step_ms("overlay", 20),
+        "library_ms": (None if None in step["library"] else step_ms("library", 20)),
         "kernel_eager_ms": step_ms("kernel", 5, graph=False),
         "bound_ms": max(step_bytes, step_ops),
         "bound_by": "bytes" if step_bytes >= step_ops else "operations"}

@@ -44,32 +44,22 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names) -> dict[str, Path]:
-    """Compile every library of ``names`` that is missing, all ``nvcc``
-    processes at once.  The compiler's output (registers, spills) goes to
-    ``<library>.log``.  Raises if a build fails."""
+def build(name: str) -> Path:
+    """Compile the library of ``csrc/<name>.cu`` unless it exists; the
+    compiler's output (registers, spills) goes to ``<library>.log``.  Raises
+    if the build fails."""
+    so = library_path(name)
+    if so.exists():
+        return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: library_path(name) for name in names}
-    procs = {}
-    for name, so in paths.items():
-        if so.exists():
-            continue
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp)
-    failed = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        so = paths[name]
-        so.with_name(so.name + ".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return paths
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    so.with_name(so.name + ".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return so
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -77,6 +67,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib

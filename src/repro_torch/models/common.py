@@ -40,9 +40,9 @@ def dense_init(gen: torch.Generator, shape, dtype, device, scale: float = 0.02):
 # epilogue-fused kernels.pim_matvec instead of the overlay path:
 #   "auto"  — through pim_matvec: its CUDA kernel on CUDA tensors, its plain
 #             version on CPU tensors
-#   "force" — the same; the JAX package needs it to run its kernel off-TPU,
-#             and the port keeps the name so callers port one to one
 #   "off"   — always the overlay path ``x @ dq(w)``
+# "force" is accepted as another name for "auto": the JAX package needs it to
+# run its kernel off-TPU, and callers port one to one.
 MATVEC_MAX_M = MAX_M
 _MATVEC_DISPATCH = "auto"
 
@@ -52,7 +52,7 @@ def set_matvec_dispatch(mode: str) -> str:
     global _MATVEC_DISPATCH
     if mode not in ("auto", "off", "force"):
         raise ValueError(f"matvec dispatch must be auto|off|force, got {mode!r}")
-    prev, _MATVEC_DISPATCH = _MATVEC_DISPATCH, mode
+    prev, _MATVEC_DISPATCH = _MATVEC_DISPATCH, "auto" if mode == "force" else mode
     return prev
 
 

@@ -50,6 +50,16 @@ def test_set_matvec_dispatch_rejects_unknown_mode():
         tc.set_matvec_dispatch("sometimes")
 
 
+def test_set_matvec_dispatch_force_is_auto():
+    """"force" (the JAX package's name for its off-TPU kernel mode) is
+    stored as "auto": the port has one kernel route."""
+    prev = tc.set_matvec_dispatch("force")
+    try:
+        assert tc.set_matvec_dispatch("force") == "auto"
+    finally:
+        tc.set_matvec_dispatch(prev)
+
+
 @pytest.mark.parametrize("bits,kdim", [(8, 40), (4, 40), (4, 33)])
 def test_dq_and_weight_shape_match_jax(bits, kdim):
     jq, tq = _quantized(kdim, 16, bits)
