@@ -1,39 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check its kernels.
+"""Drive the PyTorch port's paths on one NVIDIA card and check its kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-The main path is greedy decoding of qwen2-1.5b at full width (28 layers,
-bf16, random weights from a seeded generator on the card) from PIM-quantized
-weights: ``serving.quantize_tree`` -> ``models.prefill`` ->
-``models.decode_step`` -> ``ServingEngine.generate``, every decode-time linear
-through the hand-written CUDA kernel ``pim_matvec``.  Phases:
+Two paths run, at qwen2-1.5b's full width (28 layers, bf16, random weights
+from a seeded generator on the card):
 
-1. the card's name and power limit; the kernels build (set-up);
-2. each kernel against its plain PyTorch version at the path's full-width
-   shapes (int8 and int4, M in {1, 4, 8}, every epilogue, f32 and bf16
-   inputs, one odd-K int4 weight): rtol 1e-5, atol 1e-4;
-3. the slice: 4 requests of 128 prompt tokens, 32 new tokens, int8 weights.
-   The kernel's launch count must be 7 x 28 x 31; the teacher-forced decode
-   logits must agree with the overlay path (``x @ dq(w)``, dispatch "off")
-   within LOGIT_TOL; greedy tokens must agree with the overlay path's
+* greedy decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
+  ``models.prefill`` -> ``models.decode_step`` -> ``ServingEngine.generate``,
+  every decode-time linear through the hand-written CUDA kernel
+  ``pim_matvec``;
+* the packed kernel entry point ``repro_torch.kernels`` (``ops``): every
+  layer's seven float weights through ``quantize_for_pim``, then
+  ``pim_dense`` (the CUDA kernel ``pim_matmul``) on a prefill's 4 x 128 rows
+  and ``pim_matvec_dense`` on 4 of them.
+
+Phases:
+
+1. the card's name and power limit; the kernels build, one ``nvcc`` per
+   source, all at once (set-up);
+2. each kernel against its plain PyTorch version, rtol 1e-5, atol 1e-4:
+   ``pim_matvec`` at the decode path's full-width shapes (int8 and int4,
+   M in {1, 4, 8}, every epilogue, f32 and bf16 inputs, one odd-K int4
+   weight); ``pim_matmul`` at the seven linears' shapes with M in {9, 512}
+   and at ragged shapes that are multiples of no tile (one with M <= 8), the
+   same grid of bits, epilogues and dtypes;
+3. the decode path: 4 requests of 128 prompt tokens, 32 new tokens, int8
+   weights.  ``pim_matvec``'s launch count must be 7 x 28 x 31 and
+   ``pim_matmul``'s 0 (prefill stays ``x @ dq(w)``); the teacher-forced
+   decode logits must agree with the overlay path (``x @ dq(w)``, dispatch
+   "off") within LOGIT_TOL; greedy tokens must agree with the overlay path's
    wherever the top-2 margin exceeds the two paths' difference.  A shorter
    int4 generation is checked the same way.  The same path in f32 must give
    the logits of its plain version (every decode linear through
    ``pim_matvec_plain`` on the card) within PATH_TOL, and a planted fault
    (one layer's ``down`` loses its last K split) must fail that check;
-4. times on the card with CUDA events over CUDA-graph replays (device
+4. the entry point, at bits 8 and then 4: ``pim_matmul`` must launch
+   exactly 7 x 28 times per pass and every output agree with
+   ``pim_matmul_plain`` within KERNEL_TOL; a planted fault (one layer's
+   ``down`` loses the kernel's last K tile) must fail that check;
+   ``pim_matvec_dense`` on 4 rows against ``pim_matvec_plain``;
+5. times on the card with CUDA events over CUDA-graph replays (device
    time, free of the host's issue rate): per shape, kernel / bound / plain /
    overlay yardstick (``torch.matmul`` on a pre-dequantized bf16 weight: it
-   reads 2 bytes a weight where the kernel reads 1 or 0.5) / library
+   reads 2 bytes a weight where the kernels read 1 or 0.5) / library
    (``torch._weight_int8pack_mm``, int8 only), cycling through all 28
-   layers' weights so no weight is timed out of L2; and one decode step's
-   196 kernel launches in the path's order.  The kernel is also timed as the
-   eager loop issues it.
+   layers' weights so no weight is timed out of L2; ``pim_matvec`` at the
+   decode path's M = 4 and ``pim_matmul`` at the prefill's M = 512; and one
+   pass of each kernel's 196 launches in the path's order.  The kernels are
+   also timed as an eager loop issues them.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
 """
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -46,12 +66,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.pim_matmul import BLOCK_K, pim_matmul, pim_matmul_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain, split_rows  # noqa: E402
 from repro_torch.models import common, decode_step, init_cache, init_params, prefill  # noqa: E402
+from repro_torch.quant import QuantizedTensor, dequantize  # noqa: E402
 from repro_torch.serving import ServingEngine, quantize_tree  # noqa: E402
 
 SEED = 20260
+KERNELS = ("pim_matvec", "pim_matmul")
 BATCH, PROMPT, N_NEW, N_NEW_INT4 = 4, 128, 32, 8
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of the same products, reordered
 # Full-width bf16 logits, kernel path vs overlay path, max over all 4 x 32 x
@@ -71,6 +94,10 @@ LOGIT_TOL = 0.25
 PATH_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+PREFILL_ROWS = BATCH * PROMPT  # one prefill's rows: what pim_dense is held at
+MATMUL_ROWS = (9, PREFILL_ROWS)  # just past pim_matvec's M <= 8, and a prefill
+RAGGED = ((130, 1000, 300), (7, 1000, 300))  # (M, K, N): multiples of no tile
 LINEARS = (("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
            ("attn", "wo", None), ("mlp", "gate", None), ("mlp", "up", None),
            ("mlp", "down", None))
@@ -100,28 +127,37 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    lib = build.build("pim_matvec")
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    print(lib.with_name(lib.name + ".log").read_text(), file=sys.stderr)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(build.build, KERNELS))  # one nvcc per source, at once
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {', '.join(lib.name for lib in libs)}")
+    for lib in libs:
+        print(lib.with_name(lib.name + ".log").read_text(), file=sys.stderr)
 
     cfg = get_config("qwen2-1.5b")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(cfg, gen, device=dev)
     eng8 = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, pim_bits=8, device=dev)
     eng4 = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW_INT4, pim_bits=4, device=dev)
-    del params
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
+    # The entry point's phases draw from a generator of their own, so the
+    # decode path's inputs do not depend on them.
+    gen_mm = torch.Generator(device=dev).manual_seed(SEED + 1)
 
-    # ---- 2. kernel vs plain at the path's shapes -------------------------
-    max_err = kernel_vs_plain(eng8, eng4, gen)
+    # ---- 2. kernel vs plain ------------------------------------------------
+    max_err = kernel_vs_plain(pim_matvec, pim_matvec_plain, matvec_cases(eng8, eng4), gen)
     max_err = max(max_err, odd_k_case(gen))
-    print(f"kernel vs plain: max |err| {max_err:.3g} within rtol "
+    print(f"pim_matvec vs plain: max |err| {max_err:.3g} within rtol "
           f"{KERNEL_TOL['rtol']} atol {KERNEL_TOL['atol']}")
+    mm_cases = matmul_cases(params, gen_mm)
+    mm_err = kernel_vs_plain(pim_matmul, pim_matmul_plain, mm_cases, gen_mm)
+    print(f"pim_matmul vs plain: max |err| {mm_err:.3g} within rtol "
+          f"{KERNEL_TOL['rtol']} atol {KERNEL_TOL['atol']} over "
+          f"{32 * len(mm_cases)} cases")
 
-    # ---- 3. the slice ------------------------------------------------------
+    # ---- 3. the decode path --------------------------------------------------
     eng8.generate(prompt, 2)  # warm-up: library load, allocator, cuBLAS handles
     torch.cuda.synchronize()
-    pim_matvec.launches = 0
+    pim_matvec.launches = pim_matmul.launches = 0
     t0 = time.perf_counter()
     toks = eng8.generate(prompt, N_NEW)
     torch.cuda.synchronize()
@@ -130,6 +166,8 @@ def main() -> int:
     want = len(LINEARS) * cfg.n_layers * (N_NEW - 1)
     check(launches == want, f"pim_matvec launched {launches} times on the "
           f"main path, expected {want}")
+    check(pim_matmul.launches == 0, f"pim_matmul launched {pim_matmul.launches} "
+          "times on the decode path, whose prefill is x @ dq(w)")
     t0 = time.perf_counter()
     eng8.generate(prompt, 1)  # prefill and tok0 only
     torch.cuda.synchronize()
@@ -142,6 +180,7 @@ def main() -> int:
     decode_off_s = (t_gen_off - t_prefill) / (N_NEW - 1)
     print(json.dumps({"path": "qwen2-1.5b int8 generate", "batch": BATCH,
                       "prompt": PROMPT, "n_new": N_NEW, "launches": launches,
+                      "pim_matmul_launches": pim_matmul.launches,
                       "generate_s": t_gen, "prefill_s": t_prefill,
                       "decode_ms_per_step": decode_s * 1e3,
                       "decode_tokens_per_s": BATCH / decode_s,
@@ -159,11 +198,24 @@ def main() -> int:
                       "launches": launches4, "max_abs_logit_diff_vs_overlay": diff4}))
     against_plain(eng8, gen, prompt, toks, lo8)
 
-    # ---- 4. times ------------------------------------------------------------
-    shapes, step = timings(eng8, eng4, gen)
+    # ---- 4. the entry point ----------------------------------------------------
+    mm_weights, entry = entry_point(params, gen_mm)
+    del params
+    print(json.dumps(entry))
+    mm_err = max(mm_err, entry["max_abs_err"])
+
+    # ---- 5. times ------------------------------------------------------------
+    shapes, step = timings(pim_matvec, pim_matvec_plain, BATCH,
+                           {bits: engine_weights(eng, bits) for eng, bits in ((eng8, 8), (eng4, 4))},
+                           gen, "one decode step")
     for row in shapes:
         print(json.dumps(row))
     print(json.dumps({"decode_step_launches": step}))
+    mm_shapes, mm_pass = timings(pim_matmul, pim_matmul_plain, PREFILL_ROWS, mm_weights, gen_mm,
+                                 f"one prefill's linears at {BATCH} x {PROMPT} tokens")
+    for row in mm_shapes:
+        print(json.dumps(row))
+    print(json.dumps({"prefill_pass_launches": mm_pass}))
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
@@ -173,6 +225,17 @@ def main() -> int:
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
         "library_ms": step["library_ms"], "overlay_ms": step["overlay_ms"],
         "eager_ms": step["kernel_eager_ms"], "per": step["per"],
+    }, {
+        "name": "pim_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pim_matmul.cu",
+        "replaces": "src/repro/kernels/pim_matmul.py:42",
+        "launches": sum(entry["pim_matmul_launches"].values()),
+        "launches_per_pass": entry["pim_matmul_launches"], "max_abs_err": mm_err,
+        "ms": mm_pass["kernel_ms"], "plain_ms": mm_pass["plain_ms"],
+        "bound_ms": mm_pass["bound_ms"], "bound_by": mm_pass["bound_by"],
+        "tensor_core_ms": mm_pass["tensor_core_ms"],
+        "library_ms": mm_pass["library_ms"], "overlay_ms": mm_pass["overlay_ms"],
+        "eager_ms": mm_pass["kernel_eager_ms"], "per": mm_pass["per"],
     }]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
@@ -181,37 +244,59 @@ def main() -> int:
     return 0
 
 
-def kernel_vs_plain(eng8, eng4, gen) -> float:
-    """Every linear of the path, layer 0: bits 8 and 4, M in {1, 4, 8}, every
-    activation, with and without bias and residual, f32 and bf16 inputs."""
+def within_tol(got, ref):
+    """(every output finite and within KERNEL_TOL of ``ref``, max |err|)."""
+    err = (got - ref).abs()
+    ok = bool((err <= KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * ref.abs()).all())
+    return bool(torch.isfinite(got).all()) and ok, err.max().item()
+
+
+def matvec_cases(eng8, eng4):
+    """``pim_matvec``'s cases: every linear of the decode path, layer 0,
+    bits 8 and 4, M in {1, 4, 8}."""
+    return [(name, m, qs[0]) for eng, bits in ((eng8, 8), (eng4, 4))
+            for name, qs, _ in engine_weights(eng, bits) for m in (1, 4, 8)]
+
+
+def matmul_cases(params, gen):
+    """``pim_matmul``'s cases: the seven linears' layer-0 weights through
+    ``ops.quantize_for_pim`` with M in MATMUL_ROWS, and random weights at
+    the RAGGED shapes; bits 8 and 4."""
+    cases = []
+    for bits in (8, 4):
+        for group, name, _ in LINEARS:
+            q = ops.quantize_for_pim(params["layers"][group][name][0], bits)
+            cases += [(name, m, q) for m in MATMUL_ROWS]
+        for m, k, n in RAGGED:
+            w = 0.02 * torch.randn((k, n), generator=gen, device=gen.device)
+            cases.append((f"ragged K={k} N={n}", m, ops.quantize_for_pim(w, bits)))
+    return cases
+
+
+def kernel_vs_plain(kernel, plain, cases, gen) -> float:
+    """``kernel`` against ``plain`` on every (label, M, QuantizedTensor) of
+    ``cases``: f32 and bf16 inputs, every activation, with and without bias
+    and residual.  Returns the max |err|."""
     max_err = 0.0
     dev = gen.device
-    for eng, bits in ((eng8, 8), (eng4, 4)):
-        for group, name, _ in LINEARS:
-            w = {key: v[0] for key, v in eng.params["layers"][group][name].items()}
-            k = w["codes"].shape[0] * (8 // bits)
-            n = w["codes"].shape[1]
-            for m in (1, 4, 8):
-                x32 = torch.randn((m, k), generator=gen, device=dev)
-                b32 = torch.randn((n,), generator=gen, device=dev)
-                r32 = torch.randn((m, n), generator=gen, device=dev)
-                for dtype in (torch.float32, torch.bfloat16):
-                    x, b, r = x32.to(dtype), b32.to(dtype), r32.to(dtype)
-                    for act in ("none", "relu", "silu", "gelu"):
-                        for bias, res in ((None, None), (b, None), (None, r), (b, r)):
-                            kw = dict(bits=bits, bias=bias, activation=act, residual=res)
-                            got = pim_matvec(x, w["codes"], w["scale"], **kw)
-                            ref = pim_matvec_plain(x, w["codes"], w["scale"], **kw)
-                            torch.cuda.synchronize()
-                            err = (got - ref).abs()
-                            ok = bool((err <= KERNEL_TOL["atol"]
-                                       + KERNEL_TOL["rtol"] * ref.abs()).all())
-                            check(bool(torch.isfinite(got).all()) and ok,
-                                  f"pim_matvec {name} bits={bits} M={m} {dtype} "
-                                  f"{act} bias={bias is not None} "
-                                  f"residual={res is not None}: max err "
-                                  f"{err.max().item():.3g}")
-                            max_err = max(max_err, err.max().item())
+    for label, m, q in cases:
+        k, n = q.shape
+        x32 = torch.randn((m, k), generator=gen, device=dev)
+        b32 = torch.randn((n,), generator=gen, device=dev)
+        r32 = torch.randn((m, n), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, b, r = x32.to(dtype), b32.to(dtype), r32.to(dtype)
+            for act in ("none", "relu", "silu", "gelu"):
+                for bias, res in ((None, None), (b, None), (None, r), (b, r)):
+                    kw = dict(bits=q.bits, bias=bias, activation=act, residual=res)
+                    got = kernel(x, q.codes, q.scale, **kw)
+                    ref = plain(x, q.codes, q.scale, **kw)
+                    torch.cuda.synchronize()
+                    ok, err = within_tol(got, ref)
+                    check(ok, f"{kernel.__name__} {label} bits={q.bits} M={m} "
+                          f"{dtype} {act} bias={bias is not None} "
+                          f"residual={res is not None}: max err {err:.3g}")
+                    max_err = max(max_err, err)
     return max_err
 
 
@@ -233,12 +318,11 @@ def odd_k_case(gen) -> float:
     finally:
         common.set_matvec_dispatch(prev)
     torch.cuda.synchronize()
-    err = (got - ref).abs()
-    check(bool((err <= KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * ref.abs()).all()),
-          f"odd-K int4 linear vs plain: max err {err.max().item():.3g}")
+    ok, err = within_tol(got, ref)
+    check(ok, f"odd-K int4 linear vs plain: max err {err:.3g}")
     check(bool(torch.allclose(got, overlay, rtol=1e-4, atol=1e-4)),
           f"odd-K int4 linear vs overlay: max err {(got - overlay).abs().max().item():.3g}")
-    return err.max().item()
+    return err
 
 
 def forced_logits(eng, prompt, toks, n_new):
@@ -366,23 +450,122 @@ def against_plain(eng8, gen, prompt, toks, lo8):
           f"{fault:.4g} <= {PATH_TOL}: the check cannot see it")
 
 
+def _linear_params(params, i):
+    """Layer ``i``'s seven float weights and their biases (None where the
+    linear has none), in path order."""
+    layer = params["layers"]
+    return [(name, layer[group][name][i], None if bname is None else layer[group][bname][i])
+            for group, name, bname in LINEARS]
+
+
+def entry_point(params, gen):
+    """The packed entry point at full width, bits 8 and then 4: every
+    layer's seven float weights through ``ops.quantize_for_pim``, then
+    ``ops.pim_dense`` on a seeded (512, K) bf16 activation, each output held
+    against ``pim_matmul_plain`` within KERNEL_TOL, and ``ops.pim_matvec_dense``
+    on its first 4 rows against ``pim_matvec_plain``.  ``wq``/``wk``/``wv``
+    get a seeded bias of their widths (the model's own are zeros, which
+    would check nothing).  Each pass must launch ``pim_matmul`` and
+    ``pim_matvec`` 196 times.  Then a planted fault — layer n/2's ``down``
+    loses the kernel's last K tile (the activations it multiplies are
+    zeroed) — must fail the same check.
+
+    Returns ({bits: [(name, [QuantizedTensor per layer], [bias per
+    layer])]} for the timings, a report)."""
+    dev = gen.device
+    n_layers = params["layers"]["attn"]["wq"].shape[0]
+    widths = {w.shape[0] for _, w, _ in _linear_params(params, 0)}
+    xs = {k: torch.randn((PREFILL_ROWS, k), generator=gen, device=dev).to(torch.bfloat16)
+          for k in sorted(widths)}
+    biases = {name: torch.randn(w.shape[1:], generator=gen, device=dev).to(torch.bfloat16)
+              for name, w, b in _linear_params(params, 0) if b is not None}
+    weights, report = {}, {"check": "entry point at full width vs plain",
+                           "rows": PREFILL_ROWS, "pim_matmul_launches": {},
+                           "pim_matvec_launches": {}}
+    max_err = vec_err = 0.0
+    for bits in (8, 4):
+        qs = [[(name, ops.quantize_for_pim(w, bits), biases.get(name))
+               for name, w, _ in _linear_params(params, i)] for i in range(n_layers)]
+        torch.cuda.synchronize()
+        pim_matmul.launches = pim_matvec.launches = 0
+        for i, layer in enumerate(qs):
+            for name, q, b in layer:
+                x = xs[q.shape[0]]
+                got = ops.pim_dense(x, q, bias=b)
+                got_vec = ops.pim_matvec_dense(x[:4], q, bias=b)
+                ref = pim_matmul_plain(x, q.codes, q.scale, bits=bits, bias=b)
+                ref_vec = pim_matvec_plain(x[:4], q.codes, q.scale, bits=bits, bias=b)
+                torch.cuda.synchronize()
+                ok, err = within_tol(got, ref)
+                check(ok, f"pim_dense layer {i} {name} bits={bits}: max err {err:.3g}")
+                ok, err_vec = within_tol(got_vec, ref_vec)
+                check(ok, f"pim_matvec_dense layer {i} {name} bits={bits}: max err "
+                      f"{err_vec:.3g}")
+                max_err, vec_err = max(max_err, err), max(vec_err, err_vec)
+        torch.cuda.synchronize()
+        want = n_layers * len(LINEARS)
+        for kernel in (pim_matmul, pim_matvec):
+            check(kernel.launches == want, f"entry point bits={bits}: {kernel.__name__} "
+                  f"launched {kernel.launches} times, expected {want}")
+            report[f"{kernel.__name__}_launches"][bits] = kernel.launches
+        weights[bits] = [(name, [layer[j][1] for layer in qs], [layer[j][2] for layer in qs])
+                         for j, (_, name, _) in enumerate(LINEARS)]
+
+    layer, down = n_layers // 2, [name for _, name, _ in LINEARS].index("down")
+    q = weights[8][down][1][layer]
+    x = xs[q.shape[0]]
+    faulty = x.clone()
+    faulty[:, (q.shape[0] - 1) // BLOCK_K * BLOCK_K:] = 0
+    ok, fault_err = within_tol(ops.pim_dense(faulty, q),
+                               pim_matmul_plain(x, q.codes, q.scale, bits=8))
+    check(not ok, f"the planted fault moved pim_dense's output by only "
+          f"{fault_err:.3g}: the check cannot see it")
+    report.update({"max_abs_err": max_err, "pim_matvec_dense_max_abs_err": vec_err,
+                   "tol": KERNEL_TOL,
+                   "planted_fault": f"layer {layer} down, bits 8: last K tile "
+                                    f"({BLOCK_K} of {q.shape[0]}) dropped",
+                   "planted_fault_max_abs_err": fault_err})
+    return weights, report
+
+
+def engine_weights(eng, bits):
+    """The engine's quantized linears for the timings: [(name, [QuantizedTensor
+    per layer], [bias per layer])]."""
+    out = []
+    for group, name, bname in LINEARS:
+        lw = eng.params["layers"][group]
+        codes, scale = lw[name]["codes"], lw[name]["scale"]
+        qs = [QuantizedTensor(c, sc, bits, packed=bits == 4) for c, sc in zip(codes, scale)]
+        out.append((name, qs, [None] * len(qs) if bname is None else list(lw[bname])))
+    return out
+
+
 def _bound_terms_ms(m, k, n, bits, x_bytes, bias_bytes):
-    """(bytes term, operations term) of the least time, in ms: the bytes the
-    function must move (codes, scale, x, bias, f32 out, each once) over the
-    HBM rate, and its multiply-adds over the f32 rate (data-sheet peaks)."""
+    """(bytes term, operations term, bf16 tensor-core term) of the least
+    time, in ms: the bytes the function must move (codes, scale, x, bias,
+    f32 out, each once) over the HBM rate, and its multiply-adds over the
+    f32 rate the kernels run at and over the bf16 tensor cores' rate
+    (data-sheet peaks)."""
     moved = k * n * bits // 8 + 4 * n + m * k * x_bytes + bias_bytes + 4 * m * n
-    return moved / HBM_BYTES_PER_S * 1e3, 2 * m * k * n / F32_FLOP_PER_S * 1e3
+    ops_ = 2 * m * k * n
+    return (moved / HBM_BYTES_PER_S * 1e3, ops_ / F32_FLOP_PER_S * 1e3,
+            ops_ / BF16_TC_FLOP_PER_S * 1e3)
 
 
-def _time_ms(calls, reps, graph=True):
-    """Mean ms per call over ``reps`` passes through ``calls``, with CUDA
-    events, after one warm-up pass.  ``graph=True`` captures one pass in a
-    CUDA graph and replays it, so the host's issue rate is out of the
+def _time_ms(calls, reps, graph=True, budget_s=1.0):
+    """Mean ms per call over up to ``reps`` passes through ``calls`` (fewer
+    where one pass takes long, to stay near ``budget_s``), with CUDA events,
+    after one warm-up pass.  ``graph=True`` captures one pass in a CUDA
+    graph and replays it, so the host's issue rate is out of the
     measurement (device time); ``graph=False`` times the eager Python loop,
-    which is what the decode path pays today."""
+    which is what the paths pay today."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     for c in calls:
         c()
+    end.record()
     torch.cuda.synchronize()
+    reps = max(1, min(reps, int(budget_s * 1e3 / max(start.elapsed_time(end), 1e-3))))
     if graph:
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
@@ -394,7 +577,6 @@ def _time_ms(calls, reps, graph=True):
         def run():
             for c in calls:
                 c()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
@@ -404,58 +586,60 @@ def _time_ms(calls, reps, graph=True):
     return start.elapsed_time(end) / (reps * len(calls))
 
 
-def library_calls(x, ws):
-    """One PyTorch call per layer computing the int8 kernel's function:
+def library_calls(x, qs):
+    """One PyTorch call per layer computing the int8 kernels' function:
     ``torch._weight_int8pack_mm(x, codes^T, scale)`` = (x @ codes) * scale
     in x's dtype (the scale cast to it), without the bias (wq/wk/wv add it
     in a second call, left out).  The port never calls it.  Checked once
     against the plain version; returns (calls, None), or (None, the error)
     where this PyTorch has no CUDA kernel for it."""
-    lib = [(w["codes"].T.contiguous(), w["scale"].reshape(-1).to(x.dtype)) for w in ws]
+    lib = [(q.codes.T.contiguous(), q.scale.reshape(-1).to(x.dtype)) for q in qs]
     try:
         got = torch._weight_int8pack_mm(x, *lib[0]).float()
     except (RuntimeError, NotImplementedError) as e:
         return None, f"{type(e).__name__}: {str(e).splitlines()[0]}"
-    ref = pim_matvec_plain(x, ws[0]["codes"], ws[0]["scale"], bits=8)
+    ref = pim_matvec_plain(x, qs[0].codes, qs[0].scale, bits=8)
     check(bool(torch.allclose(got, ref, rtol=1e-2, atol=1e-2)),
           f"_weight_int8pack_mm vs plain: max err {(got - ref).abs().max().item():.3g}")
     return [functools.partial(torch._weight_int8pack_mm, x, c, s) for c, s in lib], None
 
 
-def timings(eng8, eng4, gen):
-    """Per-shape times at the path's M = 4 with bf16 inputs, cycling through
-    all layers' weights; then one decode step's 196 launches in order."""
-    dev, m = gen.device, BATCH
-    n_layers = eng8.cfg.n_layers
+def timings(kernel, plain, m, weights, gen, what):
+    """Per-shape times of ``kernel`` at M = ``m`` with bf16 inputs, cycling
+    through all layers' weights (``weights``: {bits: [(name,
+    [QuantizedTensor per layer], [bias per layer])]}); then one pass of
+    every launch in path order (layer-major), int8."""
+    dev = gen.device
+    n_layers = len(weights[8][0][1])
+    n_linears = len(weights[8])
     rows = []
     step = {"kernel": [], "plain": [], "overlay": [], "library": []}
-    step_bytes = step_ops = 0.0
-    for eng, bits in ((eng8, 8), (eng4, 4)):
-        for group, name, bname in LINEARS:
-            lw = eng.params["layers"][group]
-            ws = [{k: v[i] for k, v in lw[name].items()} for i in range(n_layers)]
-            bs = [None if bname is None else lw[bname][i] for i in range(n_layers)]
-            k = ws[0]["codes"].shape[0] * (8 // bits)
-            n = ws[0]["codes"].shape[1]
+    step_bytes = step_ops = step_tc = 0.0
+    for bits, linears in weights.items():
+        for name, qs, bs in linears:
+            k, n = qs[0].shape
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             calls = {
-                "kernel": [functools.partial(pim_matvec, x, w["codes"], w["scale"],
-                                             bits=bits, bias=b) for w, b in zip(ws, bs)],
-                "plain": [functools.partial(pim_matvec_plain, x, w["codes"], w["scale"],
-                                            bits=bits, bias=b) for w, b in zip(ws, bs)],
-                "overlay": [functools.partial(torch.matmul, x, common.dq(w, torch.bfloat16))
-                            for w in ws],
+                "kernel": [functools.partial(kernel, x, q.codes, q.scale, bits=bits, bias=b)
+                           for q, b in zip(qs, bs)],
+                "plain": [functools.partial(plain, x, q.codes, q.scale, bits=bits, bias=b)
+                          for q, b in zip(qs, bs)],
+                "overlay": [functools.partial(torch.matmul, x, dequantize(q).to(torch.bfloat16))
+                            for q in qs],
             }
             lib_err = library_us = None
             if bits == 8:
-                calls["library"], lib_err = library_calls(x, ws)
+                calls["library"], lib_err = library_calls(x, qs)
                 if calls["library"] is not None:
                     library_us = _time_ms(calls["library"], 20) * 1e3
-            by_bytes, by_ops = _bound_terms_ms(m, k, n, bits, 2, 0 if bname is None else 2 * n)
-            rows.append({"shape": name, "K": k, "N": n, "bits": bits, "M": m,
+            by_bytes, by_ops, by_tc = _bound_terms_ms(m, k, n, bits, 2,
+                                                      0 if bs[0] is None else 2 * n)
+            rows.append({"kernel": kernel.__name__, "shape": name, "K": k, "N": n,
+                         "bits": bits, "M": m,
                          "kernel_us": _time_ms(calls["kernel"], 20) * 1e3,
                          "bound_us": max(by_bytes, by_ops) * 1e3,
                          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                         "tensor_core_us": by_tc * 1e3,
                          "plain_us": _time_ms(calls["plain"], 5) * 1e3,
                          "overlay_yardstick_us": _time_ms(calls["overlay"], 20) * 1e3,
                          "library_us": library_us, "library_error": lib_err,
@@ -465,23 +649,24 @@ def timings(eng8, eng4, gen):
                     step[key].append(calls.get(key))
                 step_bytes += by_bytes * n_layers
                 step_ops += by_ops * n_layers
+                step_tc += by_tc * n_layers
 
-    n_calls = n_layers * len(LINEARS)
+    n_calls = n_layers * n_linears
 
     def step_ms(key, reps, graph=True):  # layer-major, the linears in path order
-        order = [step[key][j][i] for i in range(n_layers) for j in range(len(LINEARS))]
+        order = [step[key][j][i] for i in range(n_layers) for j in range(n_linears)]
         return _time_ms(order, reps, graph) * n_calls
 
     return rows, {
-        "per": f"one decode step: {n_calls} launches ({n_layers} layers x "
-               f"{len(LINEARS)} linears), M={m}, int8, bf16 x; device time "
-               "(CUDA graph replay)",
+        "per": f"{what}: {n_calls} launches ({n_layers} layers x {n_linears} "
+               f"linears), M={m}, int8, bf16 x; device time (CUDA graph replay)",
         "kernel_ms": step_ms("kernel", 20), "plain_ms": step_ms("plain", 5),
         "overlay_ms": step_ms("overlay", 20),
         "library_ms": (None if None in step["library"] else step_ms("library", 20)),
         "kernel_eager_ms": step_ms("kernel", 5, graph=False),
         "bound_ms": max(step_bytes, step_ops),
-        "bound_by": "bytes" if step_bytes >= step_ops else "operations"}
+        "bound_by": "bytes" if step_bytes >= step_ops else "operations",
+        "tensor_core_ms": step_tc}
 
 
 if __name__ == "__main__":

@@ -65,15 +65,53 @@ def split_rows(rows: int, n: int, sm_count: int) -> tuple[int, int]:
     return -(-rows // per), per
 
 
-def _check_cuda(name, t, dtypes, device, shape=None):
+def _check_tensor(op, name, t, dtypes, device, shape=None):
     if t.device != device:
-        raise ValueError(f"pim_matvec: {name} is on {t.device}, x on {device}")
+        raise ValueError(f"{op}: {name} is on {t.device}, x on {device}")
     if t.dtype not in dtypes:
-        raise TypeError(f"pim_matvec: {name} dtype {t.dtype} not in {dtypes}")
+        raise TypeError(f"{op}: {name} dtype {t.dtype} not in {dtypes}")
     if not t.is_contiguous():
-        raise ValueError(f"pim_matvec: {name} must be contiguous")
+        raise ValueError(f"{op}: {name} must be contiguous")
     if shape is not None and tuple(t.shape) != shape:
-        raise ValueError(f"pim_matvec: {name} shape {tuple(t.shape)} != {shape}")
+        raise ValueError(f"{op}: {name} shape {tuple(t.shape)} != {shape}")
+
+
+def check_contract(op: str, x, w_codes, bits: int, activation: str) -> None:
+    """Raise on what the JAX package's kernels assert: bits 4 or 8, codes
+    whose K matches x's at those bits, a known activation."""
+    if x.dim() != 2 or w_codes.dim() != 2:
+        raise ValueError(f"{op}: x {tuple(x.shape)} and codes "
+                         f"{tuple(w_codes.shape)} must be 2-D")
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if w_codes.shape[0] * (8 // bits) != x.shape[1]:
+        raise ValueError(f"{op}: codes {tuple(w_codes.shape)} at bits={bits} "
+                         f"do not match x {tuple(x.shape)}")
+    if activation not in ACTIVATION_IDS:
+        raise ValueError(f"unknown activation {activation!r}; "
+                         f"one of {sorted(ACTIVATION_IDS)}")
+
+
+def check_cuda_operands(op: str, x, w_codes, scale, bias, residual):
+    """Device, dtype, contiguity and shape checks before a launch.  x, bias
+    and residual may be f32 or bf16; codes int8; scale f32.  Returns the
+    bias as (N,), or None."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{op} runs on cpu or cuda tensors, not {x.device}")
+    dev = x.device
+    m, n = x.shape[0], w_codes.shape[1]
+    if bias is not None:
+        bias = bias.reshape(-1)
+    _check_tensor(op, "x", x, _FLOAT_TYPES, dev)
+    _check_tensor(op, "w_codes", w_codes, (torch.int8,), dev)
+    _check_tensor(op, "scale", scale, (torch.float32,), dev)
+    if scale.numel() != n:
+        raise ValueError(f"{op}: scale has {scale.numel()} values, N={n}")
+    if bias is not None:
+        _check_tensor(op, "bias", bias, _FLOAT_TYPES, dev, (n,))
+    if residual is not None:
+        _check_tensor(op, "residual", residual, _FLOAT_TYPES, dev, (m, n))
+    return bias
 
 
 def pim_matvec(
@@ -98,33 +136,12 @@ def pim_matvec(
     if m > MAX_M:
         raise ValueError(f"pim_matvec is decode-shaped (M <= {MAX_M}); "
                          f"got M={m} — use pim_matmul")
-    if bits not in (4, 8):
-        raise ValueError(f"bits must be 4 or 8, got {bits}")
-    k_w, n = w_codes.shape
-    if k_w * (8 // bits) != k_dim:
-        raise ValueError(f"codes {tuple(w_codes.shape)} at bits={bits} do not "
-                         f"match x {tuple(x.shape)}")
-    if activation not in ACTIVATION_IDS:
-        raise ValueError(f"unknown activation {activation!r}; "
-                         f"one of {sorted(ACTIVATION_IDS)}")
+    check_contract("pim_matvec", x, w_codes, bits, activation)
     if x.device.type == "cpu":
         return pim_matvec_plain(x, w_codes, scale, bits=bits, bias=bias,
                                 activation=activation, residual=residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"pim_matvec runs on cpu or cuda tensors, not {x.device}")
-
-    dev = x.device
-    if bias is not None:
-        bias = bias.reshape(-1)
-    _check_cuda("x", x, _FLOAT_TYPES, dev)
-    _check_cuda("w_codes", w_codes, (torch.int8,), dev)
-    _check_cuda("scale", scale, (torch.float32,), dev)
-    if scale.numel() != n:
-        raise ValueError(f"pim_matvec: scale has {scale.numel()} values, N={n}")
-    if bias is not None:
-        _check_cuda("bias", bias, _FLOAT_TYPES, dev, (n,))
-    if residual is not None:
-        _check_cuda("residual", residual, _FLOAT_TYPES, dev, (m, n))
+    bias = check_cuda_operands("pim_matvec", x, w_codes, scale, bias, residual)
+    dev, (k_w, n) = x.device, w_codes.shape
 
     splits, per = split_rows(k_w, n, _sm_count(dev.index))
     out = torch.empty((m, n), dtype=torch.float32, device=dev)

@@ -15,13 +15,22 @@ import torch
 class QuantizedTensor:
     """Weights as stored in 'PIM mode': integer codes + per-channel scale.
 
-    codes: int8 codes in [-2^(bits-1), 2^(bits-1)-1], shape = original shape.
+    codes: int8 codes in [-2^(bits-1), 2^(bits-1)-1], shape = original shape
+           (or nibble-packed along axis 0 when ``packed`` is True, bits=4).
     scale: f32, broadcastable along the quantization axis.
     """
 
     codes: torch.Tensor
     scale: torch.Tensor
     bits: int
+    packed: bool = False
+
+    @property
+    def shape(self) -> tuple:
+        """The shape of the weight the codes stand for."""
+        if self.packed:
+            return (2 * self.codes.shape[0],) + tuple(self.codes.shape[1:])
+        return tuple(self.codes.shape)
 
 
 def quantize_symmetric(w: torch.Tensor, bits: int = 8, axis: int = 0) -> QuantizedTensor:
@@ -35,6 +44,12 @@ def quantize_symmetric(w: torch.Tensor, bits: int = 8, axis: int = 0) -> Quantiz
     scale = torch.where(amax > 0, amax / qmax, 1.0).to(torch.float32)
     codes = torch.clamp(torch.round(w / scale), -qmax - 1, qmax).to(torch.int8)
     return QuantizedTensor(codes=codes, scale=scale, bits=bits)
+
+
+def dequantize(q: QuantizedTensor) -> torch.Tensor:
+    """The f32 weight the codes stand for: codes x scale."""
+    codes = unpack_int4(q.codes) if q.packed else q.codes
+    return codes.to(torch.float32) * q.scale
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:

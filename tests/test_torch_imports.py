@@ -47,6 +47,26 @@ def test_import_without_cuda_pulls_in_no_jax():
     assert r.returncode == 0, r.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.kernels.pim_matvec",
+                                    "repro_torch.kernels.pim_matmul",
+                                    "repro_torch.kernels.ops"])
+def test_kernel_module_imports_alone_without_card_or_build(module):
+    """A kernel module imported on its own, with no card and no CUDA
+    toolkit, pulls in neither jax nor the JAX package and builds nothing."""
+    assert (PKG / Path(*module.split(".")[1:])).with_suffix(".py").is_file()
+    code = (f"import sys, {module}\n"
+            "from repro_torch.kernels import build\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "assert not build._libs, build._libs\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", CUDA_HOME="/nonexistent",
+               PYTHONPATH=str(PKG.parent))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
