@@ -41,8 +41,10 @@ Phases:
    ``down`` loses the kernel's last K tile) must fail that check;
    ``pim_matvec_dense`` on 4 rows against ``pim_matvec_plain``;
 5. times on the card with CUDA events over CUDA-graph replays (device
-   time, free of the host's issue rate): per shape, kernel / bound / plain /
-   overlay yardstick (``torch.matmul`` on a pre-dequantized bf16 weight: it
+   time, free of the host's issue rate): per shape, kernel / bound (the
+   larger of the bytes at the HBM rate and the multiply-adds at the bf16
+   tensor cores' rate, x being bf16; the f32 CUDA-core term beside it) /
+   plain / overlay yardstick (``torch.matmul`` on a pre-dequantized bf16 weight: it
    reads 2 bytes a weight where the kernels read 1 or 0.5) / library
    (``torch._weight_int8pack_mm``, int8 only), cycling through all 28
    layers' weights so no weight is timed out of L2; ``pim_matvec`` at the
@@ -95,6 +97,7 @@ PATH_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+TIME_BUDGET_S = 1.0  # about this long per measurement, at most `reps` passes
 PREFILL_ROWS = BATCH * PROMPT  # one prefill's rows: what pim_dense is held at
 MATMUL_ROWS = (9, PREFILL_ROWS)  # just past pim_matvec's M <= 8, and a prefill
 RAGGED = ((130, 1000, 300), (7, 1000, 300))  # (M, K, N): multiples of no tile
@@ -233,7 +236,7 @@ def main() -> int:
         "launches_per_pass": entry["pim_matmul_launches"], "max_abs_err": mm_err,
         "ms": mm_pass["kernel_ms"], "plain_ms": mm_pass["plain_ms"],
         "bound_ms": mm_pass["bound_ms"], "bound_by": mm_pass["bound_by"],
-        "tensor_core_ms": mm_pass["tensor_core_ms"],
+        "f32_cuda_core_ms": mm_pass["f32_cuda_core_ms"],
         "library_ms": mm_pass["library_ms"], "overlay_ms": mm_pass["overlay_ms"],
         "eager_ms": mm_pass["kernel_eager_ms"], "per": mm_pass["per"],
     }]}))
@@ -540,21 +543,24 @@ def engine_weights(eng, bits):
     return out
 
 
-def _bound_terms_ms(m, k, n, bits, x_bytes, bias_bytes):
-    """(bytes term, operations term, bf16 tensor-core term) of the least
-    time, in ms: the bytes the function must move (codes, scale, x, bias,
-    f32 out, each once) over the HBM rate, and its multiply-adds over the
-    f32 rate the kernels run at and over the bf16 tensor cores' rate
-    (data-sheet peaks)."""
-    moved = k * n * bits // 8 + 4 * n + m * k * x_bytes + bias_bytes + 4 * m * n
+def _bound_terms_ms(m, k, n, bits, bias_bytes):
+    """(bytes term, operations term, f32 CUDA-core term) of the least time,
+    in ms, for bf16 x: the bytes the function must move (codes, scale, x,
+    bias, f32 out, each once) over the HBM rate; its multiply-adds over the
+    card's peak rate for their type, bf16 on the tensor cores (int8 and
+    int4 codes are exact in bf16 and a bf16 product is exact in f32); and
+    the same multiply-adds over the f32 rate outside the tensor cores, the
+    rate the current ``pim_matmul`` design runs at: a note on that design,
+    not a bound (data-sheet peaks)."""
+    moved = k * n * bits // 8 + 4 * n + m * k * 2 + bias_bytes + 4 * m * n
     ops_ = 2 * m * k * n
-    return (moved / HBM_BYTES_PER_S * 1e3, ops_ / F32_FLOP_PER_S * 1e3,
-            ops_ / BF16_TC_FLOP_PER_S * 1e3)
+    return (moved / HBM_BYTES_PER_S * 1e3, ops_ / BF16_TC_FLOP_PER_S * 1e3,
+            ops_ / F32_FLOP_PER_S * 1e3)
 
 
-def _time_ms(calls, reps, graph=True, budget_s=1.0):
+def _time_ms(calls, reps, graph=True):
     """Mean ms per call over up to ``reps`` passes through ``calls`` (fewer
-    where one pass takes long, to stay near ``budget_s``), with CUDA events,
+    where one pass takes long, to stay near TIME_BUDGET_S), with CUDA events,
     after one warm-up pass.  ``graph=True`` captures one pass in a CUDA
     graph and replays it, so the host's issue rate is out of the
     measurement (device time); ``graph=False`` times the eager Python loop,
@@ -565,7 +571,7 @@ def _time_ms(calls, reps, graph=True, budget_s=1.0):
         c()
     end.record()
     torch.cuda.synchronize()
-    reps = max(1, min(reps, int(budget_s * 1e3 / max(start.elapsed_time(end), 1e-3))))
+    reps = max(1, min(reps, int(TIME_BUDGET_S * 1e3 / max(start.elapsed_time(end), 1e-3))))
     if graph:
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
@@ -614,7 +620,7 @@ def timings(kernel, plain, m, weights, gen, what):
     n_linears = len(weights[8])
     rows = []
     step = {"kernel": [], "plain": [], "overlay": [], "library": []}
-    step_bytes = step_ops = step_tc = 0.0
+    step_bytes = step_ops = step_f32 = 0.0
     for bits, linears in weights.items():
         for name, qs, bs in linears:
             k, n = qs[0].shape
@@ -632,14 +638,14 @@ def timings(kernel, plain, m, weights, gen, what):
                 calls["library"], lib_err = library_calls(x, qs)
                 if calls["library"] is not None:
                     library_us = _time_ms(calls["library"], 20) * 1e3
-            by_bytes, by_ops, by_tc = _bound_terms_ms(m, k, n, bits, 2,
-                                                      0 if bs[0] is None else 2 * n)
+            by_bytes, by_ops, by_f32 = _bound_terms_ms(m, k, n, bits,
+                                                       0 if bs[0] is None else 2 * n)
             rows.append({"kernel": kernel.__name__, "shape": name, "K": k, "N": n,
                          "bits": bits, "M": m,
                          "kernel_us": _time_ms(calls["kernel"], 20) * 1e3,
                          "bound_us": max(by_bytes, by_ops) * 1e3,
                          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                         "tensor_core_us": by_tc * 1e3,
+                         "f32_cuda_core_us": by_f32 * 1e3,
                          "plain_us": _time_ms(calls["plain"], 5) * 1e3,
                          "overlay_yardstick_us": _time_ms(calls["overlay"], 20) * 1e3,
                          "library_us": library_us, "library_error": lib_err,
@@ -649,7 +655,7 @@ def timings(kernel, plain, m, weights, gen, what):
                     step[key].append(calls.get(key))
                 step_bytes += by_bytes * n_layers
                 step_ops += by_ops * n_layers
-                step_tc += by_tc * n_layers
+                step_f32 += by_f32 * n_layers
 
     n_calls = n_layers * n_linears
 
@@ -666,7 +672,7 @@ def timings(kernel, plain, m, weights, gen, what):
         "kernel_eager_ms": step_ms("kernel", 5, graph=False),
         "bound_ms": max(step_bytes, step_ops),
         "bound_by": "bytes" if step_bytes >= step_ops else "operations",
-        "tensor_core_ms": step_tc}
+        "f32_cuda_core_ms": step_f32}
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ bounded by operations, not bytes (at M = 512 a code byte feeds 512
 multiply-adds, far above the ~20 operations per byte where the H100's f32
 units become the limit), so the design keeps each staged value in shared
 memory for 64 uses and each thread's 4 x 4 outputs in registers; the ragged
-edges are masked in the kernel, with no padded copies.  The tensor cores'
-bf16 route is later work (ROADMAP.md).
+edges are masked in the kernel, with no padded copies.  For bf16 x the
+card's least time is set by the same multiply-adds on the bf16 tensor cores
+(989 TFLOP/s, 15x the f32 rate this design runs at); that route is later
+work (ROADMAP.md).
 
 ``pim_matmul_plain`` is its plain PyTorch version.  ``pim_matmul`` takes it
 only for tensors on the CPU; for a CUDA tensor it launches the kernel or
