@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Two paths run, at qwen2-1.5b's full width (28 layers, bf16, random weights
-from a seeded generator on the card):
+Three paths run, at qwen2-1.5b's full width (28 layers, bf16, random
+weights from a seeded generator on the card):
 
 * greedy decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
   ``models.prefill`` -> ``models.decode_step`` -> ``ServingEngine.generate``,
@@ -13,7 +13,11 @@ from a seeded generator on the card):
 * the packed kernel entry point ``repro_torch.kernels`` (``ops``): every
   layer's seven float weights through ``quantize_for_pim``, then
   ``pim_dense`` (the CUDA kernel ``pim_matmul``) on a prefill's 4 x 128 rows
-  and ``pim_matvec_dense`` on 4 of them.
+  and ``pim_matvec_dense`` on 4 of them;
+* the bit-plane half of that entry point: the same weights through
+  ``pim_dense_bitplane`` (the CUDA kernel ``bitplane_matmul``) on the same
+  rows, and ``fold_sum`` (the CUDA kernel ``fold_reduce``) on a prefill's
+  attention-score folds and a decode step's 32K-key denominator.
 
 Phases:
 
@@ -48,9 +52,22 @@ Phases:
    reads 2 bytes a weight where the kernels read 1 or 0.5) / library
    (``torch._weight_int8pack_mm``, int8 only), cycling through all 28
    layers' weights so no weight is timed out of L2; ``pim_matvec`` at the
-   decode path's M = 4 and ``pim_matmul`` at the prefill's M = 512; and one
-   pass of each kernel's 196 launches in the path's order.  The kernels are
-   also timed as an eager loop issues them.
+   decode path's M = 4 and ``pim_matmul`` at the prefill's M = 512; and, at
+   each bit width, one pass of each kernel's 196 launches in the path's
+   order.  The kernels are also timed as an eager loop issues them;
+6. the bit-plane entry point: ``bitplane_matmul`` against its plain version
+   over the grid of phase 2's ``pim_matmul`` cases (planes at bits 8 and 4);
+   then at bits 8 and then 4, ``pim_dense_bitplane`` on all 196 weights at
+   512 rows, exactly 196 launches per pass, every output within KERNEL_TOL
+   of ``bitplane_matmul_plain`` on the same planes and of the packed path
+   ``pim_dense``; a planted fault (layer n/2's ``down`` loses its sign plane
+   in 32 K rows) must fail the first check; each width timed like phase 5
+   (bound: the planes' bytes; no library call computes the function).
+   ``fold_reduce`` bit-identical (``torch.equal``) to its plain version over
+   q in FOLD_Q x rows in FOLD_ROWS, f32 and bf16, where a plain twin with
+   one level in another association order must fail; ``fold_sum`` at
+   FOLD_SHAPES with its launch count; times beside the byte bound, the
+   plain version and ``torch.sum``.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -69,14 +86,17 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.bitplane import bitplane_matmul, bitplane_matmul_plain  # noqa: E402
+from repro_torch.kernels.fold_reduce import fold_reduce, fold_reduce_plain  # noqa: E402
 from repro_torch.kernels.pim_matmul import BLOCK_K, pim_matmul, pim_matmul_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain, split_rows  # noqa: E402
 from repro_torch.models import common, decode_step, init_cache, init_params, prefill  # noqa: E402
-from repro_torch.quant import QuantizedTensor, dequantize  # noqa: E402
+from repro_torch.quant import (  # noqa: E402
+    QuantizedTensor, dequantize, quantize_symmetric, to_bitplanes)
 from repro_torch.serving import ServingEngine, quantize_tree  # noqa: E402
 
 SEED = 20260
-KERNELS = ("pim_matvec", "pim_matmul")
+KERNELS = ("pim_matvec", "pim_matmul", "bitplane_matmul", "fold_reduce")
 BATCH, PROMPT, N_NEW, N_NEW_INT4 = 4, 128, 32, 8
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of the same products, reordered
 # Full-width bf16 logits, kernel path vs overlay path, max over all 4 x 32 x
@@ -99,8 +119,15 @@ F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 TIME_BUDGET_S = 1.0  # about this long per measurement, at most `reps` passes
 PREFILL_ROWS = BATCH * PROMPT  # one prefill's rows: what pim_dense is held at
+PREFILL_PASS = f"one prefill's linears at {BATCH} x {PROMPT} tokens"
 MATMUL_ROWS = (9, PREFILL_ROWS)  # just past pim_matvec's M <= 8, and a prefill
 RAGGED = ((130, 1000, 300), (7, 1000, 300))  # (M, K, N): multiples of no tile
+FOLD_Q = (1, 2, 32, 64, 128, 1024, 32768)  # one row per warp lane up to one per block
+FOLD_ROWS = (1, 7, 300, 6144)
+# fold_sum's shapes on the card: one prefill's 512 query rows x 12 heads over
+# head_dim 128, and one decode step's 4 x 12 query rows over a 32K-key
+# denominator.
+FOLD_SHAPES = ((PREFILL_ROWS * 12, 128), (BATCH * 12, 32768))
 LINEARS = (("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
            ("attn", "wo", None), ("mlp", "gate", None), ("mlp", "up", None),
            ("mlp", "down", None))
@@ -203,22 +230,37 @@ def main() -> int:
 
     # ---- 4. the entry point ----------------------------------------------------
     mm_weights, entry = entry_point(params, gen_mm)
-    del params
     print(json.dumps(entry))
     mm_err = max(mm_err, entry["max_abs_err"])
 
     # ---- 5. times ------------------------------------------------------------
-    shapes, step = timings(pim_matvec, pim_matvec_plain, BATCH,
-                           {bits: engine_weights(eng, bits) for eng, bits in ((eng8, 8), (eng4, 4))},
-                           gen, "one decode step")
+    mv_weights = {bits: engine_weights(eng, bits) for eng, bits in ((eng8, 8), (eng4, 4))}
+    shapes, steps = timings(pim_matvec, pim_matvec_plain, BATCH, mv_weights, gen,
+                            "one decode step", library=library_calls)
     for row in shapes:
         print(json.dumps(row))
-    print(json.dumps({"decode_step_launches": step}))
-    mm_shapes, mm_pass = timings(pim_matmul, pim_matmul_plain, PREFILL_ROWS, mm_weights, gen_mm,
-                                 f"one prefill's linears at {BATCH} x {PROMPT} tokens")
+    print(json.dumps({"decode_step_launches": steps}))
+    step = steps[8]
+    mm_shapes, mm_passes = timings(pim_matmul, pim_matmul_plain, PREFILL_ROWS, mm_weights, gen_mm,
+                                   PREFILL_PASS, library=library_calls)
     for row in mm_shapes:
         print(json.dumps(row))
-    print(json.dumps({"prefill_pass_launches": mm_pass}))
+    print(json.dumps({"prefill_pass_launches": mm_passes}))
+    mm_pass = mm_passes[8]
+    del mm_weights
+
+    # ---- 6. the bit-plane entry point ------------------------------------------
+    # A generator of its own, so the earlier phases' inputs do not depend on it.
+    gen_bp = torch.Generator(device=dev).manual_seed(SEED + 2)
+    bp_err = kernel_vs_plain(bitplane_matmul, bitplane_matmul_plain,
+                             bitplane_cases(params, gen_bp), gen_bp)
+    print(f"bitplane_matmul vs plain: max |err| {bp_err:.3g} within rtol "
+          f"{KERNEL_TOL['rtol']} atol {KERNEL_TOL['atol']}")
+    bp_entry, bp_passes = bitplane_entry_point(params, gen_bp)
+    del params
+    print(json.dumps(bp_entry))
+    bp_err = max(bp_err, bp_entry["max_abs_err"])
+    fold = fold_phase(gen_bp)
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
@@ -239,6 +281,27 @@ def main() -> int:
         "f32_cuda_core_ms": mm_pass["f32_cuda_core_ms"],
         "library_ms": mm_pass["library_ms"], "overlay_ms": mm_pass["overlay_ms"],
         "eager_ms": mm_pass["kernel_eager_ms"], "per": mm_pass["per"],
+    }, {
+        "name": "bitplane_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
+        "replaces": "src/repro/kernels/bitplane.py:35",
+        "launches": sum(bp_entry["bitplane_matmul_launches"].values()),
+        "launches_per_pass": bp_entry["bitplane_matmul_launches"], "max_abs_err": bp_err,
+        "ms": bp_passes[8]["kernel_ms"], "plain_ms": bp_passes[8]["plain_ms"],
+        "bound_ms": bp_passes[8]["bound_ms"], "bound_by": bp_passes[8]["bound_by"],
+        "f32_cuda_core_ms": bp_passes[8]["f32_cuda_core_ms"],
+        "library_ms": None, "library_note": "no single PyTorch call computes it",
+        "overlay_ms": bp_passes[8]["overlay_ms"], "bits4": bp_passes[4],
+        "per": bp_passes[8]["per"],
+    }, {
+        "name": "fold_reduce", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fold_reduce.cu",
+        "replaces": "src/repro/kernels/fold_reduce.py:21",
+        "launches": fold["launches"], "max_abs_err": fold["max_abs_err"],
+        "ms": fold["kernel_ms"], "plain_ms": fold["plain_ms"],
+        "bound_ms": fold["bound_ms"], "bound_by": "bytes",
+        "library_ms": fold["library_ms"], "library_note": "torch.sum(x, -1), another order",
+        "per": fold["per"],
     }]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
@@ -254,36 +317,57 @@ def within_tol(got, ref):
     return bool(torch.isfinite(got).all()) and ok, err.max().item()
 
 
+def _packed_case(label, m, q):
+    """A case of ``kernel_vs_plain`` for the packed kernels: (label, M, K, N,
+    operands after x, fixed keywords)."""
+    return (label, m, *q.shape, (q.codes, q.scale), {"bits": q.bits})
+
+
 def matvec_cases(eng8, eng4):
     """``pim_matvec``'s cases: every linear of the decode path, layer 0,
     bits 8 and 4, M in {1, 4, 8}."""
-    return [(name, m, qs[0]) for eng, bits in ((eng8, 8), (eng4, 4))
+    return [_packed_case(name, m, qs[0]) for eng, bits in ((eng8, 8), (eng4, 4))
             for name, qs, _ in engine_weights(eng, bits) for m in (1, 4, 8)]
+
+
+def matmul_weights(params, gen, bits):
+    """(label, float weight) of the kernels' grids at ``bits``: the seven
+    linears' layer-0 weights, then random weights at the RAGGED shapes (M
+    in MATMUL_ROWS for the first, the RAGGED M for the rest)."""
+    out = [(name, MATMUL_ROWS, params["layers"][group][name][0]) for group, name, _ in LINEARS]
+    for m, k, n in RAGGED:
+        out.append((f"ragged K={k} N={n}", (m,),
+                    0.02 * torch.randn((k, n), generator=gen, device=gen.device)))
+    return out
 
 
 def matmul_cases(params, gen):
     """``pim_matmul``'s cases: the seven linears' layer-0 weights through
     ``ops.quantize_for_pim`` with M in MATMUL_ROWS, and random weights at
     the RAGGED shapes; bits 8 and 4."""
+    return [_packed_case(label, m, ops.quantize_for_pim(w, bits)) for bits in (8, 4)
+            for label, ms, w in matmul_weights(params, gen, bits) for m in ms]
+
+
+def bitplane_cases(params, gen):
+    """``bitplane_matmul``'s cases: the grid of ``matmul_cases``, each weight
+    quantized at ``bits`` and decomposed into its bit-planes."""
     cases = []
     for bits in (8, 4):
-        for group, name, _ in LINEARS:
-            q = ops.quantize_for_pim(params["layers"][group][name][0], bits)
-            cases += [(name, m, q) for m in MATMUL_ROWS]
-        for m, k, n in RAGGED:
-            w = 0.02 * torch.randn((k, n), generator=gen, device=gen.device)
-            cases.append((f"ragged K={k} N={n}", m, ops.quantize_for_pim(w, bits)))
+        for label, ms, w in matmul_weights(params, gen, bits):
+            q = quantize_symmetric(w, bits)
+            planes = to_bitplanes(q.codes, bits)
+            cases += [(f"{label} bits={bits}", m, *q.shape, (planes, q.scale), {}) for m in ms]
     return cases
 
 
 def kernel_vs_plain(kernel, plain, cases, gen) -> float:
-    """``kernel`` against ``plain`` on every (label, M, QuantizedTensor) of
-    ``cases``: f32 and bf16 inputs, every activation, with and without bias
-    and residual.  Returns the max |err|."""
+    """``kernel`` against ``plain`` on every (label, M, K, N, operands,
+    keywords) of ``cases``: f32 and bf16 inputs, every activation, with and
+    without bias and residual.  Returns the max |err|."""
     max_err = 0.0
     dev = gen.device
-    for label, m, q in cases:
-        k, n = q.shape
+    for label, m, k, n, operands, fixed in cases:
         x32 = torch.randn((m, k), generator=gen, device=dev)
         b32 = torch.randn((n,), generator=gen, device=dev)
         r32 = torch.randn((m, n), generator=gen, device=dev)
@@ -291,12 +375,12 @@ def kernel_vs_plain(kernel, plain, cases, gen) -> float:
             x, b, r = x32.to(dtype), b32.to(dtype), r32.to(dtype)
             for act in ("none", "relu", "silu", "gelu"):
                 for bias, res in ((None, None), (b, None), (None, r), (b, r)):
-                    kw = dict(bits=q.bits, bias=bias, activation=act, residual=res)
-                    got = kernel(x, q.codes, q.scale, **kw)
-                    ref = plain(x, q.codes, q.scale, **kw)
+                    kw = dict(fixed, bias=bias, activation=act, residual=res)
+                    got = kernel(x, *operands, **kw)
+                    ref = plain(x, *operands, **kw)
                     torch.cuda.synchronize()
                     ok, err = within_tol(got, ref)
-                    check(ok, f"{kernel.__name__} {label} bits={q.bits} M={m} "
+                    check(ok, f"{kernel.__name__} {label} {fixed} M={m} "
                           f"{dtype} {act} bias={bias is not None} "
                           f"residual={res is not None}: max err {err:.3g}")
                     max_err = max(max_err, err)
@@ -543,16 +627,17 @@ def engine_weights(eng, bits):
     return out
 
 
-def _bound_terms_ms(m, k, n, bits, bias_bytes):
+def _bound_terms_ms(m, k, n, weight_bytes, bias_bytes):
     """(bytes term, operations term, f32 CUDA-core term) of the least time,
-    in ms, for bf16 x: the bytes the function must move (codes, scale, x,
-    bias, f32 out, each once) over the HBM rate; its multiply-adds over the
-    card's peak rate for their type, bf16 on the tensor cores (int8 and
-    int4 codes are exact in bf16 and a bf16 product is exact in f32); and
-    the same multiply-adds over the f32 rate outside the tensor cores, the
-    rate the current ``pim_matmul`` design runs at: a note on that design,
-    not a bound (data-sheet peaks)."""
-    moved = k * n * bits // 8 + 4 * n + m * k * 2 + bias_bytes + 4 * m * n
+    in ms, for bf16 x: the bytes the function must move (the weight's codes
+    or planes, scale, x, bias, f32 out, each once) over the HBM rate; its
+    multiply-adds over the card's peak rate for their type, bf16 on the
+    tensor cores (int8 and int4 codes are exact in bf16 and a bf16 product
+    is exact in f32); and the same multiply-adds over the f32 rate outside
+    the tensor cores, the rate the current ``pim_matmul`` and
+    ``bitplane_matmul`` designs run at: a note on those designs, not a bound
+    (data-sheet peaks)."""
+    moved = weight_bytes + 4 * n + m * k * 2 + bias_bytes + 4 * m * n
     ops_ = 2 * m * k * n
     return (moved / HBM_BYTES_PER_S * 1e3, ops_ / BF16_TC_FLOP_PER_S * 1e3,
             ops_ / F32_FLOP_PER_S * 1e3)
@@ -610,35 +695,52 @@ def library_calls(x, qs):
     return [functools.partial(torch._weight_int8pack_mm, x, c, s) for c, s in lib], None
 
 
-def timings(kernel, plain, m, weights, gen, what):
+def _bind_codes(q, bits):
+    """A packed kernel's operands for ``timings``: (operands after x, fixed
+    keywords, the weight's QuantizedTensor, the weight's bytes)."""
+    k, n = q.shape
+    return (q.codes, q.scale), {"bits": bits}, q, k * n * bits // 8
+
+
+def _bind_planes(weight, bits):
+    """``bitplane_matmul``'s operands for ``timings``: one byte per plane and
+    weight."""
+    planes, q = weight
+    k, n = q.shape
+    return (planes, q.scale), {}, q, bits * k * n
+
+
+def timings(kernel, plain, m, weights, gen, what, bind=_bind_codes, library=None):
     """Per-shape times of ``kernel`` at M = ``m`` with bf16 inputs, cycling
-    through all layers' weights (``weights``: {bits: [(name,
-    [QuantizedTensor per layer], [bias per layer])]}); then one pass of
-    every launch in path order (layer-major), int8."""
+    through all layers' weights (``weights``: {bits: [(name, [weight per
+    layer], [bias per layer])]}, each weight bound to the kernel's operands
+    by ``bind``); then, per bits, one pass of every launch in path order
+    (layer-major).  ``library(x, qs)`` gives one PyTorch call per layer that
+    computes the same function (or None and why), timed at bits 8."""
     dev = gen.device
-    n_layers = len(weights[8][0][1])
-    n_linears = len(weights[8])
-    rows = []
-    step = {"kernel": [], "plain": [], "overlay": [], "library": []}
-    step_bytes = step_ops = step_f32 = 0.0
+    rows, passes = [], {}
     for bits, linears in weights.items():
-        for name, qs, bs in linears:
-            k, n = qs[0].shape
+        n_layers, n_linears = len(linears[0][1]), len(linears)
+        step = {"kernel": [], "plain": [], "overlay": [], "library": []}
+        step_bytes = step_ops = step_f32 = 0.0
+        for name, ws, bs in linears:
+            bound = [bind(w, bits) for w in ws]
+            k, n = bound[0][2].shape
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             calls = {
-                "kernel": [functools.partial(kernel, x, q.codes, q.scale, bits=bits, bias=b)
-                           for q, b in zip(qs, bs)],
-                "plain": [functools.partial(plain, x, q.codes, q.scale, bits=bits, bias=b)
-                          for q, b in zip(qs, bs)],
+                "kernel": [functools.partial(kernel, x, *args, bias=b, **kw)
+                           for (args, kw, _, _), b in zip(bound, bs)],
+                "plain": [functools.partial(plain, x, *args, bias=b, **kw)
+                          for (args, kw, _, _), b in zip(bound, bs)],
                 "overlay": [functools.partial(torch.matmul, x, dequantize(q).to(torch.bfloat16))
-                            for q in qs],
+                            for _, _, q, _ in bound],
             }
             lib_err = library_us = None
-            if bits == 8:
-                calls["library"], lib_err = library_calls(x, qs)
+            if library is not None and bits == 8:
+                calls["library"], lib_err = library(x, [q for _, _, q, _ in bound])
                 if calls["library"] is not None:
                     library_us = _time_ms(calls["library"], 20) * 1e3
-            by_bytes, by_ops, by_f32 = _bound_terms_ms(m, k, n, bits,
+            by_bytes, by_ops, by_f32 = _bound_terms_ms(m, k, n, bound[0][3],
                                                        0 if bs[0] is None else 2 * n)
             rows.append({"kernel": kernel.__name__, "shape": name, "K": k, "N": n,
                          "bits": bits, "M": m,
@@ -650,29 +752,198 @@ def timings(kernel, plain, m, weights, gen, what):
                          "overlay_yardstick_us": _time_ms(calls["overlay"], 20) * 1e3,
                          "library_us": library_us, "library_error": lib_err,
                          "kernel_eager_us": _time_ms(calls["kernel"], 5, graph=False) * 1e3})
-            if bits == 8:
-                for key in step:
-                    step[key].append(calls.get(key))
-                step_bytes += by_bytes * n_layers
-                step_ops += by_ops * n_layers
-                step_f32 += by_f32 * n_layers
+            for key in step:
+                step[key].append(calls.get(key))
+            step_bytes += by_bytes * n_layers
+            step_ops += by_ops * n_layers
+            step_f32 += by_f32 * n_layers
 
-    n_calls = n_layers * n_linears
+        n_calls = n_layers * n_linears
 
-    def step_ms(key, reps, graph=True):  # layer-major, the linears in path order
-        order = [step[key][j][i] for i in range(n_layers) for j in range(n_linears)]
-        return _time_ms(order, reps, graph) * n_calls
+        def step_ms(key, reps, graph=True):  # layer-major, the linears in path order
+            order = [step[key][j][i] for i in range(n_layers) for j in range(n_linears)]
+            return _time_ms(order, reps, graph) * n_calls
 
-    return rows, {
-        "per": f"{what}: {n_calls} launches ({n_layers} layers x {n_linears} "
-               f"linears), M={m}, int8, bf16 x; device time (CUDA graph replay)",
-        "kernel_ms": step_ms("kernel", 20), "plain_ms": step_ms("plain", 5),
-        "overlay_ms": step_ms("overlay", 20),
-        "library_ms": (None if None in step["library"] else step_ms("library", 20)),
-        "kernel_eager_ms": step_ms("kernel", 5, graph=False),
-        "bound_ms": max(step_bytes, step_ops),
-        "bound_by": "bytes" if step_bytes >= step_ops else "operations",
-        "f32_cuda_core_ms": step_f32}
+        passes[bits] = {
+            "per": f"{what}: {n_calls} launches ({n_layers} layers x {n_linears} "
+                   f"linears), M={m}, bits {bits}, bf16 x; device time (CUDA graph replay)",
+            "kernel_ms": step_ms("kernel", 20), "plain_ms": step_ms("plain", 5),
+            "overlay_ms": step_ms("overlay", 20),
+            "library_ms": (None if None in step["library"] else step_ms("library", 20)),
+            "kernel_eager_ms": step_ms("kernel", 5, graph=False),
+            "bound_ms": max(step_bytes, step_ops),
+            "bound_by": "bytes" if step_bytes >= step_ops else "operations",
+            "f32_cuda_core_ms": step_f32}
+    return rows, passes
+
+
+def bitplane_entry_point(params, gen):
+    """The bit-plane entry point at full width, bits 8 and then 4: every
+    layer's seven float weights through ``ops.pim_dense_bitplane`` on a
+    seeded (512, K) bf16 activation, ``wq``/``wk``/``wv`` with a seeded bias,
+    each output held within KERNEL_TOL of ``bitplane_matmul_plain`` on the
+    same planes and of the packed path ``ops.pim_dense(x,
+    ops.quantize_for_pim(w, bits))``.  Each pass must launch
+    ``bitplane_matmul`` 196 times.  Then a planted fault — the sign plane of
+    layer n/2's ``down`` cleared in its last 32 K rows — must fail the check
+    against the plain version.  Each width is timed (``timings``: the bound
+    counts the planes' bytes, and no PyTorch call computes the function, so
+    there is no library time) and its planes freed before the next.
+
+    Returns (a report, {bits: the pass's times})."""
+    dev = gen.device
+    n_layers = params["layers"]["attn"]["wq"].shape[0]
+    widths = {w.shape[0] for _, w, _ in _linear_params(params, 0)}
+    xs = {k: torch.randn((PREFILL_ROWS, k), generator=gen, device=dev).to(torch.bfloat16)
+          for k in sorted(widths)}
+    biases = {name: torch.randn(w.shape[1:], generator=gen, device=dev).to(torch.bfloat16)
+              for name, w, b in _linear_params(params, 0) if b is not None}
+    report = {"check": "bit-plane entry point at full width vs plain and vs packed",
+              "rows": PREFILL_ROWS, "bitplane_matmul_launches": {}}
+    max_err = packed_err = 0.0
+    passes = {}
+    for bits in (8, 4):
+        layers = []
+        torch.cuda.synchronize()
+        bitplane_matmul.launches = 0
+        for i in range(n_layers):
+            layer = []
+            for name, w, _ in _linear_params(params, i):
+                b, x = biases.get(name), xs[w.shape[0]]
+                got = ops.pim_dense_bitplane(x, w, bits, bias=b)
+                q = quantize_symmetric(w, bits)
+                planes = to_bitplanes(q.codes, bits)
+                ref = bitplane_matmul_plain(x, planes, q.scale, bias=b)
+                packed = ops.pim_dense(x, ops.quantize_for_pim(w, bits), bias=b)
+                torch.cuda.synchronize()
+                ok, err = within_tol(got, ref)
+                check(ok, f"pim_dense_bitplane layer {i} {name} bits={bits} vs plain: "
+                      f"max err {err:.3g}")
+                ok, err_packed = within_tol(got, packed)
+                check(ok, f"pim_dense_bitplane layer {i} {name} bits={bits} vs pim_dense: "
+                      f"max err {err_packed:.3g}")
+                max_err, packed_err = max(max_err, err), max(packed_err, err_packed)
+                layer.append((name, planes, q, b))
+            layers.append(layer)
+        torch.cuda.synchronize()
+        want = n_layers * len(LINEARS)
+        check(bitplane_matmul.launches == want, f"bit-plane entry point bits={bits}: "
+              f"bitplane_matmul launched {bitplane_matmul.launches} times, expected {want}")
+        report["bitplane_matmul_launches"][bits] = bitplane_matmul.launches
+
+        if bits == 8:
+            fault_layer = n_layers // 2
+            _, planes, q, _ = layers[fault_layer][[name for _, name, _ in LINEARS].index("down")]
+            faulty = planes.clone()
+            faulty[-1, -32:] = 0
+            x = xs[planes.shape[1]]
+            ok, fault_err = within_tol(bitplane_matmul(x, faulty, q.scale),
+                                       bitplane_matmul_plain(x, planes, q.scale))
+            check(not ok, f"the planted fault moved bitplane_matmul's output by only "
+                  f"{fault_err:.3g}: the check cannot see it")
+            report.update({"planted_fault": f"layer {fault_layer} down, bits 8: sign plane "
+                                            f"cleared in the last 32 of {planes.shape[1]} K rows",
+                           "planted_fault_max_abs_err": fault_err})
+
+        weights = [(name, [layer[j][1:3] for layer in layers], [layer[j][3] for layer in layers])
+                   for j, (_, name, _) in enumerate(LINEARS)]
+        del layers
+        rows, timed = timings(bitplane_matmul, bitplane_matmul_plain, PREFILL_ROWS,
+                              {bits: weights}, gen, PREFILL_PASS, bind=_bind_planes)
+        for row in rows:
+            print(json.dumps(row))
+        passes[bits] = timed[bits]
+        print(json.dumps({f"bitplane_prefill_pass_bits{bits}": passes[bits]}))
+        del weights
+        torch.cuda.empty_cache()
+    report.update({"max_abs_err": max_err, "packed_path_max_abs_diff": packed_err,
+                   "tol": KERNEL_TOL})
+    return report, passes
+
+
+def _fold_input(rows, q, dtype, gen):
+    """Values of mixed sign over many orders of magnitude, so that an
+    association order other than the fold's changes the bits."""
+    dev = gen.device
+    mag = torch.exp(4.0 * torch.randn((rows, q), generator=gen, device=dev))
+    return (torch.randn((rows, q), generator=gen, device=dev) * mag).to(dtype)
+
+
+def _fold_adjacent_top(x):
+    """A deliberately wrong plain twin: the top level pairs adjacent elements
+    (the same values, summed as another tree), the rest as the fold."""
+    x = x.to(torch.float32)
+    if x.shape[1] > 1:
+        x = x[:, 0::2] + x[:, 1::2]
+    return fold_reduce_plain(x)
+
+
+def fold_phase(gen):
+    """``fold_reduce`` against its plain version, ``torch.equal`` (bit for
+    bit), over FOLD_Q x FOLD_ROWS in f32 and bf16; a planted fault (a plain
+    twin whose top level pairs adjacent elements) must fail that check at
+    fold_sum's shapes; ``ops.fold_sum`` on the card at FOLD_SHAPES, with its
+    launch count; then times per shape, cycling through 28 inputs (one per
+    layer) so that nothing is timed out of L2: kernel, bound (bytes), plain
+    version and ``torch.sum`` (another association order, timed only)."""
+    max_err, caught = 0.0, 0
+    for q in FOLD_Q:
+        for rows in FOLD_ROWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = _fold_input(rows, q, dtype, gen)
+                got, ref = fold_reduce(x), fold_reduce_plain(x)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                check(torch.equal(got, ref) and tuple(got.shape) == (rows,),
+                      f"fold_reduce q={q} rows={rows} {dtype}: not bit-identical to the "
+                      f"plain version (max err {err:.3g})")
+                max_err = max(max_err, err)
+                caught += not torch.equal(got, _fold_adjacent_top(x))
+    report = {"check": "fold_reduce vs plain, bit for bit",
+              "cases": 2 * len(FOLD_Q) * len(FOLD_ROWS), "max_abs_err": max_err,
+              "planted_fault": "plain twin whose top level pairs adjacent elements",
+              "planted_fault_caught_in_cases": caught}
+
+    xs = [_fold_input(rows, q, torch.float32, gen) for rows, q in FOLD_SHAPES]
+    torch.cuda.synchronize()
+    fold_reduce.launches = 0
+    outs = [ops.fold_sum(x) for x in xs]
+    torch.cuda.synchronize()
+    launches = fold_reduce.launches
+    check(launches == len(FOLD_SHAPES), f"fold_sum launched fold_reduce {launches} times, "
+          f"expected {len(FOLD_SHAPES)}")
+    for (rows, q), x, out in zip(FOLD_SHAPES, xs, outs):
+        check(tuple(out.shape) == (rows,) and bool(torch.isfinite(out).all()),
+              f"fold_sum ({rows}, {q}): shape {tuple(out.shape)} or non-finite values")
+        check(torch.equal(out, fold_reduce_plain(x)),
+              f"fold_sum ({rows}, {q}) differs from the plain version")
+        fault = _fold_adjacent_top(x)
+        check(not torch.equal(out, fault), f"fold_sum ({rows}, {q}): the planted fault "
+              "gives the same bits: the check cannot see it")
+        report[f"planted_fault_max_abs_err_{rows}x{q}"] = (out - fault).abs().max().item()
+        report[f"torch_sum_bit_identical_{rows}x{q}"] = torch.equal(out, x.sum(-1))
+
+    shapes, totals = [], {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for rows, q in FOLD_SHAPES:
+        ins = [_fold_input(rows, q, torch.float32, gen) for _ in range(28)]
+
+        def us(fn, *args):
+            return _time_ms([functools.partial(fn, x, *args) for x in ins], 20) * 1e3
+
+        row = {"kernel": "fold_reduce", "rows": rows, "q": q, "dtype": "float32",
+               "kernel_us": us(fold_reduce),
+               "bound_us": (rows * q * 4 + rows * 4) / HBM_BYTES_PER_S * 1e6, "bound_by": "bytes",
+               "plain_us": us(fold_reduce_plain), "library_us": us(torch.sum, -1)}
+        shapes.append(row)
+        print(json.dumps(row))
+        for key in totals:
+            totals[key] += row[key.replace("_ms", "_us")] / 1e3
+        del ins
+    report.update(launches=launches, shapes=shapes, **totals,
+                  per=f"one fold_sum at each of {[list(s) for s in FOLD_SHAPES]}, f32; "
+                      "device time (CUDA graph replay)")
+    print(json.dumps({key: v for key, v in report.items() if key != "shapes"}))
+    return report
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Public entry points of the packed PIM kernels (twin of the packed half of
-``repro.kernels.ops``): quantize a weight, then run a quantized dense layer
-through ``pim_matmul`` (any M) or ``pim_matvec`` (M <= 8).
+"""Public entry points of the PIM kernels (twin of ``repro.kernels.ops``):
+quantize a weight, then run a quantized dense layer through ``pim_matmul``
+(any M), ``pim_matvec`` (M <= 8) or, in the PIM-semantic form, bit-plane by
+bit-plane through ``bitplane_matmul``; and the OpMux fold ``fold_sum``.
 
 The wrappers pick kernel or plain version from the tensors' device (CUDA:
 the kernel; CPU: the plain version), so these take no interpret switch.
@@ -9,8 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.quant import QuantizedTensor, pack_int4, quantize_symmetric
+from repro_torch.quant import QuantizedTensor, pack_int4, quantize_symmetric, to_bitplanes
 
+from .bitplane import bitplane_matmul
+from .fold_reduce import fold_reduce
 from .pim_matmul import pim_matmul
 from .pim_matvec import pim_matvec
 
@@ -38,4 +41,20 @@ def pim_matvec_dense(x: torch.Tensor, q: QuantizedTensor, *, bias=None,
                       activation=activation, residual=residual)
 
 
-__all__ = ["quantize_for_pim", "pim_dense", "pim_matvec_dense"]
+def pim_dense_bitplane(x: torch.Tensor, w: torch.Tensor, bits: int = 4, *, bias=None,
+                       activation: str = "none", residual=None) -> torch.Tensor:
+    """PIM-semantic path: quantize + bit-plane decompose + plane-wise matmul,
+    epilogue fused."""
+    q = quantize_symmetric(w, bits=bits, axis=0)
+    planes = to_bitplanes(q.codes, bits)
+    return bitplane_matmul(x, planes, q.scale, bias=bias, activation=activation,
+                           residual=residual)
+
+
+def fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """OpMux-fold reduction of the last axis (power-of-two length)."""
+    return fold_reduce(x)
+
+
+__all__ = ["quantize_for_pim", "pim_dense", "pim_matvec_dense", "pim_dense_bitplane",
+           "fold_sum"]

@@ -1,8 +1,9 @@
-"""Symmetric per-channel weight quantization and int4 nibble packing.
+"""Symmetric per-channel weight quantization, int4 nibble packing and
+bit-plane decomposition.
 
-Twin of ``repro.quant.quantize``: the codes are equal to the JAX package's
-bit for bit (both round half to even), so a tree quantized by either
-package decodes identically in the other.
+Twin of ``repro.quant.quantize``: the codes and planes are equal to the JAX
+package's bit for bit (both round half to even), so a tree quantized by
+either package decodes identically in the other.
 """
 from __future__ import annotations
 
@@ -75,3 +76,23 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     k2 = packed.shape[0]
     out = torch.stack([lo, hi], dim=1).reshape((2 * k2,) + tuple(packed.shape[1:]))
     return out.to(torch.int8)
+
+
+def to_bitplanes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Integer codes -> bit-planes, LSB first: int8 of shape ``(bits,) + codes.shape``.
+
+    Two's complement: plane ``bits-1`` carries weight ``-2^(bits-1)``.  This is
+    the *spatial* analogue of PiCaSO's bit-serial striped storage (§III-A).
+    """
+    shifts = torch.arange(bits, dtype=torch.int32, device=codes.device)
+    shifts = shifts.reshape((bits,) + (1,) * codes.dim())
+    return ((codes.to(torch.int32)[None] >> shifts) & 1).to(torch.int8)
+
+
+def from_bitplanes(planes: torch.Tensor) -> torch.Tensor:
+    """Bit-planes -> int32 codes (two's complement)."""
+    bits = planes.shape[0]
+    weights = 2 ** torch.arange(bits, dtype=torch.int32, device=planes.device)
+    weights[bits - 1] = -weights[bits - 1]
+    weights = weights.reshape((bits,) + (1,) * (planes.dim() - 1))
+    return torch.sum(planes.to(torch.int32) * weights, dim=0, dtype=torch.int32)

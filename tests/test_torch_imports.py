@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` imports ``jax`` or
-the JAX package, importing it needs neither a card nor ``nvcc``, and its
-entry points default to the card."""
+"""The port stands alone: no module of ``src/repro_torch``, and neither of
+its scripts at the root, imports ``jax`` or the JAX package; importing it
+needs neither a card nor ``nvcc``; its entry points default to the card; and
+its kernel package exports every name of the JAX package's."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SCRIPTS = ("chip_smoke.py", "decode_trace.py")  # the port's scripts at the root
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -24,11 +27,25 @@ def _imported_roots(path: Path):
 
 
 def test_port_sources_import_no_jax_and_no_reference_package():
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 10
-    bad = {(str(f.relative_to(PKG)), r) for f in files for r in _imported_roots(f)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / name for name in SCRIPTS]
+    assert len(files) >= 12 and all(f.is_file() for f in files)
+    bad = {(str(f.relative_to(ROOT)), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad
+
+
+def test_kernels_export_every_name_of_the_jax_kernels():
+    """``repro_torch.kernels`` has every name of ``repro.kernels.__all__``,
+    read from the JAX package's source (so nothing of JAX is imported)."""
+    tree = ast.parse((ROOT / "src" / "repro" / "kernels" / "__init__.py").read_text())
+    (names,) = [ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__" for t in node.targets)]
+    assert "bitplane_matmul" in names and "fold_sum" in names
+    import repro_torch.kernels as kernels
+
+    missing = [n for n in names if n not in kernels.__all__ or not hasattr(kernels, n)]
+    assert not missing, missing
 
 
 def test_import_without_cuda_pulls_in_no_jax():
@@ -49,6 +66,8 @@ def test_import_without_cuda_pulls_in_no_jax():
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.pim_matvec",
                                     "repro_torch.kernels.pim_matmul",
+                                    "repro_torch.kernels.bitplane",
+                                    "repro_torch.kernels.fold_reduce",
                                     "repro_torch.kernels.ops"])
 def test_kernel_module_imports_alone_without_card_or_build(module):
     """A kernel module imported on its own, with no card and no CUDA
