@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Three paths run, at qwen2-1.5b's full width (28 layers, bf16, random
+Four paths run, at qwen2-1.5b's full width (28 layers, bf16, random
 weights from a seeded generator on the card):
 
 * greedy decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
@@ -17,7 +17,10 @@ weights from a seeded generator on the card):
 * the bit-plane half of that entry point: the same weights through
   ``pim_dense_bitplane`` (the CUDA kernel ``bitplane_matmul``) on the same
   rows, and ``fold_sum`` (the CUDA kernel ``fold_reduce``) on a prefill's
-  attention-score folds and a decode step's 32K-key denominator.
+  attention-score folds and a decode step's 32K-key denominator;
+* the long-prompt path: ``ServingEngine.generate`` on a 16,384-token
+  prompt, past the model's 8,192-key threshold, so every layer's prefill
+  attention runs the hand-written CUDA kernel ``flash_attention``.
 
 Phases:
 
@@ -35,8 +38,9 @@ Phases:
    decode logits must agree with the overlay path (``x @ dq(w)``, dispatch
    "off") within LOGIT_TOL; greedy tokens must agree with the overlay path's
    wherever the top-2 margin exceeds the two paths' difference.  A shorter
-   int4 generation is checked the same way.  The same path in f32 must give
-   the logits of its plain version (every decode linear through
+   int4 generation is checked the same way; ``flash_attention`` must
+   launch 0 times (a 128-token prefill attends directly).  The same path in
+   f32 must give the logits of its plain version (every decode linear through
    ``pim_matvec_plain`` on the card) within PATH_TOL, and a planted fault
    (one layer's ``down`` loses its last K split) must fail that check;
 4. the entry point, at bits 8 and then 4: ``pim_matmul`` must launch
@@ -67,7 +71,23 @@ Phases:
    q in FOLD_Q x rows in FOLD_ROWS, f32 and bf16, where a plain twin with
    one level in another association order must fail; ``fold_sum`` at
    FOLD_SHAPES with its launch count; times beside the byte bound, the
-   plain version and ``torch.sum``.
+   plain version and ``torch.sum``;
+7. the long prompt: (a) ``flash_attention`` against its plain version over
+   FLASH_BHSD (tests/test_flash_attn.py's shapes, through the (BH, S, D)
+   entry point) and FLASH_LENGTHS at the model's heads (ragged 1,000 and
+   8,193, and 16,384; also with k/v as transposed cache views), causal and
+   not, f32 within KERNEL_TOL and bf16 within that plus one bf16 ulp; a
+   planted fault (the last KV tile dropped) must fail; (b) ``ServingEngine.generate`` on
+   1 x 16,384 seeded tokens for 16 new ones, int8 weights: exactly 28
+   ``flash_attention`` launches and 7 x 28 x 15 ``pim_matvec`` launches,
+   the host-clock time to first token and decode ms per step at 16,384
+   cached tokens; (c) the same prefill in f32 against the same prefill with
+   attention through ``flash_attention_plain`` on the card within
+   LONG_PATH_TOL, where a planted fault (layer n/2's attention loses its
+   last KV tile) must fail; (d) times per layer call and per prefill (28
+   calls): kernel, bound (the causal multiply-adds at the bf16 tensor
+   cores' rate; bytes and the f32 CUDA-core term beside it), plain version
+   and ``scaled_dot_product_attention`` as the library yardstick.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -87,16 +107,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.bitplane import bitplane_matmul, bitplane_matmul_plain  # noqa: E402
+from repro_torch.kernels.flash_attn import (  # noqa: E402
+    KV_TILE, flash_attention, flash_attention_gqa, flash_attention_plain)
 from repro_torch.kernels.fold_reduce import fold_reduce, fold_reduce_plain  # noqa: E402
 from repro_torch.kernels.pim_matmul import BLOCK_K, pim_matmul, pim_matmul_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain, split_rows  # noqa: E402
-from repro_torch.models import common, decode_step, init_cache, init_params, prefill  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    attention, common, decode_step, init_cache, init_params, prefill)
 from repro_torch.quant import (  # noqa: E402
     QuantizedTensor, dequantize, quantize_symmetric, to_bitplanes)
 from repro_torch.serving import ServingEngine, quantize_tree  # noqa: E402
 
 SEED = 20260
-KERNELS = ("pim_matvec", "pim_matmul", "bitplane_matmul", "fold_reduce")
+KERNELS = ("pim_matvec", "pim_matmul", "bitplane_matmul", "fold_reduce", "flash_attn")
 BATCH, PROMPT, N_NEW, N_NEW_INT4 = 4, 128, 32, 8
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 sums of the same products, reordered
 # Full-width bf16 logits, kernel path vs overlay path, max over all 4 x 32 x
@@ -128,6 +151,25 @@ FOLD_ROWS = (1, 7, 300, 6144)
 # head_dim 128, and one decode step's 4 x 12 query rows over a 32K-key
 # denominator.
 FOLD_SHAPES = ((PREFILL_ROWS * 12, 128), (BATCH * 12, 32768))
+# Phase 7: one long prompt, past the model's CHUNKED_THRESHOLD (8,192 keys),
+# so every layer's prefill attention is one flash_attention launch.
+LONG_PROMPT, LONG_NEW = 16384, 16
+# flash_attention's grid: tests/test_flash_attn.py's (BH, Sq, Sk, D), run
+# through the (BH, S, D) entry point; then ragged lengths (multiples of no
+# tile) and the long prompt at the model's heads (KV 2, G 6, D 128).
+FLASH_BHSD = ((2, 64, 64, 32), (4, 128, 128, 16), (1, 256, 256, 64), (2, 64, 128, 32))
+FLASH_LENGTHS = (1000, 8193, LONG_PROMPT)
+# Full-width f32 prefill logits of the long prompt, kernel path vs the same
+# path with every layer's attention through flash_attention_plain on the
+# card: the two differ only in the order of f32 sums inside the attention.
+# With random weights each query row's attention is a near-uniform average
+# over up to 16K keys, which cancels to ~1e-2 and so carries ~1e-4 relative
+# rounding into the residual stream: the H100 gave 6.0e-5 and 6.8e-5 (two
+# runs) over the rows compared.  The planted fault (one layer loses 32 of
+# 16,384 keys, 0.2% of its softmax weight) gave 5.4e-4 and 5.5e-4, in the 32
+# rows it touches only: PATH_TOL (1e-3) cannot see it, 2e-4 sits about 3x
+# from both.
+LONG_PATH_TOL = 2e-4
 LINEARS = (("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
            ("attn", "wo", None), ("mlp", "gate", None), ("mlp", "up", None),
            ("mlp", "down", None))
@@ -187,7 +229,7 @@ def main() -> int:
     # ---- 3. the decode path --------------------------------------------------
     eng8.generate(prompt, 2)  # warm-up: library load, allocator, cuBLAS handles
     torch.cuda.synchronize()
-    pim_matvec.launches = pim_matmul.launches = 0
+    pim_matvec.launches = pim_matmul.launches = flash_attention.launches = 0
     t0 = time.perf_counter()
     toks = eng8.generate(prompt, N_NEW)
     torch.cuda.synchronize()
@@ -198,6 +240,9 @@ def main() -> int:
           f"main path, expected {want}")
     check(pim_matmul.launches == 0, f"pim_matmul launched {pim_matmul.launches} "
           "times on the decode path, whose prefill is x @ dq(w)")
+    check(flash_attention.launches == 0, f"flash_attention launched "
+          f"{flash_attention.launches} times on a {PROMPT}-token prefill, which "
+          "attends directly")
     t0 = time.perf_counter()
     eng8.generate(prompt, 1)  # prefill and tok0 only
     torch.cuda.synchronize()
@@ -211,6 +256,7 @@ def main() -> int:
     print(json.dumps({"path": "qwen2-1.5b int8 generate", "batch": BATCH,
                       "prompt": PROMPT, "n_new": N_NEW, "launches": launches,
                       "pim_matmul_launches": pim_matmul.launches,
+                      "flash_attention_launches": flash_attention.launches,
                       "generate_s": t_gen, "prefill_s": t_prefill,
                       "decode_ms_per_step": decode_s * 1e3,
                       "decode_tokens_per_s": BATCH / decode_s,
@@ -257,10 +303,21 @@ def main() -> int:
     print(f"bitplane_matmul vs plain: max |err| {bp_err:.3g} within rtol "
           f"{KERNEL_TOL['rtol']} atol {KERNEL_TOL['atol']}")
     bp_entry, bp_passes = bitplane_entry_point(params, gen_bp)
-    del params
     print(json.dumps(bp_entry))
     bp_err = max(bp_err, bp_entry["max_abs_err"])
     fold = fold_phase(gen_bp)
+
+    # ---- 7. the long prompt through flash_attention ------------------------------
+    gen_fa = torch.Generator(device=dev).manual_seed(SEED + 3)
+    fa_check = flash_vs_plain(cfg, gen_fa)
+    print(json.dumps(fa_check))
+    long_path, long_prompt = long_prompt_path(cfg, params, gen_fa)
+    del params, eng8, eng4
+    torch.cuda.empty_cache()
+    print(json.dumps(long_path))
+    long_against_plain(cfg, gen_fa, long_prompt)
+    fa_times = flash_timings(cfg, gen_fa)
+    print(json.dumps(fa_times))
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
@@ -302,6 +359,17 @@ def main() -> int:
         "bound_ms": fold["bound_ms"], "bound_by": "bytes",
         "library_ms": fold["library_ms"], "library_note": "torch.sum(x, -1), another order",
         "per": fold["per"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn.py:26",
+        "launches": long_path["flash_attention_launches"], "max_abs_err": fa_check["max_abs_err"],
+        "bf16_tol_share": fa_check["bf16_tol_share"],
+        "ms": fa_times["kernel_ms"], "plain_ms": fa_times["plain_ms"],
+        "bound_ms": fa_times["bound_ms"], "bound_by": fa_times["bound_by"],
+        "f32_cuda_core_ms": fa_times["f32_cuda_core_ms"],
+        "library_ms": fa_times["library_ms"], "library_note": fa_times["library_note"],
+        "per_layer": fa_times["per_layer"], "per": fa_times["per"],
     }]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
@@ -945,6 +1013,252 @@ def fold_phase(gen):
     print(json.dumps({key: v for key, v in report.items() if key != "shapes"}))
     return report
 
+
+def within_bf16_ulp(got, ref):
+    """(every output finite and within KERNEL_TOL plus one bf16 ulp of
+    ``ref``, max |err|, the largest share of that tolerance used, and the
+    (got, ref) pair that uses it).  Both
+    sides compute in f32 and round once to bf16: two f32 results within
+    KERNEL_TOL round to bf16 values at most that plus one ulp (at the larger
+    magnitude of the two) apart.  One ulp alone is too tight where a row's
+    weighted sum cancels to near 0: there an f32 difference of 1e-6 is many
+    ulps of the tiny result."""
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), r.abs()).clamp_min(2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)  # 2^(floor(log2 |x|) - 7)
+    tol = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * r.abs() + ulp
+    err = (g - r).abs()
+    ok = bool(torch.isfinite(g).all()) and bool((err <= tol).all())
+    share = err / tol
+    worst = int(share.argmax())
+    return ok, err.max().item(), share.max().item(), (g.flatten()[worst].item(),
+                                                       r.flatten()[worst].item())
+
+
+def flash_vs_plain(cfg, gen):
+    """``flash_attention`` against ``flash_attention_plain`` on the card over
+    FLASH_BHSD (through the (BH, S, D) entry point) and FLASH_LENGTHS at the
+    model's heads (through ``flash_attention_gqa``, also with k and v as the
+    int8 cache's transposed views), causal and not, f32 within KERNEL_TOL
+    and bf16 within that plus one bf16 ulp (``within_bf16_ulp``).  Then a planted
+    fault, the kernel told to stop one tile short (its last KV_TILE keys cut
+    off) at the long prompt's shape in f32, must fail the f32 check."""
+    dev = gen.device
+    heads = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+    cases = ([(bh, sq, sk, 1, 1, d) for bh, sq, sk, d in FLASH_BHSD]
+             + [(1, s, s, *heads) for s in FLASH_LENGTHS])
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bf16_share, n = 0.0, 0
+    for b, sq, sk, kvh, g, d in cases:
+        q32 = torch.randn((b, sq, kvh, g, d), generator=gen, device=dev)
+        k32 = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+        v32 = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+        for dtype in errs:
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            for causal in (True, False):
+                ref = flash_attention_plain(q, k, v, causal=causal)
+                if kvh == g == 1:
+                    outs = {"(BH, S, D)": flash_attention(q[:, :, 0, 0], k[:, :, 0], v[:, :, 0],
+                                                          causal=causal)[:, :, None, None]}
+                else:
+                    kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (k, v))
+                    outs = {"gqa": flash_attention_gqa(q, k, v, causal=causal),
+                            "gqa, k/v transposed views": flash_attention_gqa(q, kt, vt,
+                                                                              causal=causal)}
+                torch.cuda.synchronize()
+                for layout, got in outs.items():
+                    worst = ""
+                    if dtype == torch.float32:
+                        ok, err = within_tol(got, ref)
+                    else:
+                        ok, err, share, pair = within_bf16_ulp(got, ref)
+                        bf16_share = max(bf16_share, share)
+                        worst = f", {share:.3g} of the tolerance at (got, ref) = {pair}"
+                    check(ok and got.dtype == dtype and got.shape == ref.shape,
+                          f"flash_attention {layout} {(b, sq, sk, kvh, g, d)} {dtype} "
+                          f"causal={causal}: max err {err:.3g}{worst}")
+                    errs[dtype] = max(errs[dtype], err)
+                    n += 1
+                del ref, outs
+    # The planted fault, on the last case's f32 inputs.
+    q, k, v = q32, k32, v32
+    ok, fault_err = within_tol(flash_attention_gqa(q, k[:, :-KV_TILE], v[:, :-KV_TILE], causal=True),
+                               flash_attention_plain(q, k, v, causal=True))
+    check(not ok, f"the planted fault moved flash_attention's output by only "
+          f"{fault_err:.3g}: the check cannot see it")
+    return {"check": "flash_attention vs plain", "cases": n,
+            "max_abs_err": max(errs.values()), "f32_max_abs_err": errs[torch.float32],
+            "bf16_max_abs_err": errs[torch.bfloat16], "bf16_tol_share": bf16_share,
+            "tol": {"float32": KERNEL_TOL,
+                    "bfloat16": "the f32 tolerance plus one bf16 ulp at the output's magnitude"},
+            "planted_fault": f"{tuple(q.shape)} f32 causal: the last {KV_TILE} keys (one "
+                             "kernel tile) dropped",
+            "planted_fault_max_abs_err": fault_err}
+
+
+def long_prompt_path(cfg, params, gen):
+    """The long-prompt path: ``ServingEngine.generate`` on one seeded prompt
+    of LONG_PROMPT tokens for LONG_NEW new tokens, int8 weights, bf16 cache.
+    Every layer's prefill attention must be one ``flash_attention`` launch,
+    every decode linear one ``pim_matvec`` launch, no other kernel launched.
+    Prints the host-clock time to first token (a second, 1-token generation)
+    and the decode ms per step at LONG_PROMPT cached tokens.
+
+    Returns (a report, the prompt)."""
+    dev = gen.device
+    eng = ServingEngine(cfg, params, max_seq=LONG_PROMPT + LONG_NEW, pim_bits=8, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen, device=dev)
+    eng.generate(prompt, 1)  # warm-up: the long shapes' first library calls
+    torch.cuda.synchronize()
+    kernels = (flash_attention, pim_matvec, pim_matmul, bitplane_matmul, fold_reduce)
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(prompt, LONG_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = {kernel.__name__: kernel.launches for kernel in kernels}
+    want = {"flash_attention": cfg.n_layers,
+            "pim_matvec": len(LINEARS) * cfg.n_layers * (LONG_NEW - 1),
+            "pim_matmul": 0, "bitplane_matmul": 0, "fold_reduce": 0}
+    check(launches == want, f"long-prompt path launches {launches}, expected {want}")
+    t0 = time.perf_counter()
+    eng.generate(prompt, 1)  # prefill and tok0 only
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    check(tuple(toks.shape) == (1, LONG_NEW), f"long path tokens shape {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "long path token ids out of range")
+    return {"path": "qwen2-1.5b int8 generate, long prompt", "batch": 1,
+            "prompt": LONG_PROMPT, "n_new": LONG_NEW,
+            "flash_attention_launches": launches["flash_attention"],
+            "pim_matvec_launches": launches["pim_matvec"], "launches": launches,
+            "generate_s": t_gen, "time_to_first_token_s": t_first,
+            "decode_ms_per_step": (t_gen - t_first) / (LONG_NEW - 1) * 1e3}, prompt
+
+
+@contextlib.contextmanager
+def attention_through(fn):
+    """Route the model's long-prompt attention through ``fn`` in place of
+    the wrapper."""
+    prev, attention.flash_attention_gqa = attention.flash_attention_gqa, fn
+    try:
+        yield
+    finally:
+        attention.flash_attention_gqa = prev
+
+
+def dropped_kv_tile(n_layers, layer):
+    """The wrapper with one planted fault: ``layer``'s attention loses its
+    last KV tile (the kernel sees KV_TILE fewer keys)."""
+    calls = 0
+
+    def faulty(q, k, v, **kw):
+        nonlocal calls
+        if calls % n_layers == layer:
+            k, v = k[:, :-KV_TILE], v[:, :-KV_TILE]
+        calls += 1
+        return flash_attention_gqa(q, k, v, **kw)
+    return faulty
+
+
+def long_against_plain(cfg, gen, prompt):
+    """The long-prompt path at full width in f32, kernel vs plain version:
+    the prefill logits of ``prompt`` through the kernel against the same
+    prefill with every layer's attention through ``flash_attention_plain``
+    on the card, within LONG_PATH_TOL.  Then a planted fault (layer n/2's
+    attention loses its last KV tile) must fail that check.  One prefill's
+    f32 logits are 10 GB: only the rows at every 1,024th position and the
+    last 64 are kept, each prefill's logits freed before the next."""
+    dev = gen.device
+    cfg32 = cfg.replace(param_dtype="float32")
+    eng = ServingEngine(cfg32, init_params(cfg32, gen, device=dev),
+                        max_seq=LONG_PROMPT + LONG_NEW, pim_bits=8, device=dev)
+    rows = torch.tensor(sorted(set(range(0, LONG_PROMPT, 1024))
+                               | set(range(max(0, LONG_PROMPT - 64), LONG_PROMPT))), device=dev)
+
+    def prefill_rows():
+        with torch.inference_mode():
+            cache = init_cache(cfg32, 1, eng.max_seq, dev)
+            logits, _ = prefill(eng.params, cfg32, prompt, cache)
+            out = logits[0].index_select(0, rows)
+            del logits, cache
+        return out
+
+    flash_attention.launches = 0
+    lk = prefill_rows()
+    with attention_through(flash_attention_plain):
+        lp = prefill_rows()
+    with attention_through(dropped_kv_tile(cfg.n_layers, cfg.n_layers // 2)):
+        lf = prefill_rows()
+    torch.cuda.synchronize()
+    check(flash_attention.launches == 2 * cfg.n_layers, f"the f32 long prefills launched "
+          f"flash_attention {flash_attention.launches} times, expected {2 * cfg.n_layers}")
+    diff = (lk - lp).abs().max().item()
+    fault = (lf - lp).abs().max().item()
+    report = {"check": "f32 long prefill, kernel path vs plain path", "prompt": LONG_PROMPT,
+              "rows_compared": rows.numel(), "max_abs_logit_diff": diff,
+              "tol": LONG_PATH_TOL, "logit_std": lp.std().item(),
+              "planted_fault": f"layer {cfg.n_layers // 2} attention: last {KV_TILE} keys "
+                               "dropped",
+              "planted_fault_max_abs_logit_diff": fault,
+              "planted_fault_rows_moved": int(((lf - lp).abs().amax(-1) > diff).sum())}
+    print(json.dumps(report))
+    check(bool(torch.isfinite(lk).all()), "f32 long path: non-finite logits")
+    check(diff <= LONG_PATH_TOL, f"f32 long path: kernel logits differ from the plain "
+          f"version's by {diff:.4g} > {LONG_PATH_TOL}")
+    check(fault > LONG_PATH_TOL, f"the planted fault moved the f32 long-path logits by only "
+          f"{fault:.4g} <= {LONG_PATH_TOL}: the check cannot see it")
+    return report
+
+
+def flash_timings(cfg, gen):
+    """Device times at the long prefill's attention, bf16, causal: one
+    layer's call (replayed alone) and one prefill's 28 calls, each on its own
+    seeded q, k, v, so that a pass reads 1.9 GB and nothing stays in L2.
+    Kernel, plain version and the yardstick ``scaled_dot_product_attention``
+    (``is_causal``, ``enable_gqa``; the port never calls it) on the same
+    inputs, beside the bound: the larger of the bytes (q, k, v read once,
+    the output written once) at the HBM rate and the useful causal
+    multiply-adds at the bf16 tensor cores' rate; the f32 CUDA-core term,
+    the rate this design runs at, beside it (a note, not a bound)."""
+    dev = gen.device
+    b, s, kvh, d = 1, LONG_PROMPT, cfg.n_kv_heads, cfg.head_dim
+    h = cfg.n_heads
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = {"kernel": [], "plain": [], "library": []}
+    for _ in range(cfg.n_layers):
+        q = torch.randn((b, s, kvh, h // kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, s, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        calls["kernel"].append(functools.partial(flash_attention_gqa, q, k, v, causal=True))
+        calls["plain"].append(functools.partial(flash_attention_plain, q, k, v, causal=True))
+        calls["library"].append(functools.partial(
+            sdpa, q.reshape(b, s, h, d).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True))
+    ref = calls["plain"][0]()
+    lib = calls["library"][0]().transpose(1, 2).reshape(ref.shape)
+    torch.cuda.synchronize()
+    lib_diff = (lib.float() - ref.float()).abs().max().item()
+    check(lib_diff < 0.05, f"scaled_dot_product_attention vs plain: max diff {lib_diff:.3g}")
+    del ref, lib
+    pairs = s * (s + 1) // 2  # (query, key) pairs query i >= key j
+    flops = 4 * d * pairs * h * b  # q.k and p.v, a multiply and an add each
+    by_bytes = 2 * d * b * (2 * s * h + 2 * s * kvh) / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_TC_FLOP_PER_S * 1e3
+    per_layer = {f"{key}_ms": _time_ms(fns[:1], 20) for key, fns in calls.items()}
+    per_prefill = {f"{key}_ms": _time_ms(fns, 3) * cfg.n_layers for key, fns in calls.items()}
+    n = cfg.n_layers
+    per_layer.update(bound_ms=max(by_bytes, by_ops), bytes_ms=by_bytes, operations_ms=by_ops,
+                     f32_cuda_core_ms=flops / F32_FLOP_PER_S * 1e3)
+    return {"timing": "flash_attention at the long prefill", "shape": [b, s, kvh, h // kvh, d],
+            **per_prefill, "bound_ms": max(by_bytes, by_ops) * n,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_ms": by_bytes * n, "f32_cuda_core_ms": flops / F32_FLOP_PER_S * 1e3 * n,
+            "library_note": "scaled_dot_product_attention(is_causal, enable_gqa), bf16; "
+                            f"max diff vs plain {lib_diff:.3g}",
+            "per_layer": per_layer,
+            "per": f"one long prefill's attention: {n} launches at (B, S, KV, G, D) = "
+                   f"{(b, s, kvh, h // kvh, d)}, causal, bf16; device time (CUDA graph replay)"}
 
 if __name__ == "__main__":
     sys.exit(main())

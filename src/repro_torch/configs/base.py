@@ -1,6 +1,6 @@
 """Model configuration (the port's copy of ``repro.configs.base.ModelConfig``).
 
-Only the fields the dense decode slice reads are carried over; their names
+Only the fields the port's dense paths read are carried over; their names
 and defaults match the JAX package's, so a test can build both configs from
 the same keyword arguments.
 """
@@ -28,6 +28,7 @@ class ModelConfig:
     # PIM-mode (the paper's technique): weight bits for serving; 0 = off.
     pim_bits: int = 0
     param_dtype: str = "bfloat16"
+    kv_chunk: int = 512  # online-softmax KV block of the plain long-prompt attention
     kv_cache_bits: int = 16  # 16 = param dtype; 8 = int8 cache + f32 scales
 
     def replace(self, **kw) -> "ModelConfig":

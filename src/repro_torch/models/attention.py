@@ -1,6 +1,9 @@
-"""GQA attention for the dense decode slice: prefill and decode with a cache.
+"""GQA attention for the dense slices: prefill and decode with a cache.
 
-Twin of the dense-cache parts of ``repro.models.attention``.  The cache is
+Twin of the dense-cache parts of ``repro.models.attention``.  Prefill over
+more than CHUNKED_THRESHOLD keys streams them through the online-softmax
+kernel ``flash_attention`` (``_chunked_attention``); shorter prompts attend
+directly, as in the JAX package.  The cache is
 head-major ``(B, KV, S, D)``, in the parameter dtype or as int8 codes with a
 per-token f32 scale.  Unlike the JAX package, which returns a new cache,
 ``attn_prefill`` and ``attn_decode`` write the cache IN PLACE and return the
@@ -11,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.kernels.flash_attn import KV_CHUNK, flash_attention_gqa
 
 from .common import apply_rope, dense_init, linear
 
@@ -58,6 +63,14 @@ def _direct_attention(q, k, v, causal: bool, q_offset: int = 0):
     return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
 
 
+def _chunked_attention(q, k, v, causal: bool, kv_chunk: int = KV_CHUNK):
+    """Online softmax over KV blocks, no (Sq, Sk) scores in memory.
+    q: (B,Sq,KV,G,D); k,v: (B,Sk,KV,D).  The CUDA kernel ``flash_attention``
+    on the card; on CPU tensors its plain version, the JAX package's
+    ``_chunked_attention`` in chunks of ``kv_chunk`` keys."""
+    return flash_attention_gqa(q, k, v, causal=causal, kv_chunk=kv_chunk)
+
+
 def kv_cache_init(batch: int, max_seq: int, n_kv: int, head_dim: int, dtype,
                   device, bits: int = 16, lead=()) -> dict:
     """Head-major cache (B, KV, S, D); ``bits=8``: int8 codes + per-token
@@ -89,16 +102,14 @@ def _dequant_kv(codes, scale, dtype):
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
-                 n_kv: int, head_dim: int, rope_theta: float = 0.0):
+                 n_kv: int, head_dim: int, rope_theta: float = 0.0,
+                 kv_chunk: int = KV_CHUNK):
     """Full-sequence causal attention over the prompt x (B, S, D) that also
     writes all S prompt tokens' K/V into the cache (in place).  With an int8
     cache the prompt attends against the quantize->dequantize K/V, exactly
-    what later decode steps read back."""
+    what later decode steps read back.  Over more than CHUNKED_THRESHOLD keys
+    the attention is ``_chunked_attention``, else ``_direct_attention``."""
     b, s, _ = x.shape
-    if s > CHUNKED_THRESHOLD:
-        raise NotImplementedError(
-            f"prefill over {s} > {CHUNKED_THRESHOLD} keys needs the chunked "
-            "(online-softmax) attention, a later slice of the port (ROADMAP.md)")
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     if rope_theta:
         positions = torch.arange(s, device=x.device)
@@ -119,7 +130,11 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
         cache["k"][:, :, :s] = k_t
         cache["v"][:, :, :s] = v_t
     g = n_heads // n_kv
-    o = _direct_attention(q.reshape(b, s, n_kv, g, head_dim), k, v, causal=True)
+    qg = q.reshape(b, s, n_kv, g, head_dim)
+    if k.shape[1] > CHUNKED_THRESHOLD:
+        o = _chunked_attention(qg, k, v, causal=True, kv_chunk=kv_chunk)
+    else:
+        o = _direct_attention(qg, k, v, causal=True)
     return linear(o.reshape(b, s, n_heads * head_dim), p["wo"]), cache
 
 

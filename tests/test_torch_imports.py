@@ -68,6 +68,7 @@ def test_import_without_cuda_pulls_in_no_jax():
                                     "repro_torch.kernels.pim_matmul",
                                     "repro_torch.kernels.bitplane",
                                     "repro_torch.kernels.fold_reduce",
+                                    "repro_torch.kernels.flash_attn",
                                     "repro_torch.kernels.ops"])
 def test_kernel_module_imports_alone_without_card_or_build(module):
     """A kernel module imported on its own, with no card and no CUDA
