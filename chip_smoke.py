@@ -335,7 +335,6 @@ def main() -> int:
         "launches_per_pass": entry["pim_matmul_launches"], "max_abs_err": mm_err,
         "ms": mm_pass["kernel_ms"], "plain_ms": mm_pass["plain_ms"],
         "bound_ms": mm_pass["bound_ms"], "bound_by": mm_pass["bound_by"],
-        "f32_cuda_core_ms": mm_pass["f32_cuda_core_ms"],
         "library_ms": mm_pass["library_ms"], "overlay_ms": mm_pass["overlay_ms"],
         "eager_ms": mm_pass["kernel_eager_ms"], "per": mm_pass["per"],
     }, {
@@ -346,9 +345,8 @@ def main() -> int:
         "launches_per_pass": bp_entry["bitplane_matmul_launches"], "max_abs_err": bp_err,
         "ms": bp_passes[8]["kernel_ms"], "plain_ms": bp_passes[8]["plain_ms"],
         "bound_ms": bp_passes[8]["bound_ms"], "bound_by": bp_passes[8]["bound_by"],
-        "f32_cuda_core_ms": bp_passes[8]["f32_cuda_core_ms"],
         "library_ms": None, "library_note": "no single PyTorch call computes it",
-        "overlay_ms": bp_passes[8]["overlay_ms"], "bits4": bp_passes[4],
+        "overlay_ms": bp_passes[8]["overlay_ms"], "bits4": _measured(bp_passes[4]),
         "per": bp_passes[8]["per"],
     }, {
         "name": "fold_reduce", "route": "cuda",
@@ -367,15 +365,21 @@ def main() -> int:
         "bf16_tol_share": fa_check["bf16_tol_share"],
         "ms": fa_times["kernel_ms"], "plain_ms": fa_times["plain_ms"],
         "bound_ms": fa_times["bound_ms"], "bound_by": fa_times["bound_by"],
-        "f32_cuda_core_ms": fa_times["f32_cuda_core_ms"],
         "library_ms": fa_times["library_ms"], "library_note": fa_times["library_note"],
-        "per_layer": fa_times["per_layer"], "per": fa_times["per"],
+        "per_layer": _measured(fa_times["per_layer"]), "per": fa_times["per"],
     }]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _measured(times):
+    """A timing dict without its f32 CUDA-core term: that term is computed from
+    the data sheet, not measured, so it stays on the timing lines and out of
+    the kernels line, whose one computed number is ``bound_ms``."""
+    return {key: v for key, v in times.items() if key != "f32_cuda_core_ms"}
 
 
 def within_tol(got, ref):
@@ -1048,7 +1052,7 @@ def flash_vs_plain(cfg, gen):
     cases = ([(bh, sq, sk, 1, 1, d) for bh, sq, sk, d in FLASH_BHSD]
              + [(1, s, s, *heads) for s in FLASH_LENGTHS])
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    bf16_share, n = 0.0, 0
+    bf16_share, bf16_worst, n = 0.0, None, 0
     for b, sq, sk, kvh, g, d in cases:
         q32 = torch.randn((b, sq, kvh, g, d), generator=gen, device=dev)
         k32 = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
@@ -1072,7 +1076,10 @@ def flash_vs_plain(cfg, gen):
                         ok, err = within_tol(got, ref)
                     else:
                         ok, err, share, pair = within_bf16_ulp(got, ref)
-                        bf16_share = max(bf16_share, share)
+                        if share >= bf16_share:
+                            bf16_share = share
+                            bf16_worst = {"case": [b, sq, sk, kvh, g, d], "layout": layout,
+                                          "causal": causal, "got": pair[0], "ref": pair[1]}
                         worst = f", {share:.3g} of the tolerance at (got, ref) = {pair}"
                     check(ok and got.dtype == dtype and got.shape == ref.shape,
                           f"flash_attention {layout} {(b, sq, sk, kvh, g, d)} {dtype} "
@@ -1089,7 +1096,7 @@ def flash_vs_plain(cfg, gen):
     return {"check": "flash_attention vs plain", "cases": n,
             "max_abs_err": max(errs.values()), "f32_max_abs_err": errs[torch.float32],
             "bf16_max_abs_err": errs[torch.bfloat16], "bf16_tol_share": bf16_share,
-            "tol": {"float32": KERNEL_TOL,
+            "bf16_worst": bf16_worst, "tol": {"float32": KERNEL_TOL,
                     "bfloat16": "the f32 tolerance plus one bf16 ulp at the output's magnitude"},
             "planted_fault": f"{tuple(q.shape)} f32 causal: the last {KV_TILE} keys (one "
                              "kernel tile) dropped",

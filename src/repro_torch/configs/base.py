@@ -28,7 +28,6 @@ class ModelConfig:
     # PIM-mode (the paper's technique): weight bits for serving; 0 = off.
     pim_bits: int = 0
     param_dtype: str = "bfloat16"
-    kv_chunk: int = 512  # online-softmax KV block of the plain long-prompt attention
     kv_cache_bits: int = 16  # 16 = param dtype; 8 = int8 cache + f32 scales
 
     def replace(self, **kw) -> "ModelConfig":

@@ -123,15 +123,15 @@ def _launcher():
     return fn
 
 
-def flash_attention_gqa(q, k, v, *, causal: bool, kv_chunk: int = KV_CHUNK):
+def flash_attention_gqa(q, k, v, *, causal: bool):
     """Attention of q (B, Sq, KV, G, D) over k, v (B, Sk, KV, D) ->
     (B, Sq, KV, G, D) in q's dtype, any Sq and Sk.  On the card D is one of
     HEAD_DIMS and each tensor's last dim has stride 1 (the others may be
-    strided, e.g. a transposed cache view); ``kv_chunk`` is the plain
-    version's chunk on CPU tensors, the kernel tiles with KV_TILE keys."""
+    strided, e.g. a transposed cache view).  CPU tensors take the plain
+    version in chunks of KV_CHUNK keys; the kernel tiles with KV_TILE keys."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, kv_chunk=kv_chunk)
+        return flash_attention_plain(q, k, v, causal=causal, kv_chunk=KV_CHUNK)
     b, sq, kvh, g, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_gqa: head dim {d} not in {HEAD_DIMS}")

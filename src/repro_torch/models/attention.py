@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attn import KV_CHUNK, flash_attention_gqa
+from repro_torch.kernels.flash_attn import flash_attention_gqa
 
 from .common import apply_rope, dense_init, linear
 
@@ -63,12 +63,12 @@ def _direct_attention(q, k, v, causal: bool, q_offset: int = 0):
     return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
 
 
-def _chunked_attention(q, k, v, causal: bool, kv_chunk: int = KV_CHUNK):
+def _chunked_attention(q, k, v, causal: bool):
     """Online softmax over KV blocks, no (Sq, Sk) scores in memory.
     q: (B,Sq,KV,G,D); k,v: (B,Sk,KV,D).  The CUDA kernel ``flash_attention``
     on the card; on CPU tensors its plain version, the JAX package's
-    ``_chunked_attention`` in chunks of ``kv_chunk`` keys."""
-    return flash_attention_gqa(q, k, v, causal=causal, kv_chunk=kv_chunk)
+    ``_chunked_attention`` at its default chunk."""
+    return flash_attention_gqa(q, k, v, causal=causal)
 
 
 def kv_cache_init(batch: int, max_seq: int, n_kv: int, head_dim: int, dtype,
@@ -102,8 +102,7 @@ def _dequant_kv(codes, scale, dtype):
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
-                 n_kv: int, head_dim: int, rope_theta: float = 0.0,
-                 kv_chunk: int = KV_CHUNK):
+                 n_kv: int, head_dim: int, rope_theta: float = 0.0):
     """Full-sequence causal attention over the prompt x (B, S, D) that also
     writes all S prompt tokens' K/V into the cache (in place).  With an int8
     cache the prompt attends against the quantize->dequantize K/V, exactly
@@ -132,7 +131,7 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
     g = n_heads // n_kv
     qg = q.reshape(b, s, n_kv, g, head_dim)
     if k.shape[1] > CHUNKED_THRESHOLD:
-        o = _chunked_attention(qg, k, v, causal=True, kv_chunk=kv_chunk)
+        o = _chunked_attention(qg, k, v, causal=True)
     else:
         o = _direct_attention(qg, k, v, causal=True)
     return linear(o.reshape(b, s, n_heads * head_dim), p["wo"]), cache

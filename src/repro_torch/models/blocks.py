@@ -28,7 +28,7 @@ def _attn_kw(cfg: ModelConfig) -> dict:
 def dense_block_prefill(p, x, cache, cfg: ModelConfig):
     """Single-pass prefill: full-seq attention that also fills the KV cache."""
     h, cache = attn_prefill(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache,
-                            kv_chunk=cfg.kv_chunk, **_attn_kw(cfg))
+                            **_attn_kw(cfg))
     x = x + h
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
 

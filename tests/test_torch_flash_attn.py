@@ -21,6 +21,7 @@ import numpy as np  # noqa: E402
 from repro.kernels.flash_attn import flash_attention_ref as jax_flash_ref  # noqa: E402
 from repro.models.attention import _chunked_attention as jax_chunked  # noqa: E402
 from repro_torch.kernels import flash_attention, flash_attention_gqa, flash_attention_plain  # noqa: E402
+from repro_torch.kernels import flash_attn as port_flash  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attention_ref  # noqa: E402
 
 
@@ -80,7 +81,11 @@ GQA = [(2, 96, 96, 2, 3, 16, 32), (2, 96, 96, 2, 3, 16, 40), (1, 70, 70, 2, 2, 3
 
 @pytest.mark.parametrize("b,sq,sk,kvh,g,d,chunk", GQA)
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_matches_jax_chunked_attention(b, sq, sk, kvh, g, d, chunk, causal):
+def test_plain_matches_jax_chunked_attention(b, sq, sk, kvh, g, d, chunk, causal,
+                                              monkeypatch):
+    """The wrapper on CPU tensors is the plain version at the module's
+    KV_CHUNK, set here to ``chunk``."""
+    monkeypatch.setattr(port_flash, "KV_CHUNK", chunk)
     q, k, v = _gqa(b, sq, sk, kvh, g, d, seed=sq * g + chunk)
     want = np.asarray(jax_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
                                   kv_chunk=chunk))
@@ -89,25 +94,25 @@ def test_plain_matches_jax_chunked_attention(b, sq, sk, kvh, g, d, chunk, causal
     assert tuple(got.shape) == (b, sq, kvh, g, d)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(
-        flash_attention_gqa(*t, causal=causal, kv_chunk=chunk).numpy(), got.numpy())
+        flash_attention_gqa(*t, causal=causal).numpy(), got.numpy())
 
     wb = np.asarray(jax_chunked(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal,
                                 kv_chunk=chunk).astype(jnp.float32))
-    gb = flash_attention_gqa(*(a.to(torch.bfloat16) for a in t), causal=causal,
-                             kv_chunk=chunk)
+    gb = flash_attention_gqa(*(a.to(torch.bfloat16) for a in t), causal=causal)
     assert gb.dtype == torch.bfloat16
     gb = gb.float().numpy()
     ulp = _bf16_ulp(np.maximum(np.abs(gb), np.abs(wb)))
     assert np.all(np.abs(gb - wb) <= ulp), np.abs(gb - wb).max()
 
 
-def test_plain_takes_a_strided_cache_view():
+def test_plain_takes_a_strided_cache_view(monkeypatch):
     """The int8 cache path attends over transposed (B, KV, S, D) views."""
+    monkeypatch.setattr(port_flash, "KV_CHUNK", 16)
     q, k, v = _gqa(1, 48, 48, 2, 3, 16, seed=5)
     kt = torch.from_numpy(np.ascontiguousarray(k.transpose(0, 2, 1, 3))).transpose(1, 2)
     vt = torch.from_numpy(np.ascontiguousarray(v.transpose(0, 2, 1, 3))).transpose(1, 2)
     assert not kt.is_contiguous()
-    got = flash_attention_gqa(torch.from_numpy(q), kt, vt, causal=True, kv_chunk=16)
+    got = flash_attention_gqa(torch.from_numpy(q), kt, vt, causal=True)
     want = np.asarray(jax_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True,
                                   kv_chunk=16))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)

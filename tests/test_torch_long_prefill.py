@@ -3,8 +3,9 @@ both packages' ``attn_prefill`` take the chunked (online-softmax) attention;
 the port's goes through ``flash_attention_gqa`` (the CUDA kernel on the
 card, its plain version here).  The threshold is lowered in BOTH packages'
 attention modules so that reduced qwen2-1.5b takes that path on a 64-token
-prompt, and ``kv_chunk`` = 24 makes the plain version walk 4 chunks of 16
-keys (24 does not divide 64: the largest divisor below it takes over).
+prompt, and a chunk of 24 keys (JAX's ``cfg.kv_chunk``, the port's
+``flash_attn.KV_CHUNK``) makes the plain version walk 4 chunks of 16 keys (24
+does not divide 64: the largest divisor below it takes over).
 
 Tolerances as in tests/test_torch_model.py: logits within 1e-5 with the
 reduced config's f32 cache, 1e-3 with the int8 cache (a K/V value at a
@@ -23,6 +24,7 @@ from repro.models import attention as jax_attention  # noqa: E402
 from repro.models import init_cache as jax_init_cache  # noqa: E402
 from repro.models import prefill as jax_prefill  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
+from repro_torch.kernels import flash_attn  # noqa: E402
 from repro_torch.models import attention, init_cache, prefill  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
@@ -33,11 +35,13 @@ SEQ, THRESHOLD, KV_CHUNK = 64, 32, 24
 
 @pytest.fixture
 def long_prompts(monkeypatch):
-    """A lower CHUNKED_THRESHOLD in both packages; JAX's compile caches are
+    """A lower CHUNKED_THRESHOLD in both packages and the port's plain chunk
+    at KV_CHUNK (JAX's comes from its config); JAX's compile caches are
     cleared on both sides, so no program traced under the other threshold
     is reused."""
     monkeypatch.setattr(jax_attention, "CHUNKED_THRESHOLD", THRESHOLD)
     monkeypatch.setattr(attention, "CHUNKED_THRESHOLD", THRESHOLD)
+    monkeypatch.setattr(flash_attn, "KV_CHUNK", KV_CHUNK)
     jax.clear_caches()
     yield
     jax.clear_caches()
@@ -57,7 +61,8 @@ def _spy(monkeypatch, name):
 
 @pytest.mark.parametrize("kv_bits", [16, 8])
 def test_long_prefill_matches_jax(kv_bits, long_prompts, monkeypatch):
-    jcfg, jparams, tcfg, tparams = reduced_model(kv_cache_bits=kv_bits, kv_chunk=KV_CHUNK)
+    jcfg, jparams, tcfg, tparams = reduced_model(kv_cache_bits=kv_bits)
+    jcfg = jcfg.replace(kv_chunk=KV_CHUNK)
     b, max_seq = 2, SEQ + 4
     toks = prompt(b, SEQ, jcfg.vocab)
     flash = _spy(monkeypatch, "flash_attention_gqa")
@@ -85,7 +90,8 @@ def test_short_prefill_still_attends_directly(monkeypatch):
 
 
 def test_long_prompt_greedy_matches_jax(long_prompts, monkeypatch):
-    jcfg, jparams, tcfg, tparams = reduced_model(kv_chunk=KV_CHUNK)
+    jcfg, jparams, tcfg, tparams = reduced_model()
+    jcfg = jcfg.replace(kv_chunk=KV_CHUNK)
     toks = prompt(2, SEQ, jcfg.vocab, seed=4)
     flash = _spy(monkeypatch, "flash_attention_gqa")
     jeng = JaxEngine(jcfg, jparams, max_seq=SEQ + 4, pim_bits=8)
