@@ -72,22 +72,30 @@ Phases:
    one level in another association order must fail; ``fold_sum`` at
    FOLD_SHAPES with its launch count; times beside the byte bound, the
    plain version and ``torch.sum``;
-7. the long prompt: (a) ``flash_attention`` against its plain version over
-   FLASH_BHSD (tests/test_flash_attn.py's shapes, through the (BH, S, D)
-   entry point) and FLASH_LENGTHS at the model's heads (ragged 1,000 and
-   8,193, and 16,384; also with k/v as transposed cache views), causal and
-   not, f32 within KERNEL_TOL and bf16 within that plus one bf16 ulp; a
-   planted fault (the last KV tile dropped) must fail; (b) ``ServingEngine.generate`` on
-   1 x 16,384 seeded tokens for 16 new ones, int8 weights: exactly 28
-   ``flash_attention`` launches and 7 x 28 x 15 ``pim_matvec`` launches,
-   the host-clock time to first token and decode ms per step at 16,384
-   cached tokens; (c) the same prefill in f32 against the same prefill with
-   attention through ``flash_attention_plain`` on the card within
-   LONG_PATH_TOL, where a planted fault (layer n/2's attention loses its
-   last KV tile) must fail; (d) times per layer call and per prefill (28
-   calls): kernel, bound (the causal multiply-adds at the bf16 tensor
-   cores' rate; bytes and the f32 CUDA-core term beside it), plain version
-   and ``scaled_dot_product_attention`` as the library yardstick.
+7. the long prompt, where ``flash_attention`` takes bf16 to the tensor
+   cores (``mma.sync``) and f32 to the CUDA cores: the built library's SASS
+   must hold HMMA instructions in every bf16 kernel (``cuobjdump -sass``;
+   ptxas's registers and spills beside them); (a) ``flash_attention``
+   against its plain version over FLASH_BHSD (tests/test_flash_attn.py's
+   shapes, through the (BH, S, D) entry point) and FLASH_LENGTHS at the
+   model's heads (ragged 1,000 and 8,193, and 16,384; also with k/v as
+   transposed cache views), causal and not, f32 within KERNEL_TOL and bf16
+   within that plus one bf16 ulp; a planted fault per route (the last KV
+   tile dropped, f32 and bf16) must fail, and a bf16 k whose key stride is
+   no multiple of 8 must raise ValueError; (b) ``ServingEngine.generate``
+   on 1 x 16,384 seeded tokens for 16 new ones, int8 weights: exactly 28
+   ``flash_attention`` launches, all on a bf16 q, and 7 x 28 x 15
+   ``pim_matvec`` launches, int32 tokens, the host-clock time to first
+   token and decode ms per step at 16,384 cached tokens; then each of the
+   28 layers' own q, k, v through the kernel and the plain version, every
+   layer within the bf16 bar; (c) the same prefill in f32 against the same
+   prefill with attention through ``flash_attention_plain`` on the card
+   within LONG_PATH_TOL, where a planted fault (layer n/2's attention loses
+   its last KV tile) must fail; (d) times per layer call and per prefill
+   (28 calls): kernel (with its achieved TFLOP/s and share of the bound),
+   bound (the causal multiply-adds at the bf16 tensor cores' rate; bytes
+   and the f32 CUDA-core term beside it), plain version and
+   ``scaled_dot_product_attention`` as the library yardstick.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -96,6 +104,7 @@ import concurrent.futures
 import contextlib
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -108,7 +117,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.bitplane import bitplane_matmul, bitplane_matmul_plain  # noqa: E402
 from repro_torch.kernels.flash_attn import (  # noqa: E402
-    KV_TILE, flash_attention, flash_attention_gqa, flash_attention_plain)
+    KV_TILE, KV_TILE_BF16, flash_attention, flash_attention_gqa, flash_attention_plain)
 from repro_torch.kernels.fold_reduce import fold_reduce, fold_reduce_plain  # noqa: E402
 from repro_torch.kernels.pim_matmul import BLOCK_K, pim_matmul, pim_matmul_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain, split_rows  # noqa: E402
@@ -309,6 +318,8 @@ def main() -> int:
 
     # ---- 7. the long prompt through flash_attention ------------------------------
     gen_fa = torch.Generator(device=dev).manual_seed(SEED + 3)
+    fa_build = flash_build_report()
+    print(json.dumps(fa_build))
     fa_check = flash_vs_plain(cfg, gen_fa)
     print(json.dumps(fa_check))
     long_path, long_prompt = long_prompt_path(cfg, params, gen_fa)
@@ -1039,14 +1050,45 @@ def within_bf16_ulp(got, ref):
                                                        r.flatten()[worst].item())
 
 
+def flash_build_report():
+    """What the compiler made of the bf16 route: the HMMA (tensor-core MMA)
+    instructions in each head dim's ``flash_attn_mma_kernel`` in the built
+    library's SASS (``cuobjdump -sass``), which must be more than 0, and
+    ptxas's registers and spills for it (``-Xptxas -v``, the build log)."""
+    lib = build.library_path("flash_attn")
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    hmma = {}
+    for section in sass.split("Function : ")[1:]:
+        found = re.search(r"flash_attn_(mma_)?kernelILi(\d+)E", section.split(None, 1)[0])
+        if found:
+            hmma[f"{'bf16' if found[1] else 'f32'} D={found[2]}"] = section.count("HMMA")
+    ptxas = {}
+    for entry in lib.with_name(lib.name + ".log").read_text().split("Compiling entry function")[1:]:
+        found = re.search(r"flash_attn_(mma_)?kernelILi(\d+)E", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        if found and regs:
+            ptxas[f"{'bf16' if found[1] else 'f32'} D={found[2]}"] = {
+                "registers": int(regs[1]),
+                "spill_store_bytes": int(spills[1]) if spills else None,
+                "spill_load_bytes": int(spills[2]) if spills else None}
+    for d in (16, 32, 64, 128):
+        check(hmma.get(f"bf16 D={d}", 0) > 0, f"no HMMA in the bf16 flash kernel at D={d}: {hmma}")
+    return {"check": "flash_attention build", "hmma_instructions": hmma, "ptxas": ptxas}
+
+
 def flash_vs_plain(cfg, gen):
     """``flash_attention`` against ``flash_attention_plain`` on the card over
     FLASH_BHSD (through the (BH, S, D) entry point) and FLASH_LENGTHS at the
     model's heads (through ``flash_attention_gqa``, also with k and v as the
     int8 cache's transposed views), causal and not, f32 within KERNEL_TOL
     and bf16 within that plus one bf16 ulp (``within_bf16_ulp``).  Then a planted
-    fault, the kernel told to stop one tile short (its last KV_TILE keys cut
-    off) at the long prompt's shape in f32, must fail the f32 check."""
+    fault per route, the kernel told to stop one tile short at the long
+    prompt's shape (its last KV_TILE keys cut off in f32, KV_TILE_BF16 in
+    bf16), must fail that route's check; and a bf16 k whose key stride is no
+    multiple of 8 elements must raise ValueError."""
     dev = gen.device
     heads = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
     cases = ([(bh, sq, sk, 1, 1, d) for bh, sq, sk, d in FLASH_BHSD]
@@ -1087,12 +1129,27 @@ def flash_vs_plain(cfg, gen):
                     errs[dtype] = max(errs[dtype], err)
                     n += 1
                 del ref, outs
-    # The planted fault, on the last case's f32 inputs.
+    # The planted faults, on the last case's inputs: one per route.
     q, k, v = q32, k32, v32
     ok, fault_err = within_tol(flash_attention_gqa(q, k[:, :-KV_TILE], v[:, :-KV_TILE], causal=True),
                                flash_attention_plain(q, k, v, causal=True))
     check(not ok, f"the planted fault moved flash_attention's output by only "
           f"{fault_err:.3g}: the check cannot see it")
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    ok, bf16_fault_err, bf16_fault_share, _ = within_bf16_ulp(
+        flash_attention_gqa(q, k[:, :-KV_TILE_BF16], v[:, :-KV_TILE_BF16], causal=True),
+        flash_attention_plain(q, k, v, causal=True))
+    check(not ok, f"the bf16 planted fault moved flash_attention's output by only "
+          f"{bf16_fault_err:.3g} ({bf16_fault_share:.3g} of the bar): the check cannot see it")
+    # The bf16 route copies 16-byte rows: a key stride that is not a multiple
+    # of 8 elements must raise, not fall back.
+    odd = torch.zeros(k.shape[:-1] + (k.shape[-1] + 1,), dtype=k.dtype, device=dev)[..., :-1]
+    try:
+        flash_attention_gqa(q, odd, v, causal=True)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused is not None, f"flash_attention_gqa took a bf16 k with strides {odd.stride()}")
     return {"check": "flash_attention vs plain", "cases": n,
             "max_abs_err": max(errs.values()), "f32_max_abs_err": errs[torch.float32],
             "bf16_max_abs_err": errs[torch.bfloat16], "bf16_tol_share": bf16_share,
@@ -1100,16 +1157,24 @@ def flash_vs_plain(cfg, gen):
                     "bfloat16": "the f32 tolerance plus one bf16 ulp at the output's magnitude"},
             "planted_fault": f"{tuple(q.shape)} f32 causal: the last {KV_TILE} keys (one "
                              "kernel tile) dropped",
-            "planted_fault_max_abs_err": fault_err}
+            "planted_fault_max_abs_err": fault_err,
+            "bf16_planted_fault": f"{tuple(q.shape)} bf16 causal: the last {KV_TILE_BF16} keys "
+                                  "(one kernel tile) dropped",
+            "bf16_planted_fault_max_abs_err": bf16_fault_err,
+            "bf16_planted_fault_tol_share": bf16_fault_share,
+            "misaligned_bf16_k": {"strides": list(odd.stride()), "raised": refused}}
 
 
 def long_prompt_path(cfg, params, gen):
     """The long-prompt path: ``ServingEngine.generate`` on one seeded prompt
     of LONG_PROMPT tokens for LONG_NEW new tokens, int8 weights, bf16 cache.
-    Every layer's prefill attention must be one ``flash_attention`` launch,
-    every decode linear one ``pim_matvec`` launch, no other kernel launched.
-    Prints the host-clock time to first token (a second, 1-token generation)
-    and the decode ms per step at LONG_PROMPT cached tokens.
+    Every layer's prefill attention must be one ``flash_attention`` launch
+    on a bf16 q (the tensor-core route), every decode linear one
+    ``pim_matvec`` launch, no other kernel launched.  Prints the host-clock
+    time to first token (a second, 1-token generation) and the decode ms per
+    step at LONG_PROMPT cached tokens.  Then a third prefill sends each
+    layer's own q, k, v through both the kernel and ``flash_attention_plain``:
+    every layer must be within the bf16 bar (``within_bf16_ulp``).
 
     Returns (a report, the prompt)."""
     dev = gen.device
@@ -1120,8 +1185,15 @@ def long_prompt_path(cfg, params, gen):
     kernels = (flash_attention, pim_matvec, pim_matmul, bitplane_matmul, fold_reduce)
     for kernel in kernels:
         kernel.launches = 0
+    seen = []  # the dtype of each q the attention saw
+
+    def noting_dtype(q, k, v, **kw):
+        seen.append(q.dtype)
+        return flash_attention_gqa(q, k, v, **kw)
+
     t0 = time.perf_counter()
-    toks = eng.generate(prompt, LONG_NEW)
+    with attention_through(noting_dtype):
+        toks = eng.generate(prompt, LONG_NEW)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = {kernel.__name__: kernel.launches for kernel in kernels}
@@ -1129,18 +1201,45 @@ def long_prompt_path(cfg, params, gen):
             "pim_matvec": len(LINEARS) * cfg.n_layers * (LONG_NEW - 1),
             "pim_matmul": 0, "bitplane_matmul": 0, "fold_reduce": 0}
     check(launches == want, f"long-prompt path launches {launches}, expected {want}")
+    check(seen == [torch.bfloat16] * cfg.n_layers, f"long-prompt attention saw q dtypes {seen}, "
+          f"expected {cfg.n_layers} x bf16 (the tensor-core route)")
     t0 = time.perf_counter()
     eng.generate(prompt, 1)  # prefill and tok0 only
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     check(tuple(toks.shape) == (1, LONG_NEW), f"long path tokens shape {tuple(toks.shape)}")
+    check(toks.dtype == torch.int32, f"long path tokens are {toks.dtype}, not int32")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "long path token ids out of range")
+
+    # Each layer's own q, k, v through the kernel and the plain version.
+    layers = []
+
+    def against_plain_per_layer(q, k, v, **kw):
+        got = flash_attention_gqa(q, k, v, **kw)
+        ok, err, share, pair = within_bf16_ulp(got, flash_attention_plain(q, k, v, **kw))
+        layers.append({"layer": len(layers), "ok": ok, "dtype": str(q.dtype), "max_abs_err": err,
+                       "tol_share": share, "worst_pair": pair})
+        return got
+
+    with attention_through(against_plain_per_layer):
+        eng.generate(prompt, 1)
+    torch.cuda.synchronize()
+    worst = max(layers, key=lambda r: r["tol_share"])
+    per_layer = {"check": "bf16 long prefill, each layer's attention vs plain on its own q, k, v",
+                 "layers": len(layers), "worst_layer": worst,
+                 "tol": "the f32 tolerance plus one bf16 ulp (within_bf16_ulp)"}
+    print(json.dumps(per_layer))
+    check(len(layers) == cfg.n_layers, f"{len(layers)} layers checked, expected {cfg.n_layers}")
+    bad = [r for r in layers if not r["ok"] or r["dtype"] != "torch.bfloat16"]
+    check(not bad, f"long-prompt layers outside the bf16 bar of the plain version: {bad}")
     return {"path": "qwen2-1.5b int8 generate, long prompt", "batch": 1,
             "prompt": LONG_PROMPT, "n_new": LONG_NEW,
             "flash_attention_launches": launches["flash_attention"],
+            "flash_attention_q_dtype": str(seen[0]),
             "pim_matvec_launches": launches["pim_matvec"], "launches": launches,
             "generate_s": t_gen, "time_to_first_token_s": t_first,
-            "decode_ms_per_step": (t_gen - t_first) / (LONG_NEW - 1) * 1e3}, prompt
+            "decode_ms_per_step": (t_gen - t_first) / (LONG_NEW - 1) * 1e3,
+            "layers_vs_plain_worst_tol_share": worst["tol_share"]}, prompt
 
 
 @contextlib.contextmanager
@@ -1226,8 +1325,11 @@ def flash_timings(cfg, gen):
     (``is_causal``, ``enable_gqa``; the port never calls it) on the same
     inputs, beside the bound: the larger of the bytes (q, k, v read once,
     the output written once) at the HBM rate and the useful causal
-    multiply-adds at the bf16 tensor cores' rate; the f32 CUDA-core term,
-    the rate this design runs at, beside it (a note, not a bound)."""
+    multiply-adds at the bf16 tensor cores' rate; the f32 CUDA-core term, the
+    rate the f32 route runs at, beside it (a note, not a bound).  The
+    kernel's achieved TFLOP/s count the useful causal FLOP only (not the
+    split p's third product, nor the masked half of the diagonal tiles); its
+    bound share is bound / kernel time."""
     dev = gen.device
     b, s, kvh, d = 1, LONG_PROMPT, cfg.n_kv_heads, cfg.head_dim
     h = cfg.n_heads
@@ -1256,9 +1358,13 @@ def flash_timings(cfg, gen):
     per_prefill = {f"{key}_ms": _time_ms(fns, 3) * cfg.n_layers for key, fns in calls.items()}
     n = cfg.n_layers
     per_layer.update(bound_ms=max(by_bytes, by_ops), bytes_ms=by_bytes, operations_ms=by_ops,
-                     f32_cuda_core_ms=flops / F32_FLOP_PER_S * 1e3)
+                     f32_cuda_core_ms=flops / F32_FLOP_PER_S * 1e3,
+                     kernel_tflop_per_s=flops / per_layer["kernel_ms"] / 1e9,
+                     kernel_bound_share=max(by_bytes, by_ops) / per_layer["kernel_ms"])
     return {"timing": "flash_attention at the long prefill", "shape": [b, s, kvh, h // kvh, d],
             **per_prefill, "bound_ms": max(by_bytes, by_ops) * n,
+            "kernel_tflop_per_s": flops * n / per_prefill["kernel_ms"] / 1e9,
+            "kernel_bound_share": max(by_bytes, by_ops) * n / per_prefill["kernel_ms"],
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes_ms": by_bytes * n, "f32_cuda_core_ms": flops / F32_FLOP_PER_S * 1e3 * n,
             "library_note": "scaled_dot_product_attention(is_causal, enable_gqa), bf16; "

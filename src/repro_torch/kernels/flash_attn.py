@@ -17,6 +17,11 @@ Two layouts, one kernel:
 (BH, S, 1, 1, D).  Causal masking is top-left aligned: query i sees keys
 0..i, as in both JAX versions.  The output is in q's dtype.
 
+The kernel takes one of two routes, chosen by the dtype alone: bf16 runs on
+the tensor cores (``mma.sync``, K/V tiles of KV_TILE_BF16 keys through a
+``cp.async`` ring, p split into two bf16 halves so that p.v keeps the plain
+version's f32 p); f32 runs on the CUDA cores in tiles of KV_TILE keys.
+
 The wrappers take the plain version only for tensors on the CPU; for a CUDA
 tensor they launch the kernel or raise.
 """
@@ -30,7 +35,8 @@ import torch
 from .build import load
 
 KV_CHUNK = 512  # the plain version's keys per chunk (the JAX package's KV_CHUNK)
-KV_TILE = 32  # the CUDA kernel's keys per shared-memory tile (kBKV)
+KV_TILE = 32  # the f32 route's keys per shared-memory tile (kBKV)
+KV_TILE_BF16 = 64  # the bf16 route's keys per shared-memory tile (kMmaBKV)
 HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernel is compiled for
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
@@ -123,12 +129,26 @@ def _launcher():
     return fn
 
 
+def _check_aligned(q, k, v) -> None:
+    """The bf16 route copies rows with 16-byte ``cp.async``: every pointer
+    16-byte aligned, and every stride but the last a multiple of 8 elements
+    (a dim of size 1 never steps, so its stride does not count)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(n > 1 and st % 8 for n, st in zip(t.shape[:-1],
+                                                                       t.stride()[:-1])):
+            raise ValueError(f"flash_attention_gqa: bf16 {name} must start 16-byte aligned "
+                             f"and step in multiples of 8 elements; it has strides "
+                             f"{t.stride()} at {t.data_ptr():#x}")
+
+
 def flash_attention_gqa(q, k, v, *, causal: bool):
     """Attention of q (B, Sq, KV, G, D) over k, v (B, Sk, KV, D) ->
     (B, Sq, KV, G, D) in q's dtype, any Sq and Sk.  On the card D is one of
     HEAD_DIMS and each tensor's last dim has stride 1 (the others may be
-    strided, e.g. a transposed cache view).  CPU tensors take the plain
-    version in chunks of KV_CHUNK keys; the kernel tiles with KV_TILE keys."""
+    strided, e.g. a transposed cache view); bf16 tensors must also meet
+    ``_check_aligned``.  CPU tensors take the plain version in chunks of
+    KV_CHUNK keys; the kernel tiles with KV_TILE_BF16 (bf16) or KV_TILE (f32)
+    keys."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, kv_chunk=KV_CHUNK)
@@ -137,6 +157,8 @@ def flash_attention_gqa(q, k, v, *, causal: bool):
         raise ValueError(f"flash_attention_gqa: head dim {d} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_gqa: the last dim of q, k and v must have stride 1")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
     out = torch.empty((b, sq, kvh, g, d), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
@@ -167,5 +189,5 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 
 # Kernel launches since the last reset (a plain int: set it to 0 to reset);
-# both layouts count here, since both launch the one kernel.
+# both layouts and both routes count here.
 flash_attention.launches = 0

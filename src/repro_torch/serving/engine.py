@@ -135,7 +135,7 @@ class ServingEngine:
                  stop_tokens: Sequence[int] = (), pad_id: int = 0,
                  speculate=None) -> torch.Tensor:
         """Greedy generation of ``n_new`` tokens for the whole batch
-        (B, S) -> (B, n_new).  ``tok0`` comes from the prefill logits, then
+        (B, S) -> (B, n_new) int32.  ``tok0`` comes from the prefill logits, then
         ``n_new - 1`` decode steps each emit one more.  ``stop_tokens``
         masks every token a row emits after its first stop token with
         ``pad_id`` (the stop token itself is kept)."""
@@ -145,7 +145,7 @@ class ServingEngine:
         prompt = self._check(prompt_tokens, n_new, greedy)
         b, s = prompt.shape
         if n_new == 0:
-            return torch.zeros((b, 0), dtype=torch.int64, device=self.device)
+            return torch.zeros((b, 0), dtype=torch.int32, device=self.device)
         cache = init_cache(self.cfg, b, self.max_seq, self.device)
         logits, cache = prefill(self.params, self.cfg, prompt, cache)
         return mask_after_stop(self._decode(logits, cache, s, n_new),
@@ -160,7 +160,7 @@ class ServingEngine:
         prompt = self._check(prompt_tokens, n_new, greedy)
         b, s = prompt.shape
         if n_new == 0:
-            return torch.zeros((b, 0), dtype=torch.int64, device=self.device)
+            return torch.zeros((b, 0), dtype=torch.int32, device=self.device)
         cache = init_cache(self.cfg, b, self.max_seq, self.device)
         logits: Optional[torch.Tensor] = None
         for i in range(s):
@@ -171,11 +171,12 @@ class ServingEngine:
 
     def _decode(self, logits, cache, s: int, n_new: int) -> torch.Tensor:
         """Emit tok0 from the prompt's last logits, then run ``n_new - 1``
-        decode steps from position ``s`` on, each emitting one token."""
-        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        decode steps from position ``s`` on, each emitting one int32 token
+        (the JAX package's token dtype)."""
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
         out = [tok]
         for i in range(n_new - 1):
             logits, cache = decode_step(self.params, self.cfg, tok, cache, s + i)
-            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
             out.append(tok)
         return torch.cat(out, dim=1)

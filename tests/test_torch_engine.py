@@ -16,7 +16,7 @@ import numpy as np  # noqa: E402
 
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
 from repro.serving import mask_after_stop as jax_mask_after_stop  # noqa: E402
-from repro_torch.models import init_cache, prefill  # noqa: E402
+from repro_torch.models import decode_step, init_cache, prefill  # noqa: E402
 from repro_torch.serving import ServingEngine, mask_after_stop  # noqa: E402
 
 from torch_helpers import CPU, assert_greedy_match, prompt, reduced_model  # noqa: E402
@@ -83,3 +83,29 @@ def test_generate_guards():
     with pytest.raises(NotImplementedError):
         ServingEngine(tcfg, tparams, max_seq=12, device="cpu", mesh=object())
     assert eng.generate(toks, n_new=0).shape == (2, 0)
+
+
+@pytest.mark.parametrize("n_new", [0, 3])
+def test_generated_tokens_are_int32_as_in_jax(n_new):
+    """Both engines return int32 tokens, the empty result included; the
+    port's decode loop feeds them back to its int32-indexed embedding."""
+    jcfg, jparams, tcfg, tparams = reduced_model()
+    toks = prompt(2, 8, jcfg.vocab)
+    jeng = JaxEngine(jcfg, jparams, max_seq=16, pim_bits=8)
+    eng = ServingEngine(tcfg, tparams, max_seq=16, pim_bits=8, device="cpu")
+    want = np.asarray(jeng.generate(jnp.asarray(toks), n_new=n_new))
+    got = eng.generate(torch.from_numpy(toks), n_new=n_new)
+    ref = eng.generate_reference(torch.from_numpy(toks), n_new=n_new)
+    assert want.dtype == np.int32
+    assert got.dtype == ref.dtype == torch.int32
+    assert got.shape == ref.shape == want.shape == (2, n_new)
+
+
+def test_decode_step_takes_int32_and_int64_ids_alike():
+    _, _, tcfg, tparams = reduced_model()
+    toks = torch.from_numpy(prompt(2, 1, tcfg.vocab))
+    out = {}
+    for dtype in (torch.int32, torch.int64):
+        cache = init_cache(tcfg, 2, 4, CPU)
+        out[dtype], _ = decode_step(tparams, tcfg, toks.to(dtype), cache, 0)
+    torch.testing.assert_close(out[torch.int32], out[torch.int64], rtol=0, atol=0)

@@ -11,6 +11,10 @@ mirrors line for line, f32 within 1e-6 (the same operations, summed in
 another order by another library) and bf16 equal up to one bf16 ulp (two f32
 results that close round to the same or to adjacent bf16 values).
 """
+import importlib.util
+import math
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -161,3 +165,89 @@ def test_wrappers_reject_what_the_contract_does_not_take():
         flash_attention_gqa(q.to("meta"), k.to("meta"), v.to("meta"), causal=True)
     with pytest.raises(ValueError, match="on cpu"):
         flash_attention_gqa(q, k.to("meta"), v, causal=True)
+
+
+def test_check_aligned_takes_the_model_layouts_and_rejects_odd_steps():
+    """The bf16 route's rule (checked on CUDA tensors only): 16-byte aligned
+    pointers, strides in multiples of 8 elements except the last and those
+    of size-1 dims."""
+    q = torch.zeros((1, 64, 2, 6, 128), dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 64, 128), dtype=torch.bfloat16).transpose(1, 2)  # a cache view
+    v = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16)
+    port_flash._check_aligned(q, k, v)
+    port_flash._check_aligned(q[:, :, :1, :1], k[:, :, :1], v[:, :, :1])
+    odd = torch.zeros((1, 64, 2, 129), dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        port_flash._check_aligned(q, odd, v)
+    shifted = torch.zeros(64 * 2 * 128 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 2, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        port_flash._check_aligned(q, k, shifted)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module, for its bars (it runs nothing on import)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mma_route(q, k, v, *, causal, split_p):
+    """The CUDA bf16 route's arithmetic, emulated on the CPU: bf16 inputs
+    (exact in f32), f32 scores scaled after the product, an online softmax
+    over tiles of KV_TILE_BF16 keys, p.v with p either split into bf16 hi
+    and lo halves (``split_p``, what the kernel does) or rounded once to
+    bf16 (what SDPA does), f32 accumulation; the output rounded to bf16."""
+    b, sq, kvh, g, d = q.shape
+    sk = k.shape[1]
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    m = torch.full((b, kvh, g, sq), float("-inf"))
+    l = torch.zeros((b, kvh, g, sq))
+    acc = torch.zeros((b, kvh, g, sq, d))
+    qi = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, port_flash.KV_TILE_BF16):
+        kj, vj = kf[:, k0:k0 + port_flash.KV_TILE_BF16], vf[:, k0:k0 + port_flash.KV_TILE_BF16]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kj) * scale
+        if causal:
+            s = s.masked_fill(k0 + torch.arange(kj.shape[1])[None, :] > qi, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.exp(m - m_use)
+        p = torch.exp(s - m_use[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", hi, vj)
+        if split_p:
+            pv = pv + torch.einsum("bhgqk,bkhd->bhgqd", (p - hi).bfloat16().float(), vj)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(torch.bfloat16)
+
+
+# chip_smoke.py's FLASH_BHSD as (B, Sq, Sk, KV, G, D), and a ragged length at
+# the model's heads.
+MMA_SHAPES = [(bh, sq, sk, 1, 1, d) for bh, sq, sk, d in SHAPES] + [(1, 1000, 1000, 2, 6, 128)]
+
+
+@pytest.mark.parametrize("split_p", [True, False], ids=["split_p", "single_bf16_p"])
+@pytest.mark.parametrize("shape", MMA_SHAPES, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_mma_route_arithmetic_within_the_bf16_bar(shape, causal, split_p):
+    """The bf16 route's design holds chip_smoke.py's bar (``within_bf16_ulp``:
+    KERNEL_TOL plus one bf16 ulp) against ``flash_attention_plain`` only
+    with p split: a single bf16 p must break it (over these cases it uses
+    3.5-13x the bar, the split at most 0.95)."""
+    b, sq, sk, kvh, g, d = shape
+    rng = np.random.default_rng(sq + 7 * sk + g)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+               for s in ((b, sq, kvh, g, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    ok, err, share, _ = _chip_smoke().within_bf16_ulp(
+        _mma_route(q, k, v, causal=causal, split_p=split_p),
+        flash_attention_plain(q, k, v, causal=causal))
+    if split_p:
+        assert ok, (err, share)
+    else:
+        assert not ok, f"a single bf16 p stayed within the bar ({share:.3g} of it)"
