@@ -386,11 +386,15 @@ def main() -> int:
     return 0
 
 
+# Numbers a timing dict computes from its measured times or the data sheet.
+COMPUTED_KEYS = {"f32_cuda_core_ms", "kernel_tflop_per_s", "kernel_bound_share"}
+
+
 def _measured(times):
-    """A timing dict without its f32 CUDA-core term: that term is computed from
-    the data sheet, not measured, so it stays on the timing lines and out of
-    the kernels line, whose one computed number is ``bound_ms``."""
-    return {key: v for key, v in times.items() if key != "f32_cuda_core_ms"}
+    """A timing dict without its computed terms (``COMPUTED_KEYS``): they stay
+    on the timing lines and out of the kernels line, whose one computed
+    number is ``bound_ms``."""
+    return {key: v for key, v in times.items() if key not in COMPUTED_KEYS}
 
 
 def within_tol(got, ref):

@@ -454,8 +454,9 @@ int launch_d(const Args& a, int heads, int bf16, cudaStream_t s) {
         return static_cast<int>(cudaGetLastError());
     }
     constexpr int bytes = mma_smem_bytes<D>();  // 87,040 at D = 128: above the 48 KB default
-    // Once per head dim, at the first launch (so never inside a graph capture).
-    static const cudaError_t err = cudaFuncSetAttribute(
+    // At every launch: cheap, legal inside a graph capture, and set for the
+    // device that is current now.
+    const cudaError_t err = cudaFuncSetAttribute(
         flash_attn_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     flash_attn_mma_kernel<D><<<grid, kMmaThreads, bytes, s>>>(a);

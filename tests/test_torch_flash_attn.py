@@ -11,6 +11,7 @@ mirrors line for line, f32 within 1e-6 (the same operations, summed in
 another order by another library) and bf16 equal up to one bf16 ulp (two f32
 results that close round to the same or to adjacent bf16 values).
 """
+import functools
 import importlib.util
 import math
 from pathlib import Path
@@ -184,8 +185,10 @@ def test_check_aligned_takes_the_model_layouts_and_rejects_odd_steps():
         port_flash._check_aligned(q, k, shifted)
 
 
+@functools.cache
 def _chip_smoke():
-    """chip_smoke.py as a module, for its bars (it runs nothing on import)."""
+    """chip_smoke.py as a module, for its bars (it runs nothing on import),
+    loaded once."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
@@ -198,11 +201,14 @@ def _mma_route(q, k, v, *, causal, split_p):
     (exact in f32), f32 scores scaled after the product, an online softmax
     over tiles of KV_TILE_BF16 keys, p.v with p either split into bf16 hi
     and lo halves (``split_p``, what the kernel does) or rounded once to
-    bf16 (what SDPA does), f32 accumulation; the output rounded to bf16."""
+    bf16 (what SDPA does), f32 accumulation; the output rounded to bf16.
+    Its exponents are the kernel's: ``exp2f(fmaf(s, log2e, -m * log2e))``,
+    the fma formed in f64 (the f32 product is exact there) and rounded once."""
     b, sq, kvh, g, d = q.shape
     sk = k.shape[1]
     qf, kf, vf = (t.float() for t in (q, k, v))
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
     m = torch.full((b, kvh, g, sq), float("-inf"))
     l = torch.zeros((b, kvh, g, sq))
     acc = torch.zeros((b, kvh, g, sq, d))
@@ -214,8 +220,9 @@ def _mma_route(q, k, v, *, causal, split_p):
             s = s.masked_fill(k0 + torch.arange(kj.shape[1])[None, :] > qi, float("-inf"))
         m_new = torch.maximum(m, s.amax(-1))
         m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
-        corr = torch.exp(m - m_use)
-        p = torch.exp(s - m_use[..., None])
+        corr = torch.exp2((m - m_use) * log2e)
+        base = (m_use * log2e)[..., None]
+        p = torch.exp2((s.double() * log2e.double() - base.double()).float())
         l = l * corr + p.sum(-1)
         hi = p.bfloat16().float()
         pv = torch.einsum("bhgqk,bkhd->bhgqd", hi, vj)
