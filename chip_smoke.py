@@ -29,7 +29,11 @@ Phases:
 2. each kernel against its plain PyTorch version, rtol 1e-5, atol 1e-4:
    ``pim_matvec`` at the decode path's full-width shapes (int8 and int4,
    M in {1, 4, 8}, every epilogue, f32 and bf16 inputs, one odd-K int4
-   weight); ``pim_matmul`` at the seven linears' shapes with M in {9, 512}
+   weight); the build report of the two kernels this slice redesigned
+   (``pim_matvec``, ``fold_reduce``: ptxas's registers and spills, the plan
+   each of qwen2-1.5b's shapes gets, and one ``pim_matvec`` call traced with
+   torch.profiler, which must launch exactly one kernel); ``pim_matmul`` at
+   the seven linears' shapes with M in {9, 512}
    and at ragged shapes that are multiples of no tile (one with M <= 8), the
    same grid of bits, epilogues and dtypes;
 3. the decode path: 4 requests of 128 prompt tokens, 32 new tokens, int8
@@ -42,7 +46,8 @@ Phases:
    launch 0 times (a 128-token prefill attends directly).  The same path in
    f32 must give the logits of its plain version (every decode linear through
    ``pim_matvec_plain`` on the card) within PATH_TOL, and a planted fault
-   (one layer's ``down`` loses its last K split) must fail that check;
+   (one layer's ``down`` loses its last DROPPED_ROWS K rows) must fail that
+   check;
 4. the entry point, at bits 8 and then 4: ``pim_matmul`` must launch
    exactly 7 x 28 times per pass and every output agree with
    ``pim_matmul_plain`` within KERNEL_TOL; a planted fault (one layer's
@@ -91,7 +96,11 @@ Phases:
    layer within the bf16 bar; (c) the same prefill in f32 against the same
    prefill with attention through ``flash_attention_plain`` on the card
    within LONG_PATH_TOL, where a planted fault (layer n/2's attention loses
-   its last KV tile) must fail; (d) times per layer call and per prefill
+   its last KV tile) must fail; one layer's bf16 decode attention over the
+   long path's cache, kept in bf16 with f32 outputs: its scores and its p.v
+   (on the same weights) within DECODE_ATTN_TOL of the form that copied the
+   cache to f32, no f32 copy in its peak memory; (d) times per layer call
+   and per prefill
    (28 calls): kernel (with its achieved TFLOP/s and share of the bound),
    bound (the causal multiply-adds at the bf16 tensor cores' rate; bytes
    and the f32 CUDA-core term beside it), plain version and
@@ -104,6 +113,7 @@ import concurrent.futures
 import contextlib
 import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -119,8 +129,10 @@ from repro_torch.kernels.bitplane import bitplane_matmul, bitplane_matmul_plain 
 from repro_torch.kernels.flash_attn import (  # noqa: E402
     KV_TILE, KV_TILE_BF16, flash_attention, flash_attention_gqa, flash_attention_plain)
 from repro_torch.kernels.fold_reduce import fold_reduce, fold_reduce_plain  # noqa: E402
+from repro_torch.kernels.fold_reduce import plan as fold_plan  # noqa: E402
 from repro_torch.kernels.pim_matmul import BLOCK_K, pim_matmul, pim_matmul_plain  # noqa: E402
-from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain, split_rows  # noqa: E402
+from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain  # noqa: E402
+from repro_torch.kernels.pim_matvec import plan as matvec_plan  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     attention, common, decode_step, init_cache, init_params, prefill)
 from repro_torch.quant import (  # noqa: E402
@@ -146,6 +158,15 @@ LOGIT_TOL = 0.25
 # order of f32 sums inside each linear.  The H100 gave 1.1e-5; the planted
 # fault gave 0.17.
 PATH_TOL = 1e-3
+# The planted fault of the f32 path check: layer n/2's `down` loses its last
+# 86 of 8,960 K rows, the rows the last K split of the two-pass kernel
+# covered (88 splits of 102 rows on 132 SMs), kept at that size.
+DROPPED_ROWS = 86
+# One bf16 layer's decode attention over the long path's cache, the cache
+# kept in bf16 against the form that copied it to f32: each contraction
+# sums the same exact products in another order, within 1e-5 of its largest
+# value.
+DECODE_ATTN_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
@@ -229,6 +250,10 @@ def main() -> int:
     max_err = max(max_err, odd_k_case(gen))
     print(f"pim_matvec vs plain: max |err| {max_err:.3g} within rtol "
           f"{KERNEL_TOL['rtol']} atol {KERNEL_TOL['atol']}")
+    # The checks this slice added draw from a generator of their own, so the
+    # other phases' inputs do not depend on them.
+    gen_new = torch.Generator(device=dev).manual_seed(SEED + 4)
+    print(json.dumps(redesign_build_report(eng8, eng4, gen_new)))
     mm_cases = matmul_cases(params, gen_mm)
     mm_err = kernel_vs_plain(pim_matmul, pim_matmul_plain, mm_cases, gen_mm)
     print(f"pim_matmul vs plain: max |err| {mm_err:.3g} within rtol "
@@ -292,7 +317,10 @@ def main() -> int:
     mv_weights = {bits: engine_weights(eng, bits) for eng, bits in ((eng8, 8), (eng4, 4))}
     shapes, steps = timings(pim_matvec, pim_matvec_plain, BATCH, mv_weights, gen,
                             "one decode step", library=library_calls)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for row in shapes:
+        pl = matvec_plan(row["K"] * row["bits"] // 8, row["N"], BATCH, row["bits"], sms)
+        row["plan"] = {"tile_n": pl.tile_n, "cluster": pl.cluster, "ctas": pl.ctas}
         print(json.dumps(row))
     print(json.dumps({"decode_step_launches": steps}))
     step = steps[8]
@@ -322,6 +350,7 @@ def main() -> int:
     print(json.dumps(fa_build))
     fa_check = flash_vs_plain(cfg, gen_fa)
     print(json.dumps(fa_check))
+    decode_attention_check(cfg, gen_new)
     long_path, long_prompt = long_prompt_path(cfg, params, gen_fa)
     del params, eng8, eng4
     torch.cuda.empty_cache()
@@ -395,6 +424,154 @@ def _measured(times):
     on the timing lines and out of the kernels line, whose one computed
     number is ``bound_ms``."""
     return {key: v for key, v in times.items() if key not in COMPUTED_KEYS}
+
+
+def _ptxas(name, label):
+    """Registers and spills of each kernel in ``csrc/<name>.cu``'s build log
+    (``-Xptxas -v``), keyed by ``label(mangled name)`` (None skips it)."""
+    lib = build.library_path(name)
+    out = {}
+    for entry in lib.with_name(lib.name + ".log").read_text().split("Compiling entry function")[1:]:
+        key = label(entry.split("'")[1])
+        regs = re.search(r"Used (\d+) registers", entry)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        if key and regs:
+            out[key] = {"registers": int(regs[1]),
+                        "spill_store_bytes": int(spills[1]) if spills else None,
+                        "spill_load_bytes": int(spills[2]) if spills else None}
+    return out
+
+
+def _matvec_label(mangled):
+    found = re.search(r"pim_matvec_kernelILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    return found and f"bits {found[1]}, x {'bf16' if found[2] == '1' else 'f32'}, tile {found[3]}"
+
+
+def _fold_label(mangled):
+    found = re.search(r"fold_reduce_kernelI(f|13__nv_bfloat16)E", mangled)
+    return found and ("f32" if found[1] == "f" else "bf16")
+
+
+def kernels_in_one_call(fn):
+    """The device kernels ``fn()`` launches, by name, from a torch.profiler
+    trace (written under build/traces/)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace = Path(__file__).resolve().parent / "build" / "traces" / "one_call.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    return [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def redesign_build_report(eng8, eng4, gen):
+    """The two kernels this slice redesigned: ptxas's registers and spills
+    for each built variant; the plan (tile, cluster, CTAs) ``pim_matvec``'s
+    planner gives each of qwen2-1.5b's decode linears at bits 8 and 4 (M =
+    BATCH, bf16 x) and ``fold_reduce``'s at FOLD_SHAPES; and the device
+    kernels one ``pim_matvec`` call launches (a torch.profiler trace), which
+    must be exactly one."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {}
+    for eng, bits in ((eng8, 8), (eng4, 4)):
+        for name, qs, _ in engine_weights(eng, bits):
+            k, n = qs[0].shape
+            pl = matvec_plan(qs[0].codes.shape[0], n, BATCH, bits, sms)
+            plans[f"{name} ({k} x {n}) bits {bits}"] = {
+                "tile_n": pl.tile_n, "cluster": pl.cluster, "ctas": pl.ctas,
+                "m_rows": pl.m_rows, "rows_per_cta": pl.rows_per_cta}
+    folds = {f"({rows}, {q}) {label}": fold_plan(rows, q, size, sms)._asdict()
+             for rows, q in FOLD_SHAPES for label, size in (("f32", 4), ("bf16", 2))}
+    q = engine_weights(eng8, 8)[0][1][0]
+    x = torch.randn((BATCH, q.shape[0]), generator=gen, device=gen.device).to(torch.bfloat16)
+    pim_matvec(x, q.codes, q.scale, bits=8)  # warm-up
+    torch.cuda.synchronize()
+    names = kernels_in_one_call(lambda: pim_matvec(x, q.codes, q.scale, bits=8))
+    report = {"check": "pim_matvec and fold_reduce build",
+              "pim_matvec_ptxas": _ptxas("pim_matvec", _matvec_label),
+              "fold_reduce_ptxas": _ptxas("fold_reduce", _fold_label),
+              "pim_matvec_plans": plans, "fold_reduce_plans": folds,
+              "pim_matvec_kernels_per_call": names}
+    check(len(names) == 1 and "pim_matvec" in names[0],
+          f"one pim_matvec call launched {names}, expected one pim_matvec kernel")
+    return report
+
+
+def decode_attention_check(cfg, gen):
+    """One bf16 layer's decode attention over the long path's cache
+    (LONG_PROMPT + LONG_NEW slots, the query at position LONG_PROMPT), the
+    cache kept in bf16 with f32 outputs (``attention.decode_attention``),
+    against the form that copied the cache to f32.  Each contraction sums
+    the same exact bf16 products in another order: the scores q.k, and p.v
+    on the same bf16 weights, must agree within DECODE_ATTN_TOL of their
+    largest value.  End to end the two forms differ by more, since both
+    round the softmax weights to bf16 (as the JAX package does) and a
+    last-bit difference in a score can move a weight's rounding by one bf16
+    ulp: that difference and the count of such weights are reported.  The
+    call's peak memory above its inputs (after a warm-up call, which leaves
+    cuBLAS's workspace allocated) must stay under half of one f32 copy of K:
+    no such copy is formed.  Device time of both forms per layer call (CUDA
+    graph replays).  Prints its report."""
+    dev = gen.device
+    kv, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    slots, pos = LONG_PROMPT + LONG_NEW, LONG_PROMPT
+    q = torch.randn((1, kv, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    ck, cv = (torch.randn((1, kv, slots, d), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    valid = torch.arange(slots, device=dev) <= pos
+
+    def f32_copy_form(weights=None):
+        s = torch.einsum("bhgd,bhkd->bhgk", q.to(torch.float32), ck.to(torch.float32)) / math.sqrt(d)
+        w = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1).to(cv.dtype)
+        w = w if weights is None else weights
+        return s, w, torch.einsum("bhgk,bhkd->bhgd", w.to(torch.float32), cv.to(torch.float32))
+
+    s_old, w_old, want = f32_copy_form()
+    attention.decode_attention(q, ck, cv, pos)  # warm-up: cuBLAS's workspace
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = attention.decode_attention(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    # The bf16-cache form's two contractions, step by step.
+    s_new = attention.bmm_f32(q.reshape(kv, g, d), ck.reshape(kv, slots, d).transpose(1, 2))
+    s_new = (s_new / math.sqrt(d)).reshape(s_old.shape)
+    w_new = torch.softmax(s_new.masked_fill(~valid, float("-inf")), dim=-1).to(cv.dtype)
+    pv_new = attention.pv_f32(w_new.reshape(kv, g, slots), cv.reshape(kv, slots, d))
+    _, _, pv_old = f32_copy_form(w_new)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    scores_rel = rel(s_new[..., valid], s_old[..., valid])
+    pv_rel = rel(pv_new.reshape(pv_old.shape), pv_old)
+    end_rel = rel(got, want)
+    f32_copy = ck.numel() * 4
+    report = {"check": "bf16 decode attention, cache kept in bf16 vs copied to f32",
+              "cache_slots": slots, "position": pos, "tol": DECODE_ATTN_TOL,
+              "scores_max_abs_diff_over_max_abs": scores_rel,
+              "pv_same_weights_max_abs_diff_over_max_abs": pv_rel,
+              "end_to_end_max_abs_diff_over_max_abs": end_rel,
+              "step_by_step_bit_identical": torch.equal(got, pv_new.reshape(got.shape)),
+              "weights_rounded_differently": int((w_new != w_old).sum()),
+              "weights": int(valid.sum()) * kv * g,
+              "peak_bytes_above_inputs": extra, "f32_copy_of_k_bytes": f32_copy,
+              "bf16_cache_ms": _time_ms([lambda: attention.decode_attention(q, ck, cv, pos)], 50),
+              "f32_copy_ms": _time_ms([lambda: f32_copy_form()[2]], 50),
+              "per": "one layer's decode attention at (B 1, KV 2, G 6, D 128); device time "
+                     "(CUDA graph replay)"}
+    print(json.dumps(report))
+    check(got.dtype == torch.float32 and got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"decode_attention gave {got.dtype} {tuple(got.shape)}")
+    check(scores_rel <= DECODE_ATTN_TOL and pv_rel <= DECODE_ATTN_TOL,
+          f"decode attention in bf16 vs the f32-copy form: scores {scores_rel:.3g}, p.v on the "
+          f"same weights {pv_rel:.3g} of the largest value > {DECODE_ATTN_TOL}")
+    check(extra < f32_copy // 2, f"decode attention allocated {extra} bytes above its inputs, "
+          f"against {f32_copy} for an f32 copy of K")
+    return report
 
 
 def within_tol(got, ref):
@@ -572,18 +749,16 @@ def decode_linears_through(fn):
 
 def dropped_split(n_layers, layer, index):
     """The wrapper with one planted fault: in linear ``index`` (of LINEARS)
-    of ``layer``, the last K split of the kernel's first pass adds nothing
-    (the activations it multiplies are zeroed).  Counts decode calls, so it
-    holds for a prefill (which makes none) and then decode steps."""
+    of ``layer``, the last DROPPED_ROWS K rows add nothing (the activations
+    they multiply are zeroed).  Counts decode calls, so it holds for a
+    prefill (which makes none) and then decode steps."""
     calls = 0
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def faulty(x, w_codes, scale, *, bits=8, **kw):
         nonlocal calls
         if calls % (n_layers * len(LINEARS)) == layer * len(LINEARS) + index:
-            splits, per = split_rows(w_codes.shape[0], w_codes.shape[1], sm)
             x = x.clone()
-            x[:, (splits - 1) * per * (8 // bits):] = 0
+            x[:, -DROPPED_ROWS:] = 0
         calls += 1
         return pim_matvec(x, w_codes, scale, bits=bits, **kw)
     return faulty
@@ -613,7 +788,7 @@ def against_plain(eng8, gen, prompt, toks, lo8):
     print(json.dumps({"check": "int8 f32 kernel path vs plain path",
                       "max_abs_logit_diff": diff, "tol": PATH_TOL,
                       "logit_std": lp.std().item(),
-                      "planted_fault": f"layer {cfg.n_layers // 2} down: last K split dropped",
+                      "planted_fault": f"layer {cfg.n_layers // 2} down: last {DROPPED_ROWS} K rows dropped",
                       "planted_fault_f32_diff_vs_plain": fault,
                       "planted_fault_bf16_diff_vs_overlay": fault8,
                       "logit_tol": LOGIT_TOL}))
@@ -1018,6 +1193,7 @@ def fold_phase(gen):
             return _time_ms([functools.partial(fn, x, *args) for x in ins], 20) * 1e3
 
         row = {"kernel": "fold_reduce", "rows": rows, "q": q, "dtype": "float32",
+               "plan": fold_plan(rows, q, 4, torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
                "kernel_us": us(fold_reduce),
                "bound_us": (rows * q * 4 + rows * 4) / HBM_BYTES_PER_S * 1e6, "bound_by": "bytes",
                "plain_us": us(fold_reduce_plain), "library_us": us(torch.sum, -1)}
@@ -1065,22 +1241,18 @@ def flash_build_report():
                           check=True, timeout=300).stdout
     hmma = {}
     for section in sass.split("Function : ")[1:]:
-        found = re.search(r"flash_attn_(mma_)?kernelILi(\d+)E", section.split(None, 1)[0])
-        if found:
-            hmma[f"{'bf16' if found[1] else 'f32'} D={found[2]}"] = section.count("HMMA")
-    ptxas = {}
-    for entry in lib.with_name(lib.name + ".log").read_text().split("Compiling entry function")[1:]:
-        found = re.search(r"flash_attn_(mma_)?kernelILi(\d+)E", entry)
-        regs = re.search(r"Used (\d+) registers", entry)
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
-        if found and regs:
-            ptxas[f"{'bf16' if found[1] else 'f32'} D={found[2]}"] = {
-                "registers": int(regs[1]),
-                "spill_store_bytes": int(spills[1]) if spills else None,
-                "spill_load_bytes": int(spills[2]) if spills else None}
+        key = _flash_label(section.split(None, 1)[0])
+        if key:
+            hmma[key] = section.count("HMMA")
     for d in (16, 32, 64, 128):
         check(hmma.get(f"bf16 D={d}", 0) > 0, f"no HMMA in the bf16 flash kernel at D={d}: {hmma}")
-    return {"check": "flash_attention build", "hmma_instructions": hmma, "ptxas": ptxas}
+    return {"check": "flash_attention build", "hmma_instructions": hmma,
+            "ptxas": _ptxas("flash_attn", _flash_label)}
+
+
+def _flash_label(mangled):
+    found = re.search(r"flash_attn_(mma_)?kernelILi(\d+)E", mangled)
+    return found and f"{'bf16' if found[1] else 'f32'} D={found[2]}"
 
 
 def flash_vs_plain(cfg, gen):

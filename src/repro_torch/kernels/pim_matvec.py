@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -24,10 +25,17 @@ from .epilogue import ACTIVATION_IDS, apply_epilogue
 
 MAX_M = 8  # decode-shaped
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
-_BLOCK_N = 256  # columns per block of the kernel's first pass (kBlockN)
-_MIN_ROWS_PER_SPLIT = 16  # code rows a block sums at least
-_BLOCKS_PER_SM = 4  # first-pass blocks the K split aims for, per SM
-
+# The kernel's plan (csrc/pim_matvec.cu): a CTA of 4 warps covers a tile of
+# 32 to 128 columns, the CTAs of a cluster split the code rows, and x rows
+# may be split into groups.
+TILE_WIDTHS = (128, 64, 32)
+MAX_CLUSTER = 8  # the portable cluster size
+CTAS_PER_SM = 2  # the grid the planner aims for, per SM
+ROW_ALIGN = 16  # a CTA's code rows start on a multiple of this
+STAGE_BYTES = 8192  # code bytes a ring stage holds: STAGE_BYTES / tile rows
+XS_BYTES = 48 * 1024  # staged x (bf16 planes of 8 rows) a CTA holds at once
+X_PAD = 8  # bf16 of padding after each staged x row
+MMA_N = 8  # x rows an mma covers
 
 def pim_matvec_plain(x, w_codes, scale, *, bits: int = 8, bias=None,
                      activation: str = "none", residual=None) -> torch.Tensor:
@@ -41,6 +49,67 @@ def pim_matvec_plain(x, w_codes, scale, *, bits: int = 8, bias=None,
                           activation)
 
 
+class Plan(NamedTuple):
+    """How ``pim_matvec_launch`` covers one (rows, N) weight at M x rows."""
+    tile_n: int        # columns a CTA covers
+    cluster: int       # CTAs of a cluster, splitting the code rows
+    rows_per_cta: int  # code rows of each CTA's slice (the last may be short)
+    m_rows: int        # x rows a CTA takes (1, 2, 4 or 8)
+    stage_rows: int    # code rows a ring stage holds
+    chunk_rows: int    # code rows of x staged at once
+    col_tiles: int
+    m_groups: int
+
+    @property
+    def ctas(self) -> int:
+        return self.cluster * self.col_tiles * self.m_groups
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def staged_k(chunk_rows: int, stage_rows: int, bits: int) -> int:
+    """K values of x a CTA stages for ``chunk_rows`` code rows: whole ring
+    stages, zero past the chunk."""
+    return -(-chunk_rows // stage_rows) * stage_rows * (8 // bits)
+
+
+def plan(rows: int, n: int, m: int, bits: int, sm_count: int, x_planes: int = 1) -> Plan:
+    """The kernel's tile shape from the weight's shape: the widest column
+    tile whose tiles, with a full cluster of MAX_CLUSTER CTAs splitting the
+    code rows, give every SM a CTA (64 and 128 columns read whole 64-byte
+    bursts of each code row; 32 serves the narrowest weights); the smallest
+    cluster that makes CTAS_PER_SM CTAs an SM, up to MAX_CLUSTER (a power of
+    two: clusters of 2, 4 and 8 pack the GPCs); and, where that still leaves
+    SMs without a CTA, x's rows split into groups.  x is staged in chunks of
+    whole ring stages that fit XS_BYTES as ``x_planes`` bf16 planes (1 for
+    bf16 x, 3 for f32 x)."""
+    tile_n = TILE_WIDTHS[-1]
+    for tile_n in TILE_WIDTHS:
+        if -(-n // tile_n) * MAX_CLUSTER >= sm_count:
+            break
+    col_tiles = -(-n // tile_n)
+    cluster = 1
+    while cluster < MAX_CLUSTER and col_tiles * cluster < CTAS_PER_SM * sm_count:
+        cluster *= 2
+    # Slices of whole 16-byte vectors of x, so that it stages as vectors.
+    rows_per_cta = -(-rows // (cluster * ROW_ALIGN)) * ROW_ALIGN
+    cluster = -(-rows // rows_per_cta)  # no empty slice
+    m_rows = _pow2_at_least(m)
+    while m_rows > 1 and col_tiles * cluster * -(-m // m_rows) < sm_count:
+        m_rows //= 2
+    # Stages of up to STAGE_BYTES, at least two a slice where it has the rows.
+    stage_rows = min(STAGE_BYTES // tile_n, max(16, -(-rows_per_cta // 32) * 16))
+    chunk_rows = rows_per_cta
+    while x_planes * MMA_N * (staged_k(chunk_rows, stage_rows, bits) + X_PAD) * 2 > XS_BYTES:
+        chunk_rows = (-(-chunk_rows // stage_rows) - 1) * stage_rows
+    return Plan(tile_n, cluster, rows_per_cta, m_rows, stage_rows, chunk_rows, col_tiles,
+                -(-m // m_rows))
+
+_plan_cached = functools.lru_cache(maxsize=None)(plan)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -50,19 +119,9 @@ def _sm_count(device_index: int) -> int:
 def _launcher():
     fn = load("pim_matvec").pim_matvec_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, p, i, p, i, p, p, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, i, p, p, p, i, p, i, p, i, i, i, i, i, i, i, i, i, i, i, p]
     fn.restype = i
     return fn
-
-
-def split_rows(rows: int, n: int, sm_count: int) -> tuple[int, int]:
-    """(splits, rows_per_split) of the kernel's K split: enough first-pass
-    blocks to give every SM a few, each summing at least a few code rows."""
-    col_blocks = -(-n // _BLOCK_N)
-    want = -(-_BLOCKS_PER_SM * sm_count // col_blocks)
-    splits = max(1, min(want, rows // _MIN_ROWS_PER_SPLIT))
-    per = -(-rows // splits)
-    return -(-rows // per), per
 
 
 def _check_tensor(op, name, t, dtypes, device, shape=None):
@@ -143,9 +202,8 @@ def pim_matvec(
     bias = check_cuda_operands("pim_matvec", x, w_codes, scale, bias, residual)
     dev, (k_w, n) = x.device, w_codes.shape
 
-    splits, per = split_rows(k_w, n, _sm_count(dev.index))
+    pl = _plan_cached(k_w, n, m, bits, _sm_count(dev.index), 1 if x.dtype == torch.bfloat16 else 3)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
     bf16 = torch.bfloat16
     err = _launcher()(
         x.data_ptr(), int(x.dtype == bf16), w_codes.data_ptr(), scale.data_ptr(),
@@ -153,8 +211,8 @@ def pim_matvec(
         int(bias is not None and bias.dtype == bf16),
         None if residual is None else residual.data_ptr(),
         int(residual is not None and residual.dtype == bf16),
-        partial.data_ptr(), out.data_ptr(), m, k_dim, n, bits,
-        ACTIVATION_IDS[activation], splits, per,
+        out.data_ptr(), m, k_dim, n, bits, ACTIVATION_IDS[activation], pl.tile_n,
+        pl.cluster, pl.rows_per_cta, pl.m_rows, pl.stage_rows, pl.chunk_rows,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pim_matvec kernel launch failed: CUDA error {err}")

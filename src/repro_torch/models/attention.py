@@ -11,6 +11,7 @@ same dict: a decode step then copies nothing but the new token's K/V.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -137,6 +138,57 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
     return linear(o.reshape(b, s, n_heads * head_dim), p["wo"]), cache
 
 
+def bmm_f32(a, b):
+    """Batched a @ b with f32 outputs.  On the card the operands stay in
+    their storage dtype (``aten::bmm.dtype``, the JAX package's
+    preferred_element_type=f32): no f32 copy of the cache is formed.  That
+    overload has no CPU kernel, so CPU tensors are widened first: a
+    bf16 x bf16 product is exact in f32, so both forms sum the same
+    products."""
+    if a.dtype == torch.float32 or a.device.type != "cuda":
+        return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def key_chunk(s_len: int) -> int:
+    """The keys whose p.v products one tensor-core sum takes on the card: the
+    divisor of the cache length in [128, 512] nearest 256 (so the chunks
+    are views of the cache), or 0 where it has none."""
+    divisors = [c for c in range(128, 513) if s_len % c == 0 and s_len // c >= 2]
+    return min(divisors, key=lambda c: abs(c - 256), default=0)
+
+
+def pv_f32(w, v):
+    """w (N, G, S) @ v (N, S, D) with f32 outputs.  On the card the keys go
+    in chunks of ``key_chunk(S)``: the tensor cores sum each chunk's exact
+    bf16 products and the chunks' sums join in f32 adds, so a long cache's
+    sum keeps f32's accuracy (one tensor-core sum over 16K keys drifts by
+    about 2e-5 of the output).  v is only viewed, never copied."""
+    n, g, s = w.shape
+    chunk = key_chunk(s) if w.device.type == "cuda" and w.dtype != torch.float32 else 0
+    if not chunk or not v.is_contiguous():
+        return bmm_f32(w, v)
+    c, d = s // chunk, v.shape[-1]
+    wc = w.reshape(n, g, c, chunk).transpose(1, 2).reshape(n * c, g, chunk)
+    return bmm_f32(wc, v.reshape(n * c, chunk, d)).reshape(n, c, g, d).sum(dim=1)
+
+
+def decode_attention(q, ck, cv, pos: int) -> torch.Tensor:
+    """One decode step's attention: q (B, KV, G, D) over the cache ck, cv
+    (B, KV, S, D), keys past ``pos`` masked.  q is cast to the cache dtype,
+    scores and softmax are f32, the weights are cast back to the cache
+    dtype before p.v, as in the JAX package.  Returns (B, KV, G, D) f32."""
+    b, kv, g, d = q.shape
+    s_len = ck.shape[2]
+    qg = q.to(ck.dtype).reshape(b * kv, g, d)
+    s = bmm_f32(qg, ck.reshape(b * kv, s_len, d).transpose(1, 2)) / math.sqrt(d)
+    valid = torch.arange(s_len, device=q.device) <= pos
+    w = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    o = pv_f32(w.to(cv.dtype), cv.reshape(b * kv, s_len, d))
+    return o.reshape(b, kv, g, d)
+
+
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, *,
                 n_heads: int, n_kv: int, head_dim: int, rope_theta: float = 0.0):
     """One decode step of x (B, 1, D) at position ``pos`` (tokens already
@@ -163,16 +215,6 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, *,
         cache["k"][:, :, pos:pos + 1] = k_t
         cache["v"][:, :, pos:pos + 1] = v_t
         ck, cv = cache["k"], cache["v"]
-    g = n_heads // n_kv
-    # Operands stay in the cache dtype; the products are summed in f32 (the
-    # JAX package's preferred_element_type=f32).
-    qg = q.reshape(b, 1, n_kv, g, head_dim).to(ck.dtype)
-    s = torch.einsum("bqhgd,bhkd->bhgqk", qg.to(torch.float32), ck.to(torch.float32))
-    s = s / math.sqrt(head_dim)
-    valid = torch.arange(ck.shape[2], device=x.device) <= pos
-    s = s.masked_fill(~valid, float("-inf"))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bqhgd", w.to(cv.dtype).to(torch.float32),
-                     cv.to(torch.float32))
+    o = decode_attention(q.reshape(b, n_kv, n_heads // n_kv, head_dim), ck, cv, pos)
     o = o.reshape(b, 1, n_heads * head_dim).to(x.dtype)
     return linear(o, p["wo"]), cache

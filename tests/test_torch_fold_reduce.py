@@ -14,6 +14,7 @@ from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.fold_reduce import fold_reduce as jax_fold_reduce  # noqa: E402
 from repro_torch.kernels import fold_reduce, fold_reduce_plain, ops, ref  # noqa: E402
+from repro_torch.kernels.fold_reduce import plan  # noqa: E402
 
 
 def _x(rows, q, seed):
@@ -91,3 +92,132 @@ def test_fold_reduce_counts_kernel_launches_only():
     with pytest.raises(ValueError, match="cpu or cuda"):
         fold_reduce(x.to("meta"))
     assert fold_reduce.launches == before
+
+
+# The CUDA kernel's decomposition of the fold (csrc/fold_reduce.cu), emulated
+# level by level on the CPU in its index mapping: element i = V * (l + k L) + j
+# sits at slot j of lane l's k-th vector, L = S * T lanes a row (T threads
+# in each of S CTAs).  An H100 has 132 SMs; the plan depends on it only
+# through the cluster split.
+SM_COUNT = 132
+EMULATED_Q = (1, 2, 4, 64, 128, 256, 4096, 32768)
+FOLD_SHAPES = ((6144, 128), (48, 32768))  # chip_smoke.py's fold_sum shapes
+
+
+def _brev(r, bits):
+    return int(format(r, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _own_list(a):
+    """(rows, E, L, V) -> (rows, L, V): each lane folds its E vectors, slot
+    by slot; up to 8 by halving in registers, beyond in bit-reversed reading
+    order, 8 at a time as adjacent pairs, merged on a stack."""
+    e = a.shape[1]
+    if e <= 8:
+        h = e // 2
+        while h:
+            a = a[:, :h] + a[:, h:2 * h]
+            h //= 2
+        return a[:, 0]
+    bits = e.bit_length() - 1
+    stack = []
+    for c in range(e // 8):
+        v = [a[:, _brev(8 * c + u, bits)] for u in range(8)]
+        w = 1
+        while w < 8:
+            for u in range(0, 8, 2 * w):
+                v[u] = v[u] + v[u + w]
+            w *= 2
+        acc = v[0]
+        cc = c
+        while cc & 1:
+            acc = stack.pop() + acc
+            cc >>= 1
+        stack.append(acc)
+    return stack[0]
+
+
+def _pair_down(a, d, mispair):
+    """Lanes t < d of the last-but-one axis add lane t + d (the others keep
+    theirs); ``mispair`` pairs lane 2t with 2t + 1 instead."""
+    a = a.clone()
+    if mispair:
+        a[:, :d] = a[:, 0:2 * d:2] + a[:, 1:2 * d:2]
+    else:
+        a[:, :d] = a[:, :d] + a[:, d:2 * d]
+    return a
+
+
+def emulate_fold(x, itemsize, mispair_level=None):
+    """The kernel's arithmetic on (rows, q) x (f32 values; ``itemsize`` the
+    card's element size, which sets the plan): own list, cross-CTA levels
+    (distributed shared memory), cross-warp levels (shared memory), shuffle
+    levels (__shfl_down_sync within segments of min(T, 32) lanes), in-register
+    levels.  ``mispair_level`` (an index into the lane levels, top first)
+    plants a fault there.  Returns (rows,) f32."""
+    rows, q = x.shape
+    pl = plan(rows, q, itemsize, SM_COUNT)
+    v, t, s, e = pl
+    assert v * t * s * e == q
+    a = _own_list(x.reshape(rows, e, s * t, v))           # (rows, L, V)
+    lane_levels = []
+    a = a.reshape(rows, s, t, v)
+    d = s // 2
+    while d:                                               # across CTAs: rank r + d
+        lane_levels.append(d)
+        a = _pair_down(a, d, len(lane_levels) - 1 == mispair_level)
+        d //= 2
+    a = a[:, 0]                                            # CTA rank 0: (rows, T, V)
+    d = t // 2
+    while d >= 32:                                         # across warps
+        lane_levels.append(d)
+        a = _pair_down(a, d, len(lane_levels) - 1 == mispair_level)
+        d //= 2
+    width = min(t, 32)
+    a = a[:, :width]
+    d = width // 2
+    while d:                                               # shuffles: src t + d inside the segment
+        lane_levels.append(d)
+        if len(lane_levels) - 1 == mispair_level:
+            a = _pair_down(a, d, True)
+        else:
+            src = torch.tensor([i + d if i + d < width else i for i in range(width)])
+            a = a + a[:, src]
+        d //= 2
+    a = a[:, 0]                                            # lane 0: (rows, V)
+    h = v // 2
+    while h:                                               # in registers
+        a = a[:, :h] + a[:, h:2 * h]
+        h //= 2
+    return a[:, 0]
+
+
+def _emulation_cases():
+    return ([(rows, q) for rows, q in FOLD_SHAPES]
+            + [(3, q) for q in EMULATED_Q] + [(1, 32768), (300, 32768)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,q", _emulation_cases())
+def test_kernel_decomposition_is_bit_identical(rows, q, dtype):
+    """The CUDA kernel's split of the levels (own list, cluster, warps,
+    shuffles, registers, as planned for an H100), emulated with f32 adds,
+    equals fold_reduce_plain and the JAX package's Pallas kernel bit for bit."""
+    x = torch.from_numpy(_x(rows, q, seed=rows * 7 + q))
+    if dtype == "bfloat16":
+        x = x.to(torch.bfloat16)
+    got = emulate_fold(x.to(torch.float32), x.element_size())
+    assert torch.equal(got, fold_reduce_plain(x))
+    jx = jnp.asarray(x.to(torch.float32).numpy()).astype(jnp.dtype(dtype))
+    want = np.asarray(jax_fold_reduce(jx, br=64 if rows % 64 == 0 else rows, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rows,q,level", [(6144, 128, 0), (48, 32768, 0), (48, 32768, 3),
+                                          (3, 4096, 2)])
+def test_kernel_decomposition_catches_a_mispaired_level(rows, q, level):
+    """One lane level that pairs adjacent lanes (2t, 2t + 1) instead of t and
+    t + d gives other bits: the comparison above would catch it."""
+    x = torch.from_numpy(_x(rows, q, seed=q + level))
+    assert torch.equal(emulate_fold(x, 4), fold_reduce_plain(x))
+    assert not torch.equal(emulate_fold(x, 4, mispair_level=level), fold_reduce_plain(x))
