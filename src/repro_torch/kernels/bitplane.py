@@ -6,9 +6,14 @@ the quantized weight is stored as B one-bit planes (B, K, N), LSB first and
 two's complement, and the product is sum_b w_b * (x @ plane_b) with w_b = 2^b
 and the sign plane's weight -2^(B-1) — PiCaSO's bit-serial MAC in spatial
 form — followed by the epilogue (scale, bias, activation, residual).  The
-CUDA kernel is ``csrc/bitplane_matmul.cu``; it forms each weight from its
-planes on load and runs ``pim_matmul``'s tiling, so it equals the packed
-path bit for bit.
+CUDA kernel is ``csrc/bitplane_matmul.cu``.  It is bounded by the planes'
+bytes (one a bit, 8x the int8 codes at B = 8).  For bf16 x the planes
+stream in by 16-byte ``cp.async``, each word of four weights becomes four
+int8 codes (the plane bytes shifted into place, then sign-extended from B
+bits), and from there it is ``pim_matmul``'s main loop on the tensor cores,
+with ``pim_matmul``'s plan at the same bits: the bit-plane path equals the
+packed one bit for bit.  f32 x keeps the first port's CUDA-core body, the
+twin of ``pim_matmul``'s.
 
 ``bitplane_matmul_plain`` is its plain PyTorch version, plane by plane as
 the TPU kernel computes it.  ``bitplane_matmul`` takes it only for tensors
@@ -23,7 +28,8 @@ import torch
 
 from .build import load
 from .epilogue import ACTIVATION_IDS, apply_epilogue
-from .pim_matvec import check_cuda_operands
+from .pim_matmul import Plan, _plan_cached
+from .pim_matvec import _sm_count, check_cuda_operands
 
 MAX_BITS = 8
 
@@ -61,11 +67,18 @@ def bitplane_matmul_plain(x, planes, scale, *, bias=None, activation: str = "non
     return apply_epilogue(acc, scale.to(torch.float32).reshape(1, -1), bias, res, activation)
 
 
+def planes_plan(x_shape, planes_shape, x_dtype: torch.dtype, sm_count: int) -> Plan:
+    """The plan of x (M, K) against planes (B, K, N): ``pim_matmul``'s plan at
+    (M, K, N) and bits B, the plan the packed kernel takes at those bits."""
+    bits, k, n = planes_shape
+    return _plan_cached(x_shape[0], k, n, bits, x_dtype, sm_count)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = load("bitplane_matmul").bitplane_matmul_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, i, p, p, i, p, i, p, i, i, i, i, p]
+    fn.argtypes = [p, i, p, i, p, p, i, p, i, p, i, i, i, i, i, i, i, i, p]
     fn.restype = i
     return fn
 
@@ -94,6 +107,13 @@ def bitplane_matmul(
     bias = check_cuda_operands("bitplane_matmul", x, planes[0], scale, bias, residual)
     if not planes.is_contiguous():
         raise ValueError("bitplane_matmul: planes must be contiguous")
+    pl = planes_plan(x.shape, planes.shape, x.dtype, _sm_count(x.device.index))
+    return launch(x, planes, scale, bias, activation, residual, pl)
+
+
+def launch(x, planes, scale, bias, activation, residual, pl: Plan) -> torch.Tensor:
+    """One launch of the kernel with the plan ``pl`` on checked operands
+    (the wrapper passes ``pim_matmul``'s plan at these bits)."""
     bits, k_dim, n = planes.shape
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -104,8 +124,8 @@ def bitplane_matmul(
         int(bias is not None and bias.dtype == bf16),
         None if residual is None else residual.data_ptr(),
         int(residual is not None and residual.dtype == bf16),
-        out.data_ptr(), m, k_dim, n, ACTIVATION_IDS[activation],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), m, k_dim, n, ACTIVATION_IDS[activation], pl.tile_n, pl.tile_m,
+        pl.cluster, pl.k_per_cta, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bitplane_matmul kernel launch failed: CUDA error {err}")
     bitplane_matmul.launches += 1

@@ -6,6 +6,8 @@ Pallas kernel in interpret mode and its ``ref`` oracle, and
 are held at rtol 1e-5, atol 1e-4: f32 sums of the same products in another
 order (the Pallas kernel sums each K tile's plane products, then the
 tiles)."""
+import importlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -205,3 +207,78 @@ def test_bitplane_matmul_counts_kernel_launches_only():
     with pytest.raises(ValueError, match="cpu or cuda"):
         bitplane_matmul(x.to("meta"), planes.to("meta"), scale.to("meta"))
     assert bitplane_matmul.launches == before
+
+
+# ---- The tensor-core kernel: codes formed from the planes, the shared plan --
+
+def _vsub4(a, b):
+    """__vsub4: bytewise a - b, each byte wrapping on its own (torch int64)."""
+    out = torch.zeros_like(a)
+    for byte in range(4):
+        sh = 8 * byte
+        out |= ((((a >> sh) & 0xFF) - ((b >> sh) & 0xFF)) & 0xFF) << sh
+    return out
+
+
+def _form_codes(plane_words, bits, sign_extend):
+    """bitplane_matmul.cu's loader on 32-bit words of four weights each:
+    u = OR_b (plane b's word << b), then ``sign_extend(u, s)`` with s =
+    2^(B-1) in each byte.  Returns the four int8 codes of each word."""
+    u = torch.zeros_like(plane_words[0])
+    for b in range(bits):
+        u |= plane_words[b] << b
+    sign = 0x01010101 << (bits - 1)
+    words = sign_extend(u, torch.full_like(u, sign))
+    return torch.stack([((words >> (8 * byte)) & 0xFF) for byte in range(4)], -1).to(
+        torch.uint8).view(torch.int8)
+
+
+def _kernel_sign_extend(u, s):
+    return _vsub4(u ^ s, s)
+
+
+def _all_patterns(bits):
+    """Every B-bit pattern as a code, four to a word, and its planes' words."""
+    lo = -(2 ** (bits - 1))
+    codes = torch.arange(lo, lo + 2 ** bits, dtype=torch.int64)
+    codes = torch.cat([codes, codes[: (-codes.numel()) % 4]])  # whole words
+    planes = to_bitplanes(codes.to(torch.int8), bits).to(torch.int64)  # (B, n) in {0, 1}
+    plane_words = [(p.reshape(-1, 4) << (8 * torch.arange(4))).sum(-1) for p in planes]
+    return codes.reshape(-1, 4), plane_words
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_planes_form_the_twos_complement_codes(bits):
+    """Every B-bit pattern's planes, packed four weights to a 32-bit word as
+    the kernel reads them, become the exact two's-complement code (the
+    codes ``to_bitplanes`` was given, and ``from_bitplanes`` of the planes);
+    a planted wrong sign extension (u - s without the xor) fails."""
+    codes, plane_words = _all_patterns(bits)
+    got = _form_codes(plane_words, bits, _kernel_sign_extend)
+    assert torch.equal(got.to(torch.int64), codes)
+    planes = to_bitplanes(codes.reshape(-1).to(torch.int8), bits)
+    assert torch.equal(got.reshape(-1).to(torch.int32), from_bitplanes(planes))
+    wrong = _form_codes(plane_words, bits, lambda u, s: _vsub4(u, s))
+    assert not torch.equal(wrong.to(torch.int64), codes)
+
+
+QWEN2_SHAPES = {"wq": (1536, 1536), "wk": (1536, 256), "gate": (1536, 8960),
+                "down": (8960, 1536)}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for k, n in QWEN2_SHAPES.values() for m in (9, 512)]
+                         + [(130, 1000, 300), (7, 1000, 300)])
+def test_bitplane_takes_the_packed_plan(m, k, n, bits):
+    """At the same bits the bit-plane kernel's plan, from its planes (B, K, N),
+    is the packed kernel's, from its codes (K or K/2 rows): the same tiles,
+    cluster and K slices, so the f32 joins fall at the same K values (in K
+    values: at bits 4 one kernel reads nibbles, the other formed codes)."""
+    mm = importlib.import_module("repro_torch.kernels.pim_matmul")
+    bp = importlib.import_module("repro_torch.kernels.bitplane")
+    for dtype in (torch.bfloat16, torch.float32):
+        packed = mm.packed_plan((m, k), (k * bits // 8, n), bits, dtype, 132)
+        planes = bp.planes_plan((m, k), (bits, k, n), dtype, 132)
+        assert packed == planes
+        assert packed.joins(k) == planes.joins(k)
+        assert packed.joins(k)[-1][-1] == k

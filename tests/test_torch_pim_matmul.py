@@ -3,6 +3,8 @@ tensors) against the JAX package's Pallas kernel in interpret mode, on the
 pad-to-tile shapes of tests/test_kernels.py, and the port's ``ref`` oracles
 against the JAX package's.  Tolerance rtol 1e-5, atol 1e-4: f32 sums of the
 same products in another order."""
+import importlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,6 +17,12 @@ from repro.kernels.pim_matmul import pim_matmul as jax_pim_matmul  # noqa: E402
 from repro.quant import pack_int4 as jax_pack_int4  # noqa: E402
 from repro.quant import quantize_symmetric as jax_quantize  # noqa: E402
 from repro_torch.kernels import pim_matmul, pim_matmul_plain, ref  # noqa: E402
+
+from torch_helpers import (  # noqa: E402
+    bf16_bits, bf16_from_bits, bf16_pair, ldmatrix_x4, mma_m16n8k16, widen_int4_row,
+    widen_int8_row)
+
+mm = importlib.import_module("repro_torch.kernels.pim_matmul")
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 
@@ -165,3 +173,165 @@ def test_pim_matmul_counts_kernel_launches_only():
     with pytest.raises(ValueError, match="cpu or cuda"):
         pim_matmul(x.to("meta"), codes.to("meta"), scale.to("meta"), bits=8)
     assert pim_matmul.launches == before
+
+
+# ---- The tensor-core kernel's plan and arithmetic (csrc/pim_gemm.cuh) ------
+# qwen2-1.5b's prefill linears (K, N): wq/wo, wk/wv, gate/up, down; and the
+# ragged shapes chip_smoke.py holds the kernel to, with their M.
+QWEN2_SHAPES = {"wq": (1536, 1536), "wk": (1536, 256), "gate": (1536, 8960),
+                "down": (8960, 1536)}
+RAGGED = {"ragged130": (130, 1000, 300), "ragged7": (7, 1000, 300)}
+SM_COUNT = 132  # an H100 SXM
+SMEM_MAX = 232448  # shared memory a block may have (pim_gemm.cuh:kSmemMax)
+PLAN_CASES = ([(name, m, k, n) for name, (k, n) in QWEN2_SHAPES.items() for m in (9, 512)]
+              + [(name, m, k, n) for name, (m, k, n) in RAGGED.items()])
+
+
+def _smem(pl, code_stages, code_bytes, x_stages):
+    """pim_gemm.cuh:smem_bytes for a plan."""
+    ring = (code_stages * code_bytes + x_stages * pl.tile_m * (mm.STAGE_K + 8) * 2
+            + 3 * mm.STAGE_K * (pl.tile_n + 8) * 2)
+    return max(ring, pl.tile_m * (pl.tile_n + 4) * 4)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("name,m,k,n", PLAN_CASES)
+def test_plan_covers_every_output_and_k_once(name, m, k, n, bits):
+    """The bf16 plan: a CTA shape the kernel is built for; every x row, every
+    column and every K value in exactly one tile, row tile, column tile and
+    cluster rank's slice (whole 32-K stages, none empty); every output row
+    finished by exactly one rank of its cluster; shared memory within the
+    block's limit for both kernels (B = 8 planes for the bit-plane one); and,
+    at the prefill's M = 512, a CTA for every SM."""
+    pl = mm.plan(m, k, n, bits, torch.bfloat16, SM_COUNT)
+    assert (pl.tile_n, pl.tile_m) in mm.TILES and pl.cluster in mm.CLUSTERS
+    assert pl.k_per_cta % mm.STAGE_K == 0 and pl.tile_m % pl.cluster == 0
+    k_seen = np.zeros(k, np.int64)
+    for lo, hi in pl.k_slices(k):
+        assert lo < hi, f"an empty K slice: {pl}"
+        k_seen[lo:hi] += 1
+    assert (k_seen == 1).all()
+    rows, cols = np.zeros(m, np.int64), np.zeros(n, np.int64)
+    for r in range(pl.row_tiles):
+        owners = np.zeros(pl.tile_m, np.int64)
+        for rank in range(pl.cluster):
+            share = pl.tile_m // pl.cluster
+            owners[rank * share:(rank + 1) * share] += 1
+        assert (owners == 1).all()
+        rows[r * pl.tile_m:(r + 1) * pl.tile_m] += 1
+    for c in range(pl.col_tiles):
+        cols[c * pl.tile_n:(c + 1) * pl.tile_n] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    assert pl.row_tiles * pl.tile_m < m + pl.tile_m and pl.col_tiles * pl.tile_n < n + pl.tile_n
+    rows_per_stage = mm.STAGE_K // 2 if bits == 4 else mm.STAGE_K
+    assert _smem(pl, 3, rows_per_stage * (pl.tile_n + 16), 5) <= SMEM_MAX
+    assert _smem(pl, 2, 8 * mm.STAGE_K * (pl.tile_n + 16), 4) <= SMEM_MAX
+    if m == 512:
+        assert pl.ctas >= SM_COUNT, pl
+
+
+def test_plan_f32_x_is_the_cuda_core_routes():
+    """f32 x keeps the first port's CUDA-core body: 64 x 64 tiles, all of K."""
+    pl = mm.plan(512, 8960, 1536, 8, torch.float32, SM_COUNT)
+    assert (pl.tile_n, pl.tile_m, pl.cluster) == (64, 64, 1)
+    assert pl.k_slices(8960) == [(0, 8960)]
+
+
+def _word(codes4):
+    """Four int8 codes as the little-endian uint32 word the kernel reads."""
+    return np.asarray(codes4, np.int8).view(np.uint32)[0]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_tensor_core_step_maps_codes_and_x(bits):
+    """One warp's k16 step of the shared main loop, emulated lane by lane in
+    its index mapping (warp 0 of a 64-column x 32-row warp tile): the stage's
+    code words widened along their rows into the bf16 tile [k][n]
+    (widen_int8_row, or widen_int4_row's two K rows a packed row), A's
+    fragments from it by ldmatrix.trans, B's from x's [m][k] rows by
+    ldmatrix, mma.m16n8k16 per 16-column group and 8-row group, and D's lanes
+    back to (x row, column): x @ codes for those 64 columns and 32 rows."""
+    rng = np.random.default_rng(bits)
+    lo_code, hi_code = (-128, 128) if bits == 8 else (-8, 8)
+    codes = rng.integers(lo_code, hi_code, size=(16, 64)).astype(np.int8)
+    stored = codes if bits == 8 else np.asarray(jax_pack_int4(jnp.asarray(codes)))
+    # The widening, word by word, into the bf16 tile (uint16 bit patterns).
+    tile = np.zeros((16, 64), np.uint16)
+    for row in range(stored.shape[0]):
+        for c in range(0, 64, 4):
+            word = _word(stored[row, c:c + 4])
+            if bits == 8:
+                outs = [(row, widen_int8_row(word))]
+            else:
+                lo, hi = widen_int4_row(word)
+                outs = [(2 * row, lo), (2 * row + 1, hi)]
+            for r, (p01, p23) in outs:
+                for q, reg in enumerate((p01, p23)):
+                    tile[r, c + 2 * q] = np.uint16(reg & np.uint32(0xFFFF))
+                    tile[r, c + 2 * q + 1] = np.uint16(reg >> np.uint32(16))
+    np.testing.assert_array_equal(bf16_from_bits(tile), codes.astype(np.float32))
+    x = rng.standard_normal((32, 16)).astype(np.float32)
+    xs16 = bf16_bits(x)
+    # Lane L's rows, as the kernel computes them (wn = wm = 0).
+    a_k = lambda L: ((L >> 4) & 1) * 8 + (L & 7)  # noqa: E731
+    a_n = lambda L: ((L >> 3) & 1) * 8  # noqa: E731
+    b_m = lambda L: ((L >> 4) & 1) * 8 + (L & 7)  # noqa: E731
+    b_k = lambda L: ((L >> 3) & 1) * 8  # noqa: E731
+    b = np.zeros((4, 32, 2, 2))
+    for j in range(0, 4, 2):
+        r = ldmatrix_x4(xs16, lambda L: (b_m(L) + j * 8, b_k(L)))
+        b[j, :, 0], b[j, :, 1] = bf16_pair(r[:, 0]), bf16_pair(r[:, 1])
+        b[j + 1, :, 0], b[j + 1, :, 1] = bf16_pair(r[:, 2]), bf16_pair(r[:, 3])
+    got = np.zeros((32, 64))
+    for i in range(4):
+        regs = ldmatrix_x4(tile, lambda L: (a_k(L), a_n(L) + i * 16), trans=True)
+        a = np.stack([bf16_pair(regs[:, q]) for q in range(4)], 1)
+        for j in range(4):
+            d = mma_m16n8k16(a, b[j])
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                for reg in range(4):
+                    got[j * 8 + 2 * t + (reg & 1), i * 16 + g + (reg >> 1) * 8] = d[lane, reg]
+    want = bf16_from_bits(xs16).astype(np.float64) @ codes.astype(np.float64)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
+def _emulate_kernel_sums(x, codes, pl):
+    """The kernel's f32 sums for bf16 x (M, K) and integer codes (K, N) under
+    plan ``pl``: within each cluster rank's K slice, every 16 K values'
+    products summed (exactly, then rounded to f32, as the tensor cores sum
+    them from zero) and joined to the running sum by an f32 add, in K order;
+    then the ranks' partial sums added in rank order in f32."""
+    xs = torch.from_numpy(x).to(torch.bfloat16).to(torch.float64)
+    w = torch.from_numpy(codes.astype(np.float64))
+    k = x.shape[1]
+    out = None
+    for lo, hi in pl.k_slices(k):
+        acc = torch.zeros((x.shape[0], codes.shape[1]), dtype=torch.float32)
+        for k0 in range(lo, hi, 16):
+            part = (xs[:, k0:k0 + 16] @ w[k0:k0 + 16]).to(torch.float32)
+            acc = acc + part
+        out = acc if out is None else out + acc
+    return out
+
+
+@pytest.mark.parametrize("cluster_of", ["plan", "one"])
+def test_join_order_within_kernel_tol_at_full_depth(cluster_of):
+    """down's K = 8,960 with int8 codes of a seeded weight and bf16 x: the
+    kernel's order of f32 joins (16-K tensor-core sums joined in K order,
+    ranks in rank order), emulated, stays within rtol 1e-5, atol 1e-4 of
+    ``pim_matmul_plain`` (the f32 product) after the scale, on the plan's
+    cluster split and on one CTA over all of K."""
+    m, k, n = 4, 8960, 64
+    rng = np.random.default_rng(8960)
+    x = rng.standard_normal((m, k)).astype(np.float32) * 4
+    q = jax_quantize(jnp.asarray(rng.standard_normal((k, n)).astype(np.float32) * 0.02),
+                     bits=8, axis=0)
+    codes, scale = np.array(q.codes), np.array(q.scale)
+    pl = mm.plan(512, k, n, 8, torch.bfloat16, SM_COUNT)
+    if cluster_of == "one":
+        pl = pl._replace(cluster=1, k_per_cta=k)
+    got = _emulate_kernel_sums(x, codes, pl) * torch.from_numpy(scale).reshape(1, -1)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want = pim_matmul_plain(xb, torch.from_numpy(codes), torch.from_numpy(scale), bits=8)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)

@@ -22,7 +22,10 @@ from repro_torch.kernels.pim_matvec import (  # noqa: E402
 from repro_torch.models import common as tc  # noqa: E402
 from repro_torch.quant import unpack_int4  # noqa: E402
 
-from torch_helpers import CPU, to_numpy  # noqa: E402
+from torch_helpers import CPU, ldmatrix_x4, mma_m16n8k16, to_numpy  # noqa: E402
+from torch_helpers import bf16_from_bits as _bf16  # noqa: E402
+from torch_helpers import widen_int4 as _widen_int4  # noqa: E402
+from torch_helpers import widen_int8 as _widen_int8  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 
@@ -165,39 +168,6 @@ def test_plan_covers_every_row_once(k, n, m, bits):
         _check_plan(k, n, m, bits, SM_COUNT, x_planes)
 
 
-def _bf16(bits16):
-    """uint16 bf16 bit patterns -> float32 values."""
-    return (bits16.astype(np.uint32) << np.uint32(16)).view(np.float32)
-
-
-def _widen_int8(reg):
-    """csrc/pim_matvec.cu:widen_int8 on uint32 registers: each byte, biased
-    (^ 0x80) under 2^23 (0x4B0000nn), minus 2^23 + 128 in f32, keeps the
-    f32's high half as its bf16.  Returns the bf16 values of bytes 0..3."""
-    u = reg ^ np.uint32(0x80808080)
-    out = []
-    for b in range(4):
-        f = (np.uint32(0x4B000000) | ((u >> np.uint32(8 * b)) & np.uint32(0xFF))).view(np.float32)
-        f = (f - np.float32(8388736.0)).astype(np.float32)
-        out.append(_bf16((f.view(np.uint32) >> np.uint32(16)).astype(np.uint16)))
-    return out
-
-
-def _widen_int4(reg):
-    """csrc/pim_matvec.cu:widen_int4: per byte, its biased nibbles under
-    bf16's 128 (0x43 0x00 | v), minus 136.  Returns [(low, high) per byte]."""
-    lo = (reg & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
-    hi = ((reg >> np.uint32(4)) & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
-    out = []
-    for j in range(4):
-        pair = []
-        for half in (lo, hi):
-            v = ((half >> np.uint32(8 * j)) & np.uint32(0xFF)).astype(np.uint16) | np.uint16(0x4300)
-            pair.append(_bf16(v) - np.float32(136.0))
-        out.append(tuple(pair))
-    return out
-
-
 def test_code_widening_is_exact():
     """Every int8 code in every byte of a register widens to its exact value
     (int8 through the 2^23 magic and bf16's high half), and every int4
@@ -211,40 +181,6 @@ def test_code_widening_is_exact():
         lo, hi = _widen_int4(reg)[slot]
         np.testing.assert_array_equal(lo, unpacked[0].astype(np.float32))
         np.testing.assert_array_equal(hi, unpacked[1].astype(np.float32))
-
-
-def _ldmatrix_x4_trans(tile, addr):
-    """ldmatrix.sync.m8n8.x4.trans.b16 on a byte tile: lane L gives the row
-    address addr(L) = (row, byte column) of row L % 8 of matrix L // 8; lane
-    i receives, from matrix j, the b16 elements at rows 2 (i % 4) and
-    2 (i % 4) + 1, column i // 4 (low half the first).  Returns (32, 4)."""
-    regs = np.zeros((32, 4), np.uint32)
-    rows = [[addr(8 * j + r) for r in range(8)] for j in range(4)]
-    for i in range(32):
-        t, g = i % 4, i // 4
-        for j in range(4):
-            halves = []
-            for r in (2 * t, 2 * t + 1):
-                row, col = rows[j][r]
-                b = tile[row, col + 2 * g: col + 2 * g + 2].astype(np.uint32)
-                halves.append(b[0] | (b[1] << np.uint32(8)))
-            regs[i, j] = halves[0] | (halves[1] << np.uint32(16))
-    return regs
-
-
-def _mma(a, b):
-    """mma.m16n8k16 from per-lane fragments: a (32, 4, 2) = a0..a3 (low,
-    high), b (32, 2, 2) = b0, b1; returns D as (32, 4) d0..d3."""
-    A, B = np.zeros((16, 16)), np.zeros((16, 8))
-    for i in range(32):
-        t, g = i % 4, i // 4
-        for reg, (row, col) in enumerate(((g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8), (g + 8, 2 * t + 8))):
-            A[row, col:col + 2] = a[i, reg]
-        B[2 * t:2 * t + 2, g] = b[i, 0]
-        B[2 * t + 8:2 * t + 10, g] = b[i, 1]
-    D = A @ B
-    return np.array([[D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]]
-                     for g, t in ((i // 4, i % 4) for i in range(32))])
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -264,7 +200,8 @@ def test_tensor_core_step_maps_codes_and_x(bits):
     x = rng.standard_normal((8, codes.shape[0])).astype(np.float32)
     xs = _bf16((x.view(np.uint32) >> np.uint32(16)).astype(np.uint16))  # bf16 x, truncated
     # mrow / mcol of the kernel, unit 0, warp column group 0
-    regs = _ldmatrix_x4_trans(tile, lambda L: (((L >> 3) & 1) * 8 + (L & 7), (L >> 4) * 16))
+    regs = ldmatrix_x4(tile.view(np.uint16),
+                       lambda L: (((L >> 3) & 1) * 8 + (L & 7), (L >> 4) * 8), trans=True)
     acc = np.zeros((2, 32, 4))
     if bits == 8:
         a = np.zeros((2, 32, 4, 2))
@@ -279,7 +216,7 @@ def test_tensor_core_step_maps_codes_and_x(bits):
             bfrag[i, 0] = xs[g, 2 * t:2 * t + 2]
             bfrag[i, 1] = xs[g, 2 * t + 8:2 * t + 10]
         for grp in range(2):
-            acc[grp] += _mma(a[grp], bfrag)
+            acc[grp] += mma_m16n8k16(a[grp], bfrag)
     else:
         a = np.zeros((4, 32, 4, 2))
         for r in range(4):
@@ -290,8 +227,8 @@ def test_tensor_core_step_maps_codes_and_x(bits):
             t, g = i % 4, i // 4
             b_lo[i] = xs[g, 4 * t:4 * t + 4].reshape(2, 2)
             b_hi[i] = xs[g, 16 + 4 * t:16 + 4 * t + 4].reshape(2, 2)
-        acc[0] += _mma(a[0], b_lo) + _mma(a[1], b_hi)
-        acc[1] += _mma(a[2], b_lo) + _mma(a[3], b_hi)
+        acc[0] += mma_m16n8k16(a[0], b_lo) + mma_m16n8k16(a[1], b_hi)
+        acc[1] += mma_m16n8k16(a[2], b_lo) + mma_m16n8k16(a[3], b_hi)
     got = np.zeros((8, 32))
     for grp in range(2):
         for i in range(32):

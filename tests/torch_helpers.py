@@ -72,3 +72,119 @@ def assert_greedy_match(want, got, logits_at, tol, msg=""):
             assert margin <= tol, (
                 f"{msg} row {row} diverges at token {j} with top-2 margin "
                 f"{margin:.3g} > {tol}: {want[row]} vs {got[row]}")
+
+
+# ---- Lane-by-lane emulation of the tensor-core kernels' arithmetic ----------
+# (csrc/pim_mma.cuh and csrc/pim_gemm.cuh), for the CPU tests of pim_matvec,
+# pim_matmul and bitplane_matmul.  Registers are uint32 numpy arrays.
+
+def bf16_from_bits(bits16):
+    """uint16 bf16 bit patterns -> float32 values."""
+    return (np.asarray(bits16).astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def bf16_bits(x):
+    """float32 values -> the uint16 bit patterns of their bf16 truncation."""
+    return (np.asarray(x, np.float32).view(np.uint32) >> np.uint32(16)).astype(np.uint16)
+
+
+def _byte(reg, b):
+    return (reg >> np.uint32(8 * b)) & np.uint32(0xFF)
+
+
+def _magic_int8(u, b):
+    """Byte b of a biased register under 2^23 (0x4B0000nn), minus 2^23 + 128
+    in f32: the code's f32, whose high half is its bf16 (bit pattern)."""
+    f = (np.uint32(0x4B000000) | _byte(u, b)).view(np.float32)
+    return ((f - np.float32(8388736.0)).astype(np.float32).view(np.uint32) >> np.uint32(16)).astype(
+        np.uint16)
+
+
+def widen_int8(reg):
+    """pim_mma.cuh:widen_int8 on uint32 registers: the bf16 values of the
+    codes in bytes 0..3."""
+    u = np.asarray(reg, np.uint32) ^ np.uint32(0x80808080)
+    return [bf16_from_bits(_magic_int8(u, b)) for b in range(4)]
+
+
+def widen_int8_row(word):
+    """pim_gemm.cuh:widen_int8_row: four int8 codes of one K row (columns
+    n .. n + 3) as two bf16x2 registers, (n, n + 1) and (n + 2, n + 3)."""
+    u = np.asarray(word, np.uint32) ^ np.uint32(0x80808080)
+    h = [_magic_int8(u, b).astype(np.uint32) for b in range(4)]
+    return h[0] | (h[1] << np.uint32(16)), h[2] | (h[3] << np.uint32(16))
+
+
+def _nibbles(reg):
+    reg = np.asarray(reg, np.uint32)
+    lo = (reg & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
+    hi = ((reg >> np.uint32(4)) & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
+    return lo, hi
+
+
+def _magic_int4(half, b):
+    """Biased nibble of byte b under bf16's 128 (0x43 0x00 | v), minus 136."""
+    v = _byte(half, b).astype(np.uint16) | np.uint16(0x4300)
+    return bf16_from_bits(v) - np.float32(136.0)
+
+
+def widen_int4(reg):
+    """pim_mma.cuh:widen_int4: per byte, its (low, high) nibble codes."""
+    lo, hi = _nibbles(reg)
+    return [(_magic_int4(lo, j), _magic_int4(hi, j)) for j in range(4)]
+
+
+def widen_int4_row(word):
+    """pim_gemm.cuh:widen_int4_row: a packed row's four bytes as the bf16
+    codes of its two K rows, each two bf16x2 registers along the row."""
+    lo, hi = _nibbles(word)
+
+    def pairs(half):
+        h = [bf16_bits(_magic_int4(half, j)).astype(np.uint32) for j in range(4)]
+        return h[0] | (h[1] << np.uint32(16)), h[2] | (h[3] << np.uint32(16))
+    return pairs(lo), pairs(hi)
+
+
+def ldmatrix_x4(tile16, addr, trans=False):
+    """ldmatrix.sync.m8n8.x4{.trans}.b16 on a (rows, cols) uint16 tile: lane L
+    gives addr(L) = (row, column) of row L % 8 of matrix L // 8.  Lane i
+    receives, from matrix j, the elements at row i // 4, columns 2 (i % 4)
+    and 2 (i % 4) + 1 (no .trans), or at rows 2 (i % 4) and 2 (i % 4) + 1,
+    column i // 4 (.trans); the low half the first.  Returns (32, 4) uint32."""
+    tile16 = np.asarray(tile16, np.uint16)
+    rows = [[addr(8 * j + r) for r in range(8)] for j in range(4)]
+    regs = np.zeros((32, 4), np.uint32)
+    for i in range(32):
+        t, g = i % 4, i // 4
+        for j in range(4):
+            if trans:
+                elems = [(rows[j][2 * t + h], g) for h in range(2)]
+            else:
+                elems = [(rows[j][g], 2 * t + h) for h in range(2)]
+            vals = [np.uint32(tile16[row, col + c]) for (row, col), c in elems]
+            regs[i, j] = vals[0] | (vals[1] << np.uint32(16))
+    return regs
+
+
+def mma_m16n8k16(a, b):
+    """mma.m16n8k16 from per-lane fragments: a (32, 4, 2) = a0..a3 (low,
+    high), b (32, 2, 2) = b0, b1; returns D as (32, 4) d0..d3, in float64
+    (the products of bf16 x and the codes are exact)."""
+    A, B = np.zeros((16, 16)), np.zeros((16, 8))
+    for i in range(32):
+        t, g = i % 4, i // 4
+        for reg, (row, col) in enumerate(((g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8),
+                                          (g + 8, 2 * t + 8))):
+            A[row, col:col + 2] = a[i, reg]
+        B[2 * t:2 * t + 2, g] = b[i, 0]
+        B[2 * t + 8:2 * t + 10, g] = b[i, 1]
+    D = A @ B
+    return np.array([[D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]]
+                     for g, t in ((i // 4, i % 4) for i in range(32))])
+
+
+def bf16_pair(reg):
+    """A bf16x2 register as its (low, high) float32 values."""
+    reg = np.asarray(reg, np.uint32)
+    return np.stack([bf16_from_bits((reg & np.uint32(0xFFFF)).astype(np.uint16)),
+                     bf16_from_bits((reg >> np.uint32(16)).astype(np.uint16))], -1)
