@@ -34,7 +34,8 @@ Phases:
    each of qwen2-1.5b's shapes gets, and one ``pim_matvec`` call traced with
    torch.profiler, which must launch exactly one kernel); ``pim_matmul`` at
    the seven linears' shapes with M in {9, 512}
-   and at ragged shapes that are multiples of no tile (one with M <= 8), the
+   at ragged shapes that are multiples of no tile (one with M <= 8), and at
+   K = 896 and 576, whose stages no cluster of 8 splits evenly, the
    same grid of bits, epilogues and dtypes; the build report of the two
    kernels slice 7 redesigned (``pim_matmul``, ``bitplane_matmul``: HMMA
    instructions in every bf16 variant from ``cuobjdump -sass``, which must
@@ -185,6 +186,9 @@ PREFILL_ROWS = BATCH * PROMPT  # one prefill's rows: what pim_dense is held at
 PREFILL_PASS = f"one prefill's linears at {BATCH} x {PROMPT} tokens"
 MATMUL_ROWS = (9, PREFILL_ROWS)  # just past pim_matvec's M <= 8, and a prefill
 RAGGED = ((130, 1000, 300), (7, 1000, 300))  # (M, K, N): multiples of no tile
+# (M, K, N) whose K stages no cluster of 8 CTAs splits with a stage for each:
+# qwen2-0.5b's width (28 stages) and 18 stages, whose last rank is short.
+ODD_STAGES = ((9, 896, 896), (9, 576, 896))
 # The planted fault of the packed entry point: layer n/2's `down` loses its
 # last 32 K rows (the first port's K tile, kept at that size).
 FAULT_K_ROWS = 32
@@ -551,7 +555,8 @@ def matmul_build_report(gen, matvec_call):
     ``bitplane_matmul``: the HMMA instructions in every bf16 variant (more
     than 0 each) and ptxas's registers and spills; the plan (CTA tile,
     cluster, CTAs) each of qwen2-1.5b's prefill shapes gets at M = 9 and M =
-    PREFILL_ROWS (the same for both kernels at any bits); and the device
+    PREFILL_ROWS, and each ODD_STAGES shape (the same for both kernels at
+    any bits); and the device
     kernels one call of each, and one ``pim_matvec`` call (``matvec_call``),
     launch (one torch.profiler trace): exactly one each."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -562,13 +567,14 @@ def matmul_build_report(gen, matvec_call):
               f"{name}: a bf16 kernel without HMMA instructions: {counts}")
     shapes = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256), "gate/up": (1536, 8960),
               "down": (8960, 1536)}
+    cases = [(f"{label} ({k} x {n}) M={m}", m, k, n) for label, (k, n) in shapes.items()
+             for m in MATMUL_ROWS]
+    cases += [(f"({k} x {n}) M={m}", m, k, n) for m, k, n in ODD_STAGES]
     plans = {}
-    for label, (k, n) in shapes.items():
-        for m in MATMUL_ROWS:
-            pl = matmul_plan(m, k, n, 8, torch.bfloat16, sms)
-            plans[f"{label} ({k} x {n}) M={m}"] = {
-                "tile": [pl.tile_n, pl.tile_m], "cluster": pl.cluster, "ctas": pl.ctas,
-                "k_per_cta": pl.k_per_cta}
+    for label, m, k, n in cases:
+        pl = matmul_plan(m, k, n, 8, torch.bfloat16, sms)
+        plans[label] = {"tile": [pl.tile_n, pl.tile_m], "cluster": pl.cluster,
+                        "ctas": pl.ctas, "k_per_cta": pl.k_per_cta}
     dev = gen.device
     q = ops.quantize_for_pim(0.02 * torch.randn((8960, 1536), generator=gen, device=dev), 8)
     planes = to_bitplanes(quantize_symmetric(0.02 * torch.randn((8960, 1536), generator=gen,
@@ -722,11 +728,12 @@ def matvec_cases(eng8, eng4):
 
 def matmul_weights(params, gen, bits):
     """(label, float weight) of the kernels' grids at ``bits``: the seven
-    linears' layer-0 weights, then random weights at the RAGGED shapes (M
-    in MATMUL_ROWS for the first, the RAGGED M for the rest)."""
+    linears' layer-0 weights, then random weights at the RAGGED and
+    ODD_STAGES shapes (M in MATMUL_ROWS for the first, the shape's own M for
+    the rest)."""
     out = [(name, MATMUL_ROWS, params["layers"][group][name][0]) for group, name, _ in LINEARS]
-    for m, k, n in RAGGED:
-        out.append((f"ragged K={k} N={n}", (m,),
+    for m, k, n in RAGGED + ODD_STAGES:
+        out.append((f"K={k} N={n}", (m,),
                     0.02 * torch.randn((k, n), generator=gen, device=gen.device)))
     return out
 
@@ -734,7 +741,7 @@ def matmul_weights(params, gen, bits):
 def matmul_cases(params, gen):
     """``pim_matmul``'s cases: the seven linears' layer-0 weights through
     ``ops.quantize_for_pim`` with M in MATMUL_ROWS, and random weights at
-    the RAGGED shapes; bits 8 and 4."""
+    the RAGGED and ODD_STAGES shapes; bits 8 and 4."""
     return [_packed_case(label, m, ops.quantize_for_pim(w, bits)) for bits in (8, 4)
             for label, ms, w in matmul_weights(params, gen, bits) for m in ms]
 

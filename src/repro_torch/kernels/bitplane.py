@@ -108,12 +108,6 @@ def bitplane_matmul(
     if not planes.is_contiguous():
         raise ValueError("bitplane_matmul: planes must be contiguous")
     pl = planes_plan(x.shape, planes.shape, x.dtype, _sm_count(x.device.index))
-    return launch(x, planes, scale, bias, activation, residual, pl)
-
-
-def launch(x, planes, scale, bias, activation, residual, pl: Plan) -> torch.Tensor:
-    """One launch of the kernel with the plan ``pl`` on checked operands
-    (the wrapper passes ``pim_matmul``'s plan at these bits)."""
     bits, k_dim, n = planes.shape
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)

@@ -39,7 +39,10 @@ STAGE_K = 32  # K values a ring stage holds; stage and cluster bounds are multip
 # the time of one 32-K stage of each while the SMs are full, and the fixed
 # time of a wave of them (the ring's fill, the cluster's reduction, the
 # epilogue), in µs: fitted to device times of every plan at qwen2-1.5b's
-# prefill shapes on an H100 (scripts/probe_matmul_plans.py).
+# prefill shapes on an H100 (scripts/probe_matmul_plans.py).  They model the
+# packed kernel: the bit-plane one, whose ring holds B planes, fits fewer
+# CTAs on an SM (one at B = 8), but takes the same plan so that the two
+# agree bit for bit.
 TILES = ((256, 128), (128, 128), (128, 64), (128, 32), (128, 16))
 CTAS_PER_SM = {(256, 128): 1, (128, 128): 2, (128, 64): 3, (128, 32): 4, (128, 16): 4}
 STAGE_US = {(256, 128): 1.28, (128, 128): 1.16, (128, 64): 1.6, (128, 32): 1.0, (128, 16): 1.0}
@@ -76,24 +79,33 @@ class Plan(NamedTuple):
         return [list(range(lo + STAGE_K, hi, STAGE_K)) + [hi] for lo, hi in self.k_slices(k)]
 
 
-def _split(k_stages: int, cluster: int):
-    """(stages a CTA, CTAs) when ``cluster`` CTAs split ``k_stages`` stages,
-    none of them empty."""
-    per = -(-k_stages // cluster)
-    return per, -(-k_stages // per)
+def candidates(m: int, k: int, n: int):
+    """Every bf16 plan the kernels can run for x (m, k) and a (k, n) weight:
+    each of the TILES no taller than m's power of two (16 at least), with
+    each cluster of CLUSTERS that splits K's 32-K stages into equal slices
+    (the last may be short) with a stage for every rank: the kernel's
+    reduction runs over exactly ``cluster`` ranks (pim_gemm.cuh:plan_ok)."""
+    k_stages = -(-k // STAGE_K)
+    tallest = max(16, 1 << max(0, m - 1).bit_length())
+    for tile_n, tile_m in TILES:
+        if tile_m > tallest:
+            continue
+        for cluster in CLUSTERS:
+            per = -(-k_stages // cluster)
+            if (cluster - 1) * per >= k_stages:
+                continue
+            yield Plan(tile_m, tile_n, cluster, per * STAGE_K, -(-m // tile_m), -(-n // tile_n))
 
 
 def plan(m: int, k: int, n: int, bits: int, x_dtype: torch.dtype, sm_count: int) -> Plan:
     """The kernel's plan for x (m, k) and a (k, n) weight at ``bits``.
 
     f32 x: the CUDA-core route's fixed 64 x 64 tiles, one CTA over all of K.
-    bf16 x: of the TILES no taller than m's power of two (16 at least) and
-    the clusters of 1, 2, 4 or 8 CTAs splitting K in whole stages, the one
-    of least modelled time, waves of CTAs over the SMs (CTAS_PER_SM each)
-    times each CTA's stages at STAGE_US plus WAVE_US; where some plan gives
-    every SM a CTA, only those.  Ties go to fewer CTAs.  The plan does not
-    depend on ``bits`` beyond its checks, so the packed and the bit-plane
-    kernels, at any bits, get the same one."""
+    bf16 x: of the ``candidates``, the one of least modelled time, waves of
+    CTAs over the SMs (CTAS_PER_SM each) times each CTA's stages at STAGE_US
+    plus WAVE_US; where some plan gives every SM a CTA, only those.  Ties go
+    to fewer CTAs.  The plan does not depend on ``bits`` beyond its checks,
+    so the packed and the bit-plane kernels, at any bits, get the same one."""
     if m < 1 or k < 1 or n < 1:
         raise ValueError(f"pim_matmul plan: empty product ({m}, {k}) x ({k}, {n})")
     if not 1 <= bits <= 8:
@@ -101,22 +113,14 @@ def plan(m: int, k: int, n: int, bits: int, x_dtype: torch.dtype, sm_count: int)
     if x_dtype != torch.bfloat16:
         return Plan(F32_TILE, F32_TILE, 1, -(-k // STAGE_K) * STAGE_K, -(-m // F32_TILE),
                     -(-n // F32_TILE))
-    k_stages = -(-k // STAGE_K)
-    tallest = max(16, 1 << max(0, m - 1).bit_length())
-    best = None
-    for tile in TILES:
-        tile_n, tile_m = tile
-        if tile_m > tallest:
-            continue
-        row_tiles, col_tiles = -(-m // tile_m), -(-n // tile_n)
-        for cluster in CLUSTERS:
-            per, ranks = _split(k_stages, cluster)
-            ctas = ranks * row_tiles * col_tiles
-            waves = -(-ctas // (sm_count * CTAS_PER_SM[tile]))
-            key = (ctas < sm_count, waves * (per * STAGE_US[tile] + WAVE_US[tile]), ctas)
-            if best is None or key < best[0]:
-                best = (key, Plan(tile_m, tile_n, ranks, per * STAGE_K, row_tiles, col_tiles))
-    return best[1]
+
+    def modelled(pl: Plan):
+        tile = (pl.tile_n, pl.tile_m)
+        waves = -(-pl.ctas // (sm_count * CTAS_PER_SM[tile]))
+        us = waves * (pl.k_per_cta // STAGE_K * STAGE_US[tile] + WAVE_US[tile])
+        return pl.ctas < sm_count, us, pl.ctas
+
+    return min(candidates(m, k, n), key=modelled)
 
 
 _plan_cached = functools.lru_cache(maxsize=None)(plan)
@@ -161,13 +165,6 @@ def pim_matmul(
                                 activation=activation, residual=residual)
     bias = check_cuda_operands("pim_matmul", x, w_codes, scale, bias, residual)
     pl = packed_plan(x.shape, w_codes.shape, bits, x.dtype, _sm_count(x.device.index))
-    return launch(x, w_codes, scale, bits, bias, activation, residual, pl)
-
-
-def launch(x, w_codes, scale, bits, bias, activation, residual, pl: Plan) -> torch.Tensor:
-    """One launch of the kernel with the plan ``pl`` on operands that passed
-    ``check_cuda_operands`` (the wrapper passes ``plan``'s; the launcher
-    refuses a plan it cannot run)."""
     (m, k_dim), n = x.shape, w_codes.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     bf16 = torch.bfloat16

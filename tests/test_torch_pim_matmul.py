@@ -237,6 +237,25 @@ def test_plan_f32_x_is_the_cuda_core_routes():
     assert pl.k_slices(8960) == [(0, 8960)]
 
 
+@pytest.mark.parametrize("m", [1, 9, 512])
+def test_plan_is_one_the_launcher_runs_at_every_k(m):
+    """At every K of 1 to 300 stages of 32 values (and K one past each),
+    against 256, 896 and 1536 columns, the bf16 plan meets the launcher's
+    pim_gemm.cuh:plan_ok: a cluster of 1, 2, 4 or 8 dividing the tile's
+    rows, and every rank's K slice non-empty and whole stages.  K = 896
+    (qwen2-0.5b's width) is 28 stages, which 8 ranks of 4 cannot split with
+    a stage for each."""
+    for k_stages in range(1, 301):
+        for k in (k_stages * mm.STAGE_K, k_stages * mm.STAGE_K + 1):
+            for n in (256, 896, 1536):
+                pl = mm.plan(m, k, n, 8, torch.bfloat16, SM_COUNT)
+                assert pl.cluster in (1, 2, 4, 8), (m, k, n, pl)
+                assert pl.tile_m % pl.cluster == 0, (m, k, n, pl)
+                assert pl.k_per_cta >= mm.STAGE_K and pl.k_per_cta % mm.STAGE_K == 0
+                assert pl.cluster * pl.k_per_cta >= k > (pl.cluster - 1) * pl.k_per_cta, \
+                    (m, k, n, pl)
+
+
 def _word(codes4):
     """Four int8 codes as the little-endian uint32 word the kernel reads."""
     return np.asarray(codes4, np.int8).view(np.uint32)[0]
