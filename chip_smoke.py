@@ -6,10 +6,11 @@
 Four paths run, at qwen2-1.5b's full width (28 layers, bf16, random
 weights from a seeded generator on the card):
 
-* greedy decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
+* decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
   ``models.prefill`` -> ``models.decode_step`` -> ``ServingEngine.generate``,
   every decode-time linear through the hand-written CUDA kernel
-  ``pim_matvec``;
+  ``pim_matvec``; each decode step, sampling included, is one replay of a
+  CUDA graph the engine captured;
 * the packed kernel entry point ``repro_torch.kernels`` (``ops``): every
   layer's seven float weights through ``quantize_for_pim``, then
   ``pim_dense`` (the CUDA kernel ``pim_matmul``) on a prefill's 4 x 128 rows
@@ -29,10 +30,9 @@ Phases:
 2. each kernel against its plain PyTorch version, rtol 1e-5, atol 1e-4:
    ``pim_matvec`` at the decode path's full-width shapes (int8 and int4,
    M in {1, 4, 8}, every epilogue, f32 and bf16 inputs, one odd-K int4
-   weight); the build report of the two kernels this slice redesigned
+   weight); the build report of the two kernels slice 6 redesigned
    (``pim_matvec``, ``fold_reduce``: ptxas's registers and spills, the plan
-   each of qwen2-1.5b's shapes gets, and one ``pim_matvec`` call traced with
-   torch.profiler, which must launch exactly one kernel); ``pim_matmul`` at
+   each of qwen2-1.5b's shapes gets); ``pim_matmul`` at
    the seven linears' shapes with M in {9, 512}
    at ragged shapes that are multiples of no tile (one with M <= 8), and at
    K = 896 and 576, whose stages no cluster of 8 splits evenly, the
@@ -40,11 +40,16 @@ Phases:
    kernels slice 7 redesigned (``pim_matmul``, ``bitplane_matmul``: HMMA
    instructions in every bf16 variant from ``cuobjdump -sass``, which must
    be more than 0, ptxas's registers and spills, the plan each of
-   qwen2-1.5b's shapes gets at M = 9 and 512, and one call of each traced
-   with torch.profiler, which must launch exactly one kernel);
+   qwen2-1.5b's shapes gets at M = 9 and 512; one call of each, and one
+   ``pim_matvec`` call, must launch exactly one kernel: traced in phase 8's
+   profiler session, the run's only one);
 3. the decode path: 4 requests of 128 prompt tokens, 32 new tokens, int8
    weights.  ``pim_matvec``'s launch count must be 7 x 28 x 31 and
-   ``pim_matmul``'s 0 (prefill stays ``x @ dq(w)``); the teacher-forced
+   ``pim_matmul``'s 0 (prefill stays ``x @ dq(w)``).  A decode step is a
+   graph replay, which runs no Python and so counts nothing: the count is
+   the wrappers' counters read around the step's capture times the
+   replays, plus the eager launches (``counted_launches``), and the line
+   says so.  The teacher-forced
    decode logits must agree with the overlay path (``x @ dq(w)``, dispatch
    "off") within LOGIT_TOL; greedy tokens must agree with the overlay path's
    wherever the top-2 margin exceeds the two paths' difference.  A shorter
@@ -100,7 +105,8 @@ Phases:
    no multiple of 8 must raise ValueError; (b) ``ServingEngine.generate``
    on 1 x 16,384 seeded tokens for 16 new ones, int8 weights: exactly 28
    ``flash_attention`` launches, all on a bf16 q, and 7 x 28 x 15
-   ``pim_matvec`` launches, int32 tokens, the host-clock time to first
+   ``pim_matvec`` launches (counted as in phase 3), int32 tokens, the
+   host-clock time to first
    token and decode ms per step at 16,384 cached tokens; then each of the
    28 layers' own q, k, v through the kernel and the plain version, every
    layer within the bf16 bar; (c) the same prefill in f32 against the same
@@ -114,7 +120,21 @@ Phases:
    (28 calls): kernel (with its achieved TFLOP/s and share of the bound),
    bound (the causal multiply-adds at the bf16 tensor cores' rate; bytes
    and the f32 CUDA-core term beside it), plain version and
-   ``scaled_dot_product_attention`` as the library yardstick.
+   ``scaled_dot_product_attention`` as the library yardstick;
+8. the captured decode step: (a) on the short path at int8 and int4, greedy
+   and sampled (SAMPLED: temperature 0.8, top-k 50, a fixed key), and (b)
+   on the long path, greedy, the captured ``generate`` must equal an eager
+   loop of the same step function (``decode_and_emit``) from the same
+   prefill, tokens and last-step logits (``torch.equal``); sampled tokens
+   must differ from greedy ones; (c) one torch.profiler session traces one
+   replay of each captured step: exactly 7 x 28 ``pim_matvec`` kernels, no
+   ``flash_attention`` kernel and no host operator inside it; (d) after a
+   generation the stacked ``down`` codes leaf is replaced by a new tensor
+   with one layer's codes changed: the next generation's logits must
+   differ from the previous ones and equal a fresh engine's on the new
+   tree; (e) decode ms a step on the host clock in TIMING_ROUNDS rounds
+   alternating eager / captured / captured sampled, short and long path,
+   and the device-busy share of BUSY_STEPS captured steps (same session).
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -122,6 +142,7 @@ non-zero; so does a host with no card, and a directory without the package.
 import concurrent.futures
 import contextlib
 import functools
+import gc
 import json
 import math
 import re
@@ -148,7 +169,8 @@ from repro_torch.models import (  # noqa: E402
     attention, common, decode_step, init_cache, init_params, prefill)
 from repro_torch.quant import (  # noqa: E402
     QuantizedTensor, dequantize, quantize_symmetric, to_bitplanes)
-from repro_torch.serving import ServingEngine, quantize_tree  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    DecodeState, ServingEngine, decode_and_emit, quantize_tree)
 
 SEED = 20260
 KERNELS = ("pim_matvec", "pim_matmul", "bitplane_matmul", "fold_reduce", "flash_attn")
@@ -217,6 +239,12 @@ FLASH_LENGTHS = (1000, 8193, LONG_PROMPT)
 # rows it touches only: PATH_TOL (1e-3) cannot see it, 2e-4 sits about 3x
 # from both.
 LONG_PATH_TOL = 2e-4
+# Phase 8: the captured decode step.  Sampled decoding at temperature 0.8 and
+# top-k 50 from a fixed key; the stale-graph check's generations; rounds of
+# the alternating timing; replays whose device-busy share is traced.
+GREEDY = {"greedy": True}
+SAMPLED = {"greedy": False, "temperature": 0.8, "top_k": 50, "key": SEED}
+STALE_NEW, TIMING_ROUNDS, BUSY_STEPS = 4, 4, 8
 LINEARS = (("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
            ("attn", "wo", None), ("mlp", "gate", None), ("mlp", "up", None),
            ("mlp", "down", None))
@@ -256,7 +284,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(cfg, gen, device=dev)
     eng8 = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, pim_bits=8, device=dev)
-    eng4 = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW_INT4, pim_bits=4, device=dev)
+    eng4 = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, pim_bits=4, device=dev)
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
     # The entry point's phases draw from a generator of their own, so the
     # decode path's inputs do not depend on them.
@@ -281,25 +309,28 @@ def main() -> int:
     gen_mm2 = torch.Generator(device=dev).manual_seed(SEED + 5)
     qv = engine_weights(eng8, 8)[0][1][0]
     xv = torch.randn((BATCH, qv.shape[0]), generator=gen_new, device=dev).to(torch.bfloat16)
-    print(json.dumps(matmul_build_report(
-        gen_mm2, lambda: pim_matvec(xv, qv.codes, qv.scale, bits=8))))
+    mm_build, one_calls = matmul_build_report(
+        gen_mm2, lambda: pim_matvec(xv, qv.codes, qv.scale, bits=8))
+    print(json.dumps(mm_build))
 
     # ---- 3. the decode path --------------------------------------------------
-    eng8.generate(prompt, 2)  # warm-up: library load, allocator, cuBLAS handles
+    # Each decode step is one replay of a captured step, which runs no Python:
+    # the launches are counted per replay around the capture, times the
+    # replays (``counted_launches``).
+    graphs8, graphs4 = count_captures(eng8), count_captures(eng4)
+    eng8.generate(prompt, 2)  # warm-up: library load, allocator, the step's capture
     torch.cuda.synchronize()
-    pim_matvec.launches = pim_matmul.launches = flash_attention.launches = 0
     t0 = time.perf_counter()
-    toks = eng8.generate(prompt, N_NEW)
-    torch.cuda.synchronize()
+    toks, counts, counted_as = counted_launches(graphs8, lambda: eng8.generate(prompt, N_NEW))
     t_gen = time.perf_counter() - t0
-    launches = pim_matvec.launches
+    launches = counts["pim_matvec"]
     want = len(LINEARS) * cfg.n_layers * (N_NEW - 1)
     check(launches == want, f"pim_matvec launched {launches} times on the "
-          f"main path, expected {want}")
-    check(pim_matmul.launches == 0, f"pim_matmul launched {pim_matmul.launches} "
+          f"main path, expected {want} ({counted_as})")
+    check(counts["pim_matmul"] == 0, f"pim_matmul launched {counts['pim_matmul']} "
           "times on the decode path, whose prefill is x @ dq(w)")
-    check(flash_attention.launches == 0, f"flash_attention launched "
-          f"{flash_attention.launches} times on a {PROMPT}-token prefill, which "
+    check(counts["flash_attention"] == 0, f"flash_attention launched "
+          f"{counts['flash_attention']} times on a {PROMPT}-token prefill, which "
           "attends directly")
     t0 = time.perf_counter()
     eng8.generate(prompt, 1)  # prefill and tok0 only
@@ -313,23 +344,26 @@ def main() -> int:
     decode_off_s = (t_gen_off - t_prefill) / (N_NEW - 1)
     print(json.dumps({"path": "qwen2-1.5b int8 generate", "batch": BATCH,
                       "prompt": PROMPT, "n_new": N_NEW, "launches": launches,
-                      "pim_matmul_launches": pim_matmul.launches,
-                      "flash_attention_launches": flash_attention.launches,
+                      "launches_counted_as": counted_as,
+                      "pim_matmul_launches": counts["pim_matmul"],
+                      "flash_attention_launches": counts["flash_attention"],
                       "generate_s": t_gen, "prefill_s": t_prefill,
                       "decode_ms_per_step": decode_s * 1e3,
                       "decode_tokens_per_s": BATCH / decode_s,
                       "overlay_decode_ms_per_step": decode_off_s * 1e3,
                       "max_abs_logit_diff_vs_overlay": diff8}))
 
-    pim_matvec.launches = 0
-    toks4 = eng4.generate(prompt, N_NEW_INT4)
-    torch.cuda.synchronize()
-    launches4 = pim_matvec.launches
+    eng4.generate(prompt, 2)  # warm-up: the int4 step's capture
+    toks4, counts4, counted_as4 = counted_launches(
+        graphs4, lambda: eng4.generate(prompt, N_NEW_INT4))
+    launches4 = counts4["pim_matvec"]
     want4 = len(LINEARS) * cfg.n_layers * (N_NEW_INT4 - 1)
-    check(launches4 == want4, f"int4 path: {launches4} launches, expected {want4}")
+    check(launches4 == want4, f"int4 path: {launches4} launches, expected {want4} "
+          f"({counted_as4})")
     diff4, _, _ = against_overlay(eng4, prompt, toks4, N_NEW_INT4, "int4")
     print(json.dumps({"path": "qwen2-1.5b int4 generate", "n_new": N_NEW_INT4,
-                      "launches": launches4, "max_abs_logit_diff_vs_overlay": diff4}))
+                      "launches": launches4, "launches_counted_as": counted_as4,
+                      "max_abs_logit_diff_vs_overlay": diff4}))
     against_plain(eng8, gen, prompt, toks, lo8)
 
     # ---- 4. the entry point ----------------------------------------------------
@@ -377,10 +411,16 @@ def main() -> int:
     fa_check = flash_vs_plain(cfg, gen_fa)
     print(json.dumps(fa_check))
     decode_attention_check(cfg, gen_new)
-    long_path, long_prompt = long_prompt_path(cfg, params, gen_fa)
-    del params, eng8, eng4
-    torch.cuda.empty_cache()
+    long_path, long_prompt, long_eng, graphs_long = long_prompt_path(cfg, params, gen_fa)
     print(json.dumps(long_path))
+
+    # ---- 8. the captured decode step ---------------------------------------------
+    captured_phase(
+        cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls,
+        {"int8": graphs8, "int4": graphs4, "long": graphs_long})
+    del params, eng8, eng4, long_eng, graphs8, graphs4, graphs_long, one_calls
+    gc.collect()  # the counted captures hold each engine in a cycle
+    torch.cuda.empty_cache()
     long_against_plain(cfg, gen_fa, long_prompt)
     fa_times = flash_timings(cfg, gen_fa)
     print(json.dumps(fa_times))
@@ -388,7 +428,7 @@ def main() -> int:
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
         "replaces": "src/repro/kernels/pim_matvec.py:40",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches, "launches_counted_as": counted_as, "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
         "library_ms": step["library_ms"], "overlay_ms": step["overlay_ms"],
@@ -478,24 +518,65 @@ def _fold_label(mangled):
     return found and ("f32" if found[1] == "f" else "bf16")
 
 
-def kernels_per_call(calls):
-    """The device kernels each of ``calls`` ({name: fn}) launches, from one
-    torch.profiler session (a second session in the process may record no
-    device events), each call synchronised; a kernel belongs to the call
-    whose name it holds, and any other kernel is listed under "other".  The
-    trace is written under build/traces/."""
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' [ts, ts + dur) intervals."""
+    total, end = 0.0, float("-inf")
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
+        if ts + dur <= end:
+            continue
+        total += ts + dur - max(ts, end)
+        end = ts + dur
+    return total
+
+
+def traced_segments(segments):
+    """One torch.profiler session over ``segments`` [(label, set-up or None,
+    fn)], in order: the run's only session, since a second session in the
+    process may record no device events.  Each segment's set-up runs
+    first; then ``fn`` runs in a ``record_function`` range, synchronised
+    inside it, between two spin kernels (``torch.cuda._sleep``) that mark
+    its start and end on the device.  The trace is written under build/traces/.
+    Returns {label: {"kernels": [names], "busy_us": the union of its device
+    intervals, "host_us": the range's length, "host_ops": host operator
+    calls inside the range}}."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for fn in calls.values():
-            fn()
+        for label, setup, fn in segments:
+            if setup is not None:
+                setup()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-    trace = Path(__file__).resolve().parent / "build" / "traces" / "one_call.json"
+            with torch.profiler.record_function(f"segment {label}"):
+                fn()
+                torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+    trace = Path(__file__).resolve().parent / "build" / "traces" / "segments.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
-             if e.get("ph") == "X" and e.get("cat") == "kernel"]
-    out = {name: [k for k in names if f"{name}_" in k] for name in calls}
-    out["other"] = [k for k in names if not any(f"{name}_" in k for name in calls)]
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    groups, inside = [], False
+    for e in sorted((e for e in events if e.get("cat") in DEVICE_CATS), key=lambda e: e["ts"]):
+        if "spin_kernel" in e["name"]:
+            inside = not inside
+            if inside:
+                groups.append([])
+        elif inside:
+            groups[-1].append(e)
+    check(len(groups) == len(segments), f"the trace holds {len(groups)} segment markers, "
+          f"expected {len(segments)}: the profiler recorded no device events?")
+    ranges = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    out = {}
+    for (label, _, _), group in zip(segments, groups):
+        r = ranges[f"segment {label}"]
+        out[label] = {"kernels": [e["name"] for e in group if e["cat"] == "kernel"],
+                      "busy_us": busy_us(group), "host_us": r["dur"],
+                      "host_ops": sum(e.get("cat") == "cpu_op"
+                                      and r["ts"] <= e["ts"] < r["ts"] + r["dur"]
+                                      for e in events)}
     return out
 
 
@@ -504,7 +585,8 @@ def redesign_build_report(eng8, eng4):
     each built variant; the plan (tile, cluster, CTAs) ``pim_matvec``'s
     planner gives each of qwen2-1.5b's decode linears at bits 8 and 4 (M =
     BATCH, bf16 x) and ``fold_reduce``'s at FOLD_SHAPES.  (The kernels one
-    ``pim_matvec`` call launches are traced with ``matmul_build_report``'s.)"""
+    ``pim_matvec`` call launches are traced with ``matmul_build_report``'s
+    calls, in phase 8.)"""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {}
     for eng, bits in ((eng8, 8), (eng4, 4)):
@@ -556,9 +638,9 @@ def matmul_build_report(gen, matvec_call):
     than 0 each) and ptxas's registers and spills; the plan (CTA tile,
     cluster, CTAs) each of qwen2-1.5b's prefill shapes gets at M = 9 and M =
     PREFILL_ROWS, and each ODD_STAGES shape (the same for both kernels at
-    any bits); and the device
-    kernels one call of each, and one ``pim_matvec`` call (``matvec_call``),
-    launch (one torch.profiler trace): exactly one each."""
+    any bits).  Returns (the report, {name: one call} of each and of
+    ``pim_matvec`` (``matvec_call``), warmed up): phase 8's profiler
+    session traces them (``one_call_check``)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     hmma = {name: _sass_hmma(name, _gemm_label) for name in ("pim_matmul", "bitplane_matmul")}
     for name, counts in hmma.items():
@@ -586,15 +668,20 @@ def matmul_build_report(gen, matvec_call):
     for call in calls.values():
         call()  # warm-up
     torch.cuda.synchronize()
-    per_call = kernels_per_call(calls)
-    check(not per_call["other"], f"the traced calls launched other kernels: {per_call}")
-    for name in calls:
-        check(len(per_call[name]) == 1, f"one {name} call launched {per_call[name]}, expected "
-              f"one {name} kernel")
     return {"check": "pim_matmul and bitplane_matmul build", "hmma_instructions": hmma,
             "pim_matmul_ptxas": _ptxas("pim_matmul", _gemm_label),
             "bitplane_matmul_ptxas": _ptxas("bitplane_matmul", _gemm_label),
-            "plans": plans, "kernels_per_call": per_call}
+            "plans": plans}, calls
+
+
+def one_call_check(traced, calls):
+    """Each of ``calls`` (traced as a segment "<name> call") launched exactly
+    one kernel, its own (a kernel belongs to the call whose name it holds)."""
+    per_call = {name: traced[f"{name} call"]["kernels"] for name in calls}
+    for name, kernels in per_call.items():
+        check(len(kernels) == 1 and f"{name}_" in kernels[0],
+              f"one {name} call launched {kernels}, expected one {name} kernel")
+    print(json.dumps({"check": "one call of each kernel, traced", "kernels_per_call": per_call}))
 
 
 def bitplane_equals_packed(params, gen):
@@ -833,6 +920,7 @@ def against_overlay(eng, prompt, toks, n_new, label):
     prev = common.set_matvec_dispatch("off")
     try:
         lo = forced_logits(eng, prompt, toks, n_new)
+        eng.generate(prompt, 2)  # warm-up: the overlay step's own capture
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks_off = eng.generate(prompt, n_new)
@@ -1488,17 +1576,17 @@ def long_prompt_path(cfg, params, gen):
     time to first token (a second, 1-token generation) and the decode ms per
     step at LONG_PROMPT cached tokens.  Then a third prefill sends each
     layer's own q, k, v through both the kernel and ``flash_attention_plain``:
-    every layer must be within the bf16 bar (``within_bf16_ulp``).
+    every layer must be within the bf16 bar (``within_bf16_ulp``).  The
+    decode launches are counted per replay around the capture, times the
+    replays (``counted_launches``).
 
-    Returns (a report, the prompt)."""
+    Returns (a report, the prompt, the engine, its counted captures)."""
     dev = gen.device
     eng = ServingEngine(cfg, params, max_seq=LONG_PROMPT + LONG_NEW, pim_bits=8, device=dev)
+    graphs = count_captures(eng)
     prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen, device=dev)
-    eng.generate(prompt, 1)  # warm-up: the long shapes' first library calls
+    eng.generate(prompt, 1)  # warm-up: the long shapes' first library calls, the step's capture
     torch.cuda.synchronize()
-    kernels = (flash_attention, pim_matvec, pim_matmul, bitplane_matmul, fold_reduce)
-    for kernel in kernels:
-        kernel.launches = 0
     seen = []  # the dtype of each q the attention saw
 
     def noting_dtype(q, k, v, **kw):
@@ -1507,14 +1595,14 @@ def long_prompt_path(cfg, params, gen):
 
     t0 = time.perf_counter()
     with attention_through(noting_dtype):
-        toks = eng.generate(prompt, LONG_NEW)
-    torch.cuda.synchronize()
+        toks, launches, counted_as = counted_launches(
+            graphs, lambda: eng.generate(prompt, LONG_NEW))
     t_gen = time.perf_counter() - t0
-    launches = {kernel.__name__: kernel.launches for kernel in kernels}
     want = {"flash_attention": cfg.n_layers,
             "pim_matvec": len(LINEARS) * cfg.n_layers * (LONG_NEW - 1),
             "pim_matmul": 0, "bitplane_matmul": 0, "fold_reduce": 0}
-    check(launches == want, f"long-prompt path launches {launches}, expected {want}")
+    check(launches == want, f"long-prompt path launches {launches}, expected {want} "
+          f"({counted_as})")
     check(seen == [torch.bfloat16] * cfg.n_layers, f"long-prompt attention saw q dtypes {seen}, "
           f"expected {cfg.n_layers} x bf16 (the tensor-core route)")
     t0 = time.perf_counter()
@@ -1551,9 +1639,10 @@ def long_prompt_path(cfg, params, gen):
             "flash_attention_launches": launches["flash_attention"],
             "flash_attention_q_dtype": str(seen[0]),
             "pim_matvec_launches": launches["pim_matvec"], "launches": launches,
+            "launches_counted_as": counted_as,
             "generate_s": t_gen, "time_to_first_token_s": t_first,
             "decode_ms_per_step": (t_gen - t_first) / (LONG_NEW - 1) * 1e3,
-            "layers_vs_plain_worst_tol_share": worst["tol_share"]}, prompt
+            "layers_vs_plain_worst_tol_share": worst["tol_share"]}, prompt, eng, graphs
 
 
 @contextlib.contextmanager
@@ -1686,6 +1775,244 @@ def flash_timings(cfg, gen):
             "per_layer": per_layer,
             "per": f"one long prefill's attention: {n} launches at (B, S, KV, G, D) = "
                    f"{(b, s, kvh, h // kvh, d)}, causal, bf16; device time (CUDA graph replay)"}
+
+
+# ---- 8. the captured decode step ------------------------------------------------
+KERNEL_FNS = (pim_matvec, pim_matmul, bitplane_matmul, fold_reduce, flash_attention)
+
+
+def launch_counts():
+    return {kernel.__name__: kernel.launches for kernel in KERNEL_FNS}
+
+
+class CountedGraph:
+    """A captured decode step whose replays are counted, with the kernels'
+    launch counters read around its capture (``launches``): the wrappers
+    count as the step is captured, and a replay runs no Python, so it
+    counts nothing."""
+
+    def __init__(self, graph, launches):
+        self.graph, self.launches, self.replays = graph, launches, 0
+
+    def replay(self):
+        self.replays += 1
+        self.graph.replay()
+
+
+def count_captures(eng):
+    """From now on, each decode step ``eng`` captures is a ``CountedGraph``,
+    added to the list returned."""
+    graphs, capture = [], eng._capture
+
+    def counted(run):
+        before = launch_counts()
+        graph = capture(run)
+        after = launch_counts()
+        graphs.append(CountedGraph(graph, {k: after[k] - before[k] for k in after}))
+        return graphs[-1]
+
+    eng._capture = counted
+    return graphs
+
+
+def counted_launches(graphs, fn):
+    """Run ``fn`` with every counter set to 0 first and read just after: each
+    kernel's launches in it are the wrappers' counts (eager launches) plus,
+    for each captured step of ``graphs``, its launches at capture times its
+    replays in ``fn``.  No step may be captured inside ``fn`` (warm up
+    first).  Returns (fn's result, launches, how they were counted)."""
+    n_graphs, replays = len(graphs), [g.replays for g in graphs]
+    for kernel in KERNEL_FNS:
+        kernel.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    check(len(graphs) == n_graphs, "a decode step was captured inside a counted run")
+    launches, eager = launch_counts(), launch_counts()
+    counted_as = []
+    for g, r0 in zip(graphs, replays):
+        if g.replays > r0:
+            for k, c in g.launches.items():
+                launches[k] += c * (g.replays - r0)
+            counted_as.append(f"{g.launches['pim_matvec']} pim_matvec launches per replay "
+                              f"(read around the capture) x {g.replays - r0} replays")
+    counted_as.append(f"eager launches (the wrappers' counters): {eager}")
+    return result, launches, "; ".join(counted_as)
+
+
+def captured_vs_eager(eng, prompt, n_new, label, *, greedy, temperature=1.0, top_k=0, key=None):
+    """(a)/(b): ``eng.generate`` (each decode step one replay of the captured
+    step) against an eager loop of the same step function,
+    ``decode_and_emit``, from the same prefill on buffers of its own: the
+    tokens and the last step's logits must be equal (``torch.equal``)."""
+    b = prompt.shape[0]
+    kw = dict(greedy=greedy, top_k=top_k)
+    with torch.inference_mode():
+        toks = eng.generate(prompt, n_new, temperature=temperature, key=key, **kw)
+        logits = eng.state(b).logits.clone()
+        st = DecodeState(eng.cfg, b, eng.max_seq, prompt.device)
+        st.start(eng.params, eng.cfg, prompt, key, temperature, **kw)
+        for _ in range(n_new - 1):
+            decode_and_emit(eng.params, eng.cfg, st, **kw)
+        eager = st.out[:, :n_new].clone()
+        torch.cuda.synchronize()
+    same_toks, same_logits = torch.equal(toks, eager), torch.equal(logits, st.logits)
+    report = {"case": label, "tokens": toks.numel(), "tokens_equal": same_toks,
+              "last_logits_equal": same_logits,
+              "tokens_differing": int((toks != eager).sum()),
+              "last_logits_max_abs_diff": (logits.float() - st.logits.float()).abs().max().item()}
+    check(toks.dtype == torch.int32 and bool(((toks >= 0) & (toks < eng.cfg.vocab)).all()),
+          f"{label}: captured tokens {toks.dtype} out of range")
+    check(same_toks and same_logits, f"{label}: the captured generate differs from the eager "
+          f"loop of the same step: {report}")
+    return report, toks
+
+
+def stale_graph_check(cfg, eng, prompt):
+    """(d): after a generation, the stacked ``down`` codes leaf is replaced by
+    a new tensor in which layer n/2's codes are negated: the next
+    generation's last logits must differ from the previous ones and equal
+    those of a fresh engine on the new tree (a captured step reads the
+    memory it was captured on, so the engine must capture again).  The old
+    leaf is put back after."""
+    b, n_new, layer = prompt.shape[0], STALE_NEW, cfg.n_layers // 2
+    down = eng.params["layers"]["mlp"]["down"]
+    old = down["codes"]
+    with torch.inference_mode():
+        eng.generate(prompt, n_new)
+        before = eng.state(b).logits.clone()
+        new = old.clone()
+        new[layer] = -old[layer]
+        down["codes"] = new
+        try:
+            toks = eng.generate(prompt, n_new)
+            after = eng.state(b).logits.clone()
+            fresh = ServingEngine(cfg, eng.params, max_seq=eng.max_seq, device=eng.device)
+            toks_fresh = fresh.generate(prompt, n_new)
+            fresh_logits = fresh.state(b).logits.clone()
+        finally:
+            down["codes"] = old
+        torch.cuda.synchronize()
+    report = {"check": "stale-graph: a new down codes leaf after a generation",
+              "planted_change": f"layer {layer} down codes negated, in a new tensor",
+              "logits_changed": not torch.equal(after, before),
+              "max_abs_logit_change": (after.float() - before.float()).abs().max().item(),
+              "equal_to_fresh_engine": torch.equal(after, fresh_logits)
+              and torch.equal(toks, toks_fresh)}
+    check(report["logits_changed"], f"the engine replayed a step captured on the old weights: {report}")
+    check(report["equal_to_fresh_engine"], f"after a new leaf the engine differs from a fresh "
+          f"engine on the new tree: {report}")
+    return report
+
+
+def timing_pairs(eng, prompt, n_new, label):
+    """(e): decode ms a step on the host clock, in rounds that alternate an
+    eager loop of ``decode_and_emit`` on buffers of its own, the captured
+    greedy step, and the captured sampled step (SAMPLED), each from its own
+    prefill (not timed).  Returns the rounds and their medians."""
+    b = prompt.shape[0]
+    cfg = eng.cfg
+    eager_st = DecodeState(cfg, b, eng.max_seq, prompt.device)
+    runs = {"eager_ms": (eager_st, functools.partial(decode_and_emit, eng.params, cfg, eager_st,
+                                                     greedy=True, top_k=0), GREEDY),
+            "captured_ms": (eng.state(b), eng.step(b, greedy=True, top_k=0), GREEDY),
+            "captured_sampled_ms": (eng.state(b), eng.step(b, greedy=False,
+                                                           top_k=SAMPLED["top_k"]), SAMPLED)}
+
+    def ms(st, step, mode):
+        st.start(eng.params, cfg, prompt, mode.get("key"), mode.get("temperature", 1.0),
+                 greedy=mode["greedy"], top_k=mode.get("top_k", 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_new - 1):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (n_new - 1)
+
+    rounds = [{key: ms(*run) for key, run in runs.items()} for _ in range(TIMING_ROUNDS)]
+    medians = {key: sorted(r[key] for r in rounds)[len(rounds) // 2] for key in runs}
+    return {"timing": f"{label}: decode ms a step, host clock, alternating rounds of eager / "
+                      "captured / captured sampled, each over "
+                      f"{n_new - 1} steps from its own prefill",
+            "rounds": rounds, "medians": medians,
+            "sampling_ms": medians["captured_sampled_ms"] - medians["captured_ms"],
+            "sampling_share": (medians["captured_sampled_ms"] - medians["captured_ms"])
+            / medians["captured_ms"]}
+
+
+def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, graphs):
+    """Phase 8: the captured decode step, (a) to (e) of the module's
+    docstring, and phase 2's one-call traces in the same profiler session.
+    ``graphs``: {label: an engine's counted captures}, reported."""
+    cases = []
+    with torch.inference_mode():
+        for eng, bits in ((eng8, 8), (eng4, 4)):
+            greedy_toks = None
+            for mode_label, mode in (("greedy", GREEDY), ("sampled", SAMPLED)):
+                rep, toks = captured_vs_eager(eng, prompt, N_NEW, f"int{bits} {mode_label}, "
+                                              f"{BATCH} x {PROMPT}", **mode)
+                cases.append(rep)
+                if greedy_toks is None:
+                    greedy_toks = toks
+            check(not torch.equal(toks, greedy_toks), f"int{bits}: sampled tokens equal the "
+                  "greedy ones: nothing was sampled")
+        rep, _ = captured_vs_eager(long_eng, long_prompt, LONG_NEW,
+                                   f"int8 greedy, 1 x {LONG_PROMPT}", **GREEDY)
+        cases.append(rep)
+    for rep in cases:
+        print(json.dumps({"check": "captured generate vs eager loop", **rep}))
+    print(json.dumps(stale_graph_check(cfg, eng8, prompt)))
+    with torch.inference_mode():
+        print(json.dumps(timing_pairs(eng8, prompt, N_NEW, f"int8, {BATCH} x {PROMPT}")))
+        print(json.dumps(timing_pairs(long_eng, long_prompt, LONG_NEW,
+                                      f"int8, 1 x {LONG_PROMPT}")))
+
+        def replays(eng, prompt, mode, n):
+            b = prompt.shape[0]
+            step = eng.step(b, greedy=mode["greedy"], top_k=mode.get("top_k", 0))
+
+            def setup():
+                eng.state(b).start(eng.params, eng.cfg, prompt, mode.get("key"),
+                                   mode.get("temperature", 1.0), greedy=mode["greedy"],
+                                   top_k=mode.get("top_k", 0))
+
+            def run():
+                for _ in range(n):
+                    step()
+            return setup, run
+
+        segments = [(f"{name} call", None, fn) for name, fn in one_calls.items()]
+        steps = {"int8 greedy step": (eng8, prompt, GREEDY, 1),
+                 "int8 sampled step": (eng8, prompt, SAMPLED, 1),
+                 "long greedy step": (long_eng, long_prompt, GREEDY, 1),
+                 f"int8 greedy, {BUSY_STEPS} steps": (eng8, prompt, GREEDY, BUSY_STEPS),
+                 f"int8 sampled, {BUSY_STEPS} steps": (eng8, prompt, SAMPLED, BUSY_STEPS),
+                 f"long greedy, {BUSY_STEPS} steps": (long_eng, long_prompt, GREEDY, BUSY_STEPS)}
+        segments += [(label, *replays(*args)) for label, args in steps.items()]
+        traced = traced_segments(segments)
+    one_call_check(traced, one_calls)
+    per_replay = {}
+    for label in ("int8 greedy step", "int8 sampled step", "long greedy step"):
+        kernels = traced[label]["kernels"]
+        per_replay[label] = {"kernels": len(kernels),
+                             "pim_matvec": sum("pim_matvec_" in k for k in kernels),
+                             "flash_attention": sum("flash_attn" in k for k in kernels),
+                             "host_ops": traced[label]["host_ops"],
+                             "device_busy_us": traced[label]["busy_us"]}
+        check(per_replay[label]["pim_matvec"] == len(LINEARS) * cfg.n_layers
+              and per_replay[label]["flash_attention"] == 0 and traced[label]["host_ops"] == 0,
+              f"one replay of the {label}: {per_replay[label]}, expected "
+              f"{len(LINEARS) * cfg.n_layers} pim_matvec kernels, no flash_attention kernel and "
+              "no host operator")
+    busy = {label: {"steps": BUSY_STEPS,
+                    "device_busy_ms_per_step": traced[label]["busy_us"] / BUSY_STEPS / 1e3,
+                    "host_ms_per_step": traced[label]["host_us"] / BUSY_STEPS / 1e3,
+                    "device_busy_share": traced[label]["busy_us"] / traced[label]["host_us"],
+                    "kernels_per_step": len(traced[label]["kernels"]) / BUSY_STEPS}
+            for label in traced if label.endswith(f"{BUSY_STEPS} steps")}
+    print(json.dumps({"check": "phase 8: the captured decode step", "per_replay_trace": per_replay,
+                      "captured_launches": {label: [g.launches for g in gs]
+                                            for label, gs in graphs.items()},
+                      "busy_share": busy}))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Trace a steady window of the port's decode loop on one NVIDIA card.
+"""Trace a steady window of the port's decode step on one NVIDIA card, eager
+and captured side by side.
 
-    python3 decode_trace.py [--steps 8] [--trace build/traces/decode_trace.json]
+    python3 decode_trace.py [--steps 8] [--rounds 4] [--trace build/traces/decode_trace.json]
 
 Full-width qwen2-1.5b (random weights from a seed), int8 weights, batch 4,
-128-token prompts, greedy: the configuration ``chip_smoke.py`` drives.
-After a prefill and a few warm-up steps it times ``--steps`` decode steps on
-the host's clock without the profiler, then the next ``--steps`` under
-``torch.profiler`` (CPU and CUDA activity).  From the profiler's Chrome
-trace it counts, per decode step, the device's kernels, its busy time (the
-union of kernel, memcpy and memset intervals) and the host's operator calls,
-and ranks the kernels by device time.  Prints one JSON object; exits
-non-zero where the trace holds no device activity.  The trace of 8 steps
-takes about 50 MB.
+128-token prompts: the configuration ``chip_smoke.py`` drives.  Three ways
+to run the same step, ``serving.decode_and_emit``: the eager loop (greedy),
+the engine's captured step (one CUDA-graph replay a step, greedy) and the
+captured step sampling at temperature 0.8, top-k 50.  Each run starts from
+its own prefill and a few warm-up steps.  First ``--rounds`` rounds of
+``--steps`` steps each on the host's clock without the profiler, the three
+ways alternating in every round; then one ``torch.profiler`` session (CPU
+and CUDA activity) over ``--steps`` steps of each, the windows marked on
+the device by spin kernels.  From its Chrome trace it counts, per decode
+step and per way, the device's kernels, its busy time (the union of
+kernel, memcpy and memset intervals) and share of the host-clock step, the
+host's operator and CUDA runtime calls, and ranks the kernels by device
+time.  Prints one JSON object; exits non-zero where the trace holds no
+device activity.  The trace of 8 steps of each takes about 60 MB.
 """
 import argparse
 import collections
+import functools
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -25,11 +33,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models import decode_step, init_cache, init_params, prefill  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.serving import DecodeState, ServingEngine, decode_and_emit  # noqa: E402
 
 SEED = 20260
 BATCH, PROMPT, WARM = 4, 128, 4
+SAMPLED = {"temperature": 0.8, "top_k": 50, "key": SEED}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -52,59 +61,9 @@ def busy_us(events) -> float:
     return total
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--trace", default=str(Path(__file__).resolve().parent / "build"
-                                           / "traces" / "decode_trace.json"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("decode_trace: no CUDA device visible", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
-    cfg = get_config("qwen2-1.5b")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_seq = PROMPT + WARM + 2 * args.steps
-    eng = ServingEngine(cfg, init_params(cfg, gen, device=dev), max_seq=max_seq,
-                        pim_bits=8, device=dev)
-    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
-    eng.generate(prompt, 2)  # warm-up: kernel build and load, allocator
-
-    with torch.inference_mode():
-        cache = init_cache(cfg, BATCH, max_seq, dev)
-        logits, cache = prefill(eng.params, cfg, prompt, cache)
-        pos = PROMPT
-
-        def steps(n):
-            nonlocal logits, cache, pos
-            for _ in range(n):
-                tok = logits[:, -1].argmax(dim=-1, keepdim=True)
-                logits, cache = decode_step(eng.params, cfg, tok, cache, pos)
-                pos += 1
-
-        steps(WARM)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        steps(args.steps)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / args.steps
-
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            steps(args.steps)
-            torch.cuda.synchronize()
-            prof_wall_us = (time.perf_counter() - t0) * 1e6 / args.steps
-
-    out = Path(args.trace)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out))
-    events = [e for e in json.loads(out.read_text())["traceEvents"]
-              if e.get("ph") == "X" and "dur" in e]
-    device = [e for e in events if e.get("cat") in DEVICE_CATS]
-    if not device:
-        print("decode_trace: the profiler recorded no device activity", file=sys.stderr)
-        return 1
+def window_report(device, host, n, wall_us):
+    """Per-step counts of one traced window: ``device`` its device events,
+    ``host`` the host events inside its range, ``wall_us`` the range."""
     kernels = [e for e in device if e["cat"] == "kernel"]
     by_name = collections.defaultdict(lambda: [0, 0.0])
     by_group = collections.defaultdict(lambda: [0, 0.0])
@@ -112,25 +71,124 @@ def main() -> int:
         for table, key in ((by_name, e["name"]), (by_group, kernel_group(e["name"]))):
             table[key][0] += 1
             table[key][1] += e["dur"]
-    n = args.steps
     busy = busy_us(device) / n
-    print(json.dumps({
-        "config": f"qwen2-1.5b int8, batch {BATCH}, prompt {PROMPT}, decode steps "
-                  f"{PROMPT + WARM}..{PROMPT + WARM + 2 * n - 1}",
-        "card": torch.cuda.get_device_name(0),
-        "step_wall_us": wall_us,
-        "step_wall_us_profiled": prof_wall_us,
+    return {
+        "step_wall_us_profiled": wall_us / n,
         "device_busy_us_per_step": busy,
-        "device_busy_share": busy / wall_us,
-        "device_busy_share_profiled": busy / prof_wall_us,
+        "device_busy_share_profiled": busy * n / wall_us,
         "kernels_per_step": len(kernels) / n,
         "device_events_per_step": len(device) / n,
-        "host_ops_per_step": sum(e.get("cat") == "cpu_op" for e in events) / n,
-        "cuda_runtime_calls_per_step": sum(e.get("cat") == "cuda_runtime" for e in events) / n,
+        "host_ops_per_step": sum(e.get("cat") == "cpu_op" for e in host) / n,
+        "cuda_runtime_calls_per_step": sum(e.get("cat") == "cuda_runtime" for e in host) / n,
         "groups": {g: {"kernels_per_step": c / n, "device_us_per_step": t / n}
                    for g, (c, t) in sorted(by_group.items(), key=lambda kv: -kv[1][1])},
         "top_kernels": [{"name": k[:120], "per_step": c / n, "device_us_per_step": t / n}
                         for k, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]],
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--trace", default=str(Path(__file__).resolve().parent / "build"
+                                           / "traces" / "decode_trace.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("decode_trace: no CUDA device visible", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    cfg = get_config("qwen2-1.5b")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    max_seq = PROMPT + 1 + WARM + args.steps
+    eng = ServingEngine(cfg, init_params(cfg, gen, device=dev), max_seq=max_seq,
+                        pim_bits=8, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
+    n = args.steps
+
+    with torch.inference_mode():
+        eager_st = DecodeState(cfg, BATCH, max_seq, dev)
+        ways = {  # (buffers, step, greedy, sampling keywords)
+            "eager": (eager_st, functools.partial(decode_and_emit, eng.params, cfg, eager_st,
+                                                  greedy=True, top_k=0), True, {}),
+            "captured": (eng.state(BATCH), eng.step(BATCH, greedy=True, top_k=0), True, {}),
+            "captured_sampled": (eng.state(BATCH), eng.step(BATCH, greedy=False,
+                                                            top_k=SAMPLED["top_k"]),
+                                 False, SAMPLED),
+        }
+
+        def start(way):
+            """A prefill and WARM steps: the window's steps are steady ones."""
+            st, step, greedy, kw = ways[way]
+            st.start(eng.params, cfg, prompt, kw.get("key"), kw.get("temperature", 1.0),
+                     greedy=greedy, top_k=kw.get("top_k", 0))
+            for _ in range(WARM):
+                step()
+            torch.cuda.synchronize()
+
+        def steps(way):
+            step = ways[way][1]
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+
+        rounds = []
+        for _ in range(args.rounds):
+            row = {}
+            for way in ways:
+                start(way)
+                t0 = time.perf_counter()
+                steps(way)
+                row[way] = (time.perf_counter() - t0) * 1e6 / n
+            rounds.append(row)
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for way in ways:
+                start(way)
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                with torch.profiler.record_function(f"window {way}"):
+                    steps(way)
+                torch.cuda._sleep(1000)
+
+    out = Path(args.trace)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    events = [e for e in json.loads(out.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    windows, inside = [], False
+    for e in sorted((e for e in events if e.get("cat") in DEVICE_CATS), key=lambda e: e["ts"]):
+        if "spin_kernel" in e["name"]:
+            inside = not inside
+            if inside:
+                windows.append([])
+        elif inside:
+            windows[-1].append(e)
+    if len(windows) != len(ways) or not all(windows):
+        print("decode_trace: the profiler recorded no device activity in a window",
+              file=sys.stderr)
+        return 1
+    ranges = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    report = {}
+    for way, device in zip(ways, windows):
+        r = ranges[f"window {way}"]
+        host = [e for e in events if r["ts"] <= e["ts"] < r["ts"] + r["dur"]
+                and e.get("cat") in ("cpu_op", "cuda_runtime")]
+        report[way] = window_report(device, host, n, r["dur"])
+        wall = sorted(row[way] for row in rounds)[len(rounds) // 2]
+        report[way].update(step_wall_us=wall,
+                           device_busy_share=report[way]["device_busy_us_per_step"] / wall)
+    print(json.dumps({
+        "config": f"qwen2-1.5b int8, batch {BATCH}, prompt {PROMPT}, decode positions "
+                  f"{PROMPT + WARM}..{PROMPT + WARM + n - 1} of each way; sampled: "
+                  f"temperature {SAMPLED['temperature']}, top-k {SAMPLED['top_k']}",
+        "card": smi,
+        "step_wall_us_rounds": rounds,
+        **report,
         "trace": str(out),
     }))
     return 0

@@ -8,6 +8,8 @@ head-major ``(B, KV, S, D)``, in the parameter dtype or as int8 codes with a
 per-token f32 scale.  Unlike the JAX package, which returns a new cache,
 ``attn_prefill`` and ``attn_decode`` write the cache IN PLACE and return the
 same dict: a decode step then copies nothing but the new token's K/V.
+A decode step's position is a 0-d int64 tensor on the cache's device, read
+only by device ops, so a CUDA graph of the step replays at any position.
 """
 from __future__ import annotations
 
@@ -174,11 +176,12 @@ def pv_f32(w, v):
     return bmm_f32(wc, v.reshape(n * c, chunk, d)).reshape(n, c, g, d).sum(dim=1)
 
 
-def decode_attention(q, ck, cv, pos: int) -> torch.Tensor:
+def decode_attention(q, ck, cv, pos: torch.Tensor) -> torch.Tensor:
     """One decode step's attention: q (B, KV, G, D) over the cache ck, cv
-    (B, KV, S, D), keys past ``pos`` masked.  q is cast to the cache dtype,
-    scores and softmax are f32, the weights are cast back to the cache
-    dtype before p.v, as in the JAX package.  Returns (B, KV, G, D) f32."""
+    (B, KV, S, D), keys past ``pos`` (a 0-d tensor) masked.  q is cast to
+    the cache dtype, scores and softmax are f32, the weights are cast back
+    to the cache dtype before p.v, as in the JAX package.  Returns (B, KV,
+    G, D) f32."""
     b, kv, g, d = q.shape
     s_len = ck.shape[2]
     qg = q.to(ck.dtype).reshape(b * kv, g, d)
@@ -189,31 +192,32 @@ def decode_attention(q, ck, cv, pos: int) -> torch.Tensor:
     return o.reshape(b, kv, g, d)
 
 
-def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, *,
+def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *,
                 n_heads: int, n_kv: int, head_dim: int, rope_theta: float = 0.0):
-    """One decode step of x (B, 1, D) at position ``pos`` (tokens already
-    cached): write its K/V into the cache (in place), attend over the whole
-    store with positions past ``pos`` masked, accumulate in f32."""
+    """One decode step of x (B, 1, D) at position ``pos``, a 0-d int64
+    tensor on x's device (tokens already cached): write its K/V into slot
+    ``pos`` of the cache (in place), attend over the whole store with
+    positions past ``pos`` masked, accumulate in f32."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     if rope_theta:
-        pvec = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        pvec = pos.expand(b, 1)
         q = apply_rope(q, pvec, rope_theta)
         k = apply_rope(k, pvec, rope_theta)
+    slot = pos.reshape(1)
     k_t = k.transpose(1, 2)  # (B, KV, 1, D)
     v_t = v.transpose(1, 2)
     if "k_scale" in cache:
         k_codes, k_sc = _quant_kv(k_t)
         v_codes, v_sc = _quant_kv(v_t)
-        cache["k"][:, :, pos:pos + 1] = k_codes
-        cache["v"][:, :, pos:pos + 1] = v_codes
-        cache["k_scale"][:, :, pos:pos + 1] = k_sc
-        cache["v_scale"][:, :, pos:pos + 1] = v_sc
+        for name, new in (("k", k_codes), ("v", v_codes), ("k_scale", k_sc),
+                          ("v_scale", v_sc)):
+            cache[name].index_copy_(2, slot, new)
         ck = _dequant_kv(cache["k"], cache["k_scale"], x.dtype)
         cv = _dequant_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
-        cache["k"][:, :, pos:pos + 1] = k_t
-        cache["v"][:, :, pos:pos + 1] = v_t
+        cache["k"].index_copy_(2, slot, k_t)
+        cache["v"].index_copy_(2, slot, v_t)
         ck, cv = cache["k"], cache["v"]
     o = decode_attention(q.reshape(b, n_kv, n_heads // n_kv, head_dim), ck, cv, pos)
     o = o.reshape(b, 1, n_heads * head_dim).to(x.dtype)

@@ -33,7 +33,7 @@ def dense_block_prefill(p, x, cache, cfg: ModelConfig):
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
 
 
-def dense_block_decode(p, x, cache, pos: int, cfg: ModelConfig):
+def dense_block_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig):
     h, cache = attn_decode(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache,
                            pos, **_attn_kw(cfg))
     x = x + h

@@ -47,6 +47,11 @@ MATVEC_MAX_M = MAX_M
 _MATVEC_DISPATCH = "auto"
 
 
+def matvec_dispatch() -> str:
+    """The current pim_matvec dispatch mode ("auto" or "off")."""
+    return _MATVEC_DISPATCH
+
+
 def set_matvec_dispatch(mode: str) -> str:
     """Set the pim_matvec dispatch mode; returns the previous mode."""
     global _MATVEC_DISPATCH

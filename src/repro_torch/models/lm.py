@@ -74,10 +74,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict):
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
-                pos: int):
+                pos):
     """One decode step of tokens (B, 1) at position ``pos``, shared by the
-    batch.  Returns (logits (B, 1, V), cache)."""
+    batch: an int or a 0-d integer tensor on the tokens' device (the JAX
+    package takes an int32 scalar).  No value of the device is read on the
+    host, so a CUDA graph of the step replays at the position its tensor
+    holds.  Returns (logits (B, 1, V), cache)."""
     _check_family(cfg)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(torch.int64)
+    else:
+        pos = torch.full((), pos, dtype=torch.int64, device=tokens.device)
     x = embed_lookup(params["embed"], tokens)
     for i in range(cfg.n_layers):
         x, _ = bk.dense_block_decode(_layer(params["layers"], i), x,

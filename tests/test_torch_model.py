@@ -112,3 +112,33 @@ def test_full_config_matches_jax():
     mine, want = get_config("qwen2-1.5b"), jax_get_config("qwen2-1.5b")
     for field in mine.__dataclass_fields__:
         assert getattr(mine, field) == getattr(want, field), field
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_decode_step_takes_the_position_as_a_tensor(kv_bits, dtype):
+    """A 0-d int64 (or int32) tensor position gives the int form's logits and
+    cache bit for bit, and the step writes cache slot ``pos`` only."""
+    _, _, tcfg, tparams = reduced_model(kv_cache_bits=kv_bits)
+    tcfg = tcfg.replace(param_dtype=dtype)
+    tparams = params_from_numpy(params_to_numpy(quantize_tree(tparams, bits=8)), CPU)
+    for name in ("embed", "ln_f"):
+        tparams[name] = tparams[name].to(getattr(torch, dtype))
+    b, s, max_seq = 2, 6, 10
+    _, cache = prefill(tparams, tcfg, torch.from_numpy(prompt(b, s, tcfg.vocab)),
+                       init_cache(tcfg, b, max_seq, CPU))
+    nxt = torch.from_numpy(prompt(b, 1, tcfg.vocab, seed=2))
+    out = {}
+    for form in (s, torch.tensor(s), torch.tensor(s, dtype=torch.int32)):
+        c = {"layers": {k: v.clone() for k, v in cache["layers"].items()}}
+        logits, c = decode_step(tparams, tcfg, nxt, c, form)
+        out[type(form).__name__ + str(getattr(form, "dtype", ""))] = (logits, c["layers"])
+    (want, want_cache), *rest = out.values()
+    for got, got_cache in rest:
+        assert torch.equal(got, want)
+        for k in want_cache:
+            assert torch.equal(got_cache[k], want_cache[k]), k
+    for k, leaf in want_cache.items():
+        changed = (leaf != cache["layers"][k]).flatten(0, 2).any(0)  # per slot
+        changed = changed.flatten(1).any(1) if changed.dim() > 1 else changed
+        assert changed.nonzero().flatten().tolist() == [s], k
