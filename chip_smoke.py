@@ -46,9 +46,12 @@ Phases:
 3. the decode path: 4 requests of 128 prompt tokens, 32 new tokens, int8
    weights.  ``pim_matvec``'s launch count must be 7 x 28 x 31 and
    ``pim_matmul``'s 0 (prefill stays ``x @ dq(w)``).  A decode step is a
-   graph replay, which runs no Python and so counts nothing: the count is
-   the wrappers' counters read around the step's capture times the
-   replays, plus the eager launches (``counted_launches``), and the line
+   graph replay, which runs no Python and so moves no counter: the same
+   generation runs again in phase 8's profiler session, with every counter
+   set to 0 just before it and read just after, and its launches are the
+   kernels of each wrapper in that run's trace; the counters' account (the
+   launches read around the step's capture times the replays, plus the
+   eager launches, ``counted_launches``) must equal them, and the line
    says so.  The teacher-forced
    decode logits must agree with the overlay path (``x @ dq(w)``, dispatch
    "off") within LOGIT_TOL; greedy tokens must agree with the overlay path's
@@ -105,7 +108,7 @@ Phases:
    no multiple of 8 must raise ValueError; (b) ``ServingEngine.generate``
    on 1 x 16,384 seeded tokens for 16 new ones, int8 weights: exactly 28
    ``flash_attention`` launches, all on a bf16 q, and 7 x 28 x 15
-   ``pim_matvec`` launches (counted as in phase 3), int32 tokens, the
+   ``pim_matvec`` launches (counted in phase 8 as phase 3's), int32 tokens, the
    host-clock time to first
    token and decode ms per step at 16,384 cached tokens; then each of the
    28 layers' own q, k, v through the kernel and the plain version, every
@@ -126,15 +129,19 @@ Phases:
    on the long path, greedy, the captured ``generate`` must equal an eager
    loop of the same step function (``decode_and_emit``) from the same
    prefill, tokens and last-step logits (``torch.equal``); sampled tokens
-   must differ from greedy ones; (c) one torch.profiler session traces one
-   replay of each captured step: exactly 7 x 28 ``pim_matvec`` kernels, no
-   ``flash_attention`` kernel and no host operator inside it; (d) after a
+   must differ from greedy ones; (c) one torch.profiler session
+   (``repro_torch.tracing``) traces one replay of each captured step:
+   exactly 7 x 28 ``pim_matvec`` kernels, no ``flash_attention`` kernel
+   and no host operator inside it; and the counted generations of phases 3
+   and 7, whose tokens must equal those phases' (``check_counted``); (d) after a
    generation the stacked ``down`` codes leaf is replaced by a new tensor
    with one layer's codes changed: the next generation's logits must
    differ from the previous ones and equal a fresh engine's on the new
    tree; (e) decode ms a step on the host clock in TIMING_ROUNDS rounds
    alternating eager / captured / captured sampled, short and long path,
-   and the device-busy share of BUSY_STEPS captured steps (same session).
+   with the SM clock after each round, and the device-busy share of a
+   captured step (``tracing.busy_share``: the device busy time of its
+   traced replay over the median host-clock step of those rounds).
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -154,6 +161,7 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch import tracing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.bitplane import bitplane_matmul, bitplane_matmul_plain  # noqa: E402
@@ -241,10 +249,10 @@ FLASH_LENGTHS = (1000, 8193, LONG_PROMPT)
 LONG_PATH_TOL = 2e-4
 # Phase 8: the captured decode step.  Sampled decoding at temperature 0.8 and
 # top-k 50 from a fixed key; the stale-graph check's generations; rounds of
-# the alternating timing; replays whose device-busy share is traced.
+# the alternating timing.
 GREEDY = {"greedy": True}
 SAMPLED = {"greedy": False, "temperature": 0.8, "top_k": 50, "key": SEED}
-STALE_NEW, TIMING_ROUNDS, BUSY_STEPS = 4, 4, 8
+STALE_NEW, TIMING_ROUNDS = 4, 4
 LINEARS = (("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
            ("attn", "wo", None), ("mlp", "gate", None), ("mlp", "up", None),
            ("mlp", "down", None))
@@ -315,23 +323,15 @@ def main() -> int:
 
     # ---- 3. the decode path --------------------------------------------------
     # Each decode step is one replay of a captured step, which runs no Python:
-    # the launches are counted per replay around the capture, times the
-    # replays (``counted_launches``).
+    # its launches are counted in phase 8, where the same generation runs
+    # in the profiler's session (``counted_generation``).
     graphs8, graphs4 = count_captures(eng8), count_captures(eng4)
     eng8.generate(prompt, 2)  # warm-up: library load, allocator, the step's capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks, counts, counted_as = counted_launches(graphs8, lambda: eng8.generate(prompt, N_NEW))
+    toks = eng8.generate(prompt, N_NEW)
+    torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    launches = counts["pim_matvec"]
-    want = len(LINEARS) * cfg.n_layers * (N_NEW - 1)
-    check(launches == want, f"pim_matvec launched {launches} times on the "
-          f"main path, expected {want} ({counted_as})")
-    check(counts["pim_matmul"] == 0, f"pim_matmul launched {counts['pim_matmul']} "
-          "times on the decode path, whose prefill is x @ dq(w)")
-    check(counts["flash_attention"] == 0, f"flash_attention launched "
-          f"{counts['flash_attention']} times on a {PROMPT}-token prefill, which "
-          "attends directly")
     t0 = time.perf_counter()
     eng8.generate(prompt, 1)  # prefill and tok0 only
     torch.cuda.synchronize()
@@ -343,10 +343,8 @@ def main() -> int:
     diff8, t_gen_off, lo8 = against_overlay(eng8, prompt, toks, N_NEW, "int8")
     decode_off_s = (t_gen_off - t_prefill) / (N_NEW - 1)
     print(json.dumps({"path": "qwen2-1.5b int8 generate", "batch": BATCH,
-                      "prompt": PROMPT, "n_new": N_NEW, "launches": launches,
-                      "launches_counted_as": counted_as,
-                      "pim_matmul_launches": counts["pim_matmul"],
-                      "flash_attention_launches": counts["flash_attention"],
+                      "prompt": PROMPT, "n_new": N_NEW,
+                      "launches": "counted in phase 8 (counted_generation)",
                       "generate_s": t_gen, "prefill_s": t_prefill,
                       "decode_ms_per_step": decode_s * 1e3,
                       "decode_tokens_per_s": BATCH / decode_s,
@@ -354,15 +352,10 @@ def main() -> int:
                       "max_abs_logit_diff_vs_overlay": diff8}))
 
     eng4.generate(prompt, 2)  # warm-up: the int4 step's capture
-    toks4, counts4, counted_as4 = counted_launches(
-        graphs4, lambda: eng4.generate(prompt, N_NEW_INT4))
-    launches4 = counts4["pim_matvec"]
-    want4 = len(LINEARS) * cfg.n_layers * (N_NEW_INT4 - 1)
-    check(launches4 == want4, f"int4 path: {launches4} launches, expected {want4} "
-          f"({counted_as4})")
+    toks4 = eng4.generate(prompt, N_NEW_INT4)
     diff4, _, _ = against_overlay(eng4, prompt, toks4, N_NEW_INT4, "int4")
     print(json.dumps({"path": "qwen2-1.5b int4 generate", "n_new": N_NEW_INT4,
-                      "launches": launches4, "launches_counted_as": counted_as4,
+                      "launches": "counted in phase 8 (counted_generation)",
                       "max_abs_logit_diff_vs_overlay": diff4}))
     against_plain(eng8, gen, prompt, toks, lo8)
 
@@ -411,14 +404,16 @@ def main() -> int:
     fa_check = flash_vs_plain(cfg, gen_fa)
     print(json.dumps(fa_check))
     decode_attention_check(cfg, gen_new)
-    long_path, long_prompt, long_eng, graphs_long = long_prompt_path(cfg, params, gen_fa)
+    long_path, long_prompt, long_eng, graphs_long, long_toks = long_prompt_path(cfg, params,
+                                                                               gen_fa)
     print(json.dumps(long_path))
 
     # ---- 8. the captured decode step ---------------------------------------------
-    captured_phase(
+    counted = captured_phase(
         cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls,
-        {"int8": graphs8, "int4": graphs4, "long": graphs_long})
-    del params, eng8, eng4, long_eng, graphs8, graphs4, graphs_long, one_calls
+        {"int8": (graphs8, toks, N_NEW), "int4": (graphs4, toks4, N_NEW_INT4),
+         "long": (graphs_long, long_toks, LONG_NEW)})
+    del params, eng8, eng4, long_eng, graphs8, graphs4, graphs_long, one_calls, long_toks
     gc.collect()  # the counted captures hold each engine in a cycle
     torch.cuda.empty_cache()
     long_against_plain(cfg, gen_fa, long_prompt)
@@ -428,7 +423,8 @@ def main() -> int:
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
         "replaces": "src/repro/kernels/pim_matvec.py:40",
-        "launches": launches, "launches_counted_as": counted_as, "max_abs_err": max_err,
+        "launches": counted["int8"]["traced"]["pim_matvec"],
+        "launches_counted_as": counted["int8"]["counted_as"], "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
         "library_ms": step["library_ms"], "overlay_ms": step["overlay_ms"],
@@ -467,7 +463,9 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn.py:26",
-        "launches": long_path["flash_attention_launches"], "max_abs_err": fa_check["max_abs_err"],
+        "launches": counted["long"]["traced"]["flash_attention"],
+        "launches_counted_as": counted["long"]["counted_as"],
+        "max_abs_err": fa_check["max_abs_err"],
         "bf16_tol_share": fa_check["bf16_tol_share"],
         "ms": fa_times["kernel_ms"], "plain_ms": fa_times["plain_ms"],
         "bound_ms": fa_times["bound_ms"], "bound_by": fa_times["bound_by"],
@@ -516,68 +514,6 @@ def _matvec_label(mangled):
 def _fold_label(mangled):
     found = re.search(r"fold_reduce_kernelI(f|13__nv_bfloat16)E", mangled)
     return found and ("f32" if found[1] == "f" else "bf16")
-
-
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def busy_us(events) -> float:
-    """Length of the union of the events' [ts, ts + dur) intervals."""
-    total, end = 0.0, float("-inf")
-    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
-        if ts + dur <= end:
-            continue
-        total += ts + dur - max(ts, end)
-        end = ts + dur
-    return total
-
-
-def traced_segments(segments):
-    """One torch.profiler session over ``segments`` [(label, set-up or None,
-    fn)], in order: the run's only session, since a second session in the
-    process may record no device events.  Each segment's set-up runs
-    first; then ``fn`` runs in a ``record_function`` range, synchronised
-    inside it, between two spin kernels (``torch.cuda._sleep``) that mark
-    its start and end on the device.  The trace is written under build/traces/.
-    Returns {label: {"kernels": [names], "busy_us": the union of its device
-    intervals, "host_us": the range's length, "host_ops": host operator
-    calls inside the range}}."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for label, setup, fn in segments:
-            if setup is not None:
-                setup()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            with torch.profiler.record_function(f"segment {label}"):
-                fn()
-                torch.cuda.synchronize()
-            torch.cuda._sleep(1000)
-    trace = Path(__file__).resolve().parent / "build" / "traces" / "segments.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("ph") == "X" and "dur" in e]
-    groups, inside = [], False
-    for e in sorted((e for e in events if e.get("cat") in DEVICE_CATS), key=lambda e: e["ts"]):
-        if "spin_kernel" in e["name"]:
-            inside = not inside
-            if inside:
-                groups.append([])
-        elif inside:
-            groups[-1].append(e)
-    check(len(groups) == len(segments), f"the trace holds {len(groups)} segment markers, "
-          f"expected {len(segments)}: the profiler recorded no device events?")
-    ranges = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
-    out = {}
-    for (label, _, _), group in zip(segments, groups):
-        r = ranges[f"segment {label}"]
-        out[label] = {"kernels": [e["name"] for e in group if e["cat"] == "kernel"],
-                      "busy_us": busy_us(group), "host_us": r["dur"],
-                      "host_ops": sum(e.get("cat") == "cpu_op"
-                                      and r["ts"] <= e["ts"] < r["ts"] + r["dur"]
-                                      for e in events)}
-    return out
 
 
 def redesign_build_report(eng8, eng4):
@@ -677,7 +613,7 @@ def matmul_build_report(gen, matvec_call):
 def one_call_check(traced, calls):
     """Each of ``calls`` (traced as a segment "<name> call") launched exactly
     one kernel, its own (a kernel belongs to the call whose name it holds)."""
-    per_call = {name: traced[f"{name} call"]["kernels"] for name in calls}
+    per_call = {name: traced[f"{name} call"].kernels for name in calls}
     for name, kernels in per_call.items():
         check(len(kernels) == 1 and f"{name}_" in kernels[0],
               f"one {name} call launched {kernels}, expected one {name} kernel")
@@ -1570,41 +1506,26 @@ def flash_vs_plain(cfg, gen):
 def long_prompt_path(cfg, params, gen):
     """The long-prompt path: ``ServingEngine.generate`` on one seeded prompt
     of LONG_PROMPT tokens for LONG_NEW new tokens, int8 weights, bf16 cache.
-    Every layer's prefill attention must be one ``flash_attention`` launch
-    on a bf16 q (the tensor-core route), every decode linear one
-    ``pim_matvec`` launch, no other kernel launched.  Prints the host-clock
-    time to first token (a second, 1-token generation) and the decode ms per
-    step at LONG_PROMPT cached tokens.  Then a third prefill sends each
-    layer's own q, k, v through both the kernel and ``flash_attention_plain``:
-    every layer must be within the bf16 bar (``within_bf16_ulp``).  The
-    decode launches are counted per replay around the capture, times the
-    replays (``counted_launches``).
+    Prints the host-clock time to first token (a second, 1-token
+    generation) and the decode ms per step at LONG_PROMPT cached tokens.
+    Then a third prefill sends each layer's own q, k, v through both the
+    kernel and ``flash_attention_plain``: every layer must be within the
+    bf16 bar (``within_bf16_ulp``).  Its launches are counted in phase 8,
+    where the same generation runs in the profiler's session
+    (``counted_generation``).
 
-    Returns (a report, the prompt, the engine, its counted captures)."""
+    Returns (a report, the prompt, the engine, its counted captures, the
+    tokens)."""
     dev = gen.device
     eng = ServingEngine(cfg, params, max_seq=LONG_PROMPT + LONG_NEW, pim_bits=8, device=dev)
     graphs = count_captures(eng)
     prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen, device=dev)
     eng.generate(prompt, 1)  # warm-up: the long shapes' first library calls, the step's capture
     torch.cuda.synchronize()
-    seen = []  # the dtype of each q the attention saw
-
-    def noting_dtype(q, k, v, **kw):
-        seen.append(q.dtype)
-        return flash_attention_gqa(q, k, v, **kw)
-
     t0 = time.perf_counter()
-    with attention_through(noting_dtype):
-        toks, launches, counted_as = counted_launches(
-            graphs, lambda: eng.generate(prompt, LONG_NEW))
+    toks = eng.generate(prompt, LONG_NEW)
+    torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    want = {"flash_attention": cfg.n_layers,
-            "pim_matvec": len(LINEARS) * cfg.n_layers * (LONG_NEW - 1),
-            "pim_matmul": 0, "bitplane_matmul": 0, "fold_reduce": 0}
-    check(launches == want, f"long-prompt path launches {launches}, expected {want} "
-          f"({counted_as})")
-    check(seen == [torch.bfloat16] * cfg.n_layers, f"long-prompt attention saw q dtypes {seen}, "
-          f"expected {cfg.n_layers} x bf16 (the tensor-core route)")
     t0 = time.perf_counter()
     eng.generate(prompt, 1)  # prefill and tok0 only
     torch.cuda.synchronize()
@@ -1636,13 +1557,10 @@ def long_prompt_path(cfg, params, gen):
     check(not bad, f"long-prompt layers outside the bf16 bar of the plain version: {bad}")
     return {"path": "qwen2-1.5b int8 generate, long prompt", "batch": 1,
             "prompt": LONG_PROMPT, "n_new": LONG_NEW,
-            "flash_attention_launches": launches["flash_attention"],
-            "flash_attention_q_dtype": str(seen[0]),
-            "pim_matvec_launches": launches["pim_matvec"], "launches": launches,
-            "launches_counted_as": counted_as,
+            "launches": "counted in phase 8 (counted_generation)",
             "generate_s": t_gen, "time_to_first_token_s": t_first,
             "decode_ms_per_step": (t_gen - t_first) / (LONG_NEW - 1) * 1e3,
-            "layers_vs_plain_worst_tol_share": worst["tol_share"]}, prompt, eng, graphs
+            "layers_vs_plain_worst_tol_share": worst["tol_share"]}, prompt, eng, graphs, toks
 
 
 @contextlib.contextmanager
@@ -1779,6 +1697,11 @@ def flash_timings(cfg, gen):
 
 # ---- 8. the captured decode step ------------------------------------------------
 KERNEL_FNS = (pim_matvec, pim_matmul, bitplane_matmul, fold_reduce, flash_attention)
+# What each wrapper's kernels' names hold, in a profiler trace.
+KERNEL_TAGS = {"pim_matvec": "pim_matvec_kernel", "pim_matmul": "pim_matmul_",
+               "bitplane_matmul": "bitplane_matmul_", "fold_reduce": "fold_reduce_kernel",
+               "flash_attention": "flash_attn_"}
+TRACE = Path(__file__).resolve().parent / "build" / "traces" / "segments.json"
 
 
 def launch_counts():
@@ -1804,9 +1727,9 @@ def count_captures(eng):
     added to the list returned."""
     graphs, capture = [], eng._capture
 
-    def counted(run):
+    def counted(run, pool):
         before = launch_counts()
-        graph = capture(run)
+        graph = capture(run, pool)
         after = launch_counts()
         graphs.append(CountedGraph(graph, {k: after[k] - before[k] for k in after}))
         return graphs[-1]
@@ -1819,8 +1742,9 @@ def counted_launches(graphs, fn):
     """Run ``fn`` with every counter set to 0 first and read just after: each
     kernel's launches in it are the wrappers' counts (eager launches) plus,
     for each captured step of ``graphs``, its launches at capture times its
-    replays in ``fn``.  No step may be captured inside ``fn`` (warm up
-    first).  Returns (fn's result, launches, how they were counted)."""
+    replays in ``fn``: the cross-check of the traced count
+    (``counted_generation``).  No step may be captured inside ``fn`` (warm
+    up first).  Returns (fn's result, launches, how they were counted)."""
     n_graphs, replays = len(graphs), [g.replays for g in graphs]
     for kernel in KERNEL_FNS:
         kernel.launches = 0
@@ -1833,10 +1757,42 @@ def counted_launches(graphs, fn):
         if g.replays > r0:
             for k, c in g.launches.items():
                 launches[k] += c * (g.replays - r0)
-            counted_as.append(f"{g.launches['pim_matvec']} pim_matvec launches per replay "
-                              f"(read around the capture) x {g.replays - r0} replays")
+            counted_as.append(f"{g.launches} per replay (read around the capture) x "
+                              f"{g.replays - r0} replays")
     counted_as.append(f"eager launches (the wrappers' counters): {eager}")
     return result, launches, "; ".join(counted_as)
+
+
+def traced_kernels(window):
+    """The kernels of each of KERNEL_FNS in a traced window, by name."""
+    return {name: sum(tag in k for k in window.kernels) for name, tag in KERNEL_TAGS.items()}
+
+
+def counted_generation(graphs, generate, out):
+    """A traced window's call: ``generate()`` with every launch counter set to
+    0 just before it and read just after (``counted_launches``), its
+    tokens, counters and their account kept in ``out``.  The window's
+    trace gives the launches that ran on the device (``check_counted``)."""
+    def run():
+        out["tokens"], out["counters"], out["counters_as"] = counted_launches(graphs, generate)
+    return run
+
+
+def check_counted(label, window, out, toks, want):
+    """The launches of one counted generation: the kernels of each wrapper
+    in its window of the trace must be ``want``, equal the counters'
+    account (capture x replays plus eager launches), and the tokens must
+    equal ``toks``, the same generation's earlier, untraced, tokens."""
+    traced = traced_kernels(window)
+    out["traced"] = traced
+    out["counted_as"] = (f"{label}: the kernels of each wrapper in this run's profiler trace "
+                         f"of the generation; cross-check, the counters: {out['counters_as']}")
+    check(traced == want, f"{label}: launches {traced} in the trace, expected {want}")
+    check(out["counters"] == traced, f"{label}: the counters give {out['counters']}, "
+          f"the trace {traced} ({out['counters_as']})")
+    check(torch.equal(out["tokens"], toks), f"{label}: the traced generation's tokens differ "
+          "from the same generation's earlier ones")
+    return {"path": label, "launches": traced, "launches_counted_as": out["counted_as"]}
 
 
 def captured_vs_eager(eng, prompt, n_new, label, *, greedy, temperature=1.0, top_k=0, key=None):
@@ -1928,7 +1884,10 @@ def timing_pairs(eng, prompt, n_new, label):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / (n_new - 1)
 
-    rounds = [{key: ms(*run) for key, run in runs.items()} for _ in range(TIMING_ROUNDS)]
+    rounds = []
+    for _ in range(TIMING_ROUNDS):
+        rounds.append({key: ms(*run) for key, run in runs.items()})
+        rounds[-1]["sm_clock_mhz"] = tracing.sm_clock_mhz()
     medians = {key: sorted(r[key] for r in rounds)[len(rounds) // 2] for key in runs}
     return {"timing": f"{label}: decode ms a step, host clock, alternating rounds of eager / "
                       "captured / captured sampled, each over "
@@ -1939,10 +1898,13 @@ def timing_pairs(eng, prompt, n_new, label):
             / medians["captured_ms"]}
 
 
-def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, graphs):
+def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, paths):
     """Phase 8: the captured decode step, (a) to (e) of the module's
-    docstring, and phase 2's one-call traces in the same profiler session.
-    ``graphs``: {label: an engine's counted captures}, reported."""
+    docstring, and in the same profiler session phase 2's one-call traces
+    and the counted generations of phases 3 and 7 (``counted_generation``).
+    ``paths``: {"int8" | "int4" | "long": (the engine's counted captures,
+    the tokens of its earlier generation, its n_new)}.  Returns {path:
+    its launches, traced, and their account}."""
     cases = []
     with torch.inference_mode():
         for eng, bits in ((eng8, 8), (eng4, 4)):
@@ -1962,9 +1924,10 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, gr
         print(json.dumps({"check": "captured generate vs eager loop", **rep}))
     print(json.dumps(stale_graph_check(cfg, eng8, prompt)))
     with torch.inference_mode():
-        print(json.dumps(timing_pairs(eng8, prompt, N_NEW, f"int8, {BATCH} x {PROMPT}")))
-        print(json.dumps(timing_pairs(long_eng, long_prompt, LONG_NEW,
-                                      f"int8, 1 x {LONG_PROMPT}")))
+        timed = {"int8": timing_pairs(eng8, prompt, N_NEW, f"int8, {BATCH} x {PROMPT}"),
+                 "long": timing_pairs(long_eng, long_prompt, LONG_NEW, f"int8, 1 x {LONG_PROMPT}")}
+        for timing in timed.values():
+            print(json.dumps(timing))
 
         def replays(eng, prompt, mode, n):
             b = prompt.shape[0]
@@ -1983,36 +1946,65 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, gr
         segments = [(f"{name} call", None, fn) for name, fn in one_calls.items()]
         steps = {"int8 greedy step": (eng8, prompt, GREEDY, 1),
                  "int8 sampled step": (eng8, prompt, SAMPLED, 1),
-                 "long greedy step": (long_eng, long_prompt, GREEDY, 1),
-                 f"int8 greedy, {BUSY_STEPS} steps": (eng8, prompt, GREEDY, BUSY_STEPS),
-                 f"int8 sampled, {BUSY_STEPS} steps": (eng8, prompt, SAMPLED, BUSY_STEPS),
-                 f"long greedy, {BUSY_STEPS} steps": (long_eng, long_prompt, GREEDY, BUSY_STEPS)}
+                 "long greedy step": (long_eng, long_prompt, GREEDY, 1)}
         segments += [(label, *replays(*args)) for label, args in steps.items()]
-        traced = traced_segments(segments)
+        # The main paths' generations, counted: the steps they replay are
+        # captured already (``replays`` above, and int4's here).
+        eng4.step(BATCH, greedy=True, top_k=0)
+        seen = []  # the dtype of each q the long prefill's attention saw
+
+        def noting_dtype(q, k, v, **kw):
+            seen.append(q.dtype)
+            return flash_attention_gqa(q, k, v, **kw)
+
+        def long_generation():
+            with attention_through(noting_dtype):
+                return long_eng.generate(long_prompt, LONG_NEW)
+
+        counted = {label: {} for label in paths}
+        for label, gen_fn in (("int8", lambda: eng8.generate(prompt, N_NEW)),
+                              ("int4", lambda: eng4.generate(prompt, N_NEW_INT4)),
+                              ("long", long_generation)):
+            segments.append((f"{label} generate, counted", None,
+                             counted_generation(paths[label][0], gen_fn, counted[label])))
+        traced = tracing.trace_windows(segments, TRACE)
     one_call_check(traced, one_calls)
+    per_step = len(LINEARS) * cfg.n_layers
+    for label, (_, toks, n_new) in paths.items():
+        want = dict.fromkeys(KERNEL_TAGS, 0)
+        want["pim_matvec"] = per_step * (n_new - 1)
+        want["flash_attention"] = cfg.n_layers if label == "long" else 0
+        print(json.dumps(check_counted(f"{label} generate, counted",
+                                       traced[f"{label} generate, counted"],
+                                       counted[label], toks, want)))
+    check(seen == [torch.bfloat16] * cfg.n_layers, f"long-prompt attention saw q dtypes {seen}, "
+          f"expected {cfg.n_layers} x bf16 (the tensor-core route)")
     per_replay = {}
     for label in ("int8 greedy step", "int8 sampled step", "long greedy step"):
-        kernels = traced[label]["kernels"]
-        per_replay[label] = {"kernels": len(kernels),
-                             "pim_matvec": sum("pim_matvec_" in k for k in kernels),
-                             "flash_attention": sum("flash_attn" in k for k in kernels),
-                             "host_ops": traced[label]["host_ops"],
-                             "device_busy_us": traced[label]["busy_us"]}
-        check(per_replay[label]["pim_matvec"] == len(LINEARS) * cfg.n_layers
-              and per_replay[label]["flash_attention"] == 0 and traced[label]["host_ops"] == 0,
-              f"one replay of the {label}: {per_replay[label]}, expected "
-              f"{len(LINEARS) * cfg.n_layers} pim_matvec kernels, no flash_attention kernel and "
-              "no host operator")
-    busy = {label: {"steps": BUSY_STEPS,
-                    "device_busy_ms_per_step": traced[label]["busy_us"] / BUSY_STEPS / 1e3,
-                    "host_ms_per_step": traced[label]["host_us"] / BUSY_STEPS / 1e3,
-                    "device_busy_share": traced[label]["busy_us"] / traced[label]["host_us"],
-                    "kernels_per_step": len(traced[label]["kernels"]) / BUSY_STEPS}
-            for label in traced if label.endswith(f"{BUSY_STEPS} steps")}
+        window = traced[label]
+        kernels = traced_kernels(window)
+        per_replay[label] = {"kernels": len(window.kernels), "pim_matvec": kernels["pim_matvec"],
+                             "flash_attention": kernels["flash_attention"],
+                             "host_ops": window.host_ops,
+                             "device_busy_us": tracing.busy_us(window.device)}
+        check(kernels["pim_matvec"] == per_step and kernels["flash_attention"] == 0
+              and window.host_ops == 0,
+              f"one replay of the {label}: {per_replay[label]}, expected {per_step} pim_matvec "
+              "kernels, no flash_attention kernel and no host operator")
+    busy = {}
+    for label, path, key in (("int8 greedy step", "int8", "captured_ms"),
+                             ("int8 sampled step", "int8", "captured_sampled_ms"),
+                             ("long greedy step", "long", "captured_ms")):
+        step_ms = timed[path]["medians"][key]
+        busy[label] = {"device_busy_ms": per_replay[label]["device_busy_us"] / 1e3,
+                       "step_ms": step_ms,
+                       "device_busy_share": tracing.busy_share(traced[label], 1, step_ms * 1e3)}
     print(json.dumps({"check": "phase 8: the captured decode step", "per_replay_trace": per_replay,
-                      "captured_launches": {label: [g.launches for g in gs]
-                                            for label, gs in graphs.items()},
+                      "captured_launches": {label: [g.launches for g in graphs]
+                                            for label, (graphs, _, _) in paths.items()},
                       "busy_share": busy}))
+    return counted
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,23 +2,24 @@
 """Trace a steady window of the port's decode step on one NVIDIA card, eager
 and captured side by side.
 
-    python3 decode_trace.py [--steps 8] [--rounds 4] [--trace build/traces/decode_trace.json]
+    python3 decode_trace.py [--steps 8] [--trace build/traces/decode_trace.json]
 
 Full-width qwen2-1.5b (random weights from a seed), int8 weights, batch 4,
 128-token prompts: the configuration ``chip_smoke.py`` drives.  Three ways
 to run the same step, ``serving.decode_and_emit``: the eager loop (greedy),
 the engine's captured step (one CUDA-graph replay a step, greedy) and the
 captured step sampling at temperature 0.8, top-k 50.  Each run starts from
-its own prefill and a few warm-up steps.  First ``--rounds`` rounds of
+its own prefill and a few warm-up steps.  First ROUNDS rounds of
 ``--steps`` steps each on the host's clock without the profiler, the three
-ways alternating in every round; then one ``torch.profiler`` session (CPU
-and CUDA activity) over ``--steps`` steps of each, the windows marked on
-the device by spin kernels.  From its Chrome trace it counts, per decode
-step and per way, the device's kernels, its busy time (the union of
-kernel, memcpy and memset intervals) and share of the host-clock step, the
-host's operator and CUDA runtime calls, and ranks the kernels by device
-time.  Prints one JSON object; exits non-zero where the trace holds no
-device activity.  The trace of 8 steps of each takes about 60 MB.
+ways alternating in every round, the SM clock read after each; then one ``torch.profiler`` session
+(``repro_torch.tracing``) over ``--steps`` steps of each, one window each.
+From its Chrome trace it counts, per decode step and per way, the device's
+kernels, its busy time (the union of kernel, memcpy and memset intervals)
+and busy share (``tracing.busy_share``: busy time a step over the median
+host-clock step of the rounds), the host's operator and CUDA runtime
+calls, and ranks the kernels by device time.  Prints one JSON object;
+exits non-zero where the trace holds no device activity.  The trace of 8
+steps of each takes about 60 MB.
 """
 import argparse
 import collections
@@ -32,14 +33,14 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch import tracing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.serving import DecodeState, ServingEngine, decode_and_emit  # noqa: E402
 
 SEED = 20260
-BATCH, PROMPT, WARM = 4, 128, 4
+BATCH, PROMPT, WARM, ROUNDS = 4, 128, 4, 4
 SAMPLED = {"temperature": 0.8, "top_k": 50, "key": SEED}
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def kernel_group(name: str) -> str:
@@ -50,36 +51,25 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def busy_us(events) -> float:
-    """Length of the union of the events' [ts, ts + dur) intervals."""
-    total, end = 0.0, float("-inf")
-    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
-        if ts + dur <= end:
-            continue
-        total += ts + dur - max(ts, end)
-        end = ts + dur
-    return total
-
-
-def window_report(device, host, n, wall_us):
-    """Per-step counts of one traced window: ``device`` its device events,
-    ``host`` the host events inside its range, ``wall_us`` the range."""
-    kernels = [e for e in device if e["cat"] == "kernel"]
+def window_report(window: tracing.Window, n: int) -> dict:
+    """Per-step counts of one traced window of ``n`` steps."""
     by_name = collections.defaultdict(lambda: [0, 0.0])
     by_group = collections.defaultdict(lambda: [0, 0.0])
-    for e in kernels:
+    for e in window.device:
+        if e["cat"] != "kernel":
+            continue
         for table, key in ((by_name, e["name"]), (by_group, kernel_group(e["name"]))):
             table[key][0] += 1
             table[key][1] += e["dur"]
-    busy = busy_us(device) / n
     return {
-        "step_wall_us_profiled": wall_us / n,
-        "device_busy_us_per_step": busy,
-        "device_busy_share_profiled": busy * n / wall_us,
-        "kernels_per_step": len(kernels) / n,
-        "device_events_per_step": len(device) / n,
-        "host_ops_per_step": sum(e.get("cat") == "cpu_op" for e in host) / n,
-        "cuda_runtime_calls_per_step": sum(e.get("cat") == "cuda_runtime" for e in host) / n,
+        "step_wall_us_profiled": window.host_us / n,
+        "device_busy_us_per_step": tracing.busy_us(window.device) / n,
+        "kernels_per_step": len(window.kernels) / n,
+        "device_events_per_step": len(window.device) / n,
+        "host_ops_per_step": window.host_ops / n,
+        "cuda_runtime_calls_per_step": window.runtime_calls / n,
+        "graph_launch_us_per_step_profiled": sum(
+            e["dur"] for e in window.host if e["name"] == "cudaGraphLaunch") / n,
         "groups": {g: {"kernels_per_step": c / n, "device_us_per_step": t / n}
                    for g, (c, t) in sorted(by_group.items(), key=lambda kv: -kv[1][1])},
         "top_kernels": [{"name": k[:120], "per_step": c / n, "device_us_per_step": t / n}
@@ -90,7 +80,6 @@ def window_report(device, host, n, wall_us):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--trace", default=str(Path(__file__).resolve().parent / "build"
                                            / "traces" / "decode_trace.json"))
     args = ap.parse_args()
@@ -136,52 +125,33 @@ def main() -> int:
             torch.cuda.synchronize()
 
         rounds = []
-        for _ in range(args.rounds):
+        for _ in range(ROUNDS):
             row = {}
             for way in ways:
                 start(way)
                 t0 = time.perf_counter()
                 steps(way)
                 row[way] = (time.perf_counter() - t0) * 1e6 / n
+            row["sm_clock_mhz"] = tracing.sm_clock_mhz()
             rounds.append(row)
+        try:
+            windows = tracing.trace_windows(
+                [(way, functools.partial(start, way), functools.partial(steps, way))
+                 for way in ways], args.trace)
+        except ValueError as err:
+            print(f"decode_trace: {err}", file=sys.stderr)
+            return 1
 
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for way in ways:
-                start(way)
-                torch.cuda._sleep(1000)
-                torch.cuda.synchronize()
-                with torch.profiler.record_function(f"window {way}"):
-                    steps(way)
-                torch.cuda._sleep(1000)
-
-    out = Path(args.trace)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out))
-    events = [e for e in json.loads(out.read_text())["traceEvents"]
-              if e.get("ph") == "X" and "dur" in e]
-    windows, inside = [], False
-    for e in sorted((e for e in events if e.get("cat") in DEVICE_CATS), key=lambda e: e["ts"]):
-        if "spin_kernel" in e["name"]:
-            inside = not inside
-            if inside:
-                windows.append([])
-        elif inside:
-            windows[-1].append(e)
-    if len(windows) != len(ways) or not all(windows):
+    if not all(w.device for w in windows.values()):
         print("decode_trace: the profiler recorded no device activity in a window",
               file=sys.stderr)
         return 1
-    ranges = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
     report = {}
-    for way, device in zip(ways, windows):
-        r = ranges[f"window {way}"]
-        host = [e for e in events if r["ts"] <= e["ts"] < r["ts"] + r["dur"]
-                and e.get("cat") in ("cpu_op", "cuda_runtime")]
-        report[way] = window_report(device, host, n, r["dur"])
+    for way, window in windows.items():
         wall = sorted(row[way] for row in rounds)[len(rounds) // 2]
+        report[way] = window_report(window, n)
         report[way].update(step_wall_us=wall,
-                           device_busy_share=report[way]["device_busy_us_per_step"] / wall)
+                           device_busy_share=tracing.busy_share(window, n, wall))
     print(json.dumps({
         "config": f"qwen2-1.5b int8, batch {BATCH}, prompt {PROMPT}, decode positions "
                   f"{PROMPT + WARM}..{PROMPT + WARM + n - 1} of each way; sampled: "
@@ -189,7 +159,7 @@ def main() -> int:
         "card": smi,
         "step_wall_us_rounds": rounds,
         **report,
-        "trace": str(out),
+        "trace": args.trace,
     }))
     return 0
 

@@ -219,6 +219,7 @@ class ServingEngine:
         self._states: dict[int, DecodeState] = {}
         self._steps: dict[tuple, Callable[[], None]] = {}
         self._steps_params: Optional[tuple] = None
+        self._pools: dict[int, tuple] = {}
         self._stream: Optional[torch.cuda.Stream] = None
 
     def _check(self, prompt_tokens, n_new: int, extras, speculate=None):
@@ -244,26 +245,30 @@ class ServingEngine:
         return self._states[batch]
 
     def step(self, batch: int, *, greedy: bool, top_k: int):
-        """The decode step of ``batch`` rows as a call with no arguments: on
-        the card one replay of its CUDA graph, on the CPU
-        ``decode_and_emit`` itself.  Made at the first call for this batch,
-        sampling mode and dispatch mode, and made again once any parameter
-        leaf has been replaced (a graph reads the memory it was captured
-        on)."""
+        """The decode step of ``batch`` rows as a call with no arguments.  On
+        the CPU, ``decode_and_emit`` on the current parameters.  On the card,
+        one replay of its CUDA graph, captured at the first call for this
+        batch, sampling mode and dispatch mode into the pool of the batch's
+        buffers (its steps never run at the same time), and captured again
+        once any parameter leaf has been replaced (a graph reads the memory
+        it was captured on)."""
+        top_k = 0 if greedy else int(top_k)
+        st = self.state(batch)
+        run = functools.partial(decode_and_emit, self.params, self.cfg, st,
+                                greedy=bool(greedy), top_k=top_k)
+        if self.device.type != "cuda":
+            return run
         leaves = tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
                        for t in _tensors(self.params))
         if leaves != self._steps_params:
             self._steps.clear()
             self._steps_params = leaves
-        key = (batch, bool(greedy), int(top_k), common.matvec_dispatch())
+        key = (batch, bool(greedy), top_k, common.matvec_dispatch())
         if key not in self._steps:
-            st = self.state(batch)
-            run = functools.partial(decode_and_emit, self.params, self.cfg, st,
-                                    greedy=greedy, top_k=top_k)
-            if self.device.type == "cuda":
-                self._warm_up(st, run)
-                run = self._capture(run).replay
-            self._steps[key] = run
+            if batch not in self._pools:
+                self._pools[batch] = torch.cuda.graph_pool_handle()
+            self._warm_up(st, run)
+            self._steps[key] = self._capture(run, self._pools[batch]).replay
         return self._steps[key]
 
     def _warm_up(self, st: DecodeState, run) -> None:
@@ -279,11 +284,12 @@ class ServingEngine:
             run()
         torch.cuda.current_stream(self.device).wait_stream(self._stream)
 
-    def _capture(self, run) -> torch.cuda.CUDAGraph:
-        """Capture one call of ``run`` (the kernels it launches are recorded,
-        not run).  A failed capture raises."""
+    def _capture(self, run, pool) -> torch.cuda.CUDAGraph:
+        """Capture one call of ``run`` into the memory pool ``pool`` (the
+        kernels it launches are recorded, not run).  A failed capture
+        raises."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with torch.cuda.graph(graph, pool=pool, stream=self._stream):
             run()
         return graph
 

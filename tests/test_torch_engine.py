@@ -208,17 +208,20 @@ def test_reused_buffers_give_a_fresh_engines_tokens():
 
 
 def test_new_params_drop_the_kept_step():
-    """The engine keeps one step per (batch, sampling mode, dispatch mode)
-    and makes it again once a parameter leaf is replaced: a new ``down``
-    leaf, and then a whole new tree, change the output to that of a fresh
-    engine on the new weights."""
+    """The step follows the engine's parameters: on the CPU it is made anew
+    at each call on the current tree (greedy steps take no top-k), and a
+    new ``down`` leaf, and then a whole new tree, change the output to that
+    of a fresh engine on the new weights.  (On the card the engine keeps
+    each captured step and captures it again after such a change:
+    ``chip_smoke.py`` phase 8.)"""
     _, _, tcfg, tparams = reduced_model()
     _, _, _, other = reduced_model(seed=1)
     toks = torch.from_numpy(prompt(2, 8, tcfg.vocab))
     eng = ServingEngine(tcfg, tparams, max_seq=24, pim_bits=8, device="cpu")
     kw = dict(greedy=False, top_k=TOP_K)
-    assert eng.step(2, **kw) is eng.step(2, **kw)
-    assert eng.step(2, greedy=True, top_k=0) is not eng.step(2, **kw)
+    assert eng.step(2, **kw).keywords == dict(greedy=False, top_k=TOP_K)
+    assert eng.step(2, greedy=True, top_k=TOP_K).keywords == dict(greedy=True, top_k=0)
+    assert eng.step(2, **kw).args[0] is eng.params
     sampled = dict(n_new=6, greedy=False, temperature=TEMPERATURE, top_k=TOP_K, key=1)
     first = eng.generate(toks, **sampled)
     first_logits = eng.state(2).logits.clone()
@@ -230,6 +233,7 @@ def test_new_params_drop_the_kept_step():
     for params in (want_tree, new_tree):
         if params is new_tree:
             eng.params = new_tree
+            assert eng.step(2, **kw).args[0] is new_tree
         got = eng.generate(toks, **sampled)
         fresh = ServingEngine(tcfg, params, max_seq=24, device="cpu")
         assert torch.equal(got, fresh.generate(toks, **sampled))
