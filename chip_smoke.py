@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Four paths run, at qwen2-1.5b's full width (28 layers, bf16, random
+Five paths run, at qwen2-1.5b's full width (28 layers, bf16, random
 weights from a seeded generator on the card):
 
 * decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
@@ -21,7 +21,11 @@ weights from a seeded generator on the card):
   attention-score folds and a decode step's 32K-key denominator;
 * the long-prompt path: ``ServingEngine.generate`` on a 16,384-token
   prompt, past the model's 8,192-key threshold, so every layer's prefill
-  attention runs the hand-written CUDA kernel ``flash_attention``.
+  attention runs the hand-written CUDA kernel ``flash_attention``;
+* continuous batching: ``ContinuousBatchingEngine.serve`` over a paged KV
+  cache, every decode linear of every chunk step through ``pim_matvec``,
+  each chunk step one replay of a captured CUDA graph, a prompt past 8,192
+  tokens admitted through ``flash_attention``.
 
 Phases:
 
@@ -142,6 +146,34 @@ Phases:
    with the SM clock after each round, and the device-busy share of a
    captured step (``tracing.busy_share``: the device busy time of its
    traced replay over the median host-clock step of those rounds).
+9. continuous batching (run after phase 7; its counted serves are windows
+   of phase 8's profiler session, read after it): (a) a staggered trace of
+   ten seeded requests (prompts of 17-300 tokens, no page multiple; 8-64
+   new tokens; two stop at a token first emitted mid-chunk in their solo
+   run) on 4 slots of 16-token pages, chunk 8, 512 positions, int8 weights,
+   a shuffled pool: the captured serve ``torch.equal`` to the same serve
+   with the chunk step run eagerly (``EagerEngine``: tokens, events, peak
+   pages), the pool quiescent and empty after it, each request's tokens
+   against its solo batch-1 ``ServingEngine.generate`` with a first
+   divergence only where the dense top-2 logit gap is within PAGED_BAR, and
+   the traced ``pim_matvec`` kernels of the counted serve 196 x
+   ``decode_chunk_iters`` (the counters' capture x replays account equal to
+   them); (b) the same trace on a pool small enough that ``_top_up``
+   preempts: preemptions, and tokens ``torch.equal`` to (a)'s; (c) sampled
+   (SAMPLED): the same tokens at chunk 3 as at chunk 8, request 0 against
+   the dense engine's sampled row 0 within PAGED_BAR over the temperature;
+   (d) phase 7's long prompt beside a short one on 2 slots: exactly 28
+   ``flash_attention`` launches, all on a bf16 q, at the long admit, and
+   tokens against phase 7's dense long path (margin-aware); (e) in
+   SERVE_ROUNDS alternating rounds of the captured and the eager serve:
+   chunk step ms an iteration (CUDA events), emitted tokens/s, host ms a
+   round outside the chunk steps and of it the admits'; one traced replay
+   of the paged chunk step against the dense captured step at the same 4
+   rows and 512 positions (their device time differs by the gathers and
+   scatters); (f) a planted fault, the decode attention's mask off by one,
+   must change (a)'s eager serve and fail the comparison with the dense
+   runs at PAGED_BAR (the sound runs' largest gap and the fault's gaps are
+   printed beside the bar).
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -158,6 +190,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -178,7 +211,9 @@ from repro_torch.models import (  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     QuantizedTensor, dequantize, quantize_symmetric, to_bitplanes)
 from repro_torch.serving import (  # noqa: E402
-    DecodeState, ServingEngine, decode_and_emit, quantize_tree)
+    ContinuousBatchingEngine, DecodeState, Request, ServingEngine, decode_and_emit,
+    decode_chunk_step, quantize_tree)
+from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits  # noqa: E402
 
 SEED = 20260
 KERNELS = ("pim_matvec", "pim_matmul", "bitplane_matmul", "fold_reduce", "flash_attn")
@@ -408,12 +443,21 @@ def main() -> int:
                                                                                gen_fa)
     print(json.dumps(long_path))
 
+    # ---- 9. continuous batching on the paged cache ---------------------------------
+    # Its counted serves are windows of phase 8's profiler session, the run's
+    # only one: ``ServingPhase.finish`` reads them after it.
+    gen_serve = torch.Generator(device=dev).manual_seed(SEED + 6)
+    serving = ServingPhase(cfg, eng8, long_eng, long_prompt, long_toks, gen_serve)
+    serve_windows = serving.run()
+
     # ---- 8. the captured decode step ---------------------------------------------
-    counted = captured_phase(
+    counted, traced = captured_phase(
         cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls,
         {"int8": (graphs8, toks, N_NEW), "int4": (graphs4, toks4, N_NEW_INT4),
-         "long": (graphs_long, long_toks, LONG_NEW)})
+         "long": (graphs_long, long_toks, LONG_NEW)}, serve_windows)
+    served = serving.finish(traced)
     del params, eng8, eng4, long_eng, graphs8, graphs4, graphs_long, one_calls, long_toks
+    del serving, serve_windows, traced
     gc.collect()  # the counted captures hold each engine in a cycle
     torch.cuda.empty_cache()
     long_against_plain(cfg, gen_fa, long_prompt)
@@ -423,7 +467,10 @@ def main() -> int:
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
         "replaces": "src/repro/kernels/pim_matvec.py:40",
-        "launches": counted["int8"]["traced"]["pim_matvec"],
+        "launches": counted["int8"]["traced"]["pim_matvec"] + sum(
+            t["pim_matvec"] for t in served.values()),
+        "launches_by_path": {"int8 generate": counted["int8"]["traced"]["pim_matvec"],
+                             **{k: t["pim_matvec"] for k, t in served.items()}},
         "launches_counted_as": counted["int8"]["counted_as"], "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
@@ -463,7 +510,10 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn.py:26",
-        "launches": counted["long"]["traced"]["flash_attention"],
+        "launches": counted["long"]["traced"]["flash_attention"]
+        + served["long serve"]["flash_attention"],
+        "launches_by_path": {"long generate": counted["long"]["traced"]["flash_attention"],
+                             "long serve": served["long serve"]["flash_attention"]},
         "launches_counted_as": counted["long"]["counted_as"],
         "max_abs_err": fa_check["max_abs_err"],
         "bf16_tol_share": fa_check["bf16_tol_share"],
@@ -684,11 +734,12 @@ def decode_attention_check(cfg, gen):
         return s, w, torch.einsum("bhgk,bhkd->bhgd", w.to(torch.float32), cv.to(torch.float32))
 
     s_old, w_old, want = f32_copy_form()
-    attention.decode_attention(q, ck, cv, pos)  # warm-up: cuBLAS's workspace
+    pos_t = torch.tensor(pos, device=dev)  # a decode step's position is a device tensor
+    attention.decode_attention(q, ck, cv, pos_t)  # warm-up: cuBLAS's workspace
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    got = attention.decode_attention(q, ck, cv, pos)
+    got = attention.decode_attention(q, ck, cv, pos_t)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
     # The bf16-cache form's two contractions, step by step.
@@ -714,7 +765,7 @@ def decode_attention_check(cfg, gen):
               "weights_rounded_differently": int((w_new != w_old).sum()),
               "weights": int(valid.sum()) * kv * g,
               "peak_bytes_above_inputs": extra, "f32_copy_of_k_bytes": f32_copy,
-              "bf16_cache_ms": _time_ms([lambda: attention.decode_attention(q, ck, cv, pos)], 50),
+              "bf16_cache_ms": _time_ms([lambda: attention.decode_attention(q, ck, cv, pos_t)], 50),
               "f32_copy_ms": _time_ms([lambda: f32_copy_form()[2]], 50),
               "per": "one layer's decode attention at (B 1, KV 2, G 6, D 128); device time "
                      "(CUDA graph replay)"}
@@ -1723,9 +1774,10 @@ class CountedGraph:
 
 
 def count_captures(eng):
-    """From now on, each decode step ``eng`` captures is a ``CountedGraph``,
-    added to the list returned."""
-    graphs, capture = [], eng._capture
+    """From now on, each step ``eng`` captures (a decode step, or a chunk step
+    of the continuous engine) is a ``CountedGraph``, added to the list
+    returned."""
+    graphs, capture = [], eng.graphs._capture
 
     def counted(run, pool):
         before = launch_counts()
@@ -1734,7 +1786,7 @@ def count_captures(eng):
         graphs.append(CountedGraph(graph, {k: after[k] - before[k] for k in after}))
         return graphs[-1]
 
-    eng._capture = counted
+    eng.graphs._capture = counted
     return graphs
 
 
@@ -1778,6 +1830,13 @@ def counted_generation(graphs, generate, out):
     return run
 
 
+def same_tokens(a, b) -> bool:
+    """Equal tokens: two tensors, or two serves' lists of arrays."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
 def check_counted(label, window, out, toks, want):
     """The launches of one counted generation: the kernels of each wrapper
     in its window of the trace must be ``want``, equal the counters'
@@ -1790,7 +1849,7 @@ def check_counted(label, window, out, toks, want):
     check(traced == want, f"{label}: launches {traced} in the trace, expected {want}")
     check(out["counters"] == traced, f"{label}: the counters give {out['counters']}, "
           f"the trace {traced} ({out['counters_as']})")
-    check(torch.equal(out["tokens"], toks), f"{label}: the traced generation's tokens differ "
+    check(same_tokens(out["tokens"], toks), f"{label}: the traced generation's tokens differ "
           "from the same generation's earlier ones")
     return {"path": label, "launches": traced, "launches_counted_as": out["counted_as"]}
 
@@ -1898,13 +1957,14 @@ def timing_pairs(eng, prompt, n_new, label):
             / medians["captured_ms"]}
 
 
-def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, paths):
+def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, paths, extra):
     """Phase 8: the captured decode step, (a) to (e) of the module's
-    docstring, and in the same profiler session phase 2's one-call traces
-    and the counted generations of phases 3 and 7 (``counted_generation``).
-    ``paths``: {"int8" | "int4" | "long": (the engine's counted captures,
-    the tokens of its earlier generation, its n_new)}.  Returns {path:
-    its launches, traced, and their account}."""
+    docstring, and in the same profiler session phase 2's one-call traces,
+    the counted generations of phases 3 and 7 (``counted_generation``) and
+    phase 9's windows ``extra`` [(label, set-up, fn)].  ``paths``: {"int8" |
+    "int4" | "long": (the engine's counted captures, the tokens of its
+    earlier generation, its n_new)}.  Returns ({path: its launches, traced,
+    and their account}, the traced windows)."""
     cases = []
     with torch.inference_mode():
         for eng, bits in ((eng8, 8), (eng4, 4)):
@@ -1967,7 +2027,7 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, pa
                               ("long", long_generation)):
             segments.append((f"{label} generate, counted", None,
                              counted_generation(paths[label][0], gen_fn, counted[label])))
-        traced = tracing.trace_windows(segments, TRACE)
+        traced = tracing.trace_windows(segments + list(extra), TRACE)
     one_call_check(traced, one_calls)
     per_step = len(LINEARS) * cfg.n_layers
     for label, (_, toks, n_new) in paths.items():
@@ -2003,7 +2063,437 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, pa
                       "captured_launches": {label: [g.launches for g in graphs]
                                             for label, (graphs, _, _) in paths.items()},
                       "busy_share": busy}))
-    return counted
+    return counted, traced
+
+
+# ---- 9. continuous batching on the paged cache -------------------------------------
+# (a): ten seeded requests over 4 slots of 16-token pages, 8 decode steps a
+# round, the free list shuffled from SEED; prompts of 17-300 tokens (no page
+# multiple), 8-64 new tokens; two requests stop at a token first emitted
+# mid-chunk in their solo run.
+SERVE = dict(slots=4, page_size=16, chunk=8, max_seq=512, page_alloc_seed=SEED)
+SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW, SERVE_STOPPED = 10, (17, 300), (8, 64), 2
+SERVE_ROUNDS = 3  # alternating rounds of (e): captured, then eager
+# (d): the long prompt of phase 7 admitted beside a short one.
+LONG_SERVE = dict(slots=2, page_size=16, chunk=8, max_seq=LONG_PROMPT + LONG_NEW)
+LONG_SERVE_SHORT = 200
+# Paged against dense at full width, bf16: both paths round every linear's
+# output to bf16, but the admit prefills the page-padded prompt (a longer
+# matmul than the dense prefill's), a chunk step runs pim_matvec at M = 4
+# slots where a solo run has M = 1, and the paged attention contracts over
+# the gathered pages: the logits differ by about a bf16 ulp.  A request may
+# first diverge from its solo dense run only where the dense run's top-2
+# logit gap (gumbel + warped logits when sampled, over the temperature) is
+# within PAGED_BAR: two bf16 ulps of the top logits here (which lie in
+# [4, 8) on the seeded weights, ulp 2^-5).  On the H100 the sound serves
+# diverged at gaps of at most 0.03125 (one ulp), and the planted fault of
+# (f) at gaps of 0.03125 to 0.28125, six of its nine above this bar (a bar
+# of 0.25 would flag one).
+PAGED_BAR = 2 ** -4
+
+
+class TimedEngine(ContinuousBatchingEngine):
+    """The engine with a CUDA event pair around each round's chunk steps
+    (``spans``): from the round's first step to its last, on the device; and
+    the host time of its admits (``admit_s``; an admit ends reading its
+    first token, so its device work is done)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.spans, self.admit_s = [], 0.0
+
+    def _admit(self, *args, **kw):
+        t0 = time.perf_counter()
+        info = super()._admit(*args, **kw)
+        self.admit_s += time.perf_counter() - t0
+        return info
+
+    def _load(self):
+        super()._load()
+        self.spans.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+        self.spans[-1][0].record()
+
+    def _read(self):
+        self.spans[-1][1].record()
+        return super()._read()
+
+    def timed_serve(self, requests, **mode):
+        """``serve`` on the host clock: (outputs, wall s, device ms of the
+        chunk steps, chunk iterations, rounds, emitted tokens)."""
+        self.spans, self.admit_s = [], 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.serve(requests, **mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, {"wall_s": wall, "steps_ms": sum(a.elapsed_time(b) for a, b in self.spans),
+                     "admit_s": self.admit_s, "iters": self.decode_chunk_iters,
+                     "rounds": len(self.spans), "tokens": sum(len(o) for o in out)}
+
+
+class EagerEngine(TimedEngine):
+    """The same engine with its chunk step run eagerly (no graph): the
+    reference the captured serve is held against, bit for bit."""
+
+    def chunk_step(self, n_stops, *, greedy, top_k):
+        st = self._state
+        return functools.partial(decode_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
+                                 greedy=bool(greedy), top_k=0 if greedy else int(top_k),
+                                 pad_id=self.pad_id)
+
+
+@contextlib.contextmanager
+def mask_off_by_one():
+    """The planted fault of (f): every decode attention masks the keys past
+    pos - 1, hiding each new token's own key."""
+    prev = attention.decode_attention
+    attention.decode_attention = lambda q, ck, cv, pos: prev(q, ck, cv, pos - 1)
+    try:
+        yield
+    finally:
+        attention.decode_attention = prev
+
+
+def timing_row(t):
+    """A timed serve's numbers: chunk step ms an iteration (device, CUDA
+    events), emitted tokens/s (host clock), host ms a round outside the
+    chunk steps (admits, top-up, copies, read-back) and of that the admits'."""
+    return {"step_ms_per_iter": t["steps_ms"] / t["iters"],
+            "tokens_per_s": t["tokens"] / t["wall_s"],
+            "host_ms_per_round_outside_steps": (t["wall_s"] * 1e3 - t["steps_ms"]) / t["rounds"],
+            "admit_ms_per_round": t["admit_s"] * 1e3 / t["rounds"],
+            "wall_s": t["wall_s"], "rounds": t["rounds"], "iters": t["iters"],
+            "tokens": t["tokens"]}
+
+
+def events_of(report):
+    """Each request's events without their times: what the scheduler did."""
+    return [[{k: v for k, v in e.items() if k not in ("ts", "dur")} for e in rec.events]
+            for rec in report.records]
+
+
+def top2_gap(values) -> float:
+    top = torch.topk(values.float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def expected_length(dense, budget, stops):
+    """The length of a request's output given its solo dense tokens: through
+    the first stop token, else its budget."""
+    hits = [j for j, t in enumerate(dense[:budget]) if int(t) in stops]
+    return hits[0] + 1 if hits else budget
+
+
+def divergences(got, dense, lengths, gap_at):
+    """Each request's first divergence from its solo dense run's first
+    ``lengths`` tokens: the token, and ``gap_at(r, j)``, the dense run's
+    top-2 gap there; or, where every shared token agrees, the lengths when
+    they differ."""
+    out = []
+    for r, (g, d, n) in enumerate(zip(got, dense, lengths)):
+        d = np.asarray(d[:n])
+        m = min(len(g), len(d))
+        diff = np.flatnonzero(g[:m] != d[:m])
+        if diff.size:
+            j = int(diff[0])
+            out.append({"request": r, "token": j, "dense_top2_gap": gap_at(r, j)})
+        elif len(g) != len(d):
+            out.append({"request": r, "emitted": len(g), "dense_length": len(d)})
+    return out
+
+
+def beyond(div, bar) -> bool:
+    """Whether a divergence fails the margin-aware comparison at ``bar``."""
+    return "dense_top2_gap" not in div or div["dense_top2_gap"] > bar
+
+
+def paged_vs_dense(label, got, dense, lengths, gap_at, bar):
+    """Each request's tokens against its solo dense run's: the first
+    divergence, if any, only where the dense run's top-2 gap is within
+    ``bar``; with none, the lengths agree.  Returns the report."""
+    diverged = divergences(got, dense, lengths, gap_at)
+    for div in diverged:
+        check(not beyond(div, bar), f"{label}: request {div['request']} diverges from its "
+              f"dense run beyond the bar {bar}: {div}")
+    return {"check": f"{label}: paged serve vs solo dense generate", "requests": len(got),
+            "diverged": len(diverged), "divergences": diverged, "bar": bar}
+
+
+def largest_gap(rep, scale=1.0) -> float:
+    """The largest dense top-2 gap (times ``scale``) at which a sound serve
+    diverged; 0 where none did."""
+    return max((d["dense_top2_gap"] * scale for d in rep["divergences"]), default=0.0)
+
+
+class ServingPhase:
+    """Phase 9: ``ContinuousBatchingEngine.serve`` at full width, (a) to (f) of
+    the module's docstring.  ``run`` does everything but the counting, and
+    returns the windows phase 8's profiler session traces; ``finish`` reads
+    them."""
+
+    def __init__(self, cfg, eng8, long_eng, long_prompt, long_toks, gen):
+        self.cfg, self.dev, self.gen = cfg, gen.device, gen
+        self.params = eng8.params  # int8 weights, shared with the dense engine
+        self.long_eng, self.long_prompt, self.long_toks = long_eng, long_prompt, long_toks
+        self.solo = ServingEngine(cfg, self.params, max_seq=SERVE["max_seq"], device=self.dev)
+
+    def _dense(self, prompt, n, mode=GREEDY):
+        toks = self.solo.generate(torch.from_numpy(prompt)[None].to(self.dev), n, **mode)
+        return toks[0].cpu().numpy()
+
+    def _gap(self, eng, prompt, j, mode=GREEDY):
+        """The top-2 gap of the values that chose token j of ``eng``'s run of
+        ``prompt`` (batch row 0): logits, or gumbel + warped logits."""
+        eng.generate(prompt, j + 1, **mode)
+        logits = eng.state(1).logits[0:1].float()
+        if mode["greedy"]:
+            return top2_gap(logits[0])
+        keys = draw_keys(prng_key(mode["key"], self.dev), torch.tensor([0], device=self.dev), j,
+                         TAG_TOKEN)
+        lg = warp_logits(logits, mode["temperature"], mode["top_k"])
+        return top2_gap((lg + gumbel(keys, lg.shape[-1]))[0])
+
+    def _trace(self):
+        gen, cfg = self.gen, self.cfg
+        lens = torch.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, (SERVE_REQUESTS,),
+                             generator=gen, device=self.dev).tolist()
+        lens = [n + 1 if n % SERVE["page_size"] == 0 else n for n in lens]
+        news = torch.randint(SERVE_NEW[0], SERVE_NEW[1] + 1, (SERVE_REQUESTS,), generator=gen,
+                             device=self.dev).tolist()
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=self.dev)
+                   .cpu().numpy().astype(np.int32) for n in lens]
+        return prompts, news
+
+    def run(self):
+        cfg, dev, chunk = self.cfg, self.dev, SERVE["chunk"]
+        report = {"check": "phase 9: ContinuousBatchingEngine.serve, qwen2-1.5b int8"}
+        prompts, news = self._trace()
+        with torch.inference_mode():
+            dense = [self._dense(p, n) for p, n in zip(prompts, news)]
+        # two requests stop at a token first emitted mid-chunk in their solo run
+        stops = [()] * SERVE_REQUESTS
+        for r, d in enumerate(dense):
+            firsts = [j for j in range(1, len(d)) if int(d[j]) not in d[:j].tolist()
+                      and (j - 1) % chunk != chunk - 1]
+            if firsts and sum(map(bool, stops)) < SERVE_STOPPED:
+                stops[r] = (int(d[firsts[0]]),)
+        check(sum(map(bool, stops)) == SERVE_STOPPED, f"only {sum(map(bool, stops))} solo runs "
+              "emit a token mid-chunk that they did not emit before: no stop tokens to plant")
+        reqs = [Request(prompt=p, max_new=n, stop_tokens=s)
+                for p, n, s in zip(prompts, news, stops)]
+        self.reqs = reqs
+        report["trace"] = {"prompt_lengths": [len(p) for p in prompts], "max_new": news,
+                           "stops": {r: s[0] for r, s in enumerate(stops) if s}}
+        lengths = [expected_length(d, n, s) for d, n, s in zip(dense, news, stops)]
+
+        # (a) captured equals eager, paged matches dense, pool invariants
+        self.eng = eng = TimedEngine(cfg, self.params, device=dev, **SERVE)
+        self.graphs = count_captures(eng)
+        eager = EagerEngine(cfg, self.params, device=dev, **SERVE)
+        self.out = eng.serve(reqs)  # warm-up: kernel loads, the chunk step's capture
+        rep_c = eng.last_report
+        out_e = eager.serve(reqs)
+        rep_e = eager.last_report
+        same = {"tokens_equal": same_tokens(self.out, out_e),
+                "events_equal": events_of(rep_c) == events_of(rep_e),
+                "peak_pages": [eng.peak_pages_in_use, eager.peak_pages_in_use],
+                "preemptions": [eng.preemptions, eager.preemptions],
+                "rounds": rep_c.rounds, "decode_chunk_iters": eng.decode_chunk_iters,
+                "tokens": sum(len(o) for o in self.out)}
+        report["captured_vs_eager"] = same
+        check(same["tokens_equal"] and same["events_equal"]
+              and eng.peak_pages_in_use == eager.peak_pages_in_use,
+              f"(a) the captured serve differs from the eager one: {same}")
+        for e in (eng, eager):
+            e.assert_quiescent()
+            check(e.pages_in_use() == 0, f"(a) {e.pages_in_use()} pages in use after the serve")
+        check([len(o) for o in self.out] == lengths, f"(a) output lengths "
+              f"{[len(o) for o in self.out]}, the dense runs and stops give {lengths}")
+        with torch.inference_mode():
+            report["paged_vs_dense"] = paged_vs_dense(
+                "(a) greedy", self.out, dense, lengths,
+                lambda r, j: self._gap(self.solo, torch.from_numpy(prompts[r])[None].to(dev), j),
+                PAGED_BAR)
+
+        # (e) times: alternating rounds of the captured and the eager serve
+        rounds = []
+        for _ in range(SERVE_ROUNDS):
+            row = {}
+            for name, e in (("captured", eng), ("eager", eager)):
+                out, t = e.timed_serve(reqs)
+                check(same_tokens(out, self.out), f"(e) a {name} serve's tokens changed")
+                row[name] = timing_row(t)
+            row["sm_clock_mhz"] = tracing.sm_clock_mhz()
+            rounds.append(row)
+        report["timing_rounds"] = rounds
+        report["timing_medians"] = {
+            name: {k: sorted(r[name][k] for r in rounds)[len(rounds) // 2]
+                   for k in ("step_ms_per_iter", "tokens_per_s", "host_ms_per_round_outside_steps",
+                             "admit_ms_per_round")}
+            for name in ("captured", "eager")}
+        report["timing_medians"]["captured_over_eager_step"] = (
+            report["timing_medians"]["captured"]["step_ms_per_iter"]
+            / report["timing_medians"]["eager"]["step_ms_per_iter"])
+
+        # (b) preemption: a pool too small for the trace's peak
+        need = max(-(-(len(p) + n) // SERVE["page_size"]) for p, n in zip(prompts, news))
+        small = max(need + 2, eng.peak_pages_in_use // 2)
+        pre = ContinuousBatchingEngine(cfg, self.params, device=dev,
+                                       **{**SERVE, "num_pages": small})
+        out_b = pre.serve(reqs)
+        report["preemption"] = {"num_pages": small, "peak_pages_a": eng.peak_pages_in_use,
+                                "preemptions": pre.preemptions,
+                                "tokens_equal_a": same_tokens(out_b, self.out)}
+        check(pre.preemptions > 0, f"(b) no preemption with {small} pages")
+        check(report["preemption"]["tokens_equal_a"],
+              f"(b) preempted tokens differ from (a)'s: {report['preemption']}")
+        pre.assert_quiescent()
+        del pre
+
+        # (c) sampled: independent of the chunk; request 0 (rid 0) as the dense row 0
+        out_c = eng.serve(reqs, **SAMPLED)
+        other = ContinuousBatchingEngine(cfg, self.params, device=dev, **{**SERVE, "chunk": 3})
+        out_c3 = other.serve(reqs, **SAMPLED)
+        check(same_tokens(out_c, out_c3), "(c) the sampled serve depends on the chunk")
+        check(not same_tokens(out_c, self.out), "(c) sampled tokens equal greedy ones")
+        del other
+        with torch.inference_mode():
+            d0 = self._dense(prompts[0], news[0], SAMPLED)
+            report["sampled"] = {"chunk_3_equal": True, **paged_vs_dense(
+                "(c) sampled, request 0", out_c[:1], [d0],
+                [expected_length(d0, news[0], stops[0])],
+                lambda r, j: self._gap(self.solo, torch.from_numpy(prompts[0])[None].to(dev), j,
+                                       SAMPLED), PAGED_BAR / SAMPLED["temperature"])}
+
+        # (f) the planted fault: the eager serve with the mask off by one,
+        # held against the captured serve and against the dense runs
+        with mask_off_by_one():
+            out_f = eager.serve(reqs)
+        caught = not same_tokens(out_f, self.out)
+        with torch.inference_mode():
+            faulted = divergences(
+                out_f, dense, lengths,
+                lambda r, j: self._gap(self.solo, torch.from_numpy(prompts[r])[None].to(dev), j))
+        gaps = sorted(d["dense_top2_gap"] for d in faulted if "dense_top2_gap" in d)
+        flagged = sum(beyond(d, PAGED_BAR) for d in faulted)
+        report["planted_fault"] = {
+            "fault": "decode attention masks keys past pos - 1",
+            "caught_by_captured_vs_eager": caught,
+            "requests_changed": sum(not np.array_equal(a, b) for a, b in zip(out_f, self.out)),
+            "paged_vs_dense": {"diverged": len(faulted), "beyond_bar": flagged,
+                               "bar": PAGED_BAR, "dense_top2_gaps": gaps,
+                               "divergences": faulted}}
+        print("phase 9 (f) planted fault: " + json.dumps(report["planted_fault"]), flush=True)
+        check(caught, "(f) the planted fault (mask off by one) went unnoticed by captured vs eager")
+        check(flagged > 0, f"(f) the faulted serve passes paged vs dense at the bar {PAGED_BAR}: "
+              f"{report['planted_fault']['paged_vs_dense']}")
+        del eager
+
+        # (d) the long admit beside a short one
+        short = torch.randint(0, cfg.vocab, (LONG_SERVE_SHORT,), generator=self.gen,
+                              device=dev).cpu().numpy().astype(np.int32)
+        self.long_reqs = [Request(prompt=self.long_prompt[0].cpu().numpy().astype(np.int32),
+                                  max_new=LONG_NEW),
+                          Request(prompt=short, max_new=LONG_NEW)]
+        self.long_serve = TimedEngine(cfg, self.long_eng.params, device=dev, **LONG_SERVE)
+        self.long_graphs = count_captures(self.long_serve)
+        self.long_out = self.long_serve.serve(self.long_reqs)  # warm-up and capture
+        out, t = self.long_serve.timed_serve(self.long_reqs)
+        check(same_tokens(out, self.long_out), "(d) a second long serve's tokens changed")
+        report["long"] = timing_row(t)
+        self.long_serve.assert_quiescent()
+        with torch.inference_mode():
+            dense_short = self._dense(short, LONG_NEW)
+            report["long"].update(paged_vs_dense(
+                "(d) long admit", self.long_out,
+                [self.long_toks[0].cpu().numpy(), dense_short], [LONG_NEW, LONG_NEW],
+                lambda r, j: self._gap(self.long_eng, self.long_prompt, j) if r == 0 else
+                self._gap(self.solo, torch.from_numpy(short)[None].to(dev), j), PAGED_BAR))
+        sound = max(largest_gap(report["paged_vs_dense"]),
+                    largest_gap(report["sampled"], SAMPLED["temperature"]),
+                    largest_gap(report["long"]))
+        report["bar"] = {"bar": PAGED_BAR, "sound_largest_gap": sound,
+                         "fault_smallest_gap": gaps[0] if gaps else None,
+                         "fault_beyond_bar": flagged,
+                         "fault_diverged": len(report["planted_fault"]["paged_vs_dense"]
+                                               ["divergences"])}
+        print("phase 9 bar: " + json.dumps(report["bar"]), flush=True)
+        self.report = report
+        return self.windows()
+
+    def windows(self):
+        """Phase 8's session traces: the counted serves of (a) and (d), one
+        paged chunk step at 4 slots, and the dense captured step at the same
+        4 rows over the same 512 positions."""
+        eng, n_stops = self.eng, max(len(r.stop_tokens) for r in self.reqs)
+        self.counted = {"serve": {}, "long serve": {}}
+        self.seen = []
+
+        def noting_dtype(q, k, v, **kw):
+            self.seen.append(q.dtype)
+            return flash_attention_gqa(q, k, v, **kw)
+
+        def serve_a():
+            out = eng.serve(self.reqs)
+            self.counted["serve"]["iters"] = eng.decode_chunk_iters
+            return out
+
+        def serve_d():
+            with attention_through(noting_dtype):
+                out = self.long_serve.serve(self.long_reqs)
+            self.counted["long serve"]["iters"] = self.long_serve.decode_chunk_iters
+            return out
+
+        paged_step = eng.chunk_step(n_stops, greedy=True, top_k=0)
+        dense_step = self.solo.step(SERVE["slots"], greedy=True, top_k=0)
+        rows = torch.randint(0, self.cfg.vocab, (SERVE["slots"], PROMPT), generator=self.gen,
+                             device=self.dev)
+
+        def paged_setup():
+            eng._reset(self.reqs, n_stops)
+
+        def dense_setup():
+            with torch.inference_mode():
+                self.solo.state(SERVE["slots"]).start(self.params, self.cfg, rows, None, 1.0,
+                                                      greedy=True, top_k=0)
+        return [("serve, counted", None, counted_generation(self.graphs, serve_a,
+                                                            self.counted["serve"])),
+                ("long serve, counted", None, counted_generation(self.long_graphs, serve_d,
+                                                                 self.counted["long serve"])),
+                ("paged chunk step", paged_setup, paged_step),
+                ("dense step, 4 rows", dense_setup, dense_step)]
+
+    def finish(self, traced):
+        """Phase 9's launches from the trace, and its report."""
+        per_step = len(LINEARS) * self.cfg.n_layers
+        launches = {}
+        for label, toks, flash in (("serve", self.out, 0),
+                                   ("long serve", self.long_out, self.cfg.n_layers)):
+            out = self.counted[label]
+            want = dict.fromkeys(KERNEL_TAGS, 0)
+            want["pim_matvec"] = per_step * out["iters"]
+            want["flash_attention"] = flash
+            launches[label] = check_counted(f"{label}, counted", traced[f"{label}, counted"],
+                                            out, toks, want)
+            launches[label]["decode_chunk_iters"] = out["iters"]
+        check(self.seen == [torch.bfloat16] * self.cfg.n_layers, f"the long admit's attention "
+              f"saw q dtypes {self.seen}, expected {self.cfg.n_layers} x bf16")
+        steps = {}
+        for label in ("paged chunk step", "dense step, 4 rows"):
+            window = traced[label]
+            kernels = traced_kernels(window)
+            steps[label] = {"kernels": len(window.kernels), "pim_matvec": kernels["pim_matvec"],
+                            "host_ops": window.host_ops,
+                            "device_busy_us": tracing.busy_us(window.device)}
+            check(kernels["pim_matvec"] == per_step and window.host_ops == 0,
+                  f"one replay of the {label}: {steps[label]}")
+        steps["paged_minus_dense_us"] = (steps["paged chunk step"]["device_busy_us"]
+                                         - steps["dense step, 4 rows"]["device_busy_us"])
+        self.report["launches"] = launches
+        self.report["one_step_trace"] = steps
+        print(json.dumps(self.report))
+        return {label: out["traced"] for label, out in self.counted.items()}
 
 
 if __name__ == "__main__":

@@ -10,11 +10,19 @@ per-token f32 scale.  Unlike the JAX package, which returns a new cache,
 same dict: a decode step then copies nothing but the new token's K/V.
 A decode step's position is a 0-d int64 tensor on the cache's device, read
 only by device ops, so a CUDA graph of the step replays at any position.
+
+The paged cache (the continuous-batching engine's) is a pool of pages
+``(P, KV, page_size, D)`` shared by all batch slots; a slot's block table
+maps its logical page i (positions ``[i*page_size, (i+1)*page_size)``) to a
+pool page, and page 0 is the trash page of inactive slots.  A paged decode
+step takes one position per slot, a (B,) int64 tensor, and scatters and
+gathers through the block tables with device ops only.
 """
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -105,12 +113,19 @@ def _dequant_kv(codes, scale, dtype):
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
-                 n_kv: int, head_dim: int, rope_theta: float = 0.0):
+                 n_kv: int, head_dim: int, rope_theta: float = 0.0,
+                 pages: Optional[torch.Tensor] = None):
     """Full-sequence causal attention over the prompt x (B, S, D) that also
     writes all S prompt tokens' K/V into the cache (in place).  With an int8
     cache the prompt attends against the quantize->dequantize K/V, exactly
     what later decode steps read back.  Over more than CHUNKED_THRESHOLD keys
-    the attention is ``_chunked_attention``, else ``_direct_attention``."""
+    the attention is ``_chunked_attention``, else ``_direct_attention``.
+
+    With ``pages`` (n,) int64 the cache is a paged pool
+    (``lm.init_paged_cache`` leaves), x is batch-1 with ``S == n *
+    page_size``, and the prompt's K/V (codes and scales for an int8 cache)
+    go straight into those pool pages.  The attention itself reads the fresh
+    k/v, never the pool."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     if rope_theta:
@@ -119,18 +134,26 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict, *, n_heads: int,
         k = apply_rope(k, positions, rope_theta)
     k_t = k.transpose(1, 2)  # (B, KV, S, D) — the cache layout
     v_t = v.transpose(1, 2)
+    if pages is None:
+        def write(name, t):
+            cache[name][:, :, :s] = t
+    else:
+        n, ps = pages.shape[0], cache["k"].shape[2]
+
+        def write(name, t):  # (1, KV, n*ps, ...) -> pool pages (n, KV, ps, ...)
+            t = t[0].reshape((t.shape[1], n, ps) + t.shape[3:]).transpose(0, 1)
+            cache[name].index_copy_(0, pages, t.to(cache[name].dtype))
     if "k_scale" in cache:
         k_codes, k_sc = _quant_kv(k_t)
         v_codes, v_sc = _quant_kv(v_t)
-        cache["k"][:, :, :s] = k_codes
-        cache["v"][:, :, :s] = v_codes
-        cache["k_scale"][:, :, :s] = k_sc
-        cache["v_scale"][:, :, :s] = v_sc
+        for name, new in (("k", k_codes), ("v", v_codes), ("k_scale", k_sc),
+                          ("v_scale", v_sc)):
+            write(name, new)
         k = _dequant_kv(k_codes, k_sc, x.dtype).transpose(1, 2)
         v = _dequant_kv(v_codes, v_sc, x.dtype).transpose(1, 2)
     else:
-        cache["k"][:, :, :s] = k_t
-        cache["v"][:, :, :s] = v_t
+        write("k", k_t)
+        write("v", v_t)
     g = n_heads // n_kv
     qg = q.reshape(b, s, n_kv, g, head_dim)
     if k.shape[1] > CHUNKED_THRESHOLD:
@@ -178,18 +201,49 @@ def pv_f32(w, v):
 
 def decode_attention(q, ck, cv, pos: torch.Tensor) -> torch.Tensor:
     """One decode step's attention: q (B, KV, G, D) over the cache ck, cv
-    (B, KV, S, D), keys past ``pos`` (a 0-d tensor) masked.  q is cast to
-    the cache dtype, scores and softmax are f32, the weights are cast back
-    to the cache dtype before p.v, as in the JAX package.  Returns (B, KV,
-    G, D) f32."""
+    (B, KV, S, D), keys past ``pos`` masked: a 0-d tensor shared by the
+    batch, or one position per row, (B,).  q is cast to the cache dtype,
+    scores and softmax are f32, the weights are cast back to the cache
+    dtype before p.v, as in the JAX package.  Returns (B, KV, G, D) f32."""
     b, kv, g, d = q.shape
     s_len = ck.shape[2]
     qg = q.to(ck.dtype).reshape(b * kv, g, d)
     s = bmm_f32(qg, ck.reshape(b * kv, s_len, d).transpose(1, 2)) / math.sqrt(d)
-    valid = torch.arange(s_len, device=q.device) <= pos
-    w = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    valid = torch.arange(s_len, device=q.device) <= pos.reshape(-1, 1, 1, 1)
+    s = s.reshape(b, kv, g, s_len).masked_fill(~valid, float("-inf"))
+    w = torch.softmax(s, dim=-1).reshape(b * kv, g, s_len)
     o = pv_f32(w.to(cv.dtype), cv.reshape(b * kv, s_len, d))
     return o.reshape(b, kv, g, d)
+
+
+def _attn_decode(p, x, cache, pos, write, read, *, n_heads, n_kv, head_dim, rope_theta):
+    """The decode step both cache layouts share: q/k/v of x (B, 1, D), rope
+    at ``pos`` (0-d or (B,)), the new K/V (int8 codes and scales for an int8
+    cache) handed to ``write(name, (B, KV, 1, ...))``, attention over
+    ``read(name)`` (B, KV, S, ...) with keys past ``pos`` masked, then wo."""
+    b = x.shape[0]
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
+    if rope_theta:
+        pvec = pos.reshape(-1, 1).expand(b, 1)
+        q = apply_rope(q, pvec, rope_theta)
+        k = apply_rope(k, pvec, rope_theta)
+    k_t = k.transpose(1, 2)  # (B, KV, 1, D)
+    v_t = v.transpose(1, 2)
+    if "k_scale" in cache:
+        k_codes, k_sc = _quant_kv(k_t)
+        v_codes, v_sc = _quant_kv(v_t)
+        for name, new in (("k", k_codes), ("v", v_codes), ("k_scale", k_sc),
+                          ("v_scale", v_sc)):
+            write(name, new)
+        ck = _dequant_kv(read("k"), read("k_scale"), x.dtype)
+        cv = _dequant_kv(read("v"), read("v_scale"), x.dtype)
+    else:
+        write("k", k_t)
+        write("v", v_t)
+        ck, cv = read("k"), read("v")
+    o = decode_attention(q.reshape(b, n_kv, n_heads // n_kv, head_dim), ck, cv, pos)
+    o = o.reshape(b, 1, n_heads * head_dim).to(x.dtype)
+    return linear(o, p["wo"]), cache
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *,
@@ -198,27 +252,59 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *,
     tensor on x's device (tokens already cached): write its K/V into slot
     ``pos`` of the cache (in place), attend over the whole store with
     positions past ``pos`` masked, accumulate in f32."""
-    b = x.shape[0]
-    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
-    if rope_theta:
-        pvec = pos.expand(b, 1)
-        q = apply_rope(q, pvec, rope_theta)
-        k = apply_rope(k, pvec, rope_theta)
     slot = pos.reshape(1)
-    k_t = k.transpose(1, 2)  # (B, KV, 1, D)
-    v_t = v.transpose(1, 2)
-    if "k_scale" in cache:
-        k_codes, k_sc = _quant_kv(k_t)
-        v_codes, v_sc = _quant_kv(v_t)
-        for name, new in (("k", k_codes), ("v", v_codes), ("k_scale", k_sc),
-                          ("v_scale", v_sc)):
-            cache[name].index_copy_(2, slot, new)
-        ck = _dequant_kv(cache["k"], cache["k_scale"], x.dtype)
-        cv = _dequant_kv(cache["v"], cache["v_scale"], x.dtype)
-    else:
-        cache["k"].index_copy_(2, slot, k_t)
-        cache["v"].index_copy_(2, slot, v_t)
-        ck, cv = cache["k"], cache["v"]
-    o = decode_attention(q.reshape(b, n_kv, n_heads // n_kv, head_dim), ck, cv, pos)
-    o = o.reshape(b, 1, n_heads * head_dim).to(x.dtype)
-    return linear(o, p["wo"]), cache
+
+    def write(name, new):
+        cache[name].index_copy_(2, slot, new)
+    return _attn_decode(p, x, cache, pos, write, cache.__getitem__, n_heads=n_heads,
+                        n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta)
+
+
+# ------------------------------------------------------------ paged cache ---
+# The pool (P, KV, page_size, D) is ``kv_cache_init``'s layout with pages for
+# rows and a page's tokens for positions; page 0 is the trash page of
+# inactive slots.
+
+
+def paged_kv_insert(pool: dict, dense: dict, pages: torch.Tensor, lead: int = 0) -> dict:
+    """Scatter a batch-1 dense cache (filled by ``attn_prefill``) into pool
+    pages ``pages`` (n,) int64, in place.  ``lead`` counts leading stack
+    dims shared by both trees; the dense seq length must be ``n *
+    page_size``."""
+    n, ps = pages.shape[0], pool["k"].shape[lead + 2]
+    for name, leaf in pool.items():
+        d = dense[name].select(lead, 0)  # lead + (KV, n*ps, ...)
+        d = d.reshape(d.shape[:lead + 1] + (n, ps) + d.shape[lead + 2:])
+        leaf.index_copy_(lead, pages, d.movedim(lead + 1, lead).to(leaf.dtype))
+    return pool
+
+
+def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """The slots' pages of one pool leaf (P, KV, ps, ...) in the dense
+    head-major layout (B, KV, W*ps, ...), block tables (B, W) int64.  A
+    transient: only the pool persists."""
+    b, w = block_tables.shape
+    g = pool[block_tables]  # (B, W, KV, ps, ...)
+    return g.transpose(1, 2).reshape((b, g.shape[2], w * g.shape[3]) + g.shape[4:])
+
+
+def attn_decode_paged(p: dict, x: torch.Tensor, cache: dict, block_tables: torch.Tensor,
+                      pos: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
+                      rope_theta: float = 0.0, page_size: int):
+    """One decode step of x (B, 1, D) against the paged pool: slot b's new
+    K/V go to page ``block_tables[b, pos[b] // page_size]`` at offset
+    ``pos[b] % page_size`` (in place, ``index_put_``), then the slot's pages
+    are gathered into the dense layout and attended with keys past its own
+    position masked.  ``block_tables`` (B, W) and ``pos`` (B,) are int64
+    tensors on x's device; nothing is read on the host."""
+    page = block_tables.gather(1, (pos // page_size)[:, None])
+    heads = torch.arange(n_kv, device=x.device)
+    where = (page, heads[None, :], (pos % page_size)[:, None])  # (B, KV) rows of the pool
+
+    def write(name, new):
+        cache[name].index_put_(where, new[:, :, 0])
+
+    def read(name):
+        return gather_pages(cache[name], block_tables)
+    return _attn_decode(p, x, cache, pos, write, read, n_heads=n_heads, n_kv=n_kv,
+                        head_dim=head_dim, rope_theta=rope_theta)

@@ -69,10 +69,15 @@ def test_import_without_cuda_pulls_in_no_jax():
                                     "repro_torch.kernels.bitplane",
                                     "repro_torch.kernels.fold_reduce",
                                     "repro_torch.kernels.flash_attn",
-                                    "repro_torch.kernels.ops"])
+                                    "repro_torch.kernels.ops",
+                                    "repro_torch.models.attention",
+                                    "repro_torch.serving.engine",
+                                    "repro_torch.serving.prefix",
+                                    "repro_torch.serving.resilience"])
 def test_kernel_module_imports_alone_without_card_or_build(module):
-    """A kernel module imported on its own, with no card and no CUDA
-    toolkit, pulls in neither jax nor the JAX package and builds nothing."""
+    """A kernel module, or a module of the paged serving path, imported on
+    its own, with no card and no CUDA toolkit, pulls in neither jax nor the
+    JAX package and builds nothing."""
     assert (PKG / Path(*module.split(".")[1:])).with_suffix(".py").is_file()
     code = (f"import sys, {module}\n"
             "from repro_torch.kernels import build\n"
@@ -92,10 +97,15 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device is valid here")
     from repro_torch.configs import get_reduced
     from repro_torch.models import init_params
-    from repro_torch.serving import ServingEngine
+    from repro_torch.models import init_paged_cache
+    from repro_torch.serving import ContinuousBatchingEngine, ServingEngine
 
     cfg = get_reduced("qwen2-1.5b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg, {}, max_seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatchingEngine(cfg, {}, slots=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_paged_cache(cfg, 1, 8, 3, 4)

@@ -74,6 +74,29 @@ def assert_greedy_match(want, got, logits_at, tol, msg=""):
                 f"{margin:.3g} > {tol}: {want[row]} vs {got[row]}")
 
 
+def assert_serve_match(want, got, logits_at, tol, msg=""):
+    """``assert_greedy_match`` for a serve's outputs, one array per request
+    of its own length: each request's tokens agree up to a first mismatch
+    whose top-2 margin (``logits_at(request, j)``) is within ``tol``; with no
+    mismatch, the lengths agree too.  Returns the requests that diverged."""
+    assert len(want) == len(got), (len(want), len(got))
+    diverged = []
+    for r, (w, g) in enumerate(zip(want, got)):
+        w, g = np.asarray(w), np.asarray(g)
+        n = min(len(w), len(g))
+        diff = np.flatnonzero(w[:n] != g[:n])
+        if not diff.size:
+            assert len(w) == len(g), f"{msg} request {r}: {w} vs {g}"
+            continue
+        j = int(diff[0])
+        margin = top2_margin(logits_at(r, j))
+        assert margin <= tol, (
+            f"{msg} request {r} diverges at token {j} with top-2 margin "
+            f"{margin:.3g} > {tol}: {w} vs {g}")
+        diverged.append(r)
+    return diverged
+
+
 # ---- Lane-by-lane emulation of the tensor-core kernels' arithmetic ----------
 # (csrc/pim_mma.cuh and csrc/pim_gemm.cuh), for the CPU tests of pim_matvec,
 # pim_matmul and bitplane_matmul.  Registers are uint32 numpy arrays.
