@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Five paths run, at qwen2-1.5b's full width (28 layers, bf16, random
+Six paths run, at qwen2-1.5b's full width (28 layers, bf16, random
 weights from a seeded generator on the card):
 
 * decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
@@ -24,8 +24,11 @@ weights from a seeded generator on the card):
   attention runs the hand-written CUDA kernel ``flash_attention``;
 * continuous batching: ``ContinuousBatchingEngine.serve`` over a paged KV
   cache, every decode linear of every chunk step through ``pim_matvec``,
-  each chunk step one replay of a captured CUDA graph, a prompt past 8,192
-  tokens admitted through ``flash_attention``.
+  each chunk step and each admit one replay of a captured CUDA graph, a
+  prompt past 8,192 tokens admitted eagerly through ``flash_attention``;
+* the prefix cache: the same engine with ``prefix_cache=True`` on requests
+  that share prompt prefixes, a hit's tail one verify window (through
+  ``pim_matvec`` when it is one row a slot).
 
 Phases:
 
@@ -151,9 +154,13 @@ Phases:
    ten seeded requests (prompts of 17-300 tokens, no page multiple; 8-64
    new tokens; two stop at a token first emitted mid-chunk in their solo
    run) on 4 slots of 16-token pages, chunk 8, 512 positions, int8 weights,
-   a shuffled pool: the captured serve ``torch.equal`` to the same serve
-   with the chunk step run eagerly (``EagerEngine``: tokens, events, peak
-   pages), the pool quiescent and empty after it, each request's tokens
+   a shuffled pool: the captured serve (every chunk step and every admit
+   one graph replay) ``torch.equal`` to the same serve with the chunk step
+   and the admits run eagerly (``EagerEngine``: tokens, events, peak
+   pages), the pool quiescent and empty after it; for three padded lengths
+   of the trace, greedy and sampled, one captured admit against
+   ``admit_prefill`` on the same inputs (token and the pool pages it
+   wrote, ``torch.equal``); each request's tokens
    against its solo batch-1 ``ServingEngine.generate`` with a first
    divergence only where the dense top-2 logit gap is within PAGED_BAR, and
    the traced ``pim_matvec`` kernels of the counted serve 196 x
@@ -164,16 +171,51 @@ Phases:
    the dense engine's sampled row 0 within PAGED_BAR over the temperature;
    (d) phase 7's long prompt beside a short one on 2 slots: exactly 28
    ``flash_attention`` launches, all on a bf16 q, at the long admit, and
-   tokens against phase 7's dense long path (margin-aware); (e) in
-   SERVE_ROUNDS alternating rounds of the captured and the eager serve:
-   chunk step ms an iteration (CUDA events), emitted tokens/s, host ms a
-   round outside the chunk steps and of it the admits'; one traced replay
+   tokens against phase 7's dense long path (margin-aware; that admit,
+   past CHUNKED_THRESHOLD, runs eagerly); (e) in SERVE_ROUNDS alternating
+   rounds of the captured and the eager serve: chunk step ms an iteration
+   (CUDA events), emitted tokens/s, host ms a round outside the chunk
+   steps and of it the admits', admit ms by padded length, captured and
+   eager, and the graphs captured and kept and what their captures cost;
+   one traced replay
    of the paged chunk step against the dense captured step at the same 4
    rows and 512 positions (their device time differs by the gathers and
    scatters); (f) a planted fault, the decode attention's mask off by one,
    must change (a)'s eager serve and fail the comparison with the dense
    runs at PAGED_BAR (the sound runs' largest gap and the fault's gaps are
    printed beside the bar).
+10. the shared-prefix serve (its counted serve a window of phase 8's
+   profiler session, like phase 9's): ``prefix_cache=True`` on 12 seeded
+   requests (PREFIX_TRACE: 8 share a 512-token system prompt, each with a
+   tail of its own; 2 repeat one page-aligned 256-token prompt, so the
+   second is a full hit and forks its last page copy-on-write; 2 unrelated)
+   on 4 slots of 16-token pages, chunk 8, 1,024 positions, int8 weights, a
+   shuffled pool: (a) the captured serve ``torch.equal`` to the eager one
+   (tokens, events with their cached and prefilled tokens and forks, round
+   counters, peak pages, hits, forks); (b) against the same trace served
+   with ``prefix_cache=False``, request by request, a first divergence only
+   where the uncached run's top-2 gap (a dense prefill of the prompt and
+   its tokens so far) is within HIT_BAR (LOGIT_TOL: a hit's window keeps
+   f32 attention scores, a miss's prefill rounds them to bf16; the count
+   beyond PAGED_BAR is reported beside it); hits, hit tokens and forks as
+   the trace's structure dictates, prefilled tokens the uncached count less
+   the hit tokens; (c) the same sampled (SAMPLED), at HIT_BAR over the
+   temperature, where a choice's margin is the least of the top-2 gap of
+   gumbel + warped logits and the top-k cut's margins (``_gap``); (d) on a
+   pool of PREFIX_SMALL_POOL pages: retained pages evicted, slots
+   preempted, the pool quiescent after, tokens against (b)'s uncached ones
+   at HIT_BAR; (e) a planted fault, the tail window run with every slot's
+   block-table row in place (the other rows' window writes land in live
+   pages), must fail (b)'s or (c)'s comparison, and its hits must write
+   bytes of another live slot's pages where the sound engine's never do;
+   (f) in PREFIX_ROUNDS alternating rounds of the cached and the uncached
+   captured serve: tokens/s, host ms a round outside the chunk steps, hit
+   and miss admit ms; (g) the counted serve's traced ``pim_matvec`` kernels
+   196 x (chunk iterations + full-hit windows), whose 4 rows go through it;
+   (h) for three hits, the first token's logits through the tail window,
+   through the request's own miss prefill and through a prefill with f32
+   activations: their largest and RMS differences (the window's top 8
+   within HIT_BAR of the f32 prefill's).
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -207,12 +249,13 @@ from repro_torch.kernels.pim_matmul import plan as matmul_plan  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import plan as matvec_plan  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    attention, common, decode_step, init_cache, init_params, prefill)
+    attention, common, decode_step, init_cache, init_params, prefill, verify_hidden)
+from repro_torch.models.common import unembed  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     QuantizedTensor, dequantize, quantize_symmetric, to_bitplanes)
 from repro_torch.serving import (  # noqa: E402
-    ContinuousBatchingEngine, DecodeState, Request, ServingEngine, decode_and_emit,
-    decode_chunk_step, quantize_tree)
+    ChunkState, ContinuousBatchingEngine, DecodeState, Request, ServingEngine, admit_prefill,
+    decode_and_emit, quantize_tree)
 from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits  # noqa: E402
 
 SEED = 20260
@@ -450,14 +493,18 @@ def main() -> int:
     serving = ServingPhase(cfg, eng8, long_eng, long_prompt, long_toks, gen_serve)
     serve_windows = serving.run()
 
+    # ---- 10. the shared-prefix serve -----------------------------------------------
+    prefix_phase = PrefixPhase(cfg, eng8.params, dev)
+    serve_windows += prefix_phase.run()
+
     # ---- 8. the captured decode step ---------------------------------------------
     counted, traced = captured_phase(
         cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls,
         {"int8": (graphs8, toks, N_NEW), "int4": (graphs4, toks4, N_NEW_INT4),
          "long": (graphs_long, long_toks, LONG_NEW)}, serve_windows)
-    served = serving.finish(traced)
+    served = {**serving.finish(traced), **prefix_phase.finish(traced)}
     del params, eng8, eng4, long_eng, graphs8, graphs4, graphs_long, one_calls, long_toks
-    del serving, serve_windows, traced
+    del serving, prefix_phase, serve_windows, traced
     gc.collect()  # the counted captures hold each engine in a cycle
     torch.cuda.empty_cache()
     long_against_plain(cfg, gen_fa, long_prompt)
@@ -1760,13 +1807,14 @@ def launch_counts():
 
 
 class CountedGraph:
-    """A captured decode step whose replays are counted, with the kernels'
-    launch counters read around its capture (``launches``): the wrappers
-    count as the step is captured, and a replay runs no Python, so it
-    counts nothing."""
+    """A captured step whose replays are counted, with the kernels' launch
+    counters read around its capture (``launches``): the wrappers count as
+    the step is captured, and a replay runs no Python, so it counts
+    nothing.  ``capture_s``: host seconds of its warm-up and capture."""
 
-    def __init__(self, graph, launches):
+    def __init__(self, graph, launches, capture_s):
         self.graph, self.launches, self.replays = graph, launches, 0
+        self.capture_s = capture_s
 
     def replay(self):
         self.replays += 1
@@ -1775,19 +1823,37 @@ class CountedGraph:
 
 def count_captures(eng):
     """From now on, each step ``eng`` captures (a decode step, or a chunk step
-    of the continuous engine) is a ``CountedGraph``, added to the list
-    returned."""
-    graphs, capture = [], eng.graphs._capture
+    or an admit of the continuous engine) is a ``CountedGraph``, added to
+    the list returned."""
+    graphs, capture, warm_up = [], eng.graphs._capture, eng.graphs._warm_up
+    started = []
+
+    def timed_warm_up(run, reset):
+        torch.cuda.synchronize()
+        started.append(time.perf_counter())
+        warm_up(run, reset)
 
     def counted(run, pool):
         before = launch_counts()
         graph = capture(run, pool)
         after = launch_counts()
-        graphs.append(CountedGraph(graph, {k: after[k] - before[k] for k in after}))
+        torch.cuda.synchronize()
+        graphs.append(CountedGraph(graph, {k: after[k] - before[k] for k in after},
+                                   time.perf_counter() - started.pop()))
         return graphs[-1]
 
-    eng.graphs._capture = counted
+    eng.graphs._warm_up, eng.graphs._capture = timed_warm_up, counted
     return graphs
+
+
+def capture_report(eng, graphs):
+    """How many steps ``eng`` captured (``count_captures``' list) and keeps,
+    and what their warm-ups and captures cost on the host clock."""
+    times = [g.capture_s for g in graphs]
+    return {"captured": len(graphs), "kept": len(eng.graphs),
+            "capture_s_total": sum(times), "capture_ms_median":
+            sorted(times)[len(times) // 2] * 1e3 if times else None,
+            "capture_ms_max": max(times, default=0.0) * 1e3}
 
 
 def counted_launches(graphs, fn):
@@ -2074,6 +2140,10 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, pa
 SERVE = dict(slots=4, page_size=16, chunk=8, max_seq=512, page_alloc_seed=SEED)
 SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW, SERVE_STOPPED = 10, (17, 300), (8, 64), 2
 SERVE_ROUNDS = 3  # alternating rounds of (e): captured, then eager
+# (e)'s captured serve when its admits ran eagerly, as PERF.md records it
+# (NVIDIA H100 80GB HBM3 at 700 W): the yardstick the captured admits are
+# reported beside.
+BEFORE_CAPTURED_ADMITS = {"host_ms_per_round_outside_steps": 41.7, "tokens_per_s": 261}
 # (d): the long prompt of phase 7 admitted beside a short one.
 LONG_SERVE = dict(slots=2, page_size=16, chunk=8, max_seq=LONG_PROMPT + LONG_NEW)
 LONG_SERVE_SHORT = 200
@@ -2095,17 +2165,21 @@ PAGED_BAR = 2 ** -4
 class TimedEngine(ContinuousBatchingEngine):
     """The engine with a CUDA event pair around each round's chunk steps
     (``spans``): from the round's first step to its last, on the device; and
-    the host time of its admits (``admit_s``; an admit ends reading its
-    first token, so its device work is done)."""
+    the host time of its admits (``admit_s``, and each admit's padded length,
+    ms and whether the prefix cache served it in ``admits``; an admit ends
+    reading its first token, so its device work is done)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        self.spans, self.admit_s = [], 0.0
+        self.spans, self.admit_s, self.admits = [], 0.0, []
 
-    def _admit(self, *args, **kw):
+    def _admit(self, requests, slot, ridx, *args, **kw):
         t0 = time.perf_counter()
-        info = super()._admit(*args, **kw)
-        self.admit_s += time.perf_counter() - t0
+        info = super()._admit(requests, slot, ridx, *args, **kw)
+        dt = time.perf_counter() - t0
+        self.admit_s += dt
+        self.admits.append((self._spad(len(requests[ridx].prompt)), dt * 1e3,
+                            info["cached_tokens"] > 0))
         return info
 
     def _load(self):
@@ -2121,7 +2195,7 @@ class TimedEngine(ContinuousBatchingEngine):
     def timed_serve(self, requests, **mode):
         """``serve`` on the host clock: (outputs, wall s, device ms of the
         chunk steps, chunk iterations, rounds, emitted tokens)."""
-        self.spans, self.admit_s = [], 0.0
+        self.spans, self.admit_s, self.admits = [], 0.0, []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = self.serve(requests, **mode)
@@ -2133,14 +2207,61 @@ class TimedEngine(ContinuousBatchingEngine):
 
 
 class EagerEngine(TimedEngine):
-    """The same engine with its chunk step run eagerly (no graph): the
-    reference the captured serve is held against, bit for bit."""
+    """The same engine with its chunk step and its admits run eagerly (no
+    graph): the reference the captured serve is held against, bit for
+    bit."""
 
-    def chunk_step(self, n_stops, *, greedy, top_k):
-        st = self._state
-        return functools.partial(decode_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
-                                 greedy=bool(greedy), top_k=0 if greedy else int(top_k),
-                                 pad_id=self.pad_id)
+    def _kept(self, key, run, reset, bounded=False):
+        return run
+
+
+def admit_ms_by_length(admits):
+    """Median admit ms per padded prompt length of ``TimedEngine.admits``
+    rows (spad, ms, hit)."""
+    by = {}
+    for spad, ms, _ in admits:
+        by.setdefault(spad, []).append(ms)
+    return {spad: sorted(v)[len(v) // 2] for spad, v in sorted(by.items())}
+
+
+def admits_against_plain(eng, prompts):
+    """(a): for three padded lengths of the trace (the shortest, the median
+    and the longest), ``eng``'s captured admit (one replay of
+    ``admit_step``'s graph) against ``admit_prefill`` on the same inputs
+    into a pool of its own, greedy and sampled: the token and every pool
+    page it wrote, ``torch.equal``.  The pages are the pool's last ones."""
+    st, cfg, dev, ps = eng._state, eng.cfg, eng.device, eng.page_size
+    ref = ChunkState(cfg, eng.slots, eng.max_seq, eng.num_pages, ps, eng.chunk, dev)
+    spads = sorted({eng._spad(len(p)) for p in prompts})
+    rows = []
+    with torch.inference_mode():
+        for spad in (spads[0], spads[len(spads) // 2], spads[-1]):
+            p = next(p for p in prompts if eng._spad(len(p)) == spad)
+            pages = list(range(eng.num_pages - spad // ps, eng.num_pages))
+            prompt = torch.zeros((1, spad), dtype=torch.int32, device=dev)
+            prompt[0, :len(p)] = torch.from_numpy(p).to(dev)
+            for label, mode in (("greedy", GREEDY), ("sampled", SAMPLED)):
+                greedy, top_k = mode["greedy"], mode.get("top_k", 0)
+                base = prng_key(mode.get("key", 0), dev)
+                for state in (st, ref):
+                    state.base.copy_(base)
+                    state.temperature.fill_(mode.get("temperature", 1.0))
+                step = eng.admit_step(spad, greedy=greedy, top_k=top_k)
+                a = st.admit(spad)
+                a.prompt.copy_(prompt)
+                a.ints.copy_(torch.tensor([*pages, len(p), 7], device=dev))
+                step()
+                want = admit_prefill(eng.params, cfg, ref.cache, prompt, len(p), 0,
+                                     torch.tensor(pages, device=dev), 7, ref.base,
+                                     ref.temperature, greedy=greedy, top_k=top_k)
+                same_pages = all(torch.equal(leaf[:, pages], ref.cache["layers"][name][:, pages])
+                                 for name, leaf in st.cache["layers"].items())
+                rows.append({"spad": spad, "prompt": len(p), "mode": label,
+                             "token_equal": torch.equal(a.tok, want),
+                             "pages_equal": same_pages})
+                check(rows[-1]["token_equal"] and same_pages,
+                      f"the captured admit differs from admit_prefill: {rows[-1]}")
+    return rows
 
 
 @contextlib.contextmanager
@@ -2308,6 +2429,7 @@ class ServingPhase:
         for e in (eng, eager):
             e.assert_quiescent()
             check(e.pages_in_use() == 0, f"(a) {e.pages_in_use()} pages in use after the serve")
+        report["admit_vs_plain"] = admits_against_plain(eng, prompts)
         check([len(o) for o in self.out] == lengths, f"(a) output lengths "
               f"{[len(o) for o in self.out]}, the dense runs and stops give {lengths}")
         with torch.inference_mode():
@@ -2317,16 +2439,21 @@ class ServingPhase:
                 PAGED_BAR)
 
         # (e) times: alternating rounds of the captured and the eager serve
-        rounds = []
+        rounds, admits = [], {"captured": [], "eager": []}
         for _ in range(SERVE_ROUNDS):
             row = {}
             for name, e in (("captured", eng), ("eager", eager)):
                 out, t = e.timed_serve(reqs)
                 check(same_tokens(out, self.out), f"(e) a {name} serve's tokens changed")
                 row[name] = timing_row(t)
+                admits[name] += e.admits
             row["sm_clock_mhz"] = tracing.sm_clock_mhz()
             rounds.append(row)
         report["timing_rounds"] = rounds
+        by_length = {name: admit_ms_by_length(a) for name, a in admits.items()}
+        report["admit_ms_by_padded_length"] = {
+            spad: {"captured": ms, "eager": by_length["eager"][spad]}
+            for spad, ms in by_length["captured"].items()}
         report["timing_medians"] = {
             name: {k: sorted(r[name][k] for r in rounds)[len(rounds) // 2]
                    for k in ("step_ms_per_iter", "tokens_per_s", "host_ms_per_round_outside_steps",
@@ -2335,6 +2462,8 @@ class ServingPhase:
         report["timing_medians"]["captured_over_eager_step"] = (
             report["timing_medians"]["captured"]["step_ms_per_iter"]
             / report["timing_medians"]["eager"]["step_ms_per_iter"])
+        report["timing_medians"]["before_captured_admits"] = BEFORE_CAPTURED_ADMITS
+        report["graphs"] = capture_report(eng, self.graphs)
 
         # (b) preemption: a pool too small for the trace's peak
         need = max(-(-(len(p) + n) // SERVE["page_size"]) for p, n in zip(prompts, news))
@@ -2419,6 +2548,7 @@ class ServingPhase:
                          "fault_diverged": len(report["planted_fault"]["paged_vs_dense"]
                                                ["divergences"])}
         print("phase 9 bar: " + json.dumps(report["bar"]), flush=True)
+        print(json.dumps(report), flush=True)
         self.report = report
         return self.windows()
 
@@ -2490,10 +2620,370 @@ class ServingPhase:
                   f"one replay of the {label}: {steps[label]}")
         steps["paged_minus_dense_us"] = (steps["paged chunk step"]["device_busy_us"]
                                          - steps["dense step, 4 rows"]["device_busy_us"])
-        self.report["launches"] = launches
-        self.report["one_step_trace"] = steps
-        print(json.dumps(self.report))
+        print(json.dumps({"check": "phase 9: launches and one traced step", "launches": launches,
+                          "one_step_trace": steps}))
         return {label: out["traced"] for label, out in self.counted.items()}
+
+
+
+# ---- 10. the shared-prefix serve ------------------------------------------------------
+PREFIX_SERVE = dict(slots=4, page_size=16, chunk=8, max_seq=1024, page_alloc_seed=SEED)
+# (shared system prompt, requests that share it, their tails' lengths), (the
+# repeated page-aligned prompt, its requests), (unrelated requests, their
+# lengths), new tokens a request: drawn by numpy from SEED + 10.
+PREFIX_TRACE = dict(system=512, shared=8, tails=(20, 200), repeated=256, repeats=2,
+                    unrelated=2, unrelated_len=(100, 300), new=(16, 64))
+# (d): small enough that retained pages are evicted and slots preempted (a
+# request needs at most 49 pages here).
+PREFIX_SMALL_POOL = 60
+PREFIX_ROUNDS = 3  # alternating rounds of (f): cached, then uncached
+# Hits against misses: a hit's tail runs the verify window, whose attention
+# keeps f32 scores as a decode step does, where a miss's prefill rounds its
+# scores to bf16 (the JAX package's arithmetic).  Through 28 layers the two
+# sound paths' first-token logits differ by up to about 0.14 on the H100,
+# each as far from an f32 prefill as the other ((h) prints them); PAGED_BAR,
+# the bar of one arithmetic at two shapes, sits below that.  Two sound bf16
+# paths of different arithmetic are held at LOGIT_TOL, as in phase 3.  The
+# planted fault of (e) must be flagged beyond it; (b) to (d) also report
+# their divergences beyond PAGED_BAR.
+HIT_BAR = LOGIT_TOL
+HIT_LOGIT_REQUESTS = (1, 4, 9)  # (h): three hits, windows of 5, 4 and 10 pages
+
+
+def prefix_trace(vocab):
+    """Phase 10's requests in queue order, and what the prefix cache must
+    do with them: (requests, expected hits, hit tokens, forks).  The first
+    request of the system prompt and of the repeated prompt miss and
+    register their full pages; every later one of the system prompt hits
+    its 32 pages; the repeat hits every page (a full hit: its tail is the
+    last position, and its last page is forked)."""
+    t = PREFIX_TRACE
+    sizes = np.random.default_rng(SEED + 10)  # lengths first: the schedule needs no vocab
+    tails = sizes.integers(t["tails"][0], t["tails"][1] + 1, t["shared"])
+    others = sizes.integers(t["unrelated_len"][0], t["unrelated_len"][1] + 1, t["unrelated"])
+    news = sizes.integers(t["new"][0], t["new"][1] + 1, t["shared"] + t["repeats"]
+                          + t["unrelated"])
+    rng = np.random.default_rng(SEED + 11)
+    system = rng.integers(0, vocab, t["system"])
+    repeated = rng.integers(0, vocab, t["repeated"])
+    shared = [np.concatenate([system, rng.integers(0, vocab, n)]) for n in tails]
+    unrelated = [rng.integers(0, vocab, n) for n in others]
+    prompts = [shared[0], shared[1], repeated, unrelated[0], shared[2], shared[3], repeated,
+               shared[4], unrelated[1], shared[5], shared[6], shared[7]]
+    reqs = [Request(prompt=p.astype(np.int32), max_new=int(n)) for p, n in zip(prompts, news)]
+    hits = t["shared"] - 1 + t["repeats"] - 1
+    hit_tokens = (t["shared"] - 1) * t["system"] + (t["repeats"] - 1) * (t["repeated"] - 1)
+    return reqs, hits, hit_tokens, t["repeats"] - 1
+
+
+class WatchedEngine(TimedEngine):
+    """Records around each cached admit whether a byte of another live slot's
+    pages changed (``touched``)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.touched = []
+
+    def _admit_cached(self, slot, *args):
+        others = sorted({p for s, pages in enumerate(self._slot_pages)
+                         if s != slot and self._slot_req[s] >= 0 for p in pages})
+        leaves = list(self._state.cache["layers"].values())
+        before = [leaf[:, others].clone() for leaf in leaves]
+        tok = super()._admit_cached(slot, *args)
+        self.touched.append(any(not torch.equal(leaf[:, others], b)
+                                for leaf, b in zip(leaves, before)))
+        return tok
+
+
+class UnmaskedEngine(WatchedEngine):
+    """The planted fault of (e): the tail window runs with every slot's
+    block-table row in place."""
+
+    def _window_table(self, slot):
+        return self._bt.copy()
+
+
+def serve_facts(eng, rep):
+    """What a serve decided: events without times, round counters without
+    times, peak pages and the prefix cache's counters."""
+    return {"events": events_of(rep),
+            "counters": [{k: v for k, v in c.items() if k != "ts"} for c in rep.counters],
+            "peak_pages": eng.peak_pages_in_use, "preemptions": eng.preemptions,
+            "prefix_hits": rep.prefix_hits, "prefix_hit_tokens": rep.prefix_hit_tokens,
+            "prefill_tokens": rep.prefill_tokens, "cow_forks": rep.cow_forks,
+            "evictions": rep.evictions}
+
+
+class PrefixPhase:
+    """Phase 10: the shared-prefix serve, (a) to (g) of the module's
+    docstring.  ``run`` does everything but the counting and returns the
+    window phase 8's profiler session traces; ``finish`` reads it."""
+
+    def __init__(self, cfg, params, dev):
+        self.cfg, self.params, self.dev = cfg, params, dev
+        self.cuts = []  # divergences where the top-k cut decided (``_gap``)
+
+    def _gap(self, prompt, toks, j, mode, rid):
+        """The margin of the choice of token j after ``prompt`` and
+        ``toks[:j]``, from a dense prefill: the top-2 gap of the logits, or,
+        sampled, the least of the top-2 gap of gumbel + warped logits of
+        draw (rid, j) and the top-k cut's margins over the temperature: the
+        winner's logit above the first one cut, and for each cut token whose
+        gumbel + logit would beat the winner if it were kept, the k-th logit
+        above its own (logits an ulp apart move tokens across the cut, and
+        at top-k 50 of 151,936 dozens lie within an ulp of it)."""
+        seq = torch.from_numpy(np.concatenate([prompt, np.asarray(toks[:j], np.int32)]))
+        seq = seq[None].to(self.dev)
+        logits, _ = prefill(self.params, self.cfg, seq, init_cache(self.cfg, 1, seq.shape[1],
+                                                                   self.dev))
+        lg = logits[0, -1:].float()
+        if mode["greedy"]:
+            return top2_gap(lg[0])
+        t, k = mode["temperature"], mode["top_k"]
+        keys = draw_keys(prng_key(mode["key"], self.dev), torch.tensor([rid], device=self.dev),
+                         j, TAG_TOKEN)
+        lg, noise = lg[0], gumbel(keys, lg.shape[-1])[0]
+        values = warp_logits(lg[None], t, k)[0] + noise
+        gap = top2_gap(values)
+        kth, first_cut = torch.topk(lg, k + 1).values[k - 1:]
+        cut = (lg[values.argmax()] - first_cut) / t
+        entering = (lg < kth) & (lg / t + noise > values.max())
+        if bool(entering.any()):
+            cut = torch.minimum(cut, (kth - lg[entering].max()) / t)
+        if cut.item() < gap:
+            self.cuts.append({"request": rid, "token": j, "top2_gap": gap,
+                              "cut_margin": cut.item()})
+            gap = cut.item()
+        return gap
+
+    def _against_uncached(self, label, got, want, mode=GREEDY, check_bar=True):
+        """Each request's tokens against the uncached serve's, margin-aware at
+        HIT_BAR (over the temperature when sampled), with the count beyond
+        PAGED_BAR beside it; returns the report."""
+        t = mode.get("temperature", 1.0)
+        bar = HIT_BAR / t
+        with torch.inference_mode():
+            div = divergences(got, want, [len(w) for w in want],
+                              lambda r, j: self._gap(self.reqs[r].prompt, want[r], j, mode, r))
+        rep = {"check": f"{label}: cached vs uncached serve", "requests": len(got),
+               "diverged": len(div), "beyond_bar": sum(beyond(d, bar) for d in div),
+               "beyond_paged_bar": sum(beyond(d, PAGED_BAR / t) for d in div),
+               "divergences": div, "bar": bar}
+        print(f"phase 10 {label}: " + json.dumps(rep), flush=True)
+        if check_bar:
+            for d in div:
+                check(not beyond(d, bar), f"{label}: request {d['request']} diverges from the "
+                      f"uncached serve beyond the bar {bar}: {d}")
+        return rep
+
+    def _first_token_logits(self):
+        """(h): for HIT_LOGIT_REQUESTS, the first token's logits three ways:
+        the hit's tail window over the system prompt's pages as the first
+        request's prefill wrote them, the request's own miss prefill, and a
+        prefill of the same int8 weights with f32 activations; the largest
+        and RMS differences over the vocabulary and over the f32 top 8."""
+        cfg, dev, ps = self.cfg, self.dev, PREFIX_SERVE["page_size"]
+        system = PREFIX_TRACE["system"]
+        cfg32 = cfg.replace(param_dtype="float32")
+
+        def widened(tree):
+            return {k: widened(v) if isinstance(v, dict) else
+                    v.float() if v.dtype == torch.bfloat16 else v for k, v in tree.items()}
+        params32 = widened(self.params)
+
+        def padded(prompt):
+            spad = -(-len(prompt) // ps) * ps
+            toks = torch.zeros((1, spad), dtype=torch.int32, device=dev)
+            toks[0, :len(prompt)] = torch.from_numpy(prompt).to(dev)
+            return toks
+
+        rows = []
+        with torch.inference_mode():
+            first = padded(self.reqs[0].prompt)
+            for r in HIT_LOGIT_REQUESTS:
+                prompt = self.reqs[r].prompt
+                n, toks = len(prompt), padded(prompt)
+                st = ChunkState(cfg, PREFIX_SERVE["slots"], PREFIX_SERVE["max_seq"],
+                                4 * PREFIX_SERVE["max_seq"] // ps, ps, 1, dev)
+                logits, _ = prefill(self.params, cfg, toks, st.cache,
+                                    pages=torch.arange(1, toks.shape[1] // ps + 1, device=dev))
+                miss = logits[0, n - 1].float()
+                off = toks.shape[1] // ps + 1  # the first request's pages, then the tail's
+                prefill(self.params, cfg, first, st.cache,
+                        pages=torch.arange(off, off + first.shape[1] // ps, device=dev))
+                tail = off + first.shape[1] // ps
+                row_pages = list(range(off, off + system // ps)) + list(
+                    range(tail, tail + (toks.shape[1] - system) // ps))
+                st.cache["block_tables"][0, :len(row_pages)] = torch.tensor(row_pages, device=dev)
+                window = torch.zeros((PREFIX_SERVE["slots"], toks.shape[1] - system),
+                                     dtype=torch.int32, device=dev)
+                window[0] = toks[0, system:]
+                pos = torch.zeros(PREFIX_SERVE["slots"], dtype=torch.int64, device=dev)
+                pos[0] = system
+                x = verify_hidden(self.params, cfg, window, st.cache, pos)
+                hit = unembed(x[0:1, n - 1 - system:n - system], self.params["embed"])[0, 0]
+                hit = hit.float()
+                exact, _ = prefill(params32, cfg32, toks[:, :n], init_cache(cfg32, 1, n, dev))
+                exact = exact[0, n - 1]
+                top = torch.topk(exact, 8).indices
+
+                def diff(a, b, idx=slice(None)):
+                    d = a[idx] - b[idx]
+                    return {"max": d.abs().max().item(), "rms": d.pow(2).mean().sqrt().item()}
+                rows.append({"request": r, "prompt": n, "window": toks.shape[1] - system,
+                             "hit_minus_miss": diff(hit, miss),
+                             "hit_minus_f32": diff(hit, exact), "miss_minus_f32": diff(miss, exact),
+                             "top8_hit_minus_f32": diff(hit, exact, top),
+                             "top8_miss_minus_f32": diff(miss, exact, top),
+                             "f32_top2": exact[top[:2]].tolist()})
+                check(rows[-1]["top8_hit_minus_f32"]["max"] <= HIT_BAR,
+                      f"(h) a hit's first-token logits are far from the f32 prefill's: {rows[-1]}")
+        del params32
+        return rows
+
+    def run(self):
+        cfg, dev = self.cfg, self.dev
+        report = {"check": "phase 10: the shared-prefix serve, qwen2-1.5b int8, prefix_cache=True"}
+        reqs, hits, hit_tokens, forks = prefix_trace(cfg.vocab)
+        self.reqs = reqs
+        report["trace"] = {"prompt_lengths": [len(r.prompt) for r in reqs],
+                           "max_new": [r.max_new for r in reqs], "expected_hits": hits,
+                           "expected_hit_tokens": hit_tokens, "expected_forks": forks}
+
+        # (a) captured equals eager
+        self.eng = eng = TimedEngine(cfg, self.params, prefix_cache=True, device=dev,
+                                     **PREFIX_SERVE)
+        self.graphs = count_captures(eng)
+        eager = EagerEngine(cfg, self.params, prefix_cache=True, device=dev, **PREFIX_SERVE)
+        self.out = eng.serve(reqs)  # warm-up: the captures
+        facts = serve_facts(eng, eng.last_report)
+        out_e = eager.serve(reqs)
+        same = {"tokens_equal": same_tokens(self.out, out_e),
+                "facts_equal": facts == serve_facts(eager, eager.last_report),
+                **{k: v for k, v in facts.items() if k not in ("events", "counters")}}
+        report["captured_vs_eager"] = same
+        check(same["tokens_equal"] and same["facts_equal"],
+              f"(a) the captured cached serve differs from the eager one: {same}")
+        eng.assert_quiescent()
+        del eager
+
+        # (b) against the uncached serve; the trace's structure
+        self.uncached = TimedEngine(cfg, self.params, device=dev, **PREFIX_SERVE)
+        self.uncached_graphs = count_captures(self.uncached)
+        self.out_u = self.uncached.serve(reqs)
+        rep, rep_u = eng.last_report, self.uncached.last_report
+        counts = {"prefix_hits": rep.prefix_hits, "prefix_hit_tokens": rep.prefix_hit_tokens,
+                  "cow_forks": rep.cow_forks, "prefill_tokens": rep.prefill_tokens,
+                  "uncached_prefill_tokens": rep_u.prefill_tokens,
+                  "retained_pages_at_end": rep.counters[-1]["retained_pages"]}
+        report["structure"] = counts
+        check((rep.prefix_hits, rep.prefix_hit_tokens, rep.cow_forks) == (hits, hit_tokens, forks)
+              and rep.prefill_tokens == rep_u.prefill_tokens - rep.prefix_hit_tokens
+              and rep_u.prefill_tokens == sum(len(r.prompt) for r in reqs)
+              and rep_u.prefix_hits == 0, f"(b) the prefix cache's counters {counts}, expected "
+              f"hits {hits}, hit tokens {hit_tokens}, forks {forks}")
+        report["against_uncached"] = self._against_uncached("(b) greedy", self.out, self.out_u)
+
+        # (c) sampled
+        out_s = eng.serve(reqs, **SAMPLED)
+        out_su = self.uncached.serve(reqs, **SAMPLED)
+        check(not same_tokens(out_s, self.out), "(c) sampled tokens equal greedy ones")
+        report["sampled"] = self._against_uncached("(c) sampled", out_s, out_su, SAMPLED)
+
+        # (d) a small pool: eviction of retained pages and preemption
+        small = ContinuousBatchingEngine(cfg, self.params, prefix_cache=True, device=dev,
+                                         **{**PREFIX_SERVE, "num_pages": PREFIX_SMALL_POOL})
+        out_d = small.serve(reqs)
+        rep_d = small.last_report
+        report["small_pool"] = {"num_pages": PREFIX_SMALL_POOL, "evictions": rep_d.evictions,
+                                "preemptions": small.preemptions,
+                                "prefix_hits": rep_d.prefix_hits,
+                                **self._against_uncached("(d) small pool", out_d, self.out_u)}
+        check(rep_d.evictions > 0 and small.preemptions > 0, f"(d) {PREFIX_SMALL_POOL} pages "
+              f"evicted {rep_d.evictions} retained pages and preempted {small.preemptions} times")
+        small.assert_quiescent()
+        del small
+
+        # (e) the planted fault: the other rows' block-table rows left in place,
+        # greedy and sampled; beside it the sound engine, both watched
+        sound = WatchedEngine(cfg, self.params, prefix_cache=True, device=dev, **PREFIX_SERVE)
+        check(same_tokens(sound.serve(reqs), self.out), "(e) the watched engine's tokens differ")
+        faulted = UnmaskedEngine(cfg, self.params, prefix_cache=True, device=dev, **PREFIX_SERVE)
+        fault = {"fault": "the tail window runs with every slot's block-table row in place"}
+        for label, mode, cached, uncached in (("greedy", GREEDY, self.out, self.out_u),
+                                              ("sampled", SAMPLED, out_s, out_su)):
+            out_f = faulted.serve(reqs, **mode)
+            fault[label] = {
+                "requests_changed": sum(not np.array_equal(a, b) for a, b in zip(out_f, cached)),
+                **self._against_uncached(f"(e) planted fault, {label}", out_f, uncached, mode,
+                                         check_bar=False)}
+        fault["hits_writing_live_pages"] = {"sound": sum(sound.touched),
+                                            "faulted": sum(faulted.touched),
+                                            "hits": len(sound.touched)}
+        report["planted_fault"] = fault
+        print("phase 10 (e) planted fault: " + json.dumps(fault), flush=True)
+        check(not any(sound.touched) and any(faulted.touched), "(e) hits that wrote another live "
+              f"slot's pages: {fault['hits_writing_live_pages']}")
+        check(fault["greedy"]["beyond_bar"] + fault["sampled"]["beyond_bar"] > 0,
+              f"(e) the planted fault passes cached vs uncached at the bar {HIT_BAR}: {fault}")
+        del faulted, sound
+
+        # (h) first-token logits of three hits: window, miss prefill, f32 prefill
+        report["first_token_logits"] = self._first_token_logits()
+
+        # (f) times: alternating rounds of the cached and the uncached serve
+        rounds, admits = [], []
+        for _ in range(PREFIX_ROUNDS):
+            row = {}
+            for name, e, want in (("cached", eng, self.out), ("uncached", self.uncached,
+                                                                self.out_u)):
+                out, t = e.timed_serve(reqs)
+                check(same_tokens(out, want), f"(f) a {name} serve's tokens changed")
+                row[name] = timing_row(t)
+                admits += [(name, a) for a in e.admits]
+            row["sm_clock_mhz"] = tracing.sm_clock_mhz()
+            rounds.append(row)
+        report["timing_rounds"] = rounds
+        medians = {name: {k: sorted(r[name][k] for r in rounds)[len(rounds) // 2]
+                          for k in ("step_ms_per_iter", "tokens_per_s",
+                                    "host_ms_per_round_outside_steps", "admit_ms_per_round")}
+                   for name in ("cached", "uncached")}
+        groups = {"hit (cached serve)": [ms for n, (_, ms, hit) in admits if n == "cached" and hit],
+                  "miss (cached serve)": [ms for n, (_, ms, hit) in admits
+                                          if n == "cached" and not hit],
+                  "miss (uncached serve)": [ms for n, (_, ms, _) in admits if n == "uncached"]}
+        medians["admit_ms_median"] = {k: sorted(v)[len(v) // 2] for k, v in groups.items()}
+        medians["admits_timed"] = {k: len(v) for k, v in groups.items()}
+        report["timing_medians"] = medians
+        report["graphs"] = {"cached": capture_report(eng, self.graphs),
+                            "uncached": capture_report(self.uncached, self.uncached_graphs)}
+        report["top_k_cut_decided"] = self.cuts
+        print(json.dumps(report), flush=True)
+        self.report = report
+        return self.windows()
+
+    def windows(self):
+        """Phase 8's session traces the counted cached serve."""
+        self.counted = {}
+
+        def serve():
+            out = self.eng.serve(self.reqs)
+            self.counted["iters"] = self.eng.decode_chunk_iters
+            self.counted["full_hits"] = self.eng.last_report.cow_forks
+            return out
+        return [("prefix serve, counted", None, counted_generation(self.graphs, serve,
+                                                                   self.counted))]
+
+    def finish(self, traced):
+        """Phase 10's launches from the trace, and its report."""
+        out = self.counted
+        want = dict.fromkeys(KERNEL_TAGS, 0)
+        want["pim_matvec"] = len(LINEARS) * self.cfg.n_layers * (out["iters"] + out["full_hits"])
+        launches = check_counted("prefix serve, counted", traced["prefix serve, counted"], out,
+                                 self.out, want)
+        launches.update(decode_chunk_iters=out["iters"], full_hit_windows=out["full_hits"])
+        print(json.dumps({"check": "phase 10: launches", **launches}))
+        return {"prefix serve": out["traced"]}
 
 
 if __name__ == "__main__":

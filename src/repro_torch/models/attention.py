@@ -17,6 +17,11 @@ maps its logical page i (positions ``[i*page_size, (i+1)*page_size)``) to a
 pool page, and page 0 is the trash page of inactive slots.  A paged decode
 step takes one position per slot, a (B,) int64 tensor, and scatters and
 gathers through the block tables with device ops only.
+
+``attn_verify`` runs a window of T tokens per row at positions ``pos ..
+pos+T-1`` against either cache: each query attends as a decode step at its
+own position does, with the window's queries taken in blocks that bound the
+scores' memory (``VERIFY_SCORES_BYTES``).
 """
 from __future__ import annotations
 
@@ -31,6 +36,10 @@ from repro_torch.kernels.flash_attn import flash_attention_gqa
 from .common import apply_rope, dense_init, linear
 
 CHUNKED_THRESHOLD = 8192
+# The most bytes of f32 scores one block of a verify window's queries forms
+# (slots x heads x queries x keys x 4): a 16,384-token window over 2 slots
+# of 16,400 positions would need 25.8 GB at once.
+VERIFY_SCORES_BYTES = 1 << 28
 
 
 def attn_init(gen, d: int, n_heads: int, n_kv: int, head_dim: int, dtype,
@@ -202,14 +211,17 @@ def pv_f32(w, v):
 def decode_attention(q, ck, cv, pos: torch.Tensor) -> torch.Tensor:
     """One decode step's attention: q (B, KV, G, D) over the cache ck, cv
     (B, KV, S, D), keys past ``pos`` masked: a 0-d tensor shared by the
-    batch, or one position per row, (B,).  q is cast to the cache dtype,
-    scores and softmax are f32, the weights are cast back to the cache
-    dtype before p.v, as in the JAX package.  Returns (B, KV, G, D) f32."""
+    batch, one position per row, (B,), or one per row and query, (B, G)
+    (a verify window's queries, each with its own frontier).  q is cast to
+    the cache dtype, scores and softmax are f32, the weights are cast back
+    to the cache dtype before p.v, as in the JAX package.  Returns
+    (B, KV, G, D) f32."""
     b, kv, g, d = q.shape
     s_len = ck.shape[2]
     qg = q.to(ck.dtype).reshape(b * kv, g, d)
     s = bmm_f32(qg, ck.reshape(b * kv, s_len, d).transpose(1, 2)) / math.sqrt(d)
-    valid = torch.arange(s_len, device=q.device) <= pos.reshape(-1, 1, 1, 1)
+    front = pos[:, None, :, None] if pos.dim() == 2 else pos.reshape(-1, 1, 1, 1)
+    valid = torch.arange(s_len, device=q.device) <= front
     s = s.reshape(b, kv, g, s_len).masked_fill(~valid, float("-inf"))
     w = torch.softmax(s, dim=-1).reshape(b * kv, g, s_len)
     o = pv_f32(w.to(cv.dtype), cv.reshape(b * kv, s_len, d))
@@ -308,3 +320,73 @@ def attn_decode_paged(p: dict, x: torch.Tensor, cache: dict, block_tables: torch
         return gather_pages(cache[name], block_tables)
     return _attn_decode(p, x, cache, pos, write, read, n_heads=n_heads, n_kv=n_kv,
                         head_dim=head_dim, rope_theta=rope_theta)
+
+
+def attn_verify(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, n_heads: int,
+                n_kv: int, head_dim: int, rope_theta: float = 0.0,
+                block_tables: Optional[torch.Tensor] = None, page_size: Optional[int] = None):
+    """A window of T tokens x (B, T, D) per row at positions ``pos .. pos+T-1``
+    (``pos`` (B,) int64, tokens already cached) against a dense cache or,
+    with ``block_tables`` (B, W) int64, the paged pool (in place).  The
+    window's K/V (codes and scales for an int8 cache) are written first: a
+    write past the store is dropped on a dense cache and sent to the trash
+    page on a paged one.  Then query t of row b attends as a decode step at
+    ``pos[b] + t`` does (``decode_attention``: q.k and p.v with f32 outputs,
+    keys past its own frontier masked), as many queries at a time as
+    VERIFY_SCORES_BYTES of scores allow; the per-query arithmetic does not
+    depend on the block.  Returns (out (B, T, D), cache).
+
+    The dense form selects the in-store writes with a mask read on the host;
+    the paged form reads nothing on the host."""
+    b, t, _ = x.shape
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
+    posm = pos.reshape(b, 1) + torch.arange(t, device=x.device)  # (B, T)
+    if rope_theta:
+        q = apply_rope(q, posm, rope_theta)
+        k = apply_rope(k, posm, rope_theta)
+    # k/v are (B, T, KV, D), the rows the writes scatter; _quant_kv reduces
+    # over the last axis, so it applies to them as they are.
+    if "k_scale" in cache:
+        k_codes, k_sc = _quant_kv(k)
+        v_codes, v_sc = _quant_kv(v)
+        rows = {"k": k_codes, "v": v_codes, "k_scale": k_sc, "v_scale": v_sc}
+    else:
+        rows = {"k": k, "v": v}
+    if block_tables is None:
+        seq = cache["k"].shape[2]
+        keep = posm < seq
+        slot = torch.arange(b, device=x.device)[:, None].expand(b, t)[keep]
+        col = posm[keep]
+        for name, new in rows.items():
+            cache[name][slot, :, col] = new[keep].to(cache[name].dtype)
+
+        def read(name):
+            return cache[name]
+    else:
+        w = block_tables.shape[1]
+        page = block_tables.gather(1, (posm // page_size).clamp(0, w - 1))
+        page = torch.where(posm < w * page_size, page, 0)  # past the store: trash
+        heads = torch.arange(n_kv, device=x.device)
+        where = (page[..., None], heads, (posm % page_size)[..., None])  # (B, T, KV)
+        for name, new in rows.items():
+            cache[name].index_put_(where, new.to(cache[name].dtype))
+
+        def read(name):
+            return gather_pages(cache[name], block_tables)
+    if "k_scale" in cache:
+        ck = _dequant_kv(read("k"), read("k_scale"), x.dtype)
+        cv = _dequant_kv(read("v"), read("v_scale"), x.dtype)
+    else:
+        ck, cv = read("k"), read("v")
+    g = n_heads // n_kv
+    s_len = ck.shape[2]
+    query_block = max(1, VERIFY_SCORES_BYTES // (b * n_heads * s_len * 4))
+    qg = q.reshape(b, t, n_kv, g, head_dim).transpose(1, 2)  # (B, KV, T, G, D)
+    outs = []
+    for t0 in range(0, t, query_block):
+        t1 = min(t, t0 + query_block)
+        qb = qg[:, :, t0:t1].reshape(b, n_kv, (t1 - t0) * g, head_dim)
+        front = posm[:, t0:t1].repeat_interleave(g, dim=1)  # (B, queries x G)
+        outs.append(decode_attention(qb, ck, cv, front).reshape(b, n_kv, t1 - t0, g, head_dim))
+    o = torch.cat(outs, dim=2).transpose(1, 2).reshape(b, t, n_heads * head_dim).to(x.dtype)
+    return linear(o, p["wo"]), cache

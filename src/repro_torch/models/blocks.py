@@ -5,7 +5,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-from .attention import attn_decode, attn_decode_paged, attn_init, attn_prefill
+from .attention import attn_decode, attn_decode_paged, attn_init, attn_prefill, attn_verify
 from .common import mlp_apply, mlp_init, rmsnorm
 
 
@@ -44,5 +44,16 @@ def dense_block_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
     else:
         h, cache = attn_decode_paged(p["attn"], xn, cache, block_tables, pos,
                                      page_size=page_size, **_attn_kw(cfg))
+    x = x + h
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
+
+
+def dense_block_verify(p, x, cache, block_tables, pos: torch.Tensor, cfg: ModelConfig,
+                       page_size=None):
+    """A window of T tokens x (B, T, D) at per-row positions ``pos`` (B,): a
+    dense cache when ``block_tables`` is None, the paged pool otherwise
+    (``attention.attn_verify``)."""
+    h, cache = attn_verify(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, pos,
+                           block_tables=block_tables, page_size=page_size, **_attn_kw(cfg))
     x = x + h
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache

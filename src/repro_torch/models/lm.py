@@ -16,6 +16,8 @@ Public API:
   paged_insert(cfg, paged, dense, slot, pages) -> paged cache
   decode_step(params, cfg, tokens, cache, pos[, page_size])
                                            -> (logits (B, 1, V), cache)
+  verify_step(params, cfg, tokens, cache, pos[, page_size])
+                                           -> (logits (B, T, V), cache)
 """
 from __future__ import annotations
 
@@ -146,4 +148,39 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
         x, _ = bk.dense_block_decode(_layer(params["layers"], i), x,
                                      _layer(cache["layers"], i), pos, cfg, bt, ps)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return unembed(x, params.get("head", params["embed"])), cache
+
+
+def verify_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos,
+                  page_size: Optional[int] = None) -> torch.Tensor:
+    """``verify_step`` up to the final norm: the window's hidden states
+    (B, T, D), the cache written in place.  A caller that needs the logits
+    of a few positions only unembeds those."""
+    _check_family(cfg)
+    bt, ps = cache.get("block_tables"), None
+    if bt is not None:
+        ps = cache["layers"]["k"].shape[3]
+        if page_size not in (None, ps):
+            raise ValueError(f"page_size {page_size} is not the pool's {ps}")
+        bt = bt.to(torch.int64)
+    pos = torch.as_tensor(pos, device=tokens.device).to(torch.int64)
+    x = embed_lookup(params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        x, _ = bk.dense_block_verify(_layer(params["layers"], i), x,
+                                     _layer(cache["layers"], i), bt, pos, cfg, ps)
+    return rmsnorm(x, params["ln_f"], cfg.norm_eps)
+
+
+def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos,
+                page_size: Optional[int] = None):
+    """One forward pass over a window of T tokens (B, T) per row at positions
+    ``pos .. pos+T-1``, ``pos`` (B,) integers (tokens already cached),
+    against a dense cache (``init_cache``) or a paged one (told by its
+    ``block_tables`` key; ``page_size``, if given, must be the pool's).
+    Every window position's K/V is written in place (the dense family needs
+    no commit step: positions past an accepted frontier are masked by later
+    queries and written again by the next window), and each query attends
+    as ``decode_step`` at its position does.  Returns (logits (B, T, V),
+    cache)."""
+    x = verify_hidden(params, cfg, tokens, cache, pos, page_size)
     return unembed(x, params.get("head", params["embed"])), cache

@@ -3,8 +3,8 @@ continuous-batching engine over a paged KV cache.
 
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
 ``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense
-family, without speculation, the prefix cache, a resilience policy or a
-mesh).  ``quantize_tree`` turns every large matmul weight into
+family, with the prefix cache, without speculation, a resilience policy or
+a mesh).  ``quantize_tree`` turns every large matmul weight into
 ``{"codes": int8, "scale": f32}`` (int4: nibble-packed codes plus a marker
 leaf); at decode time each of those weights is streamed once per step by
 the ``pim_matvec`` kernel.
@@ -25,24 +25,30 @@ as the reference does, and runs each round's decode chunk (the reference's
 ``_decode_chunk_body`` scan) as ``chunk`` runs of ``decode_chunk_step`` on
 static buffers (``ChunkState``): on the card each run is one replay of a
 graph kept by ``CapturedSteps``, the capture helper both engines share.
+Each admit is one replay too: an uncached admit (``admit_miss``, a batch-1
+prefill into the slot's pages) kept per padded prompt length, and a cached
+one (``admit_cached``, one ``verify_step`` window over the prompt's tail
+after the prefix cache aliased its first pages) kept per window width.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, decode_step, init_cache, init_paged_cache, prefill
-from repro_torch.models.common import dtype_of, resolve_device
+from repro_torch.models import (common, decode_step, init_cache, init_paged_cache, prefill,
+                                 verify_hidden)
+from repro_torch.models.attention import CHUNKED_THRESHOLD
+from repro_torch.models.common import dtype_of, resolve_device, unembed
 from repro_torch.quant import quantize_symmetric
 
-from .prefix import PagePool
+from .prefix import PagePool, PrefixTrie, chunk_keys, extras_fingerprint
 from .resilience import RequestRecord, ServeReport
 from .sampling import (TAG_TOKEN, draw_keys, fold_in, gumbel, prng_key, row_keys,
                        sample_rows, warp_logits)
@@ -223,7 +229,6 @@ _LATER = {"mesh": "item 7 (tensor-parallel decode)",
           "draft_cfg": "item 4 (speculative decoding)",
           "draft_params": "item 4 (speculative decoding)",
           "draft_pim_bits": "item 4 (speculative decoding)",
-          "prefix_cache": "item 2b (the prefix cache)",
           "extras": "item 5 (the vlm and encdec families)",
           "policy": "item 2c (the resilience tier)",
           "chaos": "item 2c (the resilience tier)",
@@ -250,25 +255,34 @@ class CapturedSteps:
     loads, cuBLAS handles and workspaces, the allocator), after ``reset``
     has put its buffers where a run may start.  The graphs of one buffer set
     (``pool_key``) share one graph memory pool, since their steps never run
-    at the same time.  A graph reads the memory it was captured on, so every
-    kept step is dropped when any parameter leaf's pointer, dtype, shape or
-    stride changes.  A failed capture raises."""
+    at the same time and every output they keep lies in those buffers.  A
+    graph reads the memory it was captured on, so every kept step is
+    dropped when any parameter leaf's pointer, dtype, shape or stride
+    changes.  Of the steps got with ``bounded=True`` at most ``capacity``
+    are kept, the least recently used dropped first.  A failed capture
+    raises."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, capacity: Optional[int] = None):
         self.device = device
+        self.capacity = capacity
         self._steps: dict[tuple, Callable[[], None]] = {}
+        self._bounded: OrderedDict = OrderedDict()  # bounded keys, least recent first
         self._params: Optional[tuple] = None
         self._pools: dict = {}
         self._stream: Optional[torch.cuda.Stream] = None
 
+    def __len__(self) -> int:
+        return len(self._steps)
+
     def get(self, params, key: tuple, pool_key, run: Callable[[], None],
-            reset: Callable[[], object]) -> Callable[[], None]:
+            reset: Callable[[], object], bounded: bool = False) -> Callable[[], None]:
         if self.device.type != "cuda":
             return run
         leaves = tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
                        for t in _tensors(params))
         if leaves != self._params:
             self._steps.clear()
+            self._bounded.clear()
             self._params = leaves
         key = key + (common.matvec_dispatch(),)
         if key not in self._steps:
@@ -276,6 +290,12 @@ class CapturedSteps:
                 self._pools[pool_key] = torch.cuda.graph_pool_handle()
             self._warm_up(run, reset)
             self._steps[key] = self._capture(run, self._pools[pool_key]).replay
+            if bounded:
+                self._bounded[key] = None
+                while len(self._bounded) > self.capacity:
+                    del self._steps[self._bounded.popitem(last=False)[0]]
+        elif bounded:
+            self._bounded.move_to_end(key)
         return self._steps[key]
 
     def _warm_up(self, run, reset) -> None:
@@ -421,28 +441,102 @@ class Request:
 
 
 def admit_prefill(params, cfg: ModelConfig, cache: dict, prompt: torch.Tensor,
-                  length: int, slot: int, pages: torch.Tensor, rid: int,
-                  key: torch.Tensor, temperature, *, greedy: bool, top_k: int) -> torch.Tensor:
+                  length, slot, pages: torch.Tensor, rid, key: torch.Tensor, temperature, *,
+                  greedy: bool, top_k: int) -> torch.Tensor:
     """Admit one request (the JAX package's ``_admit_body``): a batch-1
     prefill of the page-padded ``prompt`` (1, S) straight into the slot's
     pool pages, then draw 0 from the logits at the true prompt end with the
-    request's ``(rid, 0)`` key.  Returns the token, a 0-d int32 tensor."""
+    request's ``(rid, 0)`` key.  ``length`` and ``rid`` are ints or 0-d
+    int64 tensors on the prompt's device; with tensors nothing is read on
+    the host, so a CUDA graph of the admit replays for any of them.
+    Returns the token, a 0-d int32 tensor."""
     logits, _ = prefill(params, cfg, prompt, cache, length=length, pages=pages, slot=slot)
+    at = torch.as_tensor(length, device=prompt.device).reshape(1) - 1
     keys = None if greedy else draw_keys(
-        key, torch.tensor([rid], device=prompt.device), 0, TAG_TOKEN)
-    return sample_rows(logits[:, length - 1], keys, greedy=greedy,
+        key, torch.as_tensor(rid, device=prompt.device).reshape(1), 0, TAG_TOKEN)
+    return sample_rows(logits.index_select(1, at)[:, 0], keys, greedy=greedy,
                        temperature=temperature, top_k=top_k)[0]
 
 
+def tail_verify(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
+                slot: torch.Tensor, rid: torch.Tensor, sample_at: torch.Tensor, key: torch.Tensor,
+                temperature, *, greedy: bool, top_k: int) -> torch.Tensor:
+    """A cached admit's tail (the JAX package's ``_tail_verify_body``): ONE
+    ``verify_step`` window over the unmatched tail of a prompt whose first
+    pages the prefix cache aliased.  ``tokens`` (slots, T) is zero but for
+    the admitted slot's row (its padded tail), ``pos`` (slots,) zero but
+    for the slot's tail start; the caller zeroes every other slot's
+    block-table row, so their window writes land in the trash page.  Draw 0
+    comes from the logits at window position ``sample_at`` (the true
+    prompt end) of row ``slot``, with the request's ``(rid, 0)`` key; only
+    that position is unembedded.  The index arguments are 0-d int64
+    tensors, read by device ops only.  Returns the token, a 0-d int32
+    tensor."""
+    x = verify_hidden(params, cfg, tokens, cache, pos)
+    x = x.index_select(0, slot.reshape(1)).index_select(1, sample_at.reshape(1))  # (1, 1, D)
+    logits = unembed(x, params.get("head", params["embed"]))[:, 0]
+    keys = None if greedy else draw_keys(key, rid.reshape(1), 0, TAG_TOKEN)
+    return sample_rows(logits, keys, greedy=greedy, temperature=temperature, top_k=top_k)[0]
+
+
+def _pool_leaf_paths(cfg: ModelConfig) -> tuple:
+    """(cache key, leading stack dims) of every page-pool subtree a
+    copy-on-write fork duplicates: the dense family's stacked layers, whose
+    leaves carry the page axis right after the layer axis (the engine runs
+    the dense family only)."""
+    return (("layers", 1),)
+
+
+def _copy_page(cache: dict, src: int, dst: int, keys) -> None:
+    """Copy-on-write fork on the device: pool page ``src`` into ``dst``
+    across every paged leaf (``keys`` from ``_pool_leaf_paths``), in place."""
+    for name, lead in keys:
+        at = (slice(None),) * lead
+        for leaf in cache[name].values():
+            leaf[at + (dst,)] = leaf[at + (src,)]
+
+
+class AdmitState:
+    """The static buffers of one uncached admit of a prompt padded to
+    ``spad`` positions: the prompt (1, spad) int32; its pages (spad /
+    page_size,), the true length and the request id, int64 views of one
+    tensor ``ints`` the host fills with one copy; and the first token (0-d
+    int32), which the admit writes."""
+
+    def __init__(self, spad: int, page_size: int, device):
+        n = spad // page_size
+        self.prompt = torch.zeros((1, spad), dtype=torch.int32, device=device)
+        self.ints = torch.zeros((n + 2,), dtype=torch.int64, device=device)
+        self.pages, self.length, self.rid = self.ints[:n], self.ints[n], self.ints[n + 1]
+        self.tok = torch.zeros((), dtype=torch.int32, device=device)
+
+
+class WindowState:
+    """The static buffers of one cached admit's tail window of ``width``
+    positions over every slot: the tokens (slots, width) int32; each slot's
+    window start (slots,), the admitted slot, the window position of the
+    draw and the request id, int64 views of one tensor ``ints``; and the
+    first token (0-d int32), which the admit writes."""
+
+    def __init__(self, slots: int, width: int, device):
+        self.tokens = torch.zeros((slots, width), dtype=torch.int32, device=device)
+        self.ints = torch.zeros((slots + 3,), dtype=torch.int64, device=device)
+        self.pos, self.slot, self.sample_at, self.rid = (
+            self.ints[:slots], self.ints[slots], self.ints[slots + 1], self.ints[slots + 2])
+        self.tok = torch.zeros((), dtype=torch.int32, device=device)
+
+
 class ChunkState:
-    """The static buffers of the continuous engine's decode chunk, in device
-    memory that a captured chunk step reads on every replay: the paged cache
+    """The static buffers of the continuous engine, in device memory that a
+    captured chunk step or admit reads on every replay: the paged cache
     (pools and block tables); per slot the current token (B, 1) int32, the
     position, emitted count and draw budget (B,) int64, the done flag (B,)
-    bool and the row key of its token stream (B, 2); the temperature (0-d
-    f32); the iteration within the round (0-d int64); the round's emissions
-    and liveness, (chunk, B); and the stop tokens, (B, n) int32 for each
-    number n of stop columns a trace needs."""
+    bool and the row key of its token stream (B, 2); the serve's base key
+    (2,) int64 and temperature (0-d f32); the iteration within the round
+    (0-d int64); the round's emissions and liveness, (chunk, B); the stop
+    tokens, (B, n) int32 for each number n of stop columns a trace needs;
+    and the admits' buffers, an ``AdmitState`` per padded prompt length and
+    a ``WindowState`` per tail window width."""
 
     def __init__(self, cfg: ModelConfig, slots: int, store_seq: int, num_pages: int,
                  page_size: int, chunk: int, device):
@@ -456,11 +550,14 @@ class ChunkState:
         self.max_new = zeros((slots,), torch.int64)
         self.done = zeros((slots,), torch.bool)
         self.keys = zeros((slots, 2), torch.int64)
+        self.base = zeros((2,), torch.int64)
         self.temperature = zeros((), torch.float32)
         self.it = zeros((), torch.int64)
         self.emits = zeros((chunk, slots), torch.int32)
         self.lives = zeros((chunk, slots), torch.bool)
         self._stops: dict[int, torch.Tensor] = {}
+        self._admits: dict[int, AdmitState] = {}
+        self._windows: dict[int, WindowState] = {}
 
     def stops(self, n: int) -> torch.Tensor:
         if n not in self._stops:
@@ -468,11 +565,22 @@ class ChunkState:
                                         device=self.tok.device)
         return self._stops[n]
 
+    def admit(self, spad: int) -> AdmitState:
+        if spad not in self._admits:
+            self._admits[spad] = AdmitState(spad, self.cache["layers"]["k"].shape[3],
+                                            self.tok.device)
+        return self._admits[spad]
+
+    def window(self, width: int) -> WindowState:
+        if width not in self._windows:
+            self._windows[width] = WindowState(self.tok.shape[0], width, self.tok.device)
+        return self._windows[width]
+
     def zero_(self) -> None:
         """Every buffer as a fresh state holds it (the reference makes a fresh
         cache for every serve; a captured step must keep its memory)."""
         for t in (*self.cache["layers"].values(), self.cache["block_tables"], self.tok,
-                  self.pos, self.n_out, self.max_new, self.done, self.keys,
+                  self.pos, self.n_out, self.max_new, self.done, self.keys, self.base,
                   self.temperature, self.it, self.emits, self.lives):
             t.zero_()
         for t in self._stops.values():
@@ -506,10 +614,40 @@ def decode_chunk_step(params, cfg: ModelConfig, st: ChunkState, stops: torch.Ten
     st.it += 1
 
 
+def admit_miss(params, cfg: ModelConfig, st: ChunkState, a: AdmitState, *, greedy: bool,
+               top_k: int) -> None:
+    """An uncached admit on static buffers: ``admit_prefill`` of ``a``'s
+    prompt into ``a``'s pages of ``st``'s pool, draw 0 with ``st``'s base
+    key and temperature, the token written to ``a.tok``."""
+    a.tok.copy_(admit_prefill(params, cfg, st.cache, a.prompt, a.length, None, a.pages, a.rid,
+                              st.base, st.temperature, greedy=greedy, top_k=top_k))
+
+
+def admit_cached(params, cfg: ModelConfig, st: ChunkState, w: WindowState, *, greedy: bool,
+                 top_k: int) -> None:
+    """A cached admit on static buffers: ``tail_verify`` of ``w``'s window
+    against ``st``'s pool through the block tables in ``st`` (every row but
+    the admitted slot's zeroed by the host), the token written to
+    ``w.tok``."""
+    w.tok.copy_(tail_verify(params, cfg, st.cache, w.tokens, w.pos, w.slot, w.rid, w.sample_at,
+                            st.base, st.temperature, greedy=greedy, top_k=top_k))
+
+
+# Families whose admit prefill and tail window compute the same function of
+# the prompt, so a prefix-cache hit is the answer a miss would give (the JAX
+# package's ``_PREFIX_FAMILIES``; the port runs the dense family).
+_PREFIX_FAMILIES = ("dense", "vlm", "encdec")
+# The most admit graphs (uncached admits per padded prompt length, cached
+# admits per tail window width) an engine keeps on the card; the least
+# recently used is dropped first.  At 16-token pages, 1,024 positions give 64
+# padded lengths, 16,400 give 1,025.
+MAX_ADMIT_GRAPHS = 64
+
+
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
-    package's, for the dense family, without a resilience policy,
-    speculation, the prefix cache or a mesh).
+    package's, for the dense family, with the prefix cache, without a
+    resilience policy, speculation or a mesh).
 
     ``slots`` is the decode batch width; ``num_pages`` bounds the cache
     (pages of ``page_size`` tokens, page 0 the trash page; default: every
@@ -518,15 +656,23 @@ class ContinuousBatchingEngine:
     ``page_alloc_seed`` shuffles the free list, so block tables are random
     permutations of the pool (and the JAX package's, for the same seed).
     ``clock`` is a 0-arg monotonic-seconds callable (``time.monotonic``).
+    ``prefix_cache=True`` shares the K/V pages of prompt prefixes between
+    requests of one serve (``serving.prefix``).
 
     The host schedules in numpy as the reference does.  Each round: admit
-    queued requests into free slots while pages last (an eager batch-1
-    prefill into the slot's pages, ``admit_prefill``), retire what finished
+    queued requests into free slots while pages last, retire what finished
     at admit, extend every live slot's pages to cover the chunk (``_top_up``,
     preempting the youngest when the pool runs dry), copy the block tables
     and per-slot arrays into the static buffers (``ChunkState``), run
-    ``chunk`` chunk steps (``decode_chunk_step``), each one replay of a CUDA
-    graph on the card, and read the buffers back once.
+    ``chunk`` chunk steps (``decode_chunk_step``), and read the buffers back
+    once.  An uncached admit prefills the page-padded prompt into the
+    slot's pages (``admit_miss``) and, under the prefix cache, registers its
+    full pages in the trie; a cached one aliases the matched pages (forking
+    the last copy-on-write when every prompt page matched) and runs one
+    verify window over the rest (``admit_cached``).  On the card every
+    chunk step and every admit is one replay of a CUDA graph, but for an
+    admit of more than CHUNKED_THRESHOLD positions, which runs eagerly; at
+    most MAX_ADMIT_GRAPHS admit graphs are kept.
 
     The cache and buffers are made at the first serve and kept, zeroed at
     every later one: a captured step reads the memory it was captured on
@@ -539,8 +685,7 @@ class ContinuousBatchingEngine:
                  draft_params=None, draft_pim_bits: int = 0, clock=None,
                  prefix_cache: bool = False, device=None):
         _unported(mesh=mesh, speculate=speculate, draft_cfg=draft_cfg,
-                  draft_params=draft_params, draft_pim_bits=draft_pim_bits,
-                  prefix_cache=prefix_cache)
+                  draft_params=draft_params, draft_pim_bits=draft_pim_bits)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = quantize_tree(params, pim_bits) if pim_bits else params
@@ -555,12 +700,20 @@ class ContinuousBatchingEngine:
         self._rng = (np.random.default_rng(page_alloc_seed)
                      if page_alloc_seed is not None else None)
         self._state: Optional[ChunkState] = None
-        self.graphs = CapturedSteps(self.device)
+        self.graphs = CapturedSteps(self.device, capacity=MAX_ADMIT_GRAPHS)
+        # Only families whose tail window computes what their prefill does
+        # share pages; for the others the cache stays off.
+        self.prefix_cache = bool(prefix_cache)
+        self._prefix_on = (self.prefix_cache and cfg.family in _PREFIX_FAMILIES
+                           and not getattr(cfg, "mla", None))
         self._pool_poisoned = False
         self._records = None
         self._now = lambda: 0.0
         self.last_report: Optional[ServeReport] = None
-        self.prefill_tokens = 0
+        self.prefix_hits = 0        # cached admits (at least one page aliased)
+        self.prefix_hit_tokens = 0  # prompt tokens served from aliased pages
+        self.cow_forks = 0          # copy-on-write page forks
+        self.prefill_tokens = 0     # prompt tokens computed
         self.peak_pages_in_use = 0
         self.preemptions = 0
         # chunk iterations run: each streams the weights once, so emitted
@@ -595,19 +748,62 @@ class ContinuousBatchingEngine:
                 "before asserting invariants")
         self._pool.assert_quiescent()
 
+    def _kept(self, key: tuple, run, reset, bounded: bool = False):
+        """``run`` as a call with no arguments (``CapturedSteps.get``): on the
+        card one replay of its graph, every graph of the engine in one
+        graph memory pool."""
+        return self.graphs.get(self.params, key, "serve", run, reset, bounded)
+
     def chunk_step(self, n_stops: int, *, greedy: bool, top_k: int):
-        """The chunk step as a call with no arguments (``CapturedSteps.get``):
-        ``decode_chunk_step`` on the current parameters, kept on the card
-        per (slots, greedy, top_k, n_stops) and dispatch mode, all in one
-        graph memory pool.  Its warm-up writes the buffers, which every
-        round's ``_load`` overwrites; with a zeroed state its cache writes
-        land in the trash page."""
+        """The chunk step: ``decode_chunk_step`` on the current parameters,
+        kept on the card per (slots, greedy, top_k, n_stops) and dispatch
+        mode.  Its warm-up writes the buffers, which every round's ``_load``
+        overwrites; with a zeroed state its cache writes land in the trash
+        page."""
         st = self._state
         top_k = 0 if greedy else int(top_k)
         run = functools.partial(decode_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
                                 greedy=bool(greedy), top_k=top_k, pad_id=self.pad_id)
-        return self.graphs.get(self.params, (self.slots, bool(greedy), top_k, n_stops),
-                               "chunk", run, st.it.zero_)
+        return self._kept((self.slots, bool(greedy), top_k, n_stops), run, st.it.zero_)
+
+    def admit_step(self, spad: int, *, greedy: bool, top_k: int):
+        """The uncached admit of a prompt padded to ``spad`` positions:
+        ``admit_miss`` on the buffers ``ChunkState.admit(spad)``, kept on the
+        card per (spad, greedy, top_k) and dispatch mode among at most
+        MAX_ADMIT_GRAPHS admit graphs; past CHUNKED_THRESHOLD positions it
+        runs eagerly (its attention is ``flash_attention``).  Its warm-up's
+        pages are all 0, so it writes only the trash page."""
+        st = self._state
+        a = st.admit(spad)
+        top_k = 0 if greedy else int(top_k)
+        run = functools.partial(admit_miss, self.params, self.cfg, st, a, greedy=bool(greedy),
+                                top_k=top_k)
+        if spad > CHUNKED_THRESHOLD:
+            return run
+
+        def reset():
+            a.ints.zero_()
+            a.length.fill_(1)
+        return self._kept(("admit", spad, bool(greedy), top_k), run, reset, bounded=True)
+
+    def verify_window(self, width: int, *, greedy: bool, top_k: int):
+        """The cached admit of a tail window ``width`` positions wide:
+        ``admit_cached`` on the buffers ``ChunkState.window(width)``, kept
+        like ``admit_step``'s graphs.  Its warm-up runs with every
+        block-table row zeroed, so it writes only the trash page."""
+        st = self._state
+        w = st.window(width)
+        top_k = 0 if greedy else int(top_k)
+        run = functools.partial(admit_cached, self.params, self.cfg, st, w, greedy=bool(greedy),
+                                top_k=top_k)
+        if width > CHUNKED_THRESHOLD:
+            return run
+
+        def reset():
+            w.ints.zero_()
+            w.tokens.zero_()
+            st.cache["block_tables"].zero_()
+        return self._kept(("window", width, bool(greedy), top_k), run, reset, bounded=True)
 
     # ------------------------------------------------------------ lifecycle --
     @torch.inference_mode()
@@ -618,7 +814,11 @@ class ContinuousBatchingEngine:
                                      self.page_size, self.chunk, self.device)
         else:
             self._state.zero_()
-        self._pool = PagePool(self.num_pages, rng=self._rng)
+        # The trie's pages are valid against this serve's pool only, so both
+        # start afresh: prefixes are shared within one serve's trace.
+        self._trie = PrefixTrie() if self._prefix_on else None
+        self._pool = PagePool(self.num_pages, rng=self._rng,
+                              on_evict=self._trie.drop_page if self._trie is not None else None)
         self._pool_poisoned = False
         self._bt = np.zeros((b, w), np.int32)
         self._pos = np.zeros(b, np.int64)
@@ -635,32 +835,126 @@ class ContinuousBatchingEngine:
         self._outputs = [[] for _ in requests]
         self._queue = deque(range(len(requests)))
 
-    def _admit_page_need(self, req) -> int:
-        """Pages the admit allocates: the padded prompt's.  Admission is
-        optimistic (the first chunk's growth is not counted): if the round's
-        ``_top_up`` then finds the pool dry, the youngest slot yields."""
-        return self._spad(len(req.prompt)) // self.page_size
+    def _prefix_probe(self, req) -> tuple:
+        """(chunk keys, extras fingerprint, matched trie pages) of a request
+        under the prefix cache; ``([], None, [])`` without it.  Changes no
+        refcount and no LRU order, so the admission gate and ``_admit`` can
+        both call it."""
+        if not self._prefix_on:
+            return [], None, []
+        keys = chunk_keys(np.asarray(req.prompt, np.int32), self.page_size)
+        fp = extras_fingerprint(req.extras)
+        return keys, fp, self._trie.match(keys, fp)
 
-    def _admit(self, requests, slot: int, ridx: int, key: torch.Tensor, greedy: bool,
-               temperature, top_k: int) -> dict:
-        """Admit request ``ridx`` into ``slot`` (the uncached admit): its
-        padded prompt's pages, an eager ``admit_prefill`` into them, and its
-        first token (draw 0).  Returns the admit event's fields."""
+    def _admit_page_need(self, req) -> tuple[int, list[int]]:
+        """(fresh pages the admit allocates, trie pages it aliases): the
+        admission gate's probe.  Admission is optimistic (the first chunk's
+        growth is not counted): if the round's ``_top_up`` then finds the
+        pool dry, the youngest slot yields."""
+        length = len(req.prompt)
+        total = self._spad(length) // self.page_size
+        _, _, matched = self._prefix_probe(req)
+        if matched and len(matched) == total and length == total * self.page_size:
+            return 1, matched  # a full-prefix hit: only the fork of the last page is fresh
+        return total - len(matched), matched
+
+    def _window_table(self, slot: int) -> np.ndarray:
+        """The block tables a cached admit's window runs with: the admitted
+        slot's row, every other row zeroed (their window writes land in the
+        trash page, not in live pages)."""
+        bt = np.zeros_like(self._bt)
+        bt[slot] = self._bt[slot]
+        return bt
+
+    def _admit_uncached(self, seq: np.ndarray, spad: int, pages: list[int], rid: int,
+                        greedy: bool, top_k: int) -> int:
+        """The miss: ``admit_step``'s replay (or run) on the prompt padded to
+        ``spad`` and its pages; returns draw 0."""
+        step = self.admit_step(spad, greedy=greedy, top_k=top_k)
+        a = self._state.admit(spad)
+        prompt = np.zeros((1, spad), np.int32)
+        prompt[0, :len(seq)] = seq
+        a.prompt.copy_(torch.from_numpy(prompt))
+        a.ints.copy_(torch.from_numpy(np.array([*pages, len(seq), rid], np.int64)))
+        step()
+        return int(a.tok)
+
+    def _admit_cached(self, slot: int, seq: np.ndarray, tail_start: int, spad: int, rid: int,
+                      greedy: bool, top_k: int) -> int:
+        """The hit: one window over positions ``tail_start .. spad - 1`` of
+        ``slot`` (``verify_window``'s replay or run), the block tables in
+        ``ChunkState`` replaced by ``_window_table`` until the round's
+        ``_load``; returns draw 0."""
+        width = spad - tail_start
+        step = self.verify_window(width, greedy=greedy, top_k=top_k)
+        st = self._state
+        w = st.window(width)
+        tokens = np.zeros((self.slots, width), np.int32)
+        tokens[slot, :len(seq) - tail_start] = seq[tail_start:]
+        ints = np.zeros(self.slots + 3, np.int64)
+        ints[slot] = tail_start
+        ints[self.slots:] = (slot, len(seq) - 1 - tail_start, rid)
+        st.cache["block_tables"].copy_(torch.from_numpy(self._window_table(slot)))
+        w.tokens.copy_(torch.from_numpy(tokens))
+        w.ints.copy_(torch.from_numpy(ints))
+        step()
+        return int(w.tok)
+
+    def _admit(self, requests, slot: int, ridx: int, greedy: bool, top_k: int) -> dict:
+        """Admit request ``ridx`` into ``slot``; returns the admit event's
+        fields (``cached_tokens``, ``prefilled_tokens``, ``cow``).
+
+        A prefix-trie hit aliases the matched pages into the slot's block
+        table (a reference each) and computes only the unmatched tail, in
+        one verify window that draws the first token at the true prompt end
+        with the same ``(rid, 0)`` key as a miss.  A full-prefix hit still
+        runs the last prompt position for its logits, and that write lands
+        in the last matched page, which the trie and perhaps live siblings
+        read: that page is forked copy-on-write first.  A miss prefills the
+        padded prompt into fresh pages and, under the prefix cache, then
+        registers the prompt's full pages in the trie."""
         req = requests[ridx]
+        ps = self.page_size
         length = len(req.prompt)
         rid = ridx if req.rid is None else int(req.rid)
+        seq = np.asarray(req.prompt, np.int32)
         spad = self._spad(length)
-        pages = self._pool.alloc(spad // self.page_size)
+        total = spad // ps
+        keys, fp, matched = self._prefix_probe(req)
+        cow = False
+        if matched and len(matched) == total and length == total * ps:
+            # every prompt position is cached, but position L - 1's logits
+            # are still needed and its K/V write lands in the last matched page
+            for p in matched:
+                self._pool.acquire(p)
+            fork = self._pool.alloc(1)[0]
+            _copy_page(self._state.cache, matched[-1], fork, _pool_leaf_paths(self.cfg))
+            self._pool.release(matched[-1])
+            pages = matched[:-1] + [fork]
+            tail_start = length - 1
+            cow = True
+            self.cow_forks += 1
+        elif matched:
+            for p in matched:
+                self._pool.acquire(p)
+            pages = matched + self._pool.alloc(total - len(matched))
+            tail_start = len(matched) * ps
+        else:
+            pages = self._pool.alloc(total)
+            tail_start = 0
         self._bt[slot, :] = 0
         self._bt[slot, : len(pages)] = pages
-        prompt = np.zeros((1, spad), np.int32)
-        prompt[0, :length] = np.asarray(req.prompt, np.int32)
-        tok0 = int(admit_prefill(
-            self.params, self.cfg, self._state.cache,
-            torch.from_numpy(prompt).to(self.device), length, slot,
-            torch.tensor(pages, dtype=torch.int64, device=self.device), rid, key,
-            temperature, greedy=greedy, top_k=top_k))
-        self.prefill_tokens += length
+        if matched:
+            tok0 = self._admit_cached(slot, seq, tail_start, spad, rid, greedy, top_k)
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += tail_start
+        else:
+            tok0 = self._admit_uncached(seq, spad, pages, rid, greedy, top_k)
+            if self._prefix_on:
+                # a miss's full pages hold final positions (decode writes
+                # start at L) computed as any later miss would compute them
+                self._trie.insert(keys, fp, pages, on_new=self._pool.mark_cached)
+        self.prefill_tokens += length - tail_start
         stops = tuple(req.stop_tokens)
         self._outputs[ridx] = [tok0]
         self._pos[slot] = length
@@ -669,14 +963,14 @@ class ContinuousBatchingEngine:
         self._stops[slot, :] = -1
         self._stops[slot, : len(stops)] = stops
         self._tok[slot, 0] = tok0
-        self._keys[slot] = row_keys(key, torch.tensor([rid], device=self.device),
+        self._keys[slot] = row_keys(self._state.base, torch.tensor([rid], device=self.device),
                                     TAG_TOKEN)[0].cpu().numpy()
         self._done[slot] = req.max_new <= 1 or tok0 in stops
         self._slot_req[slot] = ridx
         self._slot_pages[slot] = list(pages)
         self._admit_seq[slot] = self._seq
         self._seq += 1
-        return {"cached_tokens": 0, "prefilled_tokens": length, "cow": False}
+        return {"cached_tokens": tail_start, "prefilled_tokens": length - tail_start, "cow": cow}
 
     def _retire(self, slot: int) -> None:
         self._free_pages(self._slot_pages[slot])
@@ -802,8 +1096,10 @@ class ContinuousBatchingEngine:
         n_stops = max((len(r.stop_tokens) for r in requests), default=0)
         self._reset(requests, n_stops)
         self._state.temperature.fill_(temperature)
+        self._state.base.copy_(base)
         step = self.chunk_step(n_stops, greedy=greedy, top_k=top_k)
         self.peak_pages_in_use = self.decode_chunk_iters = self.prefill_tokens = 0
+        self.prefix_hits = self.prefix_hit_tokens = self.cow_forks = 0
         records = [RequestRecord() for _ in requests]
         report = ServeReport(records=records)
         clock = self._clock
@@ -821,11 +1117,13 @@ class ContinuousBatchingEngine:
             for slot in range(self.slots):
                 if self._slot_req[slot] >= 0:
                     continue
-                if not self._queue or (self._pool.available()
-                                       < self._admit_page_need(requests[self._queue[0]])):
+                if not self._queue:
+                    break
+                need, reserve = self._admit_page_need(requests[self._queue[0]])
+                if self._pool.available(reserve) < need:
                     break
                 ridx = self._queue.popleft()
-                info = self._admit(requests, slot, ridx, base, greedy, temperature, top_k)
+                info = self._admit(requests, slot, ridx, greedy, top_k)
                 rec = records[ridx]
                 rec.slot = slot
                 if rec.t_admit is None:
@@ -877,7 +1175,9 @@ class ContinuousBatchingEngine:
                     self._finish(requests, records, slot, t_slot)
             report.counters.append({"ts": t_end, "round": rnd,
                                     "free_pages": len(self._pool.free),
+                                    "retained_pages": len(self._pool.lru),
                                     "pages_in_use": self.pages_in_use(),
+                                    "prefix_hit_tokens": self.prefix_hit_tokens,
                                     "queued": len(self._queue)})
             rnd += 1
         self._pool_poisoned = False
@@ -886,7 +1186,11 @@ class ContinuousBatchingEngine:
         if dropped:
             raise RuntimeError(f"scheduler dropped requests {dropped}: still pending after "
                                "the serve loop — every request must end done")
+        report.prefix_hits = self.prefix_hits
+        report.prefix_hit_tokens = self.prefix_hit_tokens
         report.prefill_tokens = self.prefill_tokens
+        report.cow_forks = self.cow_forks
+        report.evictions = self._pool.evictions
         self.assert_quiescent()
         self.last_report = report
         return report

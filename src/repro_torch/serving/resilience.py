@@ -35,14 +35,19 @@ class RequestRecord:
 @dataclasses.dataclass
 class ServeReport:
     """Everything ``serve_detailed`` observed: per-request outcomes, the
-    rounds, one counter sample per round that ran a chunk, and the prompt
-    tokens prefilled.  (The reference's retry, shed, ladder and prefix-cache
-    counters come with the tiers that fill them.)"""
+    rounds, one counter sample per round that ran a chunk (free, retained
+    and in-use pages, prefix-hit tokens so far, the queue), and the prefix
+    cache's counters.  (The reference's retry, shed and ladder counters come
+    with the resilience tier.)"""
 
     records: list = dataclasses.field(default_factory=list)
     rounds: int = 0
-    counters: list = dataclasses.field(default_factory=list)  # per round: pages, queue
-    prefill_tokens: int = 0  # prompt tokens computed by the admits
+    counters: list = dataclasses.field(default_factory=list)
+    prefix_hits: int = 0        # admits served (partly) from the prefix trie
+    prefix_hit_tokens: int = 0  # prompt tokens aliased instead of prefilled
+    prefill_tokens: int = 0     # prompt tokens computed by the admits
+    cow_forks: int = 0          # copy-on-write page forks
+    evictions: int = 0          # retained cache pages evicted under pressure
 
     @property
     def outputs(self) -> list[np.ndarray]:

@@ -26,13 +26,12 @@ from repro.models import attention as jax_attention  # noqa: E402
 from repro.serving import ContinuousBatchingEngine as JaxEngine  # noqa: E402
 from repro.serving import Request as JaxRequest  # noqa: E402
 from repro_torch.kernels import flash_attn  # noqa: E402
-from repro_torch.models import attention, init_cache, prefill  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ContinuousBatchingEngine, Request, ServingEngine)
-from repro_torch.serving.sampling import (  # noqa: E402
-    TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits)
 
-from torch_helpers import CPU, assert_serve_match, prompt, reduced_model  # noqa: E402
+from torch_helpers import (  # noqa: E402
+    assert_serve_match, prompt, reduced_model, serve_deciding, serve_events)
 
 LOGIT_TOL = 1e-4
 GEOMETRY = dict(slots=2, max_seq=24, page_size=4, chunk=3, page_alloc_seed=1, pim_bits=8)
@@ -52,30 +51,8 @@ def _requests(cls, prompts, budgets, stops=None):
     return [cls(prompt=p, max_new=m, stop_tokens=s) for p, m, s in zip(prompts, budgets, stops)]
 
 
-def _events(report):
-    return [[{k: v for k, v in e.items() if k not in ("ts", "dur")} for e in rec.events]
-            for rec in report.records]
-
-
 def _counters(report, keys=("round", "free_pages", "pages_in_use", "queued")):
     return [{k: c[k] for k in keys} for c in report.counters]
-
-
-def _deciding(params, cfg, prompts, got, mode):
-    """deciding(r, j): the port's values whose argmax chose token j of request
-    r (rid r) after its prompt and first j tokens: the logits, or under
-    sampling the warped logits plus that draw's gumbel noise."""
-    def at(r, j):
-        seq = np.concatenate([prompts[r], np.asarray(got[r][:j], np.int32)])[None]
-        logits, _ = prefill(params, cfg, torch.from_numpy(seq), init_cache(cfg, 1, seq.shape[1],
-                                                                           CPU))
-        lg = logits[0, -1:].float()
-        if mode.get("greedy", True):
-            return lg[0].numpy()
-        keys = draw_keys(prng_key(KEY), torch.tensor([r]), j, TAG_TOKEN)
-        warped = warp_logits(lg, mode["temperature"], mode["top_k"])
-        return (warped + gumbel(keys, lg.shape[-1]))[0].numpy()
-    return at
 
 
 def _tol(mode):
@@ -83,14 +60,14 @@ def _tol(mode):
 
 
 def _check_against_jax(jeng, jrep, eng, rep, prompts, mode, msg):
-    assert _events(rep) == _events(jrep), msg
+    assert serve_events(rep) == serve_events(jrep), msg
     assert _counters(rep) == _counters(jrep), msg
     assert (rep.rounds, eng.decode_chunk_iters, eng.peak_pages_in_use, eng.preemptions,
             rep.prefill_tokens) == (jrep.rounds, jeng.decode_chunk_iters,
                                     jeng.peak_pages_in_use, jeng.preemptions,
                                     jrep.prefill_tokens), msg
     assert all(t.dtype == np.int32 for t in rep.outputs)
-    at = _deciding(eng.params, eng.cfg, prompts, rep.outputs, mode)
+    at = serve_deciding(eng.params, eng.cfg, prompts, rep.outputs, mode, KEY)
     return assert_serve_match(jrep.outputs, rep.outputs, at, _tol(mode), msg=msg)
 
 
@@ -140,7 +117,7 @@ def test_bf16_serve_with_the_int8_cache_matches_the_dense_engine():
     for r, (p, m) in enumerate(zip(prompts, budgets)):
         got = eng.serve([Request(prompt=p, max_new=m, rid=0)], key=KEY, **mode)[0]
         want = dense.generate(torch.from_numpy(p)[None], m, key=KEY, **mode)[0].numpy()
-        at = _deciding(eng.params, tcfg, [p], [got], mode)
+        at = serve_deciding(eng.params, tcfg, [p], [got], mode, KEY)
         assert_serve_match([want], [got], at, 1e-2 / mode["temperature"], msg=f"request {r}")
 
 
@@ -158,7 +135,7 @@ def test_preemption_gives_the_unpreempted_tokens():
     eng = ContinuousBatchingEngine(tcfg, tparams, num_pages=9, device="cpu", **geo)
     rep = eng.serve_detailed(_requests(Request, prompts, [20, 20]), key=KEY, **mode)
     assert eng.preemptions > 0
-    assert any(e["name"] == "preempt" for ev in _events(rep) for e in ev)
+    assert any(e["name"] == "preempt" for ev in serve_events(rep) for e in ev)
     _check_against_jax(jeng, jrep, eng, rep, prompts, mode, "preempted")
     roomy = ContinuousBatchingEngine(tcfg, tparams, device="cpu", **geo)
     want = roomy.serve(_requests(Request, prompts, [20, 20]), key=KEY, **mode)
@@ -202,10 +179,10 @@ def test_stop_tokens():
     want = [free[0][:j0 + 1], free[1][:j1 + 1], free[2], free[3][:j3 + 1], free[4]]
     for w, g in zip(want, rep.outputs):
         np.testing.assert_array_equal(g, w)
-    finish = {r: [e for e in ev if e["name"] == "finish"] for r, ev in enumerate(_events(rep))}
+    finish = {r: [e for e in ev if e["name"] == "finish"] for r, ev in enumerate(serve_events(rep))}
     assert all(len(f) == 1 for f in finish.values())
     assert len(rep.outputs[4]) == 1 and not any(e["name"] == "decode" for e in
-                                               _events(rep)[4])
+                                               serve_events(rep)[4])
     jeng = JaxEngine(jcfg, jparams, **geo)
     jrep = jeng.serve_detailed(_requests(JaxRequest, prompts, budgets, stops),
                                key=jax.random.PRNGKey(KEY), **mode)
@@ -225,7 +202,7 @@ def test_generate_and_sampled_rows_match_the_dense_engine():
         got = eng.generate(torch.from_numpy(toks), 7, key=KEY, **mode)
         assert got.dtype == torch.int32 and tuple(got.shape) == (3, 7)
         want = dense.generate(torch.from_numpy(toks), 7, key=KEY, **mode).numpy()
-        at = _deciding(eng.params, tcfg, list(toks), got.numpy(), mode)
+        at = serve_deciding(eng.params, tcfg, list(toks), got.numpy(), mode, KEY)
         assert_serve_match(list(want), list(got.numpy()), at, _tol(mode))
     j, stop = _first_occurrence(list(got[0].numpy()), 1)
     stopped = eng.generate(torch.from_numpy(toks), 7, key=KEY, stop_tokens=(stop,), **mode)
@@ -306,8 +283,7 @@ def test_guards():
     with pytest.raises(AssertionError, match="page leak"):
         eng.assert_quiescent()
     for option in (dict(mesh=object()), dict(speculate=2), dict(draft_cfg=tcfg),
-                   dict(draft_params=tparams), dict(draft_pim_bits=8),
-                   dict(prefix_cache=True)):
+                   dict(draft_params=tparams), dict(draft_pim_bits=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
                                      **option)

@@ -14,6 +14,8 @@ from repro.configs import get_reduced as jax_reduced
 from repro.models import init_params as jax_init_params
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_reduced
+from repro_torch.models import init_cache, prefill
+from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits
 
 ARCH = "qwen2-1.5b"
 CPU = torch.device("cpu")
@@ -95,6 +97,30 @@ def assert_serve_match(want, got, logits_at, tol, msg=""):
             f"{margin:.3g} > {tol}: {w} vs {g}")
         diverged.append(r)
     return diverged
+
+
+def serve_events(report):
+    """Each request's events without their times: what the scheduler did."""
+    return [[{k: v for k, v in e.items() if k not in ("ts", "dur")} for e in rec.events]
+            for rec in report.records]
+
+
+def serve_deciding(params, cfg, prompts, got, mode, key):
+    """deciding(r, j): the port's values whose argmax chose token j of request
+    r (rid r) after its prompt and first j tokens, from a dense prefill: the
+    logits, or under sampling (``mode``) the warped logits plus that draw's
+    gumbel noise from ``key``."""
+    def at(r, j):
+        seq = np.concatenate([prompts[r], np.asarray(got[r][:j], np.int32)])[None]
+        logits, _ = prefill(params, cfg, torch.from_numpy(seq),
+                            init_cache(cfg, 1, seq.shape[1], CPU))
+        lg = logits[0, -1:].float()
+        if mode.get("greedy", True):
+            return lg[0].numpy()
+        keys = draw_keys(prng_key(key), torch.tensor([r]), j, TAG_TOKEN)
+        warped = warp_logits(lg, mode["temperature"], mode["top_k"])
+        return (warped + gumbel(keys, lg.shape[-1]))[0].numpy()
+    return at
 
 
 # ---- Lane-by-lane emulation of the tensor-core kernels' arithmetic ----------
