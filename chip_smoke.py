@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Six paths run, at qwen2-1.5b's full width (28 layers, bf16, random
+Seven paths run, at qwen2-1.5b's full width (28 layers, bf16, random
 weights from a seeded generator on the card):
 
 * decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
@@ -28,7 +28,11 @@ weights from a seeded generator on the card):
   prompt past 8,192 tokens admitted eagerly through ``flash_attention``;
 * the prefix cache: the same engine with ``prefix_cache=True`` on requests
   that share prompt prefixes, a hit's tail one verify window (through
-  ``pim_matvec`` when it is one row a slot).
+  ``pim_matvec`` when it is one row a slot);
+* the resilience tier: ``serve_detailed`` under a ``ResiliencePolicy`` with
+  seeded fault injection, crash replay by the ``ServingSupervisor`` (a
+  resumed admit is the same captured admit, or past 8,192 positions the
+  eager one through ``flash_attention``), and the ``ReplicaRouter``.
 
 Phases:
 
@@ -216,6 +220,36 @@ Phases:
    through the request's own miss prefill and through a prefill with f32
    activations: their largest and RMS differences (the window's top 8
    within HIT_BAR of the f32 prefill's).
+11. the resilience tier on phase 9's engine and trace (its counted serve a
+   window of phase 8's profiler session): (a) a default ``ResiliencePolicy``
+   and no chaos gives the no-policy serve (tokens ``torch.equal``; events
+   with their times and round counters equal under a ``VirtualClock``);
+   (b) scripted chunk faults, stragglers and squeezes, greedy (CHAOS_SCRIPTED),
+   then all of them at rates, sampled (CHAOS_COMBINED): every request done
+   and ``torch.equal`` to the undisturbed serve, each injected kind fired,
+   retries, squeezed pages and injected latency equal to the injector's
+   log; (c) stragglers lift the degradation ladder to ``halve_chunk`` and
+   it recovers: tokens ``torch.equal``, the chunk iterations the rounds'
+   halved and full chunks; (d) ``ServingSupervisor`` crash replay at
+   CRASH_ROUNDS, greedy and sampled: ``resume_mode="recompute"``
+   ``torch.equal``, ``"prefill"`` margin-aware at HIT_BAR (a resumed admit
+   prefills, with bf16 attention scores, tokens the undisturbed run
+   decoded with f32 ones; the count beyond PAGED_BAR beside it), restarts
+   equal to the scripted crashes, every ``FailureEvent`` an injected crash;
+   (e) a crash with no restart, then a fresh engine (its own graphs, the
+   same parameters) resumed from the snapshot file, at the bar of (d);
+   (f) a crash during phase 9(d)'s long serve: the resumed long admit
+   launches exactly 28 ``flash_attention`` kernels, tokens at HIT_BAR;
+   (g) ``ReplicaRouter`` over two engines on phase 10's trace: assignments
+   equal ``route``'s, tokens against the solo engine at HIT_BAR with the
+   prefix cache on and ``torch.equal`` with it off; (h) a planted fault, a
+   resumed admit's draw counter one short, must fail (d)'s sampled check;
+   (i) in RESILIENCE_ROUNDS alternating rounds, host ms a round and tokens/s
+   with no policy, with per-round snapshots in memory and to disk (fsync),
+   and sampled undisturbed against combined chaos; the crash's recovery
+   cost (resumed admits' ms, extra prefill tokens); the counted ladder
+   serve's traced ``pim_matvec`` kernels 196 x ``decode_chunk_iters``,
+   halved rounds included.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -254,8 +288,9 @@ from repro_torch.models.common import unembed  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     QuantizedTensor, dequantize, quantize_symmetric, to_bitplanes)
 from repro_torch.serving import (  # noqa: E402
-    ChunkState, ContinuousBatchingEngine, DecodeState, Request, ServingEngine, admit_prefill,
-    decode_and_emit, quantize_tree)
+    ChaosConfig, ChunkState, ContinuousBatchingEngine, DecodeState, EngineCrash, FaultInjector,
+    LadderConfig, ReplicaRouter, Request, ResiliencePolicy, ServingEngine, ServingSupervisor,
+    VirtualClock, admit_prefill, decode_and_emit, load_snapshot, quantize_tree, save_snapshot)
 from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits  # noqa: E402
 
 SEED = 20260
@@ -497,14 +532,20 @@ def main() -> int:
     prefix_phase = PrefixPhase(cfg, eng8.params, dev)
     serve_windows += prefix_phase.run()
 
+    # ---- 11. the resilience tier -----------------------------------------------------
+    resilience = ResiliencePhase(cfg, serving, prefix_phase)
+    serve_windows += resilience.run()
+
     # ---- 8. the captured decode step ---------------------------------------------
     counted, traced = captured_phase(
         cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls,
         {"int8": (graphs8, toks, N_NEW), "int4": (graphs4, toks4, N_NEW_INT4),
          "long": (graphs_long, long_toks, LONG_NEW)}, serve_windows)
-    served = {**serving.finish(traced), **prefix_phase.finish(traced)}
+    served = {**serving.finish(traced), **prefix_phase.finish(traced),
+              **resilience.finish(traced)}
+    resumed_flash = resilience.long_resumed_flash
     del params, eng8, eng4, long_eng, graphs8, graphs4, graphs_long, one_calls, long_toks
-    del serving, prefix_phase, serve_windows, traced
+    del serving, prefix_phase, resilience, serve_windows, traced
     gc.collect()  # the counted captures hold each engine in a cycle
     torch.cuda.empty_cache()
     long_against_plain(cfg, gen_fa, long_prompt)
@@ -558,9 +599,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn.py:26",
         "launches": counted["long"]["traced"]["flash_attention"]
-        + served["long serve"]["flash_attention"],
+        + served["long serve"]["flash_attention"] + resumed_flash,
         "launches_by_path": {"long generate": counted["long"]["traced"]["flash_attention"],
-                             "long serve": served["long serve"]["flash_attention"]},
+                             "long serve": served["long serve"]["flash_attention"],
+                             "long serve, resumed admit (counter)": resumed_flash},
         "launches_counted_as": counted["long"]["counted_as"],
         "max_abs_err": fa_check["max_abs_err"],
         "bf16_tol_share": fa_check["bf16_tol_share"],
@@ -2188,9 +2230,9 @@ class TimedEngine(ContinuousBatchingEngine):
                            torch.cuda.Event(enable_timing=True)))
         self.spans[-1][0].record()
 
-    def _read(self):
+    def _read(self, n):
         self.spans[-1][1].record()
-        return super()._read()
+        return super()._read(n)
 
     def timed_serve(self, requests, **mode):
         """``serve`` on the host clock: (outputs, wall s, device ms of the
@@ -2481,7 +2523,7 @@ class ServingPhase:
         del pre
 
         # (c) sampled: independent of the chunk; request 0 (rid 0) as the dense row 0
-        out_c = eng.serve(reqs, **SAMPLED)
+        self.out_sampled = out_c = eng.serve(reqs, **SAMPLED)
         other = ContinuousBatchingEngine(cfg, self.params, device=dev, **{**SERVE, "chunk": 3})
         out_c3 = other.serve(reqs, **SAMPLED)
         check(same_tokens(out_c, out_c3), "(c) the sampled serve depends on the chunk")
@@ -2984,6 +3026,404 @@ class PrefixPhase:
         launches.update(decode_chunk_iters=out["iters"], full_hit_windows=out["full_hits"])
         print(json.dumps({"check": "phase 10: launches", **launches}))
         return {"prefix serve": out["traced"]}
+
+
+# ---- 11. the resilience tier ------------------------------------------------------------
+# Phase 9's engine (4 slots of 16-token pages, chunk 8, 512 positions) and
+# trace.  (b): scripted transient faults (site calls), greedy; then all of
+# them at rates, sampled.  A squeeze withholds 95% of the free list for a round.
+CHAOS_SCRIPTED = dict(fault_rounds=(1, 4), straggle_rounds=(2, 5), squeeze_rounds=(1, 3, 6),
+                      squeeze_frac=0.95)
+CHAOS_COMBINED = dict(seed=SEED, fault_rate=0.3, straggle_rate=0.3, squeeze_rate=0.4,
+                      squeeze_frac=0.95)
+# (c): stragglers in rounds 0 and 1 lift the ladder to halve_chunk, then to
+# shed_low_slo (no request of the trace is below its class); two clean rounds
+# bring it down a rung.
+LADDER_STRAGGLES, LADDER_COOLDOWN = (0, 1), 2
+CRASH_ROUNDS = (2, 5)  # (d): the supervisor's scripted crashes (calls of the crash site)
+DISK_CRASH_ROUND = 3   # (e): the crash that takes the engine object with it
+RESILIENCE_ROUNDS = 3  # alternating rounds of (i)
+SNAPSHOT = Path(__file__).resolve().parent / "build" / "snapshots" / "serve.snap"
+
+
+def replay_margin(params, cfg, prompt, want, got, j, mode, rid):
+    """How far a replay's token ``got[j]`` is from being a sound choice where
+    the undisturbed run chose ``want[j]`` after ``prompt`` and
+    ``want[:j]``, in the units of the choice's values (logits, or warped
+    logits plus the gumbel noise of draw (rid, j)), from a dense prefill.
+    Greedy: the winner's logit above the alternative's.  Sampled (scores
+    ``s`` = logit / t + noise, the top-k cut at the k-th logit): the least
+    of (A) the alternative overtaking the winner, ``s[win] - s[alt]``, and,
+    if it lies outside the top k, entering it, ``(k-th - logit[alt]) / t``,
+    the larger of the two; (B) the winner leaving the top k,
+    ``(logit[win] - first cut) / t``, with the alternative then the best of
+    the rest, the larger of the two.  A replay whose logits moved by up to
+    ``bar`` can only choose an alternative within ``bar / t``; one drawn
+    with another key usually cannot.  The margin is negative where the
+    dense prefill itself prefers the replay's token."""
+    dev = params["embed"].device
+    seq = torch.from_numpy(np.concatenate([prompt, np.asarray(want[:j], np.int32)]))[None]
+    logits, _ = prefill(params, cfg, seq.to(dev), init_cache(cfg, 1, seq.shape[1], dev))
+    lg = logits[0, -1].float()
+    win, alt = int(want[j]), int(got[j])
+    if mode["greedy"]:
+        return (lg[win] - lg[alt]).item()
+    t, k = mode["temperature"], mode["top_k"]
+    keys = draw_keys(prng_key(mode["key"], dev), torch.tensor([rid], device=dev), j, TAG_TOKEN)
+    score = lg / t + gumbel(keys, lg.shape[-1])[0]
+    top = torch.topk(lg, k + 1)
+    kth, first_cut = top.values[k - 1], top.values[k]
+    overtake = (score[win] - score[alt]).item()
+    if lg[alt] < kth:
+        overtake = max(overtake, ((kth - lg[alt]) / t).item())
+    rest = [i for i in top.indices.tolist() if i != win]  # the top k once the winner left
+    leave = max(((lg[win] - first_cut) / t).item(), (score[rest].max() - score[alt]).item())
+    return min(overtake, leave)
+
+
+def replay_divergences(got, want, margin_at):
+    """Each request's first divergence from the undisturbed tokens ``want``:
+    the token and ``margin_at(r, j)`` (``replay_margin``); or, where every
+    shared token agrees, the lengths when they differ."""
+    out = []
+    for r, (g, w) in enumerate(zip(got, want)):
+        m = min(len(g), len(w))
+        diff = np.flatnonzero(np.asarray(g[:m]) != np.asarray(w[:m]))
+        if diff.size:
+            j = int(diff[0])
+            out.append({"request": r, "token": j, "margin": margin_at(r, j)})
+        elif len(g) != len(w):
+            out.append({"request": r, "emitted": len(g), "undisturbed": len(w)})
+    return out
+
+
+@contextlib.contextmanager
+def admits_recorded(eng, off_by_one=False):
+    """Each admit of ``eng`` inside, as a dict: resumed or not, prompt and
+    prefilled lengths, host ms (an admit ends reading its token) and
+    ``flash_attention`` launches (an admit past CHUNKED_THRESHOLD runs
+    eagerly, so the counter sees them).  ``off_by_one``: the planted fault
+    of (h), a resumed admit's draw counter one short (``_n_out = m - 1``)."""
+    rows, admit = [], eng._admit
+
+    def recorded(requests, slot, ridx, *args, resume=None, **kw):
+        flash0, t0 = flash_attention.launches, time.perf_counter()
+        info = admit(requests, slot, ridx, *args, resume=resume, **kw)
+        rows.append({"resumed": resume is not None, "prompt": len(requests[ridx].prompt),
+                     "prefilled": info["prefilled_tokens"],
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "flash_attention": flash_attention.launches - flash0})
+        if off_by_one and resume is not None:
+            eng._n_out[slot] -= 1
+        return info
+    eng._admit = recorded
+    try:
+        yield rows
+    finally:
+        del eng._admit
+
+
+def injected_only(failures, inj):
+    """Whether every failure a supervisor recorded is a crash the injector
+    fired, one for one: a crash of any other cause (a failed chunk step, a
+    sticky CUDA error) must fail the run, not be replayed away."""
+    fired = [f"crash:injected engine crash at round {f.round}" for f in inj.log
+             if f.site == "crash"]
+    return [f.kind for f in failures] == fired
+
+
+class ResiliencePhase:
+    """Phase 11: the resilience tier on phase 9's engine and trace, (a) to (i)
+    of the module's docstring.  ``run`` does everything but the counting and
+    returns the window phase 8's profiler session traces; ``finish`` reads
+    it."""
+
+    def __init__(self, cfg, serving, prefix):
+        self.cfg, self.serving, self.prefix = cfg, serving, prefix
+        self.dev, self.params = serving.dev, serving.params
+
+    def _against(self, label, got, want, reqs, mode=GREEDY, bar=HIT_BAR, check_bar=True):
+        """Each request's tokens against the undisturbed serve's: a first
+        divergence only where the replay's token is within ``bar`` of the
+        undisturbed choice (over the temperature when sampled;
+        ``replay_margin``), with the count beyond PAGED_BAR beside it, and
+        no request past its budget."""
+        t = mode.get("temperature", 1.0)
+        with torch.inference_mode():
+            div = replay_divergences(got, want, lambda r, j: replay_margin(
+                self.params, self.cfg, reqs[r].prompt, want[r], got[r], j, mode, r))
+
+        def past(d, b):
+            return "margin" not in d or d["margin"] > b
+        rep = {"check": f"{label}: against the undisturbed serve", "requests": len(got),
+               "diverged": len(div), "beyond_bar": sum(past(d, bar / t) for d in div),
+               "beyond_paged_bar": sum(past(d, PAGED_BAR / t) for d in div),
+               "over_budget": sum(len(g) > r.max_new for g, r in zip(got, reqs)),
+               "divergences": div, "bar": bar / t}
+        print(f"phase 11 {label}: " + json.dumps(rep), flush=True)
+        if check_bar:
+            check(rep["beyond_bar"] == rep["over_budget"] == 0,
+                  f"{label}: diverges beyond the bar {bar / t}: {rep}")
+        return rep
+
+    def _equal(self, label, rep, want):
+        """Every request done, its tokens ``torch.equal`` to ``want``'s."""
+        check(all(r.status == "done" for r in rep.records),
+              f"{label}: statuses {[(r.status, r.reason) for r in rep.records]}")
+        check(same_tokens(rep.outputs, want), f"{label}: tokens differ from the undisturbed serve")
+
+    def _supervised(self, eng, reqs, mode, resume_mode, crash_rounds=CRASH_ROUNDS, **kw):
+        """A ``ServingSupervisor`` run with scripted crashes: the restarts equal
+        them, and every failure is an injected one."""
+        inj = FaultInjector(ChaosConfig(crash_rounds=crash_rounds))
+        sup = ServingSupervisor(eng, policy=ResiliencePolicy(resume_mode=resume_mode), chaos=inj,
+                                **kw)
+        rep = sup.run(reqs, **mode)
+        check(rep.restarts == len(crash_rounds), f"{rep.restarts} restarts for the scripted "
+              f"crashes {crash_rounds}")
+        check(injected_only(rep.failures, inj), f"failures that no injection explains: "
+              f"{[f.kind for f in rep.failures]}, injected {inj.log}")
+        eng.assert_quiescent()
+        return rep
+
+    def run(self):
+        cfg, dev, serving = self.cfg, self.dev, self.serving
+        eng, reqs = serving.eng, serving.reqs
+        report = {"check": "phase 11: the resilience tier, qwen2-1.5b int8, phase 9's engine "
+                           "and trace"}
+        t_phase = time.perf_counter()
+
+        # (a) a policy and no chaos: the no-policy serve, events equal under a VirtualClock
+        eng._clock = VirtualClock()
+        try:
+            plain = eng.serve_detailed(reqs)
+            hardened = eng.serve_detailed(reqs, policy=ResiliencePolicy())
+        finally:
+            eng._clock = time.monotonic
+        self.base_prefill = plain.prefill_tokens
+        same = {"tokens_equal": same_tokens(hardened.outputs, serving.out)
+                and same_tokens(plain.outputs, serving.out),
+                "events_equal": [r.events for r in hardened.records]
+                == [r.events for r in plain.records],
+                "counters_equal": hardened.counters == plain.counters,
+                "snapshot_finished": len(eng.last_snapshot.finished),
+                "rounds": hardened.rounds}
+        report["policy_without_chaos"] = same
+        check(same["tokens_equal"] and same["events_equal"] and same["counters_equal"]
+              and same["snapshot_finished"] == len(reqs), f"(a) a policy alone changed the "
+              f"serve: {same}")
+
+        # (b) transient faults, scripted greedy and combined sampled
+        report["transient"] = []
+        for label, chaos_kw, mode, want in (
+                ("(b) scripted, greedy", CHAOS_SCRIPTED, GREEDY, serving.out),
+                ("(b) combined, sampled", CHAOS_COMBINED, SAMPLED, serving.out_sampled)):
+            inj = FaultInjector(ChaosConfig(**chaos_kw))
+            pre0 = eng.preemptions
+            rep = eng.serve_detailed(reqs, chaos=inj, **mode)
+            self._equal(label, rep, want)
+            counts = inj.counts
+            squeezed = sum(int(f.detail.split()[0]) for f in inj.log if f.site == "squeeze")
+            row = {"case": label, "injected": counts, "retries": rep.retries,
+                   "squeezed_pages": rep.squeezed_pages, "straggle_s": rep.straggle_s,
+                   "preemptions": eng.preemptions - pre0, "rounds": rep.rounds,
+                   "max_ladder_level": rep.max_ladder_level}
+            report["transient"].append(row)
+            check(all(counts.get(s, 0) > 0 for s in ("chunk", "straggle", "squeeze"))
+                  and rep.retries == counts["chunk"] and rep.squeezed_pages == squeezed
+                  and math.isclose(rep.straggle_s, counts["straggle"] * inj.cfg.straggle_s),
+                  f"{label}: the report's counts disagree with the injector's log: {row}")
+            eng.assert_quiescent()
+
+        # (c) the ladder reaches halve_chunk and recovers
+        rep = eng.serve_detailed(reqs, chaos=FaultInjector(ChaosConfig(
+            straggle_rounds=LADDER_STRAGGLES)), policy=ResiliencePolicy(
+            ladder=LadderConfig(cooldown=LADDER_COOLDOWN)))
+        self._equal("(c) ladder", rep, serving.out)
+        halved = self._halved_rounds(rep)
+        iters = sum(SERVE["chunk"] // 2 if c["round"] in halved else SERVE["chunk"]
+                    for c in rep.counters)
+        report["ladder"] = {"trace": rep.ladder_trace, "max_level": rep.max_ladder_level,
+                            "halved_rounds": sorted(halved), "rounds": rep.rounds,
+                            "decode_chunk_iters": eng.decode_chunk_iters}
+        check(halved and any(r == "recovered" for _, _, r in rep.ladder_trace)
+              and eng.decode_chunk_iters == iters, f"(c) the ladder: {report['ladder']}, "
+              f"expected {iters} chunk iterations")
+
+        # (d) crash replay by the supervisor: recompute exact, prefill at HIT_BAR
+        report["crash_replay"] = {}
+        with admits_recorded(eng) as admits:
+            for mode_name, mode, want in (("greedy", GREEDY, serving.out),
+                                          ("sampled", SAMPLED, serving.out_sampled)):
+                rep = self._supervised(eng, reqs, mode, "recompute")
+                self._equal(f"(d) recompute, {mode_name}", rep, want)
+                start = len(admits)
+                rep = self._supervised(eng, reqs, mode, "prefill")
+                check(all(r.status == "done" for r in rep.records), "(d) prefill replay: "
+                      f"{[(r.status, r.reason) for r in rep.records]}")
+                resumed = [a for a in admits[start:] if a["resumed"]]
+                report["crash_replay"][mode_name] = {
+                    "restarts": rep.restarts, "failures": [f.kind for f in rep.failures],
+                    "resumed_admits": len(resumed),
+                    "resumed_extra_tokens": sum(a["prefilled"] - a["prompt"] for a in resumed),
+                    **self._against(f"(d) prefill replay, {mode_name}", rep.outputs, want,
+                                    reqs, mode)}
+                check(resumed, "(d) no in-flight request was resumed mid-stream")
+                if mode_name == "greedy":
+                    self.recovery = {"resumed": resumed, "prefill_tokens": sum(
+                        a["prefilled"] for a in admits[start:]), "fresh_admit_ms": sorted(
+                        a["ms"] for a in admits[start:] if not a["resumed"])}
+
+        # (e) a fresh engine resumes from the snapshot file
+        SNAPSHOT.parent.mkdir(parents=True, exist_ok=True)
+        SNAPSHOT.unlink(missing_ok=True)
+        inj = FaultInjector(ChaosConfig(crash_rounds=(DISK_CRASH_ROUND,)))
+        first = ServingSupervisor(eng, chaos=inj, max_restarts=0, snapshot_path=str(SNAPSHOT))
+        try:
+            first.run(reqs)
+            check(False, "(e) the scripted crash did not fire")
+        except EngineCrash:
+            pass
+        check(injected_only(first.failures, inj), f"(e) failures {first.failures}")
+        snap = load_snapshot(str(SNAPSHOT))
+        check(snap is not None and snap.inflight, "(e) no in-flight request in the snapshot file")
+        fresh = TimedEngine(cfg, self.params, device=dev, **SERVE)
+        graphs = count_captures(fresh)
+        check(fresh.params is eng.params, "(e) the fresh engine does not share the parameters")
+        rep = ServingSupervisor(fresh, snapshot_path=str(SNAPSHOT)).run(reqs)
+        check(all(r.status == "done" for r in rep.records), "(e) the resumed trace left "
+              f"requests unfinished: {[(r.status, r.reason) for r in rep.records]}")
+        report["fresh_engine_from_disk"] = {
+            "snapshot_round": snap.round, "inflight": sorted(snap.inflight),
+            "finished": sorted(snap.finished), "graphs": capture_report(fresh, graphs),
+            **self._against("(e) fresh engine from disk", rep.outputs, serving.out, reqs)}
+        fresh.assert_quiescent()
+        del fresh, graphs
+
+        # (f) a crash during the long serve: the resumed long admit through flash_attention
+        long_eng = serving.long_serve
+        with admits_recorded(long_eng) as admits:
+            rep = self._supervised(long_eng, serving.long_reqs, GREEDY, "prefill",
+                                   crash_rounds=(1,))
+        long_resumed = [a for a in admits if a["resumed"] and a["prompt"] == LONG_PROMPT]
+        self.long_resumed_flash = sum(a["flash_attention"] for a in long_resumed)
+        report["long_crash"] = {"admits": admits, **self._against(
+            "(f) long serve, crash replay", rep.outputs, serving.long_out, serving.long_reqs)}
+        check(len(long_resumed) == 1 and self.long_resumed_flash == cfg.n_layers,
+              f"(f) the resumed long admit: {long_resumed}, expected one with "
+              f"{cfg.n_layers} flash_attention launches")
+
+        # (g) the router over two engines on phase 10's trace, cache on and off
+        trace = self.prefix.reqs
+        report["router"] = {}
+        for label, cached, first_eng, want in (("cached", True, self.prefix.eng, self.prefix.out),
+                                               ("uncached", False, self.prefix.uncached,
+                                                self.prefix.out_u)):
+            second = TimedEngine(cfg, self.params, prefix_cache=cached, device=dev,
+                                 **PREFIX_SERVE)
+            router = ReplicaRouter([first_eng, second])
+            assign = router.route(trace)
+            rep = router.serve_detailed(trace)
+            check(rep.assignments == assign and len(set(assign)) == 2, f"(g) {label}: "
+                  f"assignments {rep.assignments}, route gave {assign}")
+            row = {"assignments": assign, "affinity_hits": rep.affinity_hits,
+                   "prefix_hits": rep.prefix_hits, "prefill_tokens": rep.prefill_tokens}
+            if cached:
+                row.update(self._against("(g) router, cached", rep.outputs, want, trace))
+            else:
+                self._equal("(g) router, uncached", rep, want)
+            report["router"][label] = row
+            del second, router
+
+        # (h) the planted fault: a resumed admit's draw counter one short
+        with admits_recorded(eng, off_by_one=True):
+            rep = self._supervised(eng, reqs, SAMPLED, "prefill")
+        fault = self._against("(h) planted fault, sampled prefill replay", rep.outputs,
+                              serving.out_sampled, reqs, SAMPLED, check_bar=False)
+        report["planted_fault"] = {"fault": "a resumed admit's draw counter is m - 1", **fault}
+        check(fault["beyond_bar"] > 0, f"(h) the planted fault passes the replay check: {fault}")
+
+        # (i) times
+        report["timing"] = self._timings(eng, reqs)
+        report["phase_s"] = time.perf_counter() - t_phase
+        print(json.dumps(report), flush=True)
+        self.report = report
+        return self.windows()
+
+    @staticmethod
+    def _halved_rounds(rep):
+        """The rounds that ran a halved chunk: a rung is set by the rounds
+        before."""
+        out = set()
+        for c in rep.counters:
+            level = 0
+            for r, lvl, _ in rep.ladder_trace:
+                if r < c["round"]:
+                    level = lvl
+            if level >= 1:
+                out.add(c["round"])
+        return out
+
+    def _timings(self, eng, reqs):
+        """(i): alternating rounds of phase 9's serve with no policy, with a
+        policy snapshotting each round in memory and to disk (fsync), and
+        the sampled serve undisturbed and under combined chaos; the crash's
+        recovery cost from (d)."""
+        def to_disk(snap):
+            save_snapshot(str(SNAPSHOT), snap)
+        runs = {"no policy": {}, "policy, snapshots in memory": {"policy": ResiliencePolicy()},
+                "policy, snapshots to disk": {"policy": ResiliencePolicy(snapshot_sink=to_disk)},
+                "sampled": SAMPLED, "sampled, combined chaos": None}
+        rounds = []
+        for _ in range(RESILIENCE_ROUNDS):
+            row = {}
+            for name, kw in runs.items():
+                if kw is None:
+                    kw = {"chaos": FaultInjector(ChaosConfig(**CHAOS_COMBINED)), **SAMPLED}
+                out, t = eng.timed_serve(reqs, **kw)
+                want = self.serving.out_sampled if name.startswith("sampled") else self.serving.out
+                check(same_tokens(out, want), f"(i) the timed serve {name!r} changed its tokens")
+                row[name] = timing_row(t)
+            row["sm_clock_mhz"] = tracing.sm_clock_mhz()
+            rounds.append(row)
+        medians = {name: {k: sorted(r[name][k] for r in rounds)[len(rounds) // 2]
+                          for k in ("tokens_per_s", "host_ms_per_round_outside_steps",
+                                    "step_ms_per_iter")} for name in runs}
+        rec = self.recovery
+        resumed_ms = sorted(a["ms"] for a in rec["resumed"])
+        fresh_ms = rec["fresh_admit_ms"]
+        return {"rounds": rounds, "medians": medians, "recovery": {
+            "resumed_admits": len(resumed_ms), "resumed_admit_ms": resumed_ms,
+            "resumed_admit_ms_total": sum(resumed_ms),
+            "fresh_admit_ms_median": fresh_ms[len(fresh_ms) // 2] if fresh_ms else None,
+            "resumed_prefill_tokens": sum(a["prefilled"] for a in rec["resumed"]),
+            "extra_prefill_tokens": rec["prefill_tokens"] - self.base_prefill}}
+
+    def windows(self):
+        """Phase 8's session traces the ladder serve of (c), counted."""
+        eng, self.counted = self.serving.eng, {}
+
+        def serve():
+            rep = eng.serve_detailed(self.serving.reqs, chaos=FaultInjector(ChaosConfig(
+                straggle_rounds=LADDER_STRAGGLES)), policy=ResiliencePolicy(
+                ladder=LadderConfig(cooldown=LADDER_COOLDOWN)))
+            self.counted["iters"] = eng.decode_chunk_iters
+            self.counted["halved_rounds"] = len(self._halved_rounds(rep))
+            return rep.outputs
+        return [("ladder serve, counted", None, counted_generation(self.serving.graphs, serve,
+                                                                   self.counted))]
+
+    def finish(self, traced):
+        """Phase 11's launches from the trace, and its report."""
+        out = self.counted
+        want = dict.fromkeys(KERNEL_TAGS, 0)
+        want["pim_matvec"] = len(LINEARS) * self.cfg.n_layers * out["iters"]
+        launches = check_counted("ladder serve, counted", traced["ladder serve, counted"], out,
+                                 self.serving.out, want)
+        launches.update(decode_chunk_iters=out["iters"], halved_rounds=out["halved_rounds"],
+                        resumed_long_admit_flash_attention=self.long_resumed_flash)
+        print(json.dumps({"check": "phase 11: launches", **launches}))
+        return {"ladder serve": out["traced"]}
 
 
 if __name__ == "__main__":

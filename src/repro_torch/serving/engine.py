@@ -3,8 +3,8 @@ continuous-batching engine over a paged KV cache.
 
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
 ``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense
-family, with the prefix cache, without speculation, a resilience policy or
-a mesh).  ``quantize_tree`` turns every large matmul weight into
+family, with the prefix cache and the resilience tier, without speculation
+or a mesh).  ``quantize_tree`` turns every large matmul weight into
 ``{"codes": int8, "scale": f32}`` (int4: nibble-packed codes plus a marker
 leaf); at decode time each of those weights is streamed once per step by
 the ``pim_matvec`` kernel.
@@ -29,11 +29,16 @@ Each admit is one replay too: an uncached admit (``admit_miss``, a batch-1
 prefill into the slot's pages) kept per padded prompt length, and a cached
 one (``admit_cached``, one ``verify_step`` window over the prompt's tail
 after the prefix cache aliased its first pages) kept per window width.
+Under a ``ResiliencePolicy`` (``serving.resilience``) ``serve_detailed``
+retries, sheds, rejects and degrades on the host and snapshots each round;
+a crash-replayed request is re-admitted by the same captured admit over its
+prompt and emitted tokens.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 from collections import OrderedDict, deque
 from typing import Callable, Optional, Sequence
@@ -48,8 +53,10 @@ from repro_torch.models.attention import CHUNKED_THRESHOLD
 from repro_torch.models.common import dtype_of, resolve_device, unembed
 from repro_torch.quant import quantize_symmetric
 
+from .chaos import ChunkFault, EngineCrash
 from .prefix import PagePool, PrefixTrie, chunk_keys, extras_fingerprint
-from .resilience import RequestRecord, ServeReport
+from .resilience import (DegradationLadder, InflightState, LadderConfig, RequestRecord,
+                         ResiliencePolicy, ServeReport, ServeSnapshot)
 from .sampling import (TAG_TOKEN, draw_keys, fold_in, gumbel, prng_key, row_keys,
                        sample_rows, warp_logits)
 
@@ -229,11 +236,7 @@ _LATER = {"mesh": "item 7 (tensor-parallel decode)",
           "draft_cfg": "item 4 (speculative decoding)",
           "draft_params": "item 4 (speculative decoding)",
           "draft_pim_bits": "item 4 (speculative decoding)",
-          "extras": "item 5 (the vlm and encdec families)",
-          "policy": "item 2c (the resilience tier)",
-          "chaos": "item 2c (the resilience tier)",
-          "resume": "item 2c (the resilience tier)",
-          "heartbeat": "item 2c (the resilience tier)"}
+          "extras": "item 5 (the vlm and encdec families)"}
 
 
 def _unported(**options) -> None:
@@ -426,8 +429,9 @@ class ServingEngine:
 class Request:
     """One generation request for ``ContinuousBatchingEngine.serve``.
     ``rid`` keys the request's sampled draws (default: its index in the
-    trace).  ``arrival``, ``deadline`` and ``slo`` matter under a resilience
-    policy only (ROADMAP.md section 1, item 2c); ``extras`` must be None
+    trace).  Under a ``ResiliencePolicy`` a request is not admitted before
+    its ``arrival``, is shed from the queue past its ``deadline``, and the
+    lower its ``slo`` class the sooner it is shed; ``extras`` must be None
     until the families that take them are ported."""
 
     prompt: np.ndarray  # (len,) int32 token ids
@@ -646,8 +650,8 @@ MAX_ADMIT_GRAPHS = 64
 
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
-    package's, for the dense family, with the prefix cache, without a
-    resilience policy, speculation or a mesh).
+    package's, for the dense family, with the prefix cache and the
+    resilience tier, without speculation or a mesh).
 
     ``slots`` is the decode batch width; ``num_pages`` bounds the cache
     (pages of ``page_size`` tokens, page 0 the trash page; default: every
@@ -674,6 +678,14 @@ class ContinuousBatchingEngine:
     admit of more than CHUNKED_THRESHOLD positions, which runs eagerly; at
     most MAX_ADMIT_GRAPHS admit graphs are kept.
 
+    ``serve_detailed(policy=, chaos=, resume=, heartbeat=)`` runs the
+    resilience tier (``serving.resilience``): retries of injected chunk
+    faults, deadline, queue, ladder and out-of-memory sheds, payload
+    rejects, the degradation ladder (a halved chunk is fewer replays of the
+    same chunk step), a ``ServeSnapshot`` each round (``last_snapshot``),
+    and resumption from one: an in-flight request is re-admitted by one
+    prefill over its prompt and emitted tokens, its draw counter resumed.
+
     The cache and buffers are made at the first serve and kept, zeroed at
     every later one: a captured step reads the memory it was captured on
     (the reference makes a fresh cache each serve)."""
@@ -690,6 +702,8 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self.params = quantize_tree(params, pim_bits) if pim_bits else params
         self._clock = clock if clock is not None else time.monotonic
+        self.last_snapshot: Optional[ServeSnapshot] = None  # the latest (crash recovery)
+        self.last_round = -1
         self.slots = int(slots)
         self.page_size = int(page_size)
         self.max_seq = -(-int(max_seq) // self.page_size) * self.page_size
@@ -706,6 +720,12 @@ class ContinuousBatchingEngine:
         self.prefix_cache = bool(prefix_cache)
         self._prefix_on = (self.prefix_cache and cfg.family in _PREFIX_FAMILIES
                            and not getattr(cfg, "mla", None))
+        # The strict pending sweep of a serve under a policy: None defers to
+        # the REPRO_STRICT_SERVE environment variable; a bool decides.
+        self.strict_pending: Optional[bool] = None
+        # Test hook: request indices the admission loop drops, a scheduler
+        # bug on purpose, so that the strict sweep's detection is testable.
+        self._debug_drop_rids: set[int] = set()
         self._pool_poisoned = False
         self._records = None
         self._now = lambda: 0.0
@@ -835,25 +855,28 @@ class ContinuousBatchingEngine:
         self._outputs = [[] for _ in requests]
         self._queue = deque(range(len(requests)))
 
-    def _prefix_probe(self, req) -> tuple:
-        """(chunk keys, extras fingerprint, matched trie pages) of a request
-        under the prefix cache; ``([], None, [])`` without it.  Changes no
+    def _prefix_probe(self, req, resume) -> tuple:
+        """(chunk keys, extras fingerprint, matched trie pages) of a fresh
+        request under the prefix cache; ``([], None, [])`` without it, and
+        for a resumed admit (``resume``), whose sequence holds emitted
+        tokens and is replayed through the full prefill.  Changes no
         refcount and no LRU order, so the admission gate and ``_admit`` can
         both call it."""
-        if not self._prefix_on:
+        if not self._prefix_on or resume is not None:
             return [], None, []
         keys = chunk_keys(np.asarray(req.prompt, np.int32), self.page_size)
         fp = extras_fingerprint(req.extras)
         return keys, fp, self._trie.match(keys, fp)
 
-    def _admit_page_need(self, req) -> tuple[int, list[int]]:
+    def _admit_page_need(self, req, resume) -> tuple[int, list[int]]:
         """(fresh pages the admit allocates, trie pages it aliases): the
-        admission gate's probe.  Admission is optimistic (the first chunk's
-        growth is not counted): if the round's ``_top_up`` then finds the
-        pool dry, the youngest slot yields."""
-        length = len(req.prompt)
+        admission gate's probe.  A resumed admit prefills its prompt and
+        all but its last emitted token.  Admission is optimistic (the first
+        chunk's growth is not counted): if the round's ``_top_up`` then
+        finds the pool dry, the youngest slot yields."""
+        length = len(req.prompt) + (len(resume.emitted) - 1 if resume else 0)
         total = self._spad(length) // self.page_size
-        _, _, matched = self._prefix_probe(req)
+        _, _, matched = self._prefix_probe(req, resume)
         if matched and len(matched) == total and length == total * self.page_size:
             return 1, matched  # a full-prefix hit: only the fork of the last page is fresh
         return total - len(matched), matched
@@ -900,7 +923,8 @@ class ContinuousBatchingEngine:
         step()
         return int(w.tok)
 
-    def _admit(self, requests, slot: int, ridx: int, greedy: bool, top_k: int) -> dict:
+    def _admit(self, requests, slot: int, ridx: int, greedy: bool, top_k: int,
+               resume: Optional[InflightState] = None) -> dict:
         """Admit request ``ridx`` into ``slot``; returns the admit event's
         fields (``cached_tokens``, ``prefilled_tokens``, ``cow``).
 
@@ -912,17 +936,30 @@ class ContinuousBatchingEngine:
         in the last matched page, which the trie and perhaps live siblings
         read: that page is forked copy-on-write first.  A miss prefills the
         padded prompt into fresh pages and, under the prefix cache, then
-        registers the prompt's full pages in the trie."""
+        registers the prompt's full pages in the trie.
+
+        With ``resume`` (crash replay, ``resume_mode="prefill"``) the request
+        is re-admitted mid-stream: one prefill over ``prompt +
+        emitted[:-1]`` (the same admit as a miss's, at that length) rebuilds
+        its pages, its draw 0 is thrown away, the last emission becomes the
+        slot's token and the draw counter resumes at ``len(emitted)``, so
+        the ``(rid, counter)`` keys continue the stream the crashed run was
+        drawing from.  It probes and registers nothing in the trie."""
         req = requests[ridx]
         ps = self.page_size
         length = len(req.prompt)
         rid = ridx if req.rid is None else int(req.rid)
+        emitted = [int(t) for t in resume.emitted] if resume is not None else []
+        m = len(emitted)
         seq = np.asarray(req.prompt, np.int32)
-        spad = self._spad(length)
+        if m:
+            seq = np.concatenate([seq, np.asarray(emitted[:-1], np.int32)])
+        n = len(seq)  # length + m - 1 when resuming
+        spad = self._spad(n)
         total = spad // ps
-        keys, fp, matched = self._prefix_probe(req)
+        keys, fp, matched = self._prefix_probe(req, resume)
         cow = False
-        if matched and len(matched) == total and length == total * ps:
+        if matched and len(matched) == total and n == total * ps:
             # every prompt position is cached, but position L - 1's logits
             # are still needed and its K/V write lands in the last matched page
             for p in matched:
@@ -931,7 +968,7 @@ class ContinuousBatchingEngine:
             _copy_page(self._state.cache, matched[-1], fork, _pool_leaf_paths(self.cfg))
             self._pool.release(matched[-1])
             pages = matched[:-1] + [fork]
-            tail_start = length - 1
+            tail_start = n - 1
             cow = True
             self.cow_forks += 1
         elif matched:
@@ -950,27 +987,29 @@ class ContinuousBatchingEngine:
             self.prefix_hit_tokens += tail_start
         else:
             tok0 = self._admit_uncached(seq, spad, pages, rid, greedy, top_k)
-            if self._prefix_on:
+            if self._prefix_on and resume is None:
                 # a miss's full pages hold final positions (decode writes
                 # start at L) computed as any later miss would compute them
                 self._trie.insert(keys, fp, pages, on_new=self._pool.mark_cached)
-        self.prefill_tokens += length - tail_start
+        self.prefill_tokens += n - tail_start
+        if not m:
+            emitted = [tok0]  # a fresh admit's draw 0 is emission 0
         stops = tuple(req.stop_tokens)
-        self._outputs[ridx] = [tok0]
-        self._pos[slot] = length
-        self._n_out[slot] = 1
+        self._outputs[ridx] = list(emitted)
+        self._pos[slot] = length + len(emitted) - 1
+        self._n_out[slot] = len(emitted)
         self._max_new[slot] = req.max_new
         self._stops[slot, :] = -1
         self._stops[slot, : len(stops)] = stops
-        self._tok[slot, 0] = tok0
+        self._tok[slot, 0] = emitted[-1]
         self._keys[slot] = row_keys(self._state.base, torch.tensor([rid], device=self.device),
                                     TAG_TOKEN)[0].cpu().numpy()
-        self._done[slot] = req.max_new <= 1 or tok0 in stops
+        self._done[slot] = len(emitted) >= req.max_new or emitted[-1] in stops
         self._slot_req[slot] = ridx
         self._slot_pages[slot] = list(pages)
         self._admit_seq[slot] = self._seq
         self._seq += 1
-        return {"cached_tokens": tail_start, "prefilled_tokens": length - tail_start, "cow": cow}
+        return {"cached_tokens": tail_start, "prefilled_tokens": n - tail_start, "cow": cow}
 
     def _retire(self, slot: int) -> None:
         self._free_pages(self._slot_pages[slot])
@@ -998,18 +1037,20 @@ class ContinuousBatchingEngine:
             self._records[ridx].events.append(
                 {"name": "preempt", "ts": self._now(), "slot": victim})
 
-    def _top_up(self, requests, slot: int) -> None:
-        """Extend the slot's block table to cover the next chunk's writes.
-        If the pool runs dry, younger live requests are preempted, unless
-        this slot is the youngest: then it yields (requeues itself), so the
-        eldest always progresses and two requests cannot evict each other
-        forever."""
+    def _top_up(self, requests, slot: int, eff_chunk: Optional[int] = None) -> None:
+        """Extend the slot's block table to cover the writes of the round's
+        ``eff_chunk`` chunk steps (default: ``chunk``; the ladder may halve
+        it).  If the pool runs dry, younger live requests are preempted,
+        unless this slot is the youngest: then it yields (requeues itself),
+        so the eldest always progresses and two requests cannot evict each
+        other forever."""
         req = requests[self._slot_req[slot]]
         ps = self.page_size
         length = len(req.prompt)
-        # the chunk's live writes reach pos + chunk - 1, at most the last live
+        chunk = self.chunk if eff_chunk is None else eff_chunk
+        # the round's live writes reach pos + chunk - 1, at most the last live
         # position length + max_new - 2; the prefill covered spad - 1
-        last = min(int(self._pos[slot]) + self.chunk - 1, length + req.max_new - 2)
+        last = min(int(self._pos[slot]) + chunk - 1, length + req.max_new - 2)
         need = max(last, self._spad(length) - 1) // ps + 1
         have = len(self._slot_pages[slot])
         if need <= have:
@@ -1041,10 +1082,12 @@ class ContinuousBatchingEngine:
             buf.copy_(torch.from_numpy(host))
         st.it.zero_()
 
-    def _read(self) -> tuple:
-        """Round end: the emissions, liveness and per-slot carry, on the host."""
+    def _read(self, n: int) -> tuple:
+        """Round end: the emissions and liveness of the round's ``n`` chunk
+        steps (rows past ``n`` hold an earlier round's) and the per-slot
+        carry, on the host."""
         st = self._state
-        return tuple(t.to("cpu", copy=True).numpy() for t in (st.emits, st.lives, st.tok,
+        return tuple(t.to("cpu", copy=True).numpy() for t in (st.emits[:n], st.lives[:n], st.tok,
                                                               st.pos, st.n_out, st.done))
 
     # --------------------------------------------------------------- serve --
@@ -1057,10 +1100,19 @@ class ContinuousBatchingEngine:
         a request's sampled tokens do not depend on its slot, the chunk or
         the page allocation, and equal the dense engine's for the batch row
         whose index is the request's id.  ``key``: ``prng_key``'s argument
-        (None: ``PRNGKey(0)``).  The report is kept on ``last_report``."""
+        (None: ``PRNGKey(0)``).  ``policy`` and ``chaos`` go to
+        ``serve_detailed``; without a policy an invalid request raises and
+        faults propagate.  The report is kept on ``last_report``."""
         report = self.serve_detailed(requests, greedy=greedy, temperature=temperature,
                                      top_k=top_k, key=key, policy=policy, chaos=chaos)
         return [r.tokens for r in report.records]
+
+    def _shed(self, records, report, ridx: int, reason: str) -> None:
+        rec = records[ridx]
+        rec.status, rec.reason = "shed", reason
+        rec.tokens = np.asarray(self._outputs[ridx], np.int32)
+        rec.events.append({"name": "shed", "ts": self._now(), "reason": reason})
+        report.sheds += 1
 
     def _finish(self, requests, records, slot: int, t: float) -> None:
         """Retire a finished slot, stamping its completion time ``t`` (the
@@ -1075,22 +1127,75 @@ class ContinuousBatchingEngine:
         rec.met_deadline = None if dl is None else bool(t <= dl)
         self._retire(slot)
 
+    def _take_snapshot(self, records, policy, rnd: int) -> ServeSnapshot:
+        """The host-side recovery point: finished outputs, each in-flight
+        request's emissions (in admit order) and the queue.  No device state:
+        a resumed admit recomputes the pages."""
+        live = sorted((s for s in range(self.slots) if self._slot_req[s] >= 0),
+                      key=lambda s: self._admit_seq[s])
+        inflight = {}
+        for s in live:
+            ridx = self._slot_req[s]
+            inflight[ridx] = InflightState(emitted=[int(t) for t in self._outputs[ridx]],
+                                           wctr=0, t_admit=records[ridx].t_admit,
+                                           t_first=records[ridx].t_first, acc_ema=0.0)
+        snap = ServeSnapshot(
+            finished={i: [int(t) for t in self._outputs[i]] for i, r in enumerate(records)
+                      if r.status == "done"},
+            inflight=inflight, queued=list(self._queue),
+            closed={i: (r.status, r.reason) for i, r in enumerate(records)
+                    if r.status in ("shed", "rejected")},
+            round=rnd)
+        self.last_snapshot = snap
+        if policy is not None and policy.snapshot_sink is not None:
+            policy.snapshot_sink(snap)
+        return snap
+
     @torch.inference_mode()
     def serve_detailed(self, requests: Sequence[Request], *, greedy: bool = True,
-                       temperature: float = 1.0, top_k: int = 0, key=None, policy=None,
-                       chaos=None, resume=None, heartbeat=None) -> ServeReport:
+                       temperature: float = 1.0, top_k: int = 0, key=None,
+                       policy: Optional[ResiliencePolicy] = None, chaos=None,
+                       resume: Optional[ServeSnapshot] = None, heartbeat=None) -> ServeReport:
         """``serve`` with its ``ServeReport``: per-request outcomes, times
-        (engine-clock seconds from this call's start) and events, and one
-        counter sample per round.  Without a policy: an invalid request
-        raises, and so does a scheduler that loses one."""
-        _unported(policy=policy, chaos=chaos, resume=resume, heartbeat=heartbeat)
-        for r in requests:
+        (engine-clock seconds from this call's start, plus the skew of
+        injected latency, retry backoff and ``policy.round_time`` a round)
+        and events, the resilience counters, and one counter sample per
+        round.
+
+        ``policy`` (``resilience.ResiliencePolicy``) turns on admission
+        validation (invalid or corrupt payloads become "rejected" instead of
+        raising), deadline, queue and ladder sheds, retries of transient
+        ``ChunkFault``s with backoff, the degradation ladder and a snapshot
+        every ``snapshot_every`` rounds.  ``chaos`` (a
+        ``chaos.FaultInjector``) injects seeded failures at the scheduling
+        boundaries; chaos without a policy gets ``ResiliencePolicy()``.
+        ``resume`` replays a ``ServeSnapshot``: finished and closed requests
+        keep their outcome; in-flight ones are re-admitted mid-stream
+        (``resume_mode="prefill"``) or requeued from scratch
+        (``"recompute"``, and always without a policy).  ``heartbeat`` is
+        called once a round (the supervisor's liveness signal).  On an
+        ``EngineCrash`` (injected, retries exhausted, or a failed chunk step
+        under a policy) the latest snapshot stays on ``last_snapshot``.
+        Without a policy an invalid request raises, and so does a scheduler
+        that loses one."""
+        if chaos is not None and policy is None:
+            policy = ResiliencePolicy()
+        hardened = policy is not None
+        records = [RequestRecord() for _ in requests]
+        rejected_upfront: set[int] = set()
+        for i, r in enumerate(requests):
             _unported(extras=r.extras)
+            bad = None
             if len(r.prompt) < 1 or r.max_new < 1:
-                raise ValueError("requests need len(prompt) >= 1, max_new >= 1")
-            if len(r.prompt) + r.max_new > self.max_seq:
-                raise ValueError(f"prompt ({len(r.prompt)}) + max_new ({r.max_new}) "
-                                 f"exceeds max_seq ({self.max_seq})")
+                bad = "requests need len(prompt) >= 1, max_new >= 1"
+            elif len(r.prompt) + r.max_new > self.max_seq:
+                bad = (f"prompt ({len(r.prompt)}) + max_new ({r.max_new}) "
+                       f"exceeds max_seq ({self.max_seq})")
+            if bad is not None:
+                if not hardened:
+                    raise ValueError(bad)
+                records[i].status, records[i].reason = "rejected", bad
+                rejected_upfront.add(i)
         base = prng_key(0 if key is None else key, self.device)
         greedy, top_k = bool(greedy), 0 if greedy else int(top_k)
         n_stops = max((len(r.stop_tokens) for r in requests), default=0)
@@ -1100,37 +1205,123 @@ class ContinuousBatchingEngine:
         step = self.chunk_step(n_stops, greedy=greedy, top_k=top_k)
         self.peak_pages_in_use = self.decode_chunk_iters = self.prefill_tokens = 0
         self.prefix_hits = self.prefix_hit_tokens = self.cow_forks = 0
-        records = [RequestRecord() for _ in requests]
         report = ServeReport(records=records)
+        report.rejects += len(rejected_upfront)
         clock = self._clock
         t0 = clock()
+        skew = 0.0  # injected latency + retry backoff + round time
 
         def now() -> float:
-            return clock() - t0
+            return (clock() - t0) + skew
 
         self._records, self._now = records, now
+        ladder = DegradationLadder(policy.ladder if hardened else LadderConfig(enabled=False),
+                                   has_spec=False)
+        # ---- resume: restore finished and closed outcomes, rebuild the queue
+        resume_inflight: dict[int, InflightState] = {}
+        if resume is not None:
+            for ridx, toks in resume.finished.items():
+                records[ridx].status = "done"
+                records[ridx].tokens = np.asarray(toks, np.int32)
+                self._outputs[ridx] = [int(t) for t in toks]
+            for ridx, (status, reason) in resume.closed.items():
+                if ridx in rejected_upfront:
+                    continue  # rejected (and counted) again above
+                records[ridx].status, records[ridx].reason = status, reason
+                if status == "shed":
+                    report.sheds += 1
+                else:
+                    report.rejects += 1
+            if hardened and policy.resume_mode == "prefill":
+                resume_inflight = dict(resume.inflight)
+                for ridx, st in resume.inflight.items():
+                    records[ridx].t_admit = st.t_admit
+                    records[ridx].t_first = st.t_first
+            # "recompute" (or no policy): in-flight requests start again from
+            # scratch, as recompute preemption does
+            self._queue = deque(list(resume.inflight)
+                                + [r for r in resume.queued if r not in rejected_upfront])
+        else:
+            self._queue = deque(i for i in range(len(requests)) if i not in rejected_upfront)
+        self.last_snapshot = None
+        snap_every = policy.snapshot_every if hardened else 0
+        if snap_every:
+            self._take_snapshot(records, policy, -1)
+
         rnd = 0
         self._pool_poisoned = True  # until the round loop completes
         while self._queue or any(r >= 0 for r in self._slot_req):
+            self.last_round = rnd
+            if heartbeat is not None:
+                heartbeat()
+            if chaos is not None:
+                chaos.crash(rnd)  # raises EngineCrash; the supervisor replays
+            retries_before, preempt_before, sheds_round = report.retries, self.preemptions, 0
+            # ---- queue management: deadline, bounded-queue and ladder sheds
+            if hardened:
+                t = now()
+                if policy.shed_expired:
+                    for ridx in list(self._queue):
+                        dl = requests[ridx].deadline
+                        if dl is not None and t > dl:
+                            self._queue.remove(ridx)
+                            self._shed(records, report, ridx, "deadline")
+                            sheds_round += 1
+                if policy.max_queue is not None:
+                    while len(self._queue) > policy.max_queue:
+                        q = list(self._queue)
+                        # the lowest SLO class first; ties shed the youngest
+                        i = min(range(len(q)), key=lambda j: (requests[q[j]].slo, -j))
+                        self._queue.remove(q[i])
+                        self._shed(records, report, q[i], "queue")
+                        sheds_round += 1
+                if ladder.shedding():
+                    for ridx in list(self._queue):
+                        if requests[ridx].slo < ladder.cfg.protect_slo:
+                            self._queue.remove(ridx)
+                            self._shed(records, report, ridx, "ladder")
+                            sheds_round += 1
             # ---- admit queued requests into free slots while pages last
-            admitted_any = False
+            admitted_any = blocked = False
             for slot in range(self.slots):
-                if self._slot_req[slot] >= 0:
+                if blocked or self._slot_req[slot] >= 0:
                     continue
-                if not self._queue:
+                while self._queue:
+                    ridx = self._queue[0]
+                    if ridx in self._debug_drop_rids:
+                        self._queue.popleft()  # the test hook's lost request
+                        continue
+                    req = requests[ridx]
+                    if hardened and req.arrival > now():
+                        blocked = True  # FIFO: an unarrived head waits
+                        break
+                    prompt = np.asarray(req.prompt)
+                    if chaos is not None:
+                        prompt = chaos.corrupt_request(prompt, ridx, rnd)
+                    if hardened and policy.validate:
+                        arr = np.asarray(prompt)
+                        if arr.size and (int(arr.min()) < 0 or int(arr.max()) >= self.cfg.vocab):
+                            self._queue.popleft()
+                            records[ridx].status, records[ridx].reason = "rejected", "corrupt"
+                            report.rejects += 1
+                            continue  # the slot is still free: try the next head
+                    rs = resume_inflight.pop(ridx, None)
+                    need, reserve = self._admit_page_need(req, rs)
+                    if self._pool.available(reserve) < need:
+                        if rs is not None:
+                            resume_inflight[ridx] = rs  # again next round
+                        blocked = True
+                        break
+                    self._queue.popleft()
+                    info = self._admit(requests, slot, ridx, greedy, top_k, resume=rs)
+                    rec = records[ridx]
+                    rec.slot = slot
+                    if rec.t_admit is None:
+                        rec.t_admit = rec.t_first = now()
+                    rec.events.append({"name": "admit", "ts": now(), "slot": slot,
+                                       "round": rnd, **info})
+                    admitted_any = True
                     break
-                need, reserve = self._admit_page_need(requests[self._queue[0]])
-                if self._pool.available(reserve) < need:
-                    break
-                ridx = self._queue.popleft()
-                info = self._admit(requests, slot, ridx, greedy, top_k)
-                rec = records[ridx]
-                rec.slot = slot
-                if rec.t_admit is None:
-                    rec.t_admit = rec.t_first = now()
-                rec.events.append({"name": "admit", "ts": now(), "slot": slot,
-                                   "round": rnd, **info})
-                admitted_any = True
             # retire what finished at admit (max_new == 1, or a stop at draw 0)
             t_adm = now()
             for slot in range(self.slots):
@@ -1139,27 +1330,104 @@ class ContinuousBatchingEngine:
             live = [s for s in range(self.slots) if self._slot_req[s] >= 0]
             if not live:
                 if self._queue and not admitted_any:
-                    raise RuntimeError(
-                        "page pool too small to admit request with prompt "
-                        f"{len(requests[self._queue[0]].prompt)} tokens; increase num_pages")
+                    head = self._queue[0]
+                    if hardened and requests[head].arrival > now():
+                        # idle until the head arrives; deterministic time moves
+                        skew += policy.round_time or policy.backoff_s
+                    elif hardened:
+                        self._queue.popleft()
+                        self._shed(records, report, head, "oom")
+                    else:
+                        raise RuntimeError(
+                            "page pool too small to admit request with prompt "
+                            f"{len(requests[head].prompt)} tokens; increase num_pages")
                 rnd += 1
                 continue
-            for s in live:
-                if self._slot_req[s] >= 0:  # an earlier top-up may have preempted it
-                    self._top_up(requests, s)
+            eff_chunk, _ = ladder.params(self.chunk, None)
+            # ---- page top-up, under injected pool pressure
+            withheld: Optional[list[int]] = []
+            if chaos is not None:
+                n_w = chaos.squeeze_pages(len(self._pool.free), rnd)
+                if n_w:
+                    # from the free list only: retained cache pages stay
+                    # evictable, so a squeeze squeezes the cache first
+                    withheld = self._pool.free[-n_w:]
+                    del self._pool.free[-n_w:]
+                    report.squeezed_pages += n_w
+
+            def top_ups():
+                for s in live:
+                    if self._slot_req[s] >= 0:  # an earlier top-up may have preempted it
+                        self._top_up(requests, s, eff_chunk)
+
+            try:
+                top_ups()
+            except RuntimeError:
+                if withheld:
+                    # the squeeze alone exhausted the pool: give the pages back
+                    self._pool.free.extend(withheld)
+                    withheld = []
+                    try:
+                        top_ups()
+                    except RuntimeError:
+                        if not hardened:
+                            raise
+                        withheld = None
+                elif hardened:
+                    withheld = None
+                else:
+                    raise
+            if withheld is None:
+                # the pool is too small for the one live request left: shed it
+                s0 = next(s for s in range(self.slots) if self._slot_req[s] >= 0)
+                self._shed(records, report, self._slot_req[s0], "oom")
+                self._retire(s0)
+                rnd += 1
+                continue
+            if withheld:
+                self._pool.free.extend(withheld)
             self.peak_pages_in_use = max(self.peak_pages_in_use, self.pages_in_use())
+            # ---- transient chunk faults: retry with (virtual) backoff
+            lag = 0.0
+            if chaos is not None:
+                attempt = 0
+                while True:
+                    try:
+                        chaos.chunk_fault(rnd)
+                        break
+                    except ChunkFault as e:
+                        report.retries += 1
+                        if attempt >= policy.max_retries:
+                            raise EngineCrash(f"chunk retries exhausted: {e}") from e
+                        skew += policy.backoff_s * (2.0 ** attempt)
+                        attempt += 1
+                lag = chaos.chunk_latency(rnd)
+                skew += lag
+                report.straggle_s += lag
             # ---- the chunk: one replay per iteration, one read-back per round
             n0 = self._n_out.copy()
             t_round_start = now()
-            self._load()
-            self.decode_chunk_iters += self.chunk
-            for _ in range(self.chunk):
-                step()
-            emits, lives, self._tok, self._pos, self._n_out, self._done = self._read()
-            for t in range(self.chunk):
+            self.decode_chunk_iters += eff_chunk
+            try:
+                self._load()
+                for _ in range(eff_chunk):
+                    step()
+                emits, lives, self._tok, self._pos, self._n_out, self._done = self._read(
+                    eff_chunk)
+            except (ChunkFault, EngineCrash):
+                raise
+            except Exception as e:
+                if hardened:
+                    # a chunk step failed mid-round: a crash, which the
+                    # supervisor recovers from the last snapshot
+                    raise EngineCrash(f"chunk execution failed: {e}") from e
+                raise
+            for t in range(eff_chunk):
                 for slot in range(self.slots):
                     if lives[t, slot] and self._slot_req[slot] >= 0:
                         self._outputs[self._slot_req[slot]].append(int(emits[t, slot]))
+            if hardened:
+                skew += policy.round_time
             t_end = now()
             for slot in live:
                 ridx = self._slot_req[slot]
@@ -1170,28 +1438,56 @@ class ContinuousBatchingEngine:
             for slot in range(self.slots):
                 if self._slot_req[slot] >= 0 and self._done[slot]:
                     liv = np.flatnonzero(lives[:, slot])
-                    fin_it = int(liv[-1]) if liv.size else self.chunk - 1
-                    t_slot = t_round_start + (fin_it + 1) / self.chunk * (t_end - t_round_start)
+                    fin_it = int(liv[-1]) if liv.size else eff_chunk - 1
+                    t_slot = t_round_start + (fin_it + 1) / eff_chunk * (t_end - t_round_start)
                     self._finish(requests, records, slot, t_slot)
             report.counters.append({"ts": t_end, "round": rnd,
                                     "free_pages": len(self._pool.free),
                                     "retained_pages": len(self._pool.lru),
                                     "pages_in_use": self.pages_in_use(),
                                     "prefix_hit_tokens": self.prefix_hit_tokens,
-                                    "queued": len(self._queue)})
+                                    "queued": len(self._queue), "retries": report.retries})
+            # ---- ladder signals and the snapshot
+            if hardened:
+                bad = []
+                if report.retries > retries_before:
+                    bad.append("retries")
+                if self.preemptions > preempt_before:
+                    bad.append("preempt")
+                if sheds_round:
+                    bad.append("shed")
+                if self._pool.available() / max(1, self.num_pages - 1) < ladder.cfg.free_frac:
+                    bad.append("pressure")
+                if lag > 0:
+                    bad.append("straggle")
+                ladder.update(rnd, bool(bad), "+".join(bad))
+                if snap_every and rnd % snap_every == 0:
+                    self._take_snapshot(records, policy, rnd)
             rnd += 1
         self._pool_poisoned = False
         report.rounds = rnd
+        report.ladder_trace = list(ladder.trace)
+        report.max_ladder_level = max((lvl for _, lvl, _ in ladder.trace), default=0)
         dropped = [i for i, rec in enumerate(records) if rec.status == "pending"]
         if dropped:
-            raise RuntimeError(f"scheduler dropped requests {dropped}: still pending after "
-                               "the serve loop — every request must end done")
+            # A pending record is a request the scheduler lost.  Under a policy
+            # a server may prefer an answer to an exception (strict_pending
+            # False, or REPRO_STRICT_SERVE unset): the records say so.
+            strict = (self.strict_pending if self.strict_pending is not None
+                      else os.environ.get("REPRO_STRICT_SERVE", "") not in ("", "0", "false"))
+            if strict or not hardened:
+                raise RuntimeError(f"scheduler dropped requests {dropped}: still pending after "
+                                   "the serve loop — every request must end done/shed/rejected")
+            for i in dropped:
+                records[i].status, records[i].reason = "done", "coerced-pending"
         report.prefix_hits = self.prefix_hits
         report.prefix_hit_tokens = self.prefix_hit_tokens
         report.prefill_tokens = self.prefill_tokens
         report.cow_forks = self.cow_forks
         report.evictions = self._pool.evictions
         self.assert_quiescent()
+        if snap_every:
+            self._take_snapshot(records, policy, rnd)
         self.last_report = report
         return report
 

@@ -73,11 +73,14 @@ def test_import_without_cuda_pulls_in_no_jax():
                                     "repro_torch.models.attention",
                                     "repro_torch.serving.engine",
                                     "repro_torch.serving.prefix",
-                                    "repro_torch.serving.resilience"])
+                                    "repro_torch.serving.resilience",
+                                    "repro_torch.serving.chaos",
+                                    "repro_torch.serving.router",
+                                    "repro_torch.runtime.fault"])
 def test_kernel_module_imports_alone_without_card_or_build(module):
-    """A kernel module, or a module of the paged serving path, imported on
-    its own, with no card and no CUDA toolkit, pulls in neither jax nor the
-    JAX package and builds nothing."""
+    """A kernel module, or a module of the paged serving path or its
+    resilience tier, imported on its own, with no card and no CUDA toolkit,
+    pulls in neither jax nor the JAX package and builds nothing."""
     assert (PKG / Path(*module.split(".")[1:])).with_suffix(".py").is_file()
     code = (f"import sys, {module}\n"
             "from repro_torch.kernels import build\n"

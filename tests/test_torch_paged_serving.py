@@ -287,10 +287,6 @@ def test_guards():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
                                      **option)
-    for option in (dict(policy=object()), dict(chaos=object()), dict(resume=object()),
-                   dict(heartbeat=print)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.serve_detailed([Request(prompt=p, max_new=2)], **option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.serve([Request(prompt=p, max_new=2, extras={"image": np.zeros(3)})])
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -8,6 +8,7 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_reduced as jax_reduced
@@ -19,6 +20,18 @@ from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key,
 
 ARCH = "qwen2-1.5b"
 CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def one_thread():
+    """Run the test with one torch thread, the previous count restored
+    after.  The reduced model's ops are small: with several test processes
+    on one host, torch's default of a thread per core makes them wait on
+    each other far longer than the ops take."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_numpy(tree):
