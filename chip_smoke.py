@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Seven paths run, at qwen2-1.5b's full width (28 layers, bf16, random
+Eight paths run, at qwen2-1.5b's full width (28 layers, bf16, random
 weights from a seeded generator on the card):
 
 * decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
@@ -32,7 +32,12 @@ weights from a seeded generator on the card):
 * the resilience tier: ``serve_detailed`` under a ``ResiliencePolicy`` with
   seeded fault injection, crash replay by the ``ServingSupervisor`` (a
   resumed admit is the same captured admit, or past 8,192 positions the
-  eager one through ``flash_attention``), and the ``ReplicaRouter``.
+  eager one through ``flash_attention``), and the ``ReplicaRouter``;
+* n-gram speculative decoding on both engines (``speculate=SpecConfig``):
+  each verify window one replay of a captured program, windows of at most
+  8 rows (one row a slot and k + 1 positions) through ``pim_matvec``, wider
+  ones through ``x @ dq(w)``, the adaptive controller's width-0 rounds the
+  plain captured chunk step.
 
 Phases:
 
@@ -250,6 +255,34 @@ Phases:
    cost (resumed admits' ms, extra prefill tokens); the counted ladder
    serve's traced ``pim_matvec`` kernels 196 x ``decode_chunk_iters``,
    halved rounds included.
+12. n-gram speculative decoding at k = SPEC_K (after phase 11; its launches
+   come from the counters: each captured window's launches read around its
+   capture, times its replays): (a) the fixed engine on phase 3's 4 x 128
+   prompts, 32 new tokens: greedy, sampled exact (SAMPLED), typical and
+   adaptive greedy windows (20 rows, through ``x @ dq(w)``: no
+   ``pim_matvec`` launch), each ``torch.equal`` to the same generation
+   with every window run eagerly (tokens, windows), greedy ones
+   against plain greedy decoding of the same batch at HIT_BAR (a window's
+   logits are another bf16 arithmetic than a decode step's: the count
+   beyond PAGED_BAR beside it); batch 1 (5-row windows): ``pim_matvec``
+   launched 196 x windows, and whether its tokens equal plain batch-1
+   decoding; (b) the continuous engine on phase 9's engine geometry and
+   trace, greedy and sampled, then the adaptive controller from an
+   optimistic start (SPEC_ADAPTIVE; its rounds' widths; ``pim_matvec``
+   launched 196 x the iterations of its width-0 and 8-row rounds), then
+   phase 10's trace with ``prefix_cache=True``: each
+   captured serve ``torch.equal`` to the eager one (tokens, events, peak
+   pages), greedy ones against phase 9's solo dense runs at HIT_BAR;
+   CHAOS_SCRIPTED's transient faults with the ladder off ``torch.equal``
+   to the undisturbed serve, stragglers lifting the ladder through
+   ``halve_k`` and ``no_spec``, and a supervisor's recompute crash replay
+   ``torch.equal``; (c) a planted fault, greedy acceptance taking one
+   proposal more than matched, must fail the comparison with plain greedy
+   decoding at HIT_BAR; (d) window ms at each width and plain step ms at 4
+   rows and 1 (CUDA events over replays, alternating rounds), and in
+   alternating rounds phase 9's plain serve against the speculative and
+   adaptive serves, greedy and sampled: tokens/s, chunk-iteration ms,
+   emitted tokens an iteration; graphs captured and their capture cost.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -290,7 +323,8 @@ from repro_torch.quant import (  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ChaosConfig, ChunkState, ContinuousBatchingEngine, DecodeState, EngineCrash, FaultInjector,
     LadderConfig, ReplicaRouter, Request, ResiliencePolicy, ServingEngine, ServingSupervisor,
-    VirtualClock, admit_prefill, decode_and_emit, load_snapshot, quantize_tree, save_snapshot)
+    SpecConfig, VirtualClock, admit_prefill, decode_and_emit, load_snapshot, quantize_tree,
+    save_snapshot, speculative)
 from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits  # noqa: E402
 
 SEED = 20260
@@ -536,6 +570,9 @@ def main() -> int:
     resilience = ResiliencePhase(cfg, serving, prefix_phase)
     serve_windows += resilience.run()
 
+    # ---- 12. n-gram speculative decoding ---------------------------------------------
+    spec_launches = SpecPhase(cfg, eng8.params, prompt, toks, serving, prefix_phase).run()
+
     # ---- 8. the captured decode step ---------------------------------------------
     counted, traced = captured_phase(
         cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls,
@@ -556,9 +593,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
         "replaces": "src/repro/kernels/pim_matvec.py:40",
         "launches": counted["int8"]["traced"]["pim_matvec"] + sum(
-            t["pim_matvec"] for t in served.values()),
+            t["pim_matvec"] for t in (*served.values(), *spec_launches.values())),
         "launches_by_path": {"int8 generate": counted["int8"]["traced"]["pim_matvec"],
-                             **{k: t["pim_matvec"] for k, t in served.items()}},
+                             **{k: t["pim_matvec"] for k, t in served.items()},
+                             **{f"{k} (counters)": t["pim_matvec"]
+                                for k, t in spec_launches.items()}},
         "launches_counted_as": counted["int8"]["counted_as"], "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
@@ -2230,9 +2269,9 @@ class TimedEngine(ContinuousBatchingEngine):
                            torch.cuda.Event(enable_timing=True)))
         self.spans[-1][0].record()
 
-    def _read(self, n):
+    def _read(self, n, k=None):
         self.spans[-1][1].record()
-        return super()._read(n)
+        return super()._read(n, k)
 
     def timed_serve(self, requests, **mode):
         """``serve`` on the host clock: (outputs, wall s, device ms of the
@@ -2449,6 +2488,7 @@ class ServingPhase:
         report["trace"] = {"prompt_lengths": [len(p) for p in prompts], "max_new": news,
                            "stops": {r: s[0] for r, s in enumerate(stops) if s}}
         lengths = [expected_length(d, n, s) for d, n, s in zip(dense, news, stops)]
+        self.prompts, self.dense, self.lengths = prompts, dense, lengths
 
         # (a) captured equals eager, paged matches dense, pool invariants
         self.eng = eng = TimedEngine(cfg, self.params, device=dev, **SERVE)
@@ -3424,6 +3464,379 @@ class ResiliencePhase:
                         resumed_long_admit_flash_attention=self.long_resumed_flash)
         print(json.dumps({"check": "phase 11: launches", **launches}))
         return {"ladder serve": out["traced"]}
+
+
+# ---- 12. n-gram speculative decoding ---------------------------------------------------
+# (a) the fixed engine on phase 3's prompts and budget, (b) the continuous engine
+# on phase 9's and phase 10's traces, all at k = SPEC_K.
+SPEC_K = 4
+SPEC_WIDTHS = (1, 2, 4)   # (d): window ms at 4 rows, each width
+SPEC_TIME_REPS = 16       # (d): replays a timed window or step, per round
+SPEC_ROUNDS = 3           # (d): alternating rounds of plain steps and windows
+SPEC_SERVE_ROUNDS = 2     # (d): alternating rounds of plain and speculative serves
+# (b): the continuous engine's controller starts optimistic (an acceptance
+# estimate of 1), so its first rounds run k-wide windows and it narrows them
+# as it measures; from the default estimate of 0 it would stay at width 0 on
+# text whose proposals it never sees accepted.
+SPEC_ADAPTIVE = dict(k=SPEC_K, adaptive=True, ctrl_init=1.0)
+
+
+@contextlib.contextmanager
+def greedy_accept_one_more():
+    """The planted fault of (c): greedy acceptance takes one proposal more
+    than matched (never more than k)."""
+    sound = speculative.greedy_accept
+
+    def faulted(window, logits):
+        g, a = sound(window, logits)
+        return g, torch.clamp_max(a + 1, window.shape[1] - 1)
+    speculative.greedy_accept = faulted
+    try:
+        yield
+    finally:
+        speculative.greedy_accept = sound
+
+
+class EagerServingEngine(ServingEngine):
+    """The fixed engine with every step and window run eagerly (no graph),
+    on buffers of its own: the reference a captured generation is held
+    against, bit for bit."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.graphs.get = lambda params, key, pool_key, run, reset, bounded=False: run
+
+
+class RecordedWidths:
+    """The rounds' (chunk iterations, window width) of ``eng``, as
+    ``_round_width`` picks them."""
+
+    def __init__(self, eng):
+        self.rounds, pick = [], eng._round_width
+
+        def recorded(ladder):
+            self.rounds.append(pick(ladder))
+            return self.rounds[-1]
+        eng._round_width = recorded
+
+
+class SpecPhase:
+    """Phase 12: n-gram speculative decoding on both engines, (a) to (d) of
+    the module's docstring."""
+
+    def __init__(self, cfg, params, prompt, toks, serving, prefix):
+        self.cfg, self.params, self.prompt, self.toks = cfg, params, prompt, toks
+        self.serving, self.prefix, self.dev = serving, prefix, prompt.device
+        self.per_step = len(LINEARS) * cfg.n_layers
+
+    # ---- (a) the fixed engine ----------------------------------------------------------
+    def _plain_gap(self, eng, prompt, r, j):
+        """The top-2 gap of the plain captured run's logits that chose token j
+        of row r (the same batch, ``eng``'s decode step)."""
+        eng.generate(prompt, j + 1)
+        return top2_gap(eng.state(prompt.shape[0]).logits[r])
+
+    def _against_plain(self, label, eng, prompt, got, want, check_bar=True):
+        """Greedy speculation against plain greedy decoding of the same batch:
+        a first divergence only where the plain run's top-2 gap is within
+        HIT_BAR, the count beyond PAGED_BAR beside it."""
+        got_l, want_l = list(got.cpu().numpy()), list(want.cpu().numpy())
+        with torch.inference_mode():
+            div = divergences(got_l, want_l, [len(w) for w in want_l],
+                              lambda r, j: self._plain_gap(eng, prompt, r, j))
+        rep = {"check": f"{label}: against plain greedy decoding", "rows": len(got_l),
+               "equal": torch.equal(got, want), "diverged": len(div),
+               "beyond_bar": sum(beyond(d, HIT_BAR) for d in div),
+               "beyond_paged_bar": sum(beyond(d, PAGED_BAR) for d in div),
+               "divergences": div, "bar": HIT_BAR}
+        print(f"phase 12 {label}: " + json.dumps(rep), flush=True)
+        if check_bar:
+            check(rep["beyond_bar"] == 0, f"{label}: diverges from plain greedy decoding beyond "
+                                          f"the bar {HIT_BAR}: {rep}")
+        return rep
+
+    def fixed(self, report):
+        cfg, dev, prompt = self.cfg, self.dev, self.prompt
+        eng = ServingEngine(cfg, self.params, max_seq=PROMPT + N_NEW, device=dev)
+        eager = EagerServingEngine(cfg, self.params, max_seq=PROMPT + N_NEW, device=dev)
+        self.fixed_eng, self.fixed_graphs = eng, count_captures(eng)
+        plain = eng.generate(prompt, N_NEW)
+        check(torch.equal(plain, self.toks), "(a) the plain generate differs from phase 3's")
+        spec = SpecConfig(k=SPEC_K)
+        cases = (("greedy", spec, GREEDY), ("sampled exact", spec, SAMPLED),
+                 ("typical", SpecConfig(k=SPEC_K, accept="typical"), SAMPLED),
+                 ("adaptive greedy", SpecConfig(k=SPEC_K, adaptive=True), GREEDY))
+        rows = []
+        for label, sp, mode in cases:
+            got = eng.generate(prompt, N_NEW, speculate=sp, **mode)
+            want = eager.generate(prompt, N_NEW, speculate=sp, **mode)
+            row = {"case": label, "batch": BATCH, "window_rows": BATCH * (sp.k + 1),
+                   "tokens_equal_eager": torch.equal(got, want),
+                   "windows_equal_eager": eng.spec_stats == eager.spec_stats,
+                   "spec_stats": dict(eng.spec_stats)}
+            check(got.dtype == torch.int32 and bool(((got >= 0) & (got < cfg.vocab)).all()),
+                  f"(a) {label}: tokens {got.dtype} out of range")
+            check(row["tokens_equal_eager"] and row["windows_equal_eager"],
+                  f"(a) {label}: the captured windows differ from the eager ones: {row}")
+            if mode["greedy"]:
+                row["vs_plain"] = self._against_plain(f"(a) {label}", eng, prompt, got, plain)
+            rows.append(row)
+            if label == "greedy":
+                self.fixed_greedy = got
+
+        # batch 1: a 5-row window, through pim_matvec
+        p1 = prompt[:1]
+        plain1 = eng.generate(p1, N_NEW)
+        got1 = eng.generate(p1, N_NEW, speculate=spec)
+        check(torch.equal(got1, eager.generate(p1, N_NEW, speculate=spec))
+              and eng.spec_stats == eager.spec_stats,
+              "(a) batch 1: the captured windows differ from the eager ones")
+        _, launches, counted_as = counted_launches(
+            self.fixed_graphs, lambda: eng.generate(p1, N_NEW, speculate=spec))
+        windows = eng.spec_stats["verify_steps"]
+        want = dict.fromkeys(launches, 0)
+        want["pim_matvec"] = self.per_step * windows
+        check(launches == want, f"(a) batch 1: launches {launches}, expected {want} "
+                                f"({windows} windows of {spec.k + 1} rows)")
+        row1 = {"case": "greedy, batch 1", "batch": 1, "window_rows": spec.k + 1,
+                "tokens_equal_eager": True, "spec_stats": dict(eng.spec_stats),
+                "launches": launches, "launches_counted_as": counted_as,
+                "vs_plain": self._against_plain("(a) greedy, batch 1", eng, p1, got1, plain1)}
+        row1["equal_to_plain_batch_1"] = torch.equal(got1, plain1)
+        rows.append(row1)
+        self.launches["fixed engine, batch 1 windows"] = launches
+        # batch 4 at k = 4: 20-row windows through x @ dq(w), no pim_matvec
+        _, launches4, _ = counted_launches(
+            self.fixed_graphs, lambda: eng.generate(prompt, N_NEW, speculate=spec))
+        check(launches4 == dict.fromkeys(launches4, 0), f"(a) batch 4, k = {SPEC_K}: launches "
+              f"{launches4}, expected none (20-row windows go through x @ dq(w))")
+        report["fixed"] = rows
+        del eager
+
+        # (c) the planted fault: greedy acceptance one proposal too many
+        with greedy_accept_one_more():
+            faulty = ServingEngine(cfg, self.params, max_seq=PROMPT + N_NEW, device=dev)
+            bad = faulty.generate(prompt, N_NEW, speculate=spec)
+        fault = self._against_plain("(c) planted fault", eng, prompt, bad, plain,
+                                    check_bar=False)
+        report["planted_fault"] = {"fault": "greedy_accept accepts one proposal more than "
+                                            "matched", "rows_changed": int(
+                                       (bad != self.fixed_greedy).any(dim=1).sum()), **fault}
+        check(fault["beyond_bar"] > 0, f"(c) the planted fault passes against plain decoding: "
+                                       f"{report['planted_fault']}")
+        del faulty
+
+    @torch.inference_mode()
+    def window_times(self, report):
+        """(d): ms a window at each width (CUDA events over replays) against
+        the plain captured step, at 4 rows and at 1, in alternating rounds."""
+        eng, cfg, prompt = self.fixed_eng, self.cfg, self.prompt
+        runs, plain_of = {}, {}
+        for b in (BATCH, 1):
+            p = prompt[:b]
+            plain_of[b] = f"plain step, {b} rows"
+            runs[plain_of[b]] = (
+                eng.step(b, greedy=True, top_k=0), functools.partial(
+                    eng.state(b).start, self.params, cfg, p, None, 1.0, greedy=True, top_k=0),
+                b, b)
+            for k in (SPEC_WIDTHS if b == BATCH else (SPEC_K,)):
+                sp = SpecConfig(k=k)
+                runs[f"window k={k}, {b} x {k + 1} rows"] = (
+                    eng.spec_step(b, sp, greedy=True, top_k=0), functools.partial(
+                        eng.spec_state(b).start, self.params, cfg, p, None, 1.0, N_NEW,
+                        greedy=True, top_k=0, ctrl_init=0.0), b * (k + 1), b)
+
+        def ms(step, start):
+            start()
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(SPEC_TIME_REPS):
+                step()
+            z.record()
+            z.synchronize()
+            return a.elapsed_time(z) / SPEC_TIME_REPS
+
+        rounds = []
+        for _ in range(SPEC_ROUNDS):
+            rounds.append({name: ms(step, start) for name, (step, start, _, _) in runs.items()})
+            rounds[-1]["sm_clock_mhz"] = tracing.sm_clock_mhz()
+        med = {name: sorted(r[name] for r in rounds)[len(rounds) // 2] for name in runs}
+        rows = []
+        for name, (_, _, m, b) in runs.items():
+            rows.append({"run": name, "rows": m,
+                         "linears_through": ("pim_matvec" if m <= common.MATVEC_MAX_M
+                                             else "x @ dq(w)"),
+                         "ms": med[name], "over_plain_step": med[name] / med[plain_of[b]]})
+        report["window_ms"] = {"timing": "device ms a replay, CUDA events over "
+                                         f"{SPEC_TIME_REPS} replays, median of {SPEC_ROUNDS} "
+                                         "alternating rounds", "rows": rows, "rounds": rounds}
+
+    # ---- (b) the continuous engine -----------------------------------------------------
+    def _engines(self, spec, **kw):
+        geo = {**SERVE, **kw}
+        eng = TimedEngine(self.cfg, self.params, speculate=spec, device=self.dev, **geo)
+        eng.debug_check_hist = True
+        eager = EagerEngine(self.cfg, self.params, speculate=spec, device=self.dev, **geo)
+        return eng, count_captures(eng), eager
+
+    def _captured_vs_eager(self, label, eng, eager, reqs, mode=GREEDY):
+        out = eng.serve(reqs, **mode)
+        rep = eng.last_report
+        out_e = eager.serve(reqs, **mode)
+        same = {"case": label, "tokens_equal": same_tokens(out, out_e),
+                "events_equal": events_of(rep) == events_of(eager.last_report),
+                "peak_pages": [eng.peak_pages_in_use, eager.peak_pages_in_use],
+                "rounds": rep.rounds, "decode_chunk_iters": eng.decode_chunk_iters,
+                "spec_emitted": eng.spec_emitted, "spec_live_steps": eng.spec_live_steps,
+                "tokens": sum(len(o) for o in out),
+                "eff_k_by_round": [c["eff_k"] for c in rep.counters]}
+        same["acceptance"] = eng.spec_emitted / max(1, eng.spec_live_steps)
+        same["tokens_per_chunk_iter"] = same["tokens"] / max(1, eng.decode_chunk_iters)
+        check(same["tokens_equal"] and same["events_equal"]
+              and eng.peak_pages_in_use == eager.peak_pages_in_use,
+              f"(b) {label}: the captured serve differs from the eager one: {same}")
+        eng.assert_quiescent()
+        return out, same
+
+    def _against_dense(self, label, out):
+        """Greedy speculation against phase 9's solo dense runs at HIT_BAR."""
+        sv = self.serving
+        with torch.inference_mode():
+            rep = paged_vs_dense(label, out, sv.dense, sv.lengths, lambda r, j: sv._gap(
+                sv.solo, torch.from_numpy(sv.prompts[r])[None].to(self.dev), j), HIT_BAR)
+        rep["beyond_paged_bar"] = sum(beyond(d, PAGED_BAR) for d in rep["divergences"])
+        rep["requests_equal_plain_serve"] = sum(
+            np.array_equal(a, b) for a, b in zip(out, sv.out))
+        print(f"phase 12 {label}: " + json.dumps(rep), flush=True)
+        return rep
+
+    def continuous(self, report):
+        sv, reqs = self.serving, self.serving.reqs
+        rows = []
+        spec = SpecConfig(k=SPEC_K)
+        eng, graphs, eager = self._engines(spec)
+        self.serve_eng, self.serve_graphs = eng, graphs
+        self.out, same = self._captured_vs_eager("greedy", eng, eager, reqs)
+        same["vs_dense"] = self._against_dense("(b) greedy speculation", self.out)
+        rows.append(same)
+        self.out_sampled, same = self._captured_vs_eager("sampled", eng, eager, reqs, SAMPLED)
+        check(not same_tokens(self.out_sampled, self.out), "(b) sampled tokens equal greedy ones")
+        rows.append(same)
+        del eager
+
+        # the adaptive controller: widths per round, k = 0 rounds plain
+        aeng, agraphs, aeager = self._engines(SpecConfig(**SPEC_ADAPTIVE))
+        widths = RecordedWidths(aeng)
+        out_a, same = self._captured_vs_eager("adaptive greedy", aeng, aeager, reqs)
+        same["vs_dense"] = self._against_dense("(b) adaptive greedy speculation", out_a)
+        rows.append(same)
+        del aeager
+        widths.rounds.clear()
+        _, launches, counted_as = counted_launches(agraphs, lambda: aeng.serve(reqs))
+        via = sum(c for c, k in widths.rounds
+                  if k is None or SERVE["slots"] * (k + 1) <= common.MATVEC_MAX_M)
+        want = dict.fromkeys(launches, 0)
+        want["pim_matvec"] = self.per_step * via
+        check(launches == want, f"(b) adaptive serve: launches {launches}, expected {want} "
+                                f"from its rounds {widths.rounds}")
+        check(via > 0, f"(b) adaptive serve: no round of width 0 or of <= 8 rows {widths.rounds}")
+        self.launches["continuous engine, adaptive serve"] = launches
+        report["adaptive_launches"] = {"launches": launches, "counted_as": counted_as,
+                                       "rounds_chunk_and_width": widths.rounds,
+                                       "iterations_through_pim_matvec": via}
+        self.adaptive = (aeng, agraphs)
+
+        # the prefix cache stays on under n-gram speculation
+        peng, pgraphs, peager = self._engines(spec, prefix_cache=True, **PREFIX_SERVE)
+        out_p, same = self._captured_vs_eager("prefix cache, greedy", peng, peager,
+                                              self.prefix.reqs)
+        prep = peng.last_report
+        same.update(prefix_hits=prep.prefix_hits, prefix_hit_tokens=prep.prefix_hit_tokens,
+                    cow_forks=prep.cow_forks)
+        check(prep.prefix_hits > 0, "(b) no prefix hit under speculation")
+        rows.append(same)
+        report["continuous"] = rows
+        report["graphs"] = {"fixed engine": capture_report(self.fixed_eng, self.fixed_graphs),
+                            "serve, k = 4": capture_report(eng, graphs),
+                            "serve, adaptive": capture_report(aeng, agraphs),
+                            "serve, prefix cache": capture_report(peng, pgraphs)}
+        del peng, peager, pgraphs
+
+        # the resilience tier: transient faults, the has_spec ladder, a crash
+        inj = FaultInjector(ChaosConfig(**CHAOS_SCRIPTED))
+        rep = eng.serve_detailed(reqs, chaos=inj, policy=ResiliencePolicy(
+            ladder=LadderConfig(enabled=False)))
+        transient = {"injected": inj.counts, "retries": rep.retries,
+                     "squeezed_pages": rep.squeezed_pages,
+                     "tokens_equal": same_tokens(rep.outputs, self.out)}
+        check(all(r.status == "done" for r in rep.records) and transient["tokens_equal"],
+              f"(b) transient faults changed the speculative serve: {transient}")
+        rep = eng.serve_detailed(reqs, chaos=FaultInjector(ChaosConfig(
+            straggle_rounds=LADDER_STRAGGLES)), policy=ResiliencePolicy(
+            ladder=LadderConfig(cooldown=LADDER_COOLDOWN)))
+        ladder = {"trace": rep.ladder_trace, "max_level": rep.max_ladder_level,
+                  "eff_k_by_round": [c["eff_k"] for c in rep.counters],
+                  "tokens_equal": same_tokens(rep.outputs, self.out),
+                  "vs_dense": self._against_dense("(b) ladder", rep.outputs)}
+        check(all(r.status == "done" for r in rep.records)
+              and {SPEC_K // 2, 0} <= set(ladder["eff_k_by_round"]),
+              f"(b) the ladder did not halve and drop the window: {ladder}")
+        inj, snaps = FaultInjector(ChaosConfig(crash_rounds=(CRASH_ROUNDS[0],))), []
+        rep = ServingSupervisor(eng, policy=ResiliencePolicy(
+            resume_mode="recompute", snapshot_sink=snaps.append), chaos=inj).run(reqs)
+        wctrs = [st.wctr for snap in snaps for st in snap.inflight.values()]
+        crash = {"restarts": rep.restarts, "failures": [f.kind for f in rep.failures],
+                 "tokens_equal": same_tokens(rep.outputs, self.out), "snapshots": len(snaps),
+                 "inflight_wctr_max": max(wctrs, default=0)}
+        check(rep.restarts == 1 and injected_only(rep.failures, inj) and crash["tokens_equal"]
+              and crash["inflight_wctr_max"] > 0,
+              f"(b) recompute crash replay of the speculative serve: {crash}")
+        eng.assert_quiescent()
+        report["resilience"] = {"transient, ladder off": transient, "ladder": ladder,
+                                "crash replay, recompute": crash}
+
+    def serve_times(self, report):
+        """(d): alternating rounds of phase 9's plain serve and the speculative
+        serve, greedy and sampled, and the adaptive serve: tokens/s (host
+        clock), chunk-iteration ms (CUDA events), emitted tokens an
+        iteration."""
+        plain, spec, (adaptive, _) = self.serving.eng, self.serve_eng, self.adaptive
+        runs = {"plain": (plain, GREEDY, self.serving.out),
+                "speculative": (spec, GREEDY, self.out),
+                "adaptive": (adaptive, GREEDY, None),
+                "plain, sampled": (plain, SAMPLED, self.serving.out_sampled),
+                "speculative, sampled": (spec, SAMPLED, self.out_sampled)}
+        rounds = []
+        for _ in range(SPEC_SERVE_ROUNDS):
+            row = {}
+            for name, (e, mode, want) in runs.items():
+                out, t = e.timed_serve(self.serving.reqs, **mode)
+                if want is not None:
+                    check(same_tokens(out, want), f"(d) the timed serve {name!r} changed")
+                row[name] = {**timing_row(t), "tokens_per_chunk_iter": t["tokens"] / t["iters"]}
+            row["sm_clock_mhz"] = tracing.sm_clock_mhz()
+            rounds.append(row)
+        med = {name: {k: sorted(r[name][k] for r in rounds)[len(rounds) // 2]
+                      for k in ("tokens_per_s", "step_ms_per_iter", "tokens_per_chunk_iter",
+                                "host_ms_per_round_outside_steps")} for name in runs}
+        for a, b in (("speculative", "plain"), ("speculative, sampled", "plain, sampled"),
+                     ("adaptive", "plain")):
+            med[a]["tokens_per_s_over_plain"] = med[a]["tokens_per_s"] / med[b]["tokens_per_s"]
+        report["serve_times"] = {"rounds": rounds, "medians": med}
+
+    def run(self):
+        report = {"check": "phase 12: n-gram speculative decoding, qwen2-1.5b int8",
+                  "section_s": {}}
+        t0 = time.perf_counter()
+        self.launches = {}
+        for part in (self.fixed, self.window_times, self.continuous, self.serve_times):
+            t = time.perf_counter()
+            part(report)
+            report["section_s"][part.__name__] = time.perf_counter() - t
+        report["launches"] = self.launches
+        report["phase_s"] = time.perf_counter() - t0
+        print(json.dumps(report), flush=True)
+        return self.launches
 
 
 if __name__ == "__main__":

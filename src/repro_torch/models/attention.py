@@ -336,8 +336,8 @@ def attn_verify(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, n_h
     VERIFY_SCORES_BYTES of scores allow; the per-query arithmetic does not
     depend on the block.  Returns (out (B, T, D), cache).
 
-    The dense form selects the in-store writes with a mask read on the host;
-    the paged form reads nothing on the host."""
+    Neither form reads a value of the device on the host, so a CUDA graph of
+    the window replays for any positions."""
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     posm = pos.reshape(b, 1) + torch.arange(t, device=x.device)  # (B, T)
@@ -353,12 +353,21 @@ def attn_verify(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, n_h
     else:
         rows = {"k": k, "v": v}
     if block_tables is None:
+        # A write past the store goes to its last column with the value that
+        # column takes anyway: the window's own write there, or, for a row
+        # whose window starts past the store, the column's old value.
         seq = cache["k"].shape[2]
         keep = posm < seq
-        slot = torch.arange(b, device=x.device)[:, None].expand(b, t)[keep]
-        col = posm[keep]
+        ar = torch.arange(b, device=x.device)
+        last = (seq - 1 - pos.reshape(b)).clamp(0, t - 1)
+        inside = pos.reshape(b) < seq
+        slot, col = ar[:, None].expand(b, t), posm.clamp_max(seq - 1)
         for name, new in rows.items():
-            cache[name][slot, :, col] = new[keep].to(cache[name].dtype)
+            leaf = cache[name]
+            new = new.to(leaf.dtype)
+            tail = (1,) * (new.dim() - 2)
+            fill = torch.where(inside.reshape((b,) + tail), new[ar, last], leaf[ar, :, seq - 1])
+            leaf[slot, :, col] = torch.where(keep.reshape((b, t) + tail), new, fill[:, None])
 
         def read(name):
             return cache[name]

@@ -18,6 +18,7 @@ Public API:
                                            -> (logits (B, 1, V), cache)
   verify_step(params, cfg, tokens, cache, pos[, page_size])
                                            -> (logits (B, T, V), cache)
+  commit_verify(cfg, cache, sel)           -> cache
 """
 from __future__ import annotations
 
@@ -184,3 +185,13 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     cache)."""
     x = verify_hidden(params, cfg, tokens, cache, pos, page_size)
     return unembed(x, params.get("head", params["embed"])), cache
+
+
+def commit_verify(cfg: ModelConfig, cache: dict, sel: torch.Tensor) -> dict:
+    """Commit a ``verify_step`` cache at each row's accepted step ``sel``
+    (B,).  The dense family keeps nothing per step: its window's K/V are
+    written in place, and positions past the accepted frontier are masked
+    and written again by the next window, so the cache is returned as it
+    is.  The families with per-step state are not ported."""
+    _check_family(cfg)
+    return cache

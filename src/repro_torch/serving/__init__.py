@@ -1,7 +1,10 @@
 """Serving substrate of the port: PIM weight conversion, sampled decoding, the
 fixed-batch engine, and the continuous-batching engine over a paged cache with
 its prefix cache, its resilience tier (``serving.resilience``, fault injection
-in ``serving.chaos``) and the multi-replica router (``serving.router``)."""
+in ``serving.chaos``) and the multi-replica router (``serving.router``).
+Both engines speculate with n-gram proposals under ``speculate=SpecConfig(k=...)``
+(``serving.speculative``; rejection-sampled verification in
+``serving.sampling``)."""
 from .chaos import ChaosConfig, ChunkFault, EngineCrash, FaultInjector, VirtualClock
 from .engine import (CapturedSteps, ChunkState, ContinuousBatchingEngine, DecodeState,
                      Request, ServingEngine, admit_cached, admit_miss, admit_prefill,
@@ -11,15 +14,19 @@ from .prefix import PagePool, PrefixTrie, chunk_keys, extras_fingerprint
 from .resilience import (LadderConfig, RequestRecord, ResiliencePolicy, ServeReport,
                          ServeSnapshot, ServingSupervisor, load_snapshot, save_snapshot)
 from .router import ReplicaRouter, RouterReport
-from .sampling import (TAG_TOKEN, TAG_WINDOW, draw_keys, fold_in, prng_key,
-                       sample_rows, warp_logits)
+from .sampling import (TAG_TOKEN, TAG_WINDOW, acceptance_probs, draw_keys, fold_in, prng_key,
+                       rejection_sample, residual_dist, sample_rows, split,
+                       typical_accept_sample, warp_logits)
+from .speculative import SpecConfig, SpecState, propose_ngram, spec_chunk_step, spec_window
 
 __all__ = ["CapturedSteps", "ChaosConfig", "ChunkFault", "ChunkState",
            "ContinuousBatchingEngine", "DecodeState", "EngineCrash", "FaultInjector",
            "LadderConfig", "PagePool", "PrefixTrie", "ReplicaRouter", "Request",
            "RequestRecord", "ResiliencePolicy", "RouterReport", "ServeReport", "ServeSnapshot",
-           "ServingEngine", "ServingSupervisor", "TAG_TOKEN", "TAG_WINDOW", "VirtualClock",
-           "admit_cached", "admit_miss", "admit_prefill", "chunk_keys", "decode_and_emit",
-           "decode_chunk_step", "draw_keys", "extras_fingerprint", "fold_in",
-           "load_snapshot", "mask_after_stop", "pim_bytes", "prng_key", "quantize_tree",
-           "sample_logits", "sample_rows", "save_snapshot", "tail_verify", "warp_logits"]
+           "ServingEngine", "ServingSupervisor", "SpecConfig", "SpecState", "TAG_TOKEN",
+           "TAG_WINDOW", "VirtualClock", "acceptance_probs", "admit_cached", "admit_miss",
+           "admit_prefill", "chunk_keys", "decode_and_emit", "decode_chunk_step", "draw_keys",
+           "extras_fingerprint", "fold_in", "load_snapshot", "mask_after_stop", "pim_bytes",
+           "prng_key", "propose_ngram", "quantize_tree", "rejection_sample", "residual_dist",
+           "sample_logits", "sample_rows", "save_snapshot", "spec_chunk_step", "spec_window",
+           "split", "tail_verify", "typical_accept_sample", "warp_logits"]

@@ -3,11 +3,11 @@ continuous-batching engine over a paged KV cache.
 
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
 ``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense
-family, with the prefix cache and the resilience tier, without speculation
-or a mesh).  ``quantize_tree`` turns every large matmul weight into
-``{"codes": int8, "scale": f32}`` (int4: nibble-packed codes plus a marker
-leaf); at decode time each of those weights is streamed once per step by
-the ``pim_matvec`` kernel.
+family, with n-gram speculation, the prefix cache and the resilience tier,
+without draft-model or tree speculation or a mesh).  ``quantize_tree``
+turns every large matmul weight into ``{"codes": int8, "scale": f32}``
+(int4: nibble-packed codes plus a marker leaf); at decode time each of
+those weights is streamed once per step by the ``pim_matvec`` kernel.
 
 ``ServingEngine.generate`` is the JAX package's one program
 (``_generate_body``) for the dense family: an eager prefill, then
@@ -18,7 +18,10 @@ the card the engine captures it once in a CUDA graph and each decode step is
 one replay; on the CPU the same function runs eagerly.  Sampled draws are
 keyed per row and per draw index with the JAX package's own keys
 (``serving.sampling``).  ``generate_reference`` is the per-token loop
-(prompt included), the parity oracle.
+(prompt included), the parity oracle.  With ``speculate=`` each verify
+window (``speculative.spec_window``) is one replay instead, and the host
+reads the rows' emitted counts only between runs of windows that the
+slowest row needs anyway.
 
 ``ContinuousBatchingEngine.serve`` schedules requests on the host in numpy,
 as the reference does, and runs each round's decode chunk (the reference's
@@ -32,7 +35,9 @@ after the prefix cache aliased its first pages) kept per window width.
 Under a ``ResiliencePolicy`` (``serving.resilience``) ``serve_detailed``
 retries, sheds, rejects and degrades on the host and snapshots each round;
 a crash-replayed request is re-admitted by the same captured admit over its
-prompt and emitted tokens.
+prompt and emitted tokens.  With ``speculate=`` a round of width k > 0 runs
+``speculative.spec_chunk_step`` (one replay per iteration, captured per
+width) and a round of width 0 the plain chunk step.
 """
 from __future__ import annotations
 
@@ -57,8 +62,10 @@ from .chaos import ChunkFault, EngineCrash
 from .prefix import PagePool, PrefixTrie, chunk_keys, extras_fingerprint
 from .resilience import (DegradationLadder, InflightState, LadderConfig, RequestRecord,
                          ResiliencePolicy, ServeReport, ServeSnapshot)
-from .sampling import (TAG_TOKEN, draw_keys, fold_in, gumbel, prng_key, row_keys,
-                       sample_rows, warp_logits)
+from .sampling import (TAG_TOKEN, TAG_WINDOW, draw_keys, fold_in, gumbel, prng_key,
+                       row_keys, sample_rows, warp_logits)
+from .speculative import (SpecConfig, SpecState, adaptive_k_host, as_spec, propose_first_host,
+                          spec_chunk_step, spec_window)
 
 # Leaves that stay dense: norms/gains/biases/scalars, router (accuracy-
 # critical and tiny), conv kernels, SSM dynamics params.
@@ -232,10 +239,11 @@ def decode_and_emit(params, cfg: ModelConfig, st: DecodeState, *, greedy: bool,
 # Options of the JAX package's engines that the port does not run yet, and the
 # ROADMAP.md item (section 1) that brings each.
 _LATER = {"mesh": "item 7 (tensor-parallel decode)",
-          "speculate": "item 4 (speculative decoding)",
-          "draft_cfg": "item 4 (speculative decoding)",
-          "draft_params": "item 4 (speculative decoding)",
-          "draft_pim_bits": "item 4 (speculative decoding)",
+          "draft_cfg": "item 4b (draft-model speculation)",
+          "draft_params": "item 4b (draft-model speculation)",
+          "draft_pim_bits": "item 4b (draft-model speculation)",
+          "mode": "item 4b (draft-model speculation)",
+          "tree_fan": "item 4c (tree drafts)",
           "extras": "item 5 (the vlm and encdec families)"}
 
 
@@ -246,6 +254,16 @@ def _unported(**options) -> None:
         if value is not None and value is not False and value != 0:
             raise NotImplementedError(
                 f"{name}= is not ported yet: ROADMAP.md section 1, {_LATER[name]}")
+
+
+def _spec_of(speculate) -> Optional[SpecConfig]:
+    """``speculate=`` as a SpecConfig (None: no speculation); draft-model
+    mode and tree drafts raise NotImplementedError."""
+    if speculate is None:
+        return None
+    spec = as_spec(speculate)
+    _unported(mode=spec.mode == "draft", tree_fan=spec.tree_fan)
+    return spec
 
 
 class CapturedSteps:
@@ -321,21 +339,28 @@ class CapturedSteps:
 
 class ServingEngine:
     """Fixed-batch engine: single-pass prefill, then one decode step per new
-    token, each step one CUDA graph replay on the card.  ``device=None``
-    means the card."""
+    token, or one verify window per several under ``speculate=``, each one
+    CUDA graph replay on the card.  ``device=None`` means the card.
+    ``spec_stats`` holds the realised acceptance of the last speculative
+    ``generate``."""
 
     def __init__(self, cfg: ModelConfig, params, max_seq: int,
-                 pim_bits: int = 0, device=None, mesh=None):
-        _unported(mesh=mesh)
+                 pim_bits: int = 0, device=None, mesh=None,
+                 draft_cfg: Optional[ModelConfig] = None, draft_params=None,
+                 draft_pim_bits: int = 0):
+        _unported(mesh=mesh, draft_cfg=draft_cfg, draft_params=draft_params,
+                  draft_pim_bits=draft_pim_bits)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = quantize_tree(params, pim_bits) if pim_bits else params
         self.max_seq = max_seq
         self._states: dict[int, DecodeState] = {}
+        self._spec_states: dict[int, SpecState] = {}
         self.graphs = CapturedSteps(self.device)
+        self.spec_stats: Optional[dict] = None
 
-    def _check(self, prompt_tokens, n_new: int, extras, speculate=None):
-        _unported(extras=extras, speculate=speculate)
+    def _check(self, prompt_tokens, n_new: int, extras):
+        _unported(extras=extras)
         s = prompt_tokens.shape[1]
         if s + n_new > self.max_seq:
             raise ValueError(
@@ -366,6 +391,61 @@ class ServingEngine:
             st.idx.zero_()
         return self.graphs.get(self.params, (batch, bool(greedy), top_k), batch, run, reset)
 
+    def spec_state(self, batch: int) -> SpecState:
+        """The speculative buffers of a batch of ``batch`` rows, on the cache
+        of ``state(batch)`` (made at first use and kept)."""
+        if batch not in self._spec_states:
+            self._spec_states[batch] = SpecState(batch, self.max_seq, self.state(batch).cache,
+                                                 self.device)
+        return self._spec_states[batch]
+
+    def spec_step(self, batch: int, spec: SpecConfig, *, greedy: bool, top_k: int):
+        """One verify window of ``batch`` rows as a call with no arguments:
+        ``spec_window`` on the current parameters, kept on the card per
+        (batch, spec, greedy, top_k) and dispatch mode, in the graph memory
+        pool of the batch's decode step.  Its warm-up writes the buffers,
+        which ``SpecState.start`` resets."""
+        top_k = 0 if greedy else int(top_k)
+        st = self.spec_state(batch)
+        run = functools.partial(spec_window, self.params, self.cfg, st, spec=spec,
+                                greedy=bool(greedy), top_k=top_k)
+        return self.graphs.get(self.params, ("spec", batch, spec, bool(greedy), top_k), batch,
+                               run, st.reset)
+
+    def _generate_speculative(self, prompt: torch.Tensor, n_new: int, spec: SpecConfig, *,
+                              greedy: bool, temperature: float, top_k: int, key) -> torch.Tensor:
+        """The JAX package's ``_spec_generate_body``: prefill and draw 0, then
+        verify windows until every row has ``n_new`` tokens.  Each row emits
+        at most ``k + 1`` tokens a window, so the host reads the emitted
+        counts, runs the windows the slowest row needs at least, and reads
+        again: no window runs past the reference's loop."""
+        b = prompt.shape[0]
+        steps = live_steps = 0
+        toks = torch.zeros((b, 0), dtype=torch.int32, device=self.device)
+        if n_new:
+            step = self.spec_step(b, spec, greedy=greedy, top_k=top_k)
+            st = self.spec_state(b)
+            st.start(self.params, self.cfg, prompt, key, temperature, n_new, greedy=greedy,
+                     top_k=0 if greedy else int(top_k), ctrl_init=spec.ctrl_init)
+            while True:
+                left = n_new - int(st.n_em.min())
+                if left <= 0:
+                    break
+                for _ in range(-(-left // (spec.k + 1))):
+                    step()
+            toks = st.out[:, :n_new].clone()
+            steps, live_steps = int(st.steps), int(st.live_steps)
+        # a window streams the weights once for the whole batch: tokens a row
+        # over windows is the amortisation, tokens over live row windows the
+        # proposer's acceptance
+        self.spec_stats = {
+            "k": spec.k, "mode": spec.mode, "greedy": greedy, "adaptive": spec.adaptive,
+            "tree_fan": spec.tree_fan, "accept": spec.accept, "verify_steps": steps,
+            "live_row_steps": live_steps,
+            "emitted_per_step": (n_new - 1) / steps if steps else 0.0,
+            "acceptance_per_live_row": b * (n_new - 1) / live_steps if live_steps else 0.0}
+        return toks
+
     @torch.inference_mode()
     def generate(self, prompt_tokens, n_new: int, extras: Optional[dict] = None,
                  greedy: bool = True, temperature: float = 1.0, top_k: int = 0,
@@ -379,8 +459,20 @@ class ServingEngine:
         ``jax.random.PRNGKey``'s key data or an int seed (None:
         ``PRNGKey(0)``), so the draws are the JAX package's.
         ``stop_tokens`` masks every token a row emits after its first stop
-        token with ``pad_id`` (the stop token itself is kept)."""
-        prompt = self._check(prompt_tokens, n_new, extras, speculate)
+        token with ``pad_id`` (the stop token itself is kept).
+
+        ``speculate`` (a ``SpecConfig`` or an int ``k``, n-gram proposals)
+        verifies ``k`` proposals and the current token in one window a step
+        (``_generate_speculative``): greedy tokens are plain greedy
+        decoding's; sampled ones are rejection-sampled (or typical-accepted)
+        with ``draw_keys(key, row, window, TAG_WINDOW)``, as the JAX
+        package draws them."""
+        prompt = self._check(prompt_tokens, n_new, extras)
+        spec = _spec_of(speculate)
+        if spec is not None:
+            toks = self._generate_speculative(prompt, n_new, spec, greedy=bool(greedy),
+                                              temperature=temperature, top_k=top_k, key=key)
+            return mask_after_stop(toks, stop_tokens, pad_id)
         b = prompt.shape[0]
         if n_new == 0:
             return torch.zeros((b, 0), dtype=torch.int32, device=self.device)
@@ -539,8 +631,13 @@ class ChunkState:
     (2,) int64 and temperature (0-d f32); the iteration within the round
     (0-d int64); the round's emissions and liveness, (chunk, B); the stop
     tokens, (B, n) int32 for each number n of stop columns a trace needs;
-    and the admits' buffers, an ``AdmitState`` per padded prompt length and
-    a ``WindowState`` per tail window width."""
+    the admits' buffers, an ``AdmitState`` per padded prompt length and a
+    ``WindowState`` per tail window width; and speculation's: per slot the
+    history (B, store_seq + 1) int32 (the last column takes the writes the
+    reference drops), the window counter (B,) int64, the acceptance EMA
+    (B,) f32 and the row key of its window stream (B, 2), and per window
+    width k the round's emissions (chunk, B, k+1) int32 and counts (chunk,
+    B) int64."""
 
     def __init__(self, cfg: ModelConfig, slots: int, store_seq: int, num_pages: int,
                  page_size: int, chunk: int, device):
@@ -559,9 +656,14 @@ class ChunkState:
         self.it = zeros((), torch.int64)
         self.emits = zeros((chunk, slots), torch.int32)
         self.lives = zeros((chunk, slots), torch.bool)
+        self.hist = zeros((slots, store_seq + 1), torch.int32)
+        self.wctr = zeros((slots,), torch.int64)
+        self.ema = zeros((slots,), torch.float32)
+        self.wkeys = zeros((slots, 2), torch.int64)
         self._stops: dict[int, torch.Tensor] = {}
         self._admits: dict[int, AdmitState] = {}
         self._windows: dict[int, WindowState] = {}
+        self._spec: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def stops(self, n: int) -> torch.Tensor:
         if n not in self._stops:
@@ -580,12 +682,23 @@ class ChunkState:
             self._windows[width] = WindowState(self.tok.shape[0], width, self.tok.device)
         return self._windows[width]
 
+    def spec(self, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The emissions and counts of a round of width-``k`` windows."""
+        if k not in self._spec:
+            chunk, slots = self.emits.shape
+            self._spec[k] = (torch.zeros((chunk, slots, k + 1), dtype=torch.int32,
+                                         device=self.tok.device),
+                             torch.zeros((chunk, slots), dtype=torch.int64,
+                                         device=self.tok.device))
+        return self._spec[k]
+
     def zero_(self) -> None:
         """Every buffer as a fresh state holds it (the reference makes a fresh
         cache for every serve; a captured step must keep its memory)."""
         for t in (*self.cache["layers"].values(), self.cache["block_tables"], self.tok,
                   self.pos, self.n_out, self.max_new, self.done, self.keys, self.base,
-                  self.temperature, self.it, self.emits, self.lives):
+                  self.temperature, self.it, self.emits, self.lives, self.hist, self.wctr,
+                  self.ema, self.wkeys, *(t for pair in self._spec.values() for t in pair)):
             t.zero_()
         for t in self._stops.values():
             t.fill_(-1)
@@ -650,8 +763,9 @@ MAX_ADMIT_GRAPHS = 64
 
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
-    package's, for the dense family, with the prefix cache and the
-    resilience tier, without speculation or a mesh).
+    package's, for the dense family, with n-gram speculation, the prefix
+    cache and the resilience tier, without draft-model or tree speculation
+    or a mesh).
 
     ``slots`` is the decode batch width; ``num_pages`` bounds the cache
     (pages of ``page_size`` tokens, page 0 the trash page; default: every
@@ -661,7 +775,14 @@ class ContinuousBatchingEngine:
     permutations of the pool (and the JAX package's, for the same seed).
     ``clock`` is a 0-arg monotonic-seconds callable (``time.monotonic``).
     ``prefix_cache=True`` shares the K/V pages of prompt prefixes between
-    requests of one serve (``serving.prefix``).
+    requests of one serve (``serving.prefix``).  ``speculate`` (a
+    ``SpecConfig`` or an int ``k``, n-gram proposals) makes each chunk
+    iteration a verify window over every slot (``spec_chunk_step``), each
+    slot advancing by its own accepted length; under ``adaptive=True`` the
+    host picks each round's width from the slots' acceptance EMAs, and a
+    width-0 round is a plain chunk whose emissions the host probes.  After a
+    serve ``spec_emitted / spec_live_steps`` is the window acceptance and
+    ``decode_chunk_iters`` the weight streams paid.
 
     The host schedules in numpy as the reference does.  Each round: admit
     queued requests into free slots while pages last, retire what finished
@@ -696,8 +817,9 @@ class ContinuousBatchingEngine:
                  mesh=None, speculate=None, draft_cfg: Optional[ModelConfig] = None,
                  draft_params=None, draft_pim_bits: int = 0, clock=None,
                  prefix_cache: bool = False, device=None):
-        _unported(mesh=mesh, speculate=speculate, draft_cfg=draft_cfg,
-                  draft_params=draft_params, draft_pim_bits=draft_pim_bits)
+        self.spec = _spec_of(speculate)
+        _unported(mesh=mesh, draft_cfg=draft_cfg, draft_params=draft_params,
+                  draft_pim_bits=draft_pim_bits)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = quantize_tree(params, pim_bits) if pim_bits else params
@@ -739,6 +861,11 @@ class ContinuousBatchingEngine:
         # chunk iterations run: each streams the weights once, so emitted
         # tokens over decode_chunk_iters is the weight-stream amortisation
         self.decode_chunk_iters = 0
+        self.spec_emitted = 0     # tokens emitted by verify windows
+        self.spec_live_steps = 0  # live (slot, iteration) verify windows
+        # Test switch: after every speculative round each live slot's history
+        # must be its prompt and every emitted token (AssertionError if not).
+        self.debug_check_hist = False
 
     # ------------------------------------------------------------- helpers --
     def _spad(self, length: int) -> int:
@@ -774,17 +901,36 @@ class ContinuousBatchingEngine:
         graph memory pool."""
         return self.graphs.get(self.params, key, "serve", run, reset, bounded)
 
+    def _round_reset(self) -> None:
+        """Where a chunk step's warm-up may run in the middle of a serve: every
+        block-table row zeroed, so its cache writes land in the trash page;
+        the round's ``_load`` then overwrites every buffer it wrote."""
+        self._state.it.zero_()
+        self._state.cache["block_tables"].zero_()
+
     def chunk_step(self, n_stops: int, *, greedy: bool, top_k: int):
         """The chunk step: ``decode_chunk_step`` on the current parameters,
         kept on the card per (slots, greedy, top_k, n_stops) and dispatch
-        mode.  Its warm-up writes the buffers, which every round's ``_load``
-        overwrites; with a zeroed state its cache writes land in the trash
-        page."""
+        mode.  Got before a round's ``_load`` (``_round_reset``)."""
         st = self._state
         top_k = 0 if greedy else int(top_k)
         run = functools.partial(decode_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
                                 greedy=bool(greedy), top_k=top_k, pad_id=self.pad_id)
-        return self._kept((self.slots, bool(greedy), top_k, n_stops), run, st.it.zero_)
+        return self._kept((self.slots, bool(greedy), top_k, n_stops), run, self._round_reset)
+
+    def spec_chunk(self, k: int, n_stops: int, *, greedy: bool, top_k: int):
+        """One iteration of a round of width-``k`` windows:
+        ``spec_chunk_step`` on the current parameters, kept on the card per
+        (slots, k, greedy, top_k, n_stops) and dispatch mode.  Got before a
+        round's ``_load`` (``_round_reset``)."""
+        st = self._state
+        top_k = 0 if greedy else int(top_k)
+        emits, ms = st.spec(k)
+        run = functools.partial(spec_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
+                                emits, ms, k=k, spec=self.spec, greedy=bool(greedy),
+                                top_k=top_k, pad_id=self.pad_id)
+        return self._kept(("spec", self.slots, k, bool(greedy), top_k, n_stops), run,
+                          self._round_reset)
 
     def admit_step(self, spad: int, *, greedy: bool, top_k: int):
         """The uncached admit of a prompt padded to ``spad`` positions:
@@ -848,6 +994,16 @@ class ContinuousBatchingEngine:
         self._stops = np.full((b, n_stops), -1, np.int32)
         self._tok = np.zeros((b, 1), np.int32)
         self._keys = np.zeros((b, 2), np.int64)  # row key of each slot's draws
+        # speculation: each slot's prompt length, window counter, window-stream
+        # row key, acceptance EMA (carried through snapshots), probation flag
+        # (a freshly admitted slot's first round is short), and history
+        # (prompt + emissions), rewritten whole at every admit
+        self._plen = np.zeros(b, np.int64)
+        self._wctr = np.zeros(b, np.int64)
+        self._wkeys = np.zeros((b, 2), np.int64)
+        self._acc_ema = np.zeros(b, np.float32)
+        self._ctrl_fresh = np.zeros(b, bool)
+        self._hist = np.zeros((b, self.max_seq), np.int32)
         self._slot_req = [-1] * b
         self._slot_pages: list[list[int]] = [[] for _ in range(b)]
         self._admit_seq = [-1] * b
@@ -1002,8 +1158,18 @@ class ContinuousBatchingEngine:
         self._stops[slot, :] = -1
         self._stops[slot, : len(stops)] = stops
         self._tok[slot, 0] = emitted[-1]
-        self._keys[slot] = row_keys(self._state.base, torch.tensor([rid], device=self.device),
-                                    TAG_TOKEN)[0].cpu().numpy()
+        rids = torch.tensor([rid], device=self.device)
+        self._keys[slot] = row_keys(self._state.base, rids, TAG_TOKEN)[0].cpu().numpy()
+        self._hist[slot, :] = 0
+        self._hist[slot, :length] = np.asarray(req.prompt, np.int32)
+        self._hist[slot, length: length + len(emitted)] = emitted
+        self._plen[slot] = length
+        self._wctr[slot] = int(resume.wctr) if resume is not None else 0
+        self._acc_ema[slot] = (float(resume.acc_ema) if resume is not None
+                               else self.spec.ctrl_init if self.spec is not None else 0.0)
+        self._ctrl_fresh[slot] = True
+        if self.spec is not None:
+            self._wkeys[slot] = row_keys(self._state.base, rids, TAG_WINDOW)[0].cpu().numpy()
         self._done[slot] = len(emitted) >= req.max_new or emitted[-1] in stops
         self._slot_req[slot] = ridx
         self._slot_pages[slot] = list(pages)
@@ -1022,6 +1188,10 @@ class ContinuousBatchingEngine:
         self._max_new[slot] = 0
         self._stops[slot, :] = -1
         self._keys[slot] = 0
+        self._wctr[slot] = 0
+        self._wkeys[slot] = 0
+        self._acc_ema[slot] = 0.0
+        self._ctrl_fresh[slot] = False
         self._done[slot] = True
 
     def _preempt_slot(self, victim: int) -> None:
@@ -1037,20 +1207,26 @@ class ContinuousBatchingEngine:
             self._records[ridx].events.append(
                 {"name": "preempt", "ts": self._now(), "slot": victim})
 
-    def _top_up(self, requests, slot: int, eff_chunk: Optional[int] = None) -> None:
-        """Extend the slot's block table to cover the writes of the round's
-        ``eff_chunk`` chunk steps (default: ``chunk``; the ladder may halve
-        it).  If the pool runs dry, younger live requests are preempted,
-        unless this slot is the youngest: then it yields (requeues itself),
-        so the eldest always progresses and two requests cannot evict each
-        other forever."""
+    def _top_up(self, requests, slot: int, eff_chunk: Optional[int] = None,
+                eff_k: Optional[int] = None) -> None:
+        """Extend the slot's block table to cover the consumed positions of the
+        round's ``eff_chunk`` iterations of width ``eff_k`` (None: plain
+        steps; by default the engine's ``chunk`` and ``spec.k``; the ladder
+        and the controller may cut them).  A window's writes past the
+        consumed frontier need no page: they land in the trash page and are
+        written again before anything reads them.  If the pool runs dry,
+        younger live requests are preempted, unless this slot is the
+        youngest: then it yields (requeues itself), so the eldest always
+        progresses and two requests cannot evict each other forever."""
         req = requests[self._slot_req[slot]]
         ps = self.page_size
         length = len(req.prompt)
         chunk = self.chunk if eff_chunk is None else eff_chunk
-        # the round's live writes reach pos + chunk - 1, at most the last live
-        # position length + max_new - 2; the prefill covered spad - 1
-        last = min(int(self._pos[slot]) + chunk - 1, length + req.max_new - 2)
+        k = (self.spec.k if self.spec is not None else None) if eff_chunk is None else eff_k
+        # the round's live writes reach pos + chunk * (k + 1) - 1, at most the
+        # last live position length + max_new - 2; the prefill covered spad - 1
+        adv = chunk * (k + 1 if k is not None else 1)
+        last = min(int(self._pos[slot]) + adv - 1, length + req.max_new - 2)
         need = max(last, self._spad(length) - 1) // ps + 1
         have = len(self._slot_pages[slot])
         if need <= have:
@@ -1080,15 +1256,27 @@ class ContinuousBatchingEngine:
                           (st.max_new, self._max_new), (st.done, self._done),
                           (st.keys, self._keys), (st.stops(self._stops.shape[1]), self._stops)):
             buf.copy_(torch.from_numpy(host))
+        if self.spec is not None:
+            for buf, host in ((st.hist[:, :self.max_seq], self._hist), (st.wctr, self._wctr),
+                              (st.ema, self._acc_ema), (st.wkeys, self._wkeys)):
+                buf.copy_(torch.from_numpy(host))
         st.it.zero_()
 
-    def _read(self, n: int) -> tuple:
-        """Round end: the emissions and liveness of the round's ``n`` chunk
-        steps (rows past ``n`` hold an earlier round's) and the per-slot
-        carry, on the host."""
+    def _read(self, n: int, k: Optional[int] = None) -> tuple:
+        """Round end: the emissions of the round's ``n`` chunk steps (rows
+        past ``n`` hold an earlier round's), their liveness (plain steps) or
+        counts (windows of width ``k``), the per-slot carry, and after
+        windows the history, window counters and EMAs, on the host."""
         st = self._state
-        return tuple(t.to("cpu", copy=True).numpy() for t in (st.emits[:n], st.lives[:n], st.tok,
-                                                              st.pos, st.n_out, st.done))
+        if k is None:
+            out = (st.emits[:n], st.lives[:n])
+        else:
+            emits, ms = st.spec(k)
+            out = (emits[:n], ms[:n])
+        out += (st.tok, st.pos, st.n_out, st.done)
+        if k is not None:
+            out += (st.hist[:, :self.max_seq], st.wctr, st.ema)
+        return tuple(t.to("cpu", copy=True).numpy() for t in out)
 
     # --------------------------------------------------------------- serve --
     def serve(self, requests: Sequence[Request], *, greedy: bool = True,
@@ -1137,8 +1325,9 @@ class ContinuousBatchingEngine:
         for s in live:
             ridx = self._slot_req[s]
             inflight[ridx] = InflightState(emitted=[int(t) for t in self._outputs[ridx]],
-                                           wctr=0, t_admit=records[ridx].t_admit,
-                                           t_first=records[ridx].t_first, acc_ema=0.0)
+                                           wctr=int(self._wctr[s]), t_admit=records[ridx].t_admit,
+                                           t_first=records[ridx].t_first,
+                                           acc_ema=float(self._acc_ema[s]))
         snap = ServeSnapshot(
             finished={i: [int(t) for t in self._outputs[i]] for i, r in enumerate(records)
                       if r.status == "done"},
@@ -1202,8 +1391,8 @@ class ContinuousBatchingEngine:
         self._reset(requests, n_stops)
         self._state.temperature.fill_(temperature)
         self._state.base.copy_(base)
-        step = self.chunk_step(n_stops, greedy=greedy, top_k=top_k)
         self.peak_pages_in_use = self.decode_chunk_iters = self.prefill_tokens = 0
+        self.spec_emitted = self.spec_live_steps = 0
         self.prefix_hits = self.prefix_hit_tokens = self.cow_forks = 0
         report = ServeReport(records=records)
         report.rejects += len(rejected_upfront)
@@ -1216,7 +1405,7 @@ class ContinuousBatchingEngine:
 
         self._records, self._now = records, now
         ladder = DegradationLadder(policy.ladder if hardened else LadderConfig(enabled=False),
-                                   has_spec=False)
+                                   has_spec=self.spec is not None)
         # ---- resume: restore finished and closed outcomes, rebuild the queue
         resume_inflight: dict[int, InflightState] = {}
         if resume is not None:
@@ -1343,7 +1532,8 @@ class ContinuousBatchingEngine:
                             f"{len(requests[head].prompt)} tokens; increase num_pages")
                 rnd += 1
                 continue
-            eff_chunk, _ = ladder.params(self.chunk, None)
+            eff_chunk, eff_k = self._round_width(ladder)
+            spec_on = eff_k is not None
             # ---- page top-up, under injected pool pressure
             withheld: Optional[list[int]] = []
             if chaos is not None:
@@ -1358,7 +1548,7 @@ class ContinuousBatchingEngine:
             def top_ups():
                 for s in live:
                     if self._slot_req[s] >= 0:  # an earlier top-up may have preempted it
-                        self._top_up(requests, s, eff_chunk)
+                        self._top_up(requests, s, eff_chunk, eff_k)
 
             try:
                 top_ups()
@@ -1409,11 +1599,15 @@ class ContinuousBatchingEngine:
             t_round_start = now()
             self.decode_chunk_iters += eff_chunk
             try:
+                if spec_on:
+                    step = self.spec_chunk(eff_k, n_stops, greedy=greedy, top_k=top_k)
+                else:
+                    step = self.chunk_step(n_stops, greedy=greedy, top_k=top_k)
                 self._load()
                 for _ in range(eff_chunk):
                     step()
-                emits, lives, self._tok, self._pos, self._n_out, self._done = self._read(
-                    eff_chunk)
+                emits, lives, self._tok, self._pos, self._n_out, self._done, *spec_out = (
+                    self._read(eff_chunk, eff_k))
             except (ChunkFault, EngineCrash):
                 raise
             except Exception as e:
@@ -1422,10 +1616,11 @@ class ContinuousBatchingEngine:
                     # supervisor recovers from the last snapshot
                     raise EngineCrash(f"chunk execution failed: {e}") from e
                 raise
-            for t in range(eff_chunk):
-                for slot in range(self.slots):
-                    if lives[t, slot] and self._slot_req[slot] >= 0:
-                        self._outputs[self._slot_req[slot]].append(int(emits[t, slot]))
+            if spec_on:
+                self._spec_emissions(emits, lives, *spec_out)
+                lives = lives > 0  # a window's count: the slot was live
+            else:
+                self._plain_emissions(emits, lives, n0)
             if hardened:
                 skew += policy.round_time
             t_end = now()
@@ -1446,6 +1641,7 @@ class ContinuousBatchingEngine:
                                     "retained_pages": len(self._pool.lru),
                                     "pages_in_use": self.pages_in_use(),
                                     "prefix_hit_tokens": self.prefix_hit_tokens,
+                                    "eff_k": int(eff_k) if spec_on else 0,
                                     "queued": len(self._queue), "retries": report.retries})
             # ---- ladder signals and the snapshot
             if hardened:
@@ -1490,6 +1686,84 @@ class ContinuousBatchingEngine:
             self._take_snapshot(records, policy, rnd)
         self.last_report = report
         return report
+
+    def _round_width(self, ladder: DegradationLadder) -> tuple[int, Optional[int]]:
+        """The round's (chunk iterations, window width; None for plain steps):
+        the ladder's rung, and under the adaptive controller ``min(rung,
+        adaptive_k_host)`` over the live slots' EMAs.  An adaptive round
+        ends where the longest remaining budget (with a queue, the shortest)
+        is covered, lasts 2 iterations while a slot is on probation, and is
+        rounded down to a power of two; at width 0 it is a plain chunk."""
+        eff_chunk, eff_k = ladder.params(self.chunk, self.spec.k if self.spec is not None else None)
+        if eff_k is None or not self.spec.adaptive:
+            return eff_chunk, eff_k
+        alive = np.asarray([self._slot_req[s] >= 0 and not self._done[s]
+                            for s in range(self.slots)])
+        eff_k = min(eff_k, adaptive_k_host(self._acc_ema, alive, self.spec))
+        left = [int(self._max_new[s] - self._n_out[s]) for s in range(self.slots) if alive[s]]
+        rem = max(left, default=1)
+        if self._queue:
+            rem = min(rem, min(left, default=rem))
+        if eff_k > 0:
+            eff_chunk = min(eff_chunk, -(-rem // (eff_k + 1)))
+            if alive.any() and self._ctrl_fresh[alive].any():
+                eff_chunk = min(eff_chunk, 2)
+        else:
+            eff_k = None
+            eff_chunk = min(eff_chunk, rem)
+        self._ctrl_fresh[alive] = False
+        eff_chunk = max(1, eff_chunk)
+        if eff_chunk < self.chunk:
+            eff_chunk = 1 << (eff_chunk.bit_length() - 1)
+        return eff_chunk, eff_k
+
+    def _spec_emissions(self, emits, ms, hist, wctr, ema) -> None:
+        """A speculative round's read-back into the host state: each live
+        window's first ``ms`` emissions to its request, the slots' history,
+        window counters and EMAs (``debug_check_hist`` audits the
+        history)."""
+        self._hist, self._wctr, self._acc_ema = hist, wctr, ema
+        for t in range(ms.shape[0]):
+            for slot in range(self.slots):
+                m = int(ms[t, slot])
+                if m and self._slot_req[slot] >= 0:
+                    self._outputs[self._slot_req[slot]].extend(int(x) for x in emits[t, slot, :m])
+                    self.spec_emitted += m
+                    self.spec_live_steps += 1
+        if self.debug_check_hist:
+            for slot in range(self.slots):
+                ridx = self._slot_req[slot]
+                if ridx < 0:
+                    continue
+                out = self._outputs[ridx]
+                pl = int(self._plen[slot])
+                got = self._hist[slot, pl: pl + len(out)]
+                if not np.array_equal(got, np.asarray(out, np.int32)):
+                    raise AssertionError(
+                        f"n-gram history desync on slot {slot} (request {ridx}): hist "
+                        f"emissions {got.tolist()} != outputs {out}")
+
+    def _plain_emissions(self, emits, lives, n0) -> None:
+        """A plain round's emissions to their requests.  A speculating engine
+        also extends the slots' history, and under the adaptive controller
+        updates each EMA with whether the emitted token is the proposer's
+        first guess: the acceptance a window's probe would measure."""
+        cnt = n0.copy()
+        for t in range(emits.shape[0]):
+            for slot in range(self.slots):
+                if lives[t, slot] and self._slot_req[slot] >= 0:
+                    tv = int(emits[t, slot])
+                    self._outputs[self._slot_req[slot]].append(tv)
+                    if self.spec is None:
+                        continue
+                    hl = int(self._plen[slot] + cnt[slot])
+                    if self.spec.adaptive:
+                        pred = propose_first_host(self._hist[slot], hl, self.spec.ngram_n)
+                        al = self.spec.ctrl_alpha
+                        self._acc_ema[slot] = ((1.0 - al) * self._acc_ema[slot]
+                                               + al * float(pred == tv))
+                    self._hist[slot, hl] = tv
+                    cnt[slot] += 1
 
     def generate(self, prompt_tokens, n_new: int, *, extras: Optional[dict] = None,
                  greedy: bool = True, temperature: float = 1.0, top_k: int = 0, key=None,

@@ -24,9 +24,11 @@ Failure semantics:
   past ``max_seq``) get status ``"rejected"``.  Without a policy the engine
   raises instead.
 * **Degraded**: the ladder trades throughput for stability one rung at a
-  time.  The port runs no speculation yet, so its rungs are ``halve_chunk``
-  (the host regains control twice as often) and ``shed_low_slo``; both
-  leave every request's tokens as they were.
+  time: a speculating engine first halves its window (``halve_k``), then
+  stops speculating (``no_spec``, plain chunks that keep the n-gram history
+  warm); every engine then halves its chunk (``halve_chunk``, the host
+  regains control twice as often) and sheds below ``protect_slo``
+  (``shed_low_slo``).  Greedy tokens are the same at every rung.
 * **Replayed**: after a crash the supervisor restores the last
   ``ServeSnapshot`` and the engine re-admits each in-flight request by one
   prefill over ``prompt + emitted[:-1]``, its draw counter resumed at
@@ -117,10 +119,9 @@ class RequestRecord:
 class ServeReport:
     """Everything ``serve_detailed`` observed: per-request outcomes, the
     resilience counters, one counter sample per round that ran a chunk
-    (free, retained and in-use pages, prefix-hit tokens so far, the queue,
-    retries so far) and the prefix cache's counters.  (The reference's
-    samples also carry the speculation width ``eff_k``, which comes with
-    speculation.)"""
+    (free, retained and in-use pages, prefix-hit tokens so far, the
+    round's speculation width ``eff_k`` (0 for plain steps), the queue,
+    retries so far) and the prefix cache's counters."""
 
     records: list = dataclasses.field(default_factory=list)
     rounds: int = 0
@@ -174,9 +175,9 @@ class InflightState:
     """Replay state of one in-flight request: its emissions so far (the
     prompt is in the request list; the token draw counter is
     ``len(emitted)``), its admit times, and the speculative window's draw
-    counter ``wctr`` and acceptance estimate ``acc_ema``, which the port
-    writes as 0 and 0.0 (no speculation yet; the JAX package's engine writes
-    the same without one), so a snapshot reads the same in both packages."""
+    counter ``wctr`` and the adaptive controller's acceptance estimate
+    ``acc_ema``, both as the engine holds them (0 and 0.0 without
+    speculation), so a snapshot reads the same in both packages."""
 
     emitted: list
     wctr: int = 0

@@ -1,6 +1,7 @@
-"""Sampled decoding: counter-derived per-row keys and the temperature/top-k
-warp (twin of the parts of ``repro.serving.sampling`` that ``generate``
-needs).
+"""Sampled decoding: counter-derived per-row keys, the temperature/top-k
+warp, and the rejection-sampling verification of a speculative window (twin
+of ``repro.serving.sampling`` but ``tree_reject_sample``, which tree drafts
+bring, ROADMAP.md item 4c).
 
 The keys ARE the JAX package's keys.  ``jax.random``'s default generator is
 threefry2x32, a pure function of 32-bit integers; it is written out here in
@@ -16,9 +17,19 @@ tokens can be held against the JAX package's token for token.
 random bits per logit (the "partitionable" threefry counters, the default
 of the JAX release the reference runs on), a uniform in [tiny, 1) from
 their top 23 bits, gumbel noise ``-log(-log(u))``, and the argmax of noise
-plus warped logits.
+plus warped logits.  ``split`` is ``jax.random.split`` on the same
+counters: the key of part i is the hash of the counter (0, i), which is
+``fold_in(key, i)``.
+
+Verification (``acceptance_probs``, ``residual_dist``, ``rejection_sample``,
+``typical_accept_sample``) works on whole batches of static shape, so a
+captured window replays it: every row's uniforms and its final categorical
+draw come from its window key, as each row of the JAX package's ``vmap``
+draws them.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -144,3 +155,109 @@ def sample_rows(logits: torch.Tensor, keys, *, greedy: bool, temperature,
         return logits.argmax(dim=-1).to(torch.int32)
     lg = warp_logits(logits, temperature, top_k)
     return (gumbel(keys, lg.shape[-1]) + lg).argmax(dim=-1).to(torch.int32)
+
+
+def split(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.random.split(key)`` for each row's key (threefry in JAX's
+    partitionable mode, its default): part i is the hash of the counter
+    (0, i), i.e. ``fold_in(key, i)``.  keys (..., 2) -> two (..., 2)."""
+    return fold_in(keys, 0), fold_in(keys, 1)
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` for each row: the argmax of
+    gumbel noise plus the (B, V) logits (-inf never drawn; the first index
+    among equals).  Returns (B,) int32."""
+    return (gumbel(keys, logits.shape[-1]) + logits).argmax(dim=-1).to(torch.int32)
+
+
+def _take(dist: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """dist (B, k, V) at idx (B, k): (B, k)."""
+    return dist.gather(-1, idx.to(torch.int64)[..., None])[..., 0]
+
+
+def _row(dist: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """dist (B, n, V) at per-row position j (B,): (B, V)."""
+    return dist.gather(1, j.to(torch.int64)[:, None, None].expand(-1, 1, dist.shape[-1]))[:, 0]
+
+
+def acceptance_probs(drafts: torch.Tensor, q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``min(1, p(d)/q(d))`` per proposal, (B, k) in [0, 1].  drafts (B, k);
+    q (B, k, V) the proposals' distributions; p (B, k+1, V) the target's
+    (position k, the bonus position, unused).  Where q(d) is 0 the ratio is
+    1 if p(d) > 0 else 0."""
+    k = drafts.shape[1]
+    qd, pd = _take(q, drafts), _take(p[:, :k], drafts)
+    return torch.where(qd > 0.0, torch.clamp_max(pd / torch.clamp_min(qd, 1e-38), 1.0),
+                       (pd > 0.0).to(torch.float32))
+
+
+def residual_dist(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The normalised rejection residual ``max(p - q, 0)`` over the last axis;
+    ``p`` itself where the residual has no mass (p == q)."""
+    r = torch.clamp_min(p - q, 0.0)
+    s = r.sum(dim=-1, keepdim=True)
+    return torch.where(s > 0.0, r / torch.clamp_min(s, 1e-38), p)
+
+
+def _kcap(kcap, b: int, k: int, device) -> torch.Tensor:
+    if kcap is None:
+        return torch.full((b,), k, dtype=torch.int64, device=device)
+    return kcap.to(torch.int64)
+
+
+def _emitted(drafts: torch.Tensor, a: torch.Tensor, final: torch.Tensor) -> torch.Tensor:
+    """(B, k+1): the first ``a`` proposals, then the final draw repeated."""
+    k = drafts.shape[1]
+    padded = torch.cat([drafts, drafts[:, -1:]], dim=1)
+    at = torch.arange(k + 1, device=drafts.device)[None] < a[:, None]
+    return torch.where(at, padded, final[:, None]).to(torch.int32)
+
+
+def rejection_sample(keys: torch.Tensor, drafts: torch.Tensor, q: torch.Tensor,
+                     p: torch.Tensor, *, kcap: Optional[torch.Tensor] = None,
+                     n_draws: Optional[int] = None):
+    """Rejection-sampling verification of a window of proposals, each row on
+    its own window key (``keys`` (B, 2)).  ``drafts`` (B, k); ``q`` (B, k, V)
+    the distributions they came from (one-hot for a deterministic
+    proposer); ``p`` (B, k+1, V) the target's warped distributions.
+    Proposal i is accepted when ``u_i * q(d_i) < p(d_i)``, u_i the i-th of
+    ``n_draws`` (static, >= k; default k) uniforms of the first half of the
+    row key, so a row's uniforms do not depend on k; ``kcap`` (B,) forces a
+    rejection at and past each row's cap.  The first rejection is redrawn
+    from the residual at its position, full acceptance draws the bonus from
+    ``p[kcap]``: a categorical on the key's second half.  Returns (tokens
+    (B, k+1) int32, a (B,) int64): the row emits ``tokens[:, :a+1]``."""
+    b, k = drafts.shape
+    nd = k if n_draws is None else int(n_draws)
+    kc = _kcap(kcap, b, k, drafts.device)
+    q, p = q.to(torch.float32), p.to(torch.float32)
+    ku, kf = split(keys)
+    u = uniform(ku, nd)[:, :k]
+    at = torch.arange(k, device=drafts.device)[None]
+    acc = ((u * _take(q, drafts) < _take(p[:, :k], drafts)) & (at < kc[:, None]))
+    a = torch.cumprod(acc.to(torch.int64), dim=1).sum(dim=1)
+    j = torch.clamp(torch.minimum(a, kc - 1), 0, k - 1)  # the residual's position
+    dist = torch.where((a == kc)[:, None], _row(p, torch.clamp_max(kc, k)),
+                       residual_dist(_row(p, j), _row(q, j)))
+    return _emitted(drafts, a, categorical(kf, torch.log(dist))), a
+
+
+def typical_accept_sample(keys: torch.Tensor, drafts: torch.Tensor, p: torch.Tensor, *,
+                          kcap: Optional[torch.Tensor] = None, eps: float = 0.3,
+                          delta: float = 0.09):
+    """Typical (entropy-band) acceptance, the lossy mode: proposal i is
+    accepted iff ``p_i(d_i) > min(eps, delta * exp(-H(p_i)))``; the token
+    after the accepted prefix is drawn from ``p[a]`` with the second half of
+    the row key.  Layout and ``kcap`` as ``rejection_sample``'s."""
+    b, k = drafts.shape
+    kc = _kcap(kcap, b, k, drafts.device)
+    p = p.to(torch.float32)
+    _, kf = split(keys)
+    pk = p[:, :k]
+    ent = -torch.xlogy(pk, pk).sum(dim=-1)
+    thr = torch.clamp_max(delta * torch.exp(-ent), eps)
+    at = torch.arange(k, device=drafts.device)[None]
+    acc = (_take(pk, drafts) > thr) & (at < kc[:, None])
+    a = torch.cumprod(acc.to(torch.int64), dim=1).sum(dim=1)
+    return _emitted(drafts, a, categorical(kf, torch.log(_row(p, a)))), a

@@ -1,0 +1,421 @@
+"""Speculative multi-token decode with the n-gram (prompt-lookup) proposer:
+one weight stream per verify window of ``k + 1`` tokens, which emits the
+accepted proposals and one more token (twin of ``repro.serving.speculative``
+for linear windows; draft-model mode and tree drafts are ROADMAP.md items 4b
+and 4c).
+
+The proposer matches the trailing ``ngram_n`` tokens of a row's history
+(prompt and every emission) against its earlier positions and proposes the
+``k`` tokens that followed the most recent match, else repeats the last
+token.  The target runs the window once (``models.verify_step``) and
+accepts, per row, the longest prefix of proposals its greedy argmax agrees
+with (``greedy_accept``), or, sampled, by rejection sampling against its
+warped distribution (``sampling.rejection_sample``, exact) or by the entropy
+band (``sampling.typical_accept_sample``, lossy).  Greedy speculation emits
+the tokens plain greedy decoding does.
+
+The adaptive controller keeps a per-row acceptance EMA: the fixed engine
+caps acceptance at ``_ctrl_k``'s width of the EMA inside each window (the
+window stays ``k`` wide), the continuous engine re-picks the round's width
+from the EMA on the host (``adaptive_k_host``) and runs its width-0 rounds
+as plain decode chunks, probing host-side (``propose_first_host``).
+
+Everything here runs on tensors of static shape: a window never reads a
+value of the device on the host, so on the card each window is one replay
+of a captured program.  ``spec_window`` is one iteration of the JAX
+package's fixed-engine loop (``_spec_generate_body``) on ``SpecState``'s
+buffers, ``spec_chunk_step`` one iteration of its continuous-engine scan
+(``_spec_chunk_body``) on ``ChunkState``'s.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import commit_verify, prefill, verify_step
+
+from .sampling import (TAG_TOKEN, TAG_WINDOW, categorical, fold_in, prng_key, rejection_sample,
+                       row_keys, sample_rows, split, typical_accept_sample, warp_logits)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Static speculation settings (hashable: a captured window is kept per
+    config).  ``k`` proposals a window (the window is ``k + 1`` wide);
+    ``mode`` "ngram" or "draft"; ``ngram_n`` the proposer's match length;
+    ``adaptive`` the acceptance-EMA controller with coefficient
+    ``ctrl_alpha``, initial estimate ``ctrl_init`` and modelled cost
+    ``ctrl_cost`` of one more window position relative to a decode step;
+    ``tree_fan`` > 0 tree drafts; ``accept`` "exact" (rejection sampling)
+    or "typical" (entropy band ``typical_eps``/``typical_delta``, lossy).
+    The port's engines run ``mode="ngram"`` linear windows."""
+
+    k: int = 4
+    mode: str = "ngram"
+    ngram_n: int = 2
+    adaptive: bool = False
+    ctrl_alpha: float = 0.5
+    ctrl_init: float = 0.0
+    ctrl_cost: float = 0.18
+    tree_fan: int = 0
+    accept: str = "exact"
+    typical_eps: float = 0.3
+    typical_delta: float = 0.09
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"speculation needs k >= 1, got {self.k}")
+        if self.mode not in ("ngram", "draft"):
+            raise ValueError(f"mode must be ngram|draft, got {self.mode!r}")
+        if self.ngram_n < 1:
+            raise ValueError(f"ngram_n must be >= 1, got {self.ngram_n}")
+        if self.accept not in ("exact", "typical"):
+            raise ValueError(f"accept must be exact|typical, got {self.accept!r}")
+        if self.tree_fan < 0:
+            raise ValueError(f"tree_fan must be >= 0, got {self.tree_fan}")
+        if self.tree_fan:
+            if self.mode != "ngram":
+                raise ValueError("tree drafts need mode='ngram' (the draft model proposes "
+                                 "one chain)")
+            if self.adaptive:
+                raise ValueError("tree_fan and adaptive are exclusive (the controller "
+                                 "schedules linear windows)")
+            if self.accept != "exact":
+                raise ValueError("tree verification is exact rejection sampling; "
+                                 "accept='typical' is linear-only")
+        if not 0.0 < self.ctrl_alpha <= 1.0:
+            raise ValueError(f"ctrl_alpha in (0, 1], got {self.ctrl_alpha}")
+        if self.ctrl_cost <= 0.0:
+            raise ValueError(f"ctrl_cost must be > 0, got {self.ctrl_cost}")
+
+
+def as_spec(speculate) -> SpecConfig:
+    """An engine's ``speculate=``: a SpecConfig, or an int ``k``."""
+    if isinstance(speculate, SpecConfig):
+        return speculate
+    return SpecConfig(k=int(speculate))
+
+
+# -------------------------------------------------------------- controller --
+def ctrl_buckets(k: int) -> tuple:
+    """The candidate window widths {0, 1, 2, 4, ..., k}."""
+    bs, b = [0], 1
+    while b < k:
+        bs.append(b)
+        b *= 2
+    bs.append(k)
+    return tuple(dict.fromkeys(bs))
+
+
+def _ctrl_gain(e, b: int):
+    """Expected tokens of a width-``b`` window at per-draft acceptance ``e``:
+    ``1 + e + ... + e^b`` (numpy or torch)."""
+    g, p = 1.0 + 0.0 * e, 1.0 + 0.0 * e
+    for _ in range(b):
+        p = p * e
+        g = g + p
+    return g
+
+
+def adaptive_k_host(ema: np.ndarray, live: np.ndarray, spec: SpecConfig) -> int:
+    """The round's width: the bucket that maximises the live slots' expected
+    tokens over the window's cost; ties, and an empty batch, give the
+    smaller width."""
+    if not bool(np.any(live)):
+        return 0
+    e = np.clip(ema[live].astype(np.float64), 0.0, 1.0)
+    best_s, best_b = -1.0, 0
+    for b in ctrl_buckets(spec.k):
+        s = float(np.sum(_ctrl_gain(e, b))) / (1.0 + spec.ctrl_cost * b)
+        if s > best_s + 1e-12:
+            best_s, best_b = s, b
+    return best_b
+
+
+def _ctrl_k(ema: torch.Tensor, live: torch.Tensor, k: int, cost: float) -> torch.Tensor:
+    """Device twin of ``adaptive_k_host`` in f32, a 0-d int64 tensor (the
+    first maximum: the smaller width on ties)."""
+    e = torch.where(live, ema.clamp(0.0, 1.0), 0.0)
+    buckets = ctrl_buckets(k)
+    scores = torch.stack([torch.where(live, _ctrl_gain(e, b), 0.0).sum() / (1.0 + cost * b)
+                          for b in buckets])
+    widths = torch.stack([torch.full((), b, dtype=torch.int64, device=ema.device)
+                          for b in buckets])
+    return widths.index_select(0, scores.argmax().reshape(1)).reshape(())
+
+
+def _ctrl_probe(lg0: torch.Tensor, d1: torch.Tensor, *, greedy: bool, temperature,
+                top_k: int) -> torch.Tensor:
+    """The chance the would-be first proposal ``d1`` is accepted, from the
+    window's first logits (B, V): argmax agreement, or ``p_0(d1)``."""
+    if greedy:
+        return (lg0.argmax(dim=-1) == d1).to(torch.float32)
+    p0 = torch.softmax(warp_logits(lg0, temperature, top_k), dim=-1)
+    return p0.gather(1, d1.to(torch.int64)[:, None])[:, 0]
+
+
+def _ctrl_update(ema, live, a, k_window, phat0, alpha: float) -> torch.Tensor:
+    """One EMA step: ``a / (a + 1)`` accepted of a real window (1 when all
+    were), the probe at width 0; done rows keep theirs."""
+    af = a.to(torch.float32)
+    r = torch.where(a >= k_window, 1.0, af / (af + 1.0))
+    if isinstance(k_window, torch.Tensor):
+        r = torch.where(k_window == 0, phat0, r)
+    elif k_window == 0:
+        r = phat0
+    return torch.where(live, (1.0 - alpha) * ema + alpha * r, ema)
+
+
+# ---------------------------------------------------------------- proposer --
+def _ngram_matches(hist: torch.Tensor, hlen: torch.Tensor, n: int):
+    """Start of the most recent earlier occurrence of each row's trailing
+    ``n``-gram in ``hist`` (B, W) of live length ``hlen`` (B,), -1 where
+    there is none (B,); and the last live token (B, 1)."""
+    b, w = hist.shape
+    ar = torch.arange(w, device=hist.device)
+    gi = hlen[:, None] - n + ar[:n]
+    gram = hist.gather(1, gi.clamp(0, w - 1))
+    match = torch.ones((b, w), dtype=torch.bool, device=hist.device)
+    for i in range(n):
+        # the window starting at q sees hist[q + i]; past the end, no match
+        shifted = torch.cat([hist[:, i:], torch.full_like(hist[:, :i], -1)], dim=1)
+        match = match & (shifted == gram[:, i:i + 1])
+    q = ar[None]
+    valid = match & (q <= hlen[:, None] - n - 1)  # strictly earlier windows
+    j = torch.where(valid, q, -1).max(dim=1).values
+    last = hist.gather(1, (hlen - 1).clamp(0, w - 1)[:, None])
+    return j, last
+
+
+def propose_ngram(hist: torch.Tensor, hlen: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Prompt-lookup proposals (B, k) int32: the ``k`` tokens after the most
+    recent earlier occurrence of each row's trailing ``n``-gram; positions
+    past the live end, and rows without a match, repeat the last token."""
+    w = hist.shape[1]
+    hlen = hlen.to(torch.int64)
+    j, last = _ngram_matches(hist, hlen, n)
+    src = j[:, None] + n + torch.arange(k, device=hist.device)[None]
+    prop = hist.gather(1, src.clamp(0, w - 1))
+    use = (j >= 0)[:, None] & (src < hlen[:, None])
+    return torch.where(use, prop, last).to(torch.int32)
+
+
+def propose_first_host(hist_row: np.ndarray, hlen: int, n: int) -> int:
+    """Host twin of ``propose_ngram``'s first proposal for one row: the
+    token after the most recent earlier occurrence of the trailing
+    ``n``-gram, else the last token."""
+    if hlen >= n + 1:
+        h = hist_row[:hlen]
+        gram = h[hlen - n:]
+        win = np.lib.stride_tricks.sliding_window_view(h, n)
+        hits = np.nonzero((win[: hlen - n] == gram).all(axis=1))[0]
+        if hits.size:
+            return int(h[hits[-1] + n])
+    return int(hist_row[max(hlen - 1, 0)])
+
+
+# -------------------------------------------------------------- acceptance --
+def greedy_accept(window: torch.Tensor, logits: torch.Tensor):
+    """Longest matching prefix: ``window`` (B, k+1) the current token and k
+    proposals, ``logits`` (B, k+1, V).  Returns (g (B, k+1) int32, the
+    target's argmax after each window prefix; a (B,) int64, the accepted
+    proposals): the row emits ``g[:, :a+1]``."""
+    g = logits.argmax(dim=-1).to(torch.int32)
+    match = (window[:, 1:] == g[:, :-1]).to(torch.int64)
+    return g, torch.cumprod(match, dim=1).sum(dim=1)
+
+
+def _accept(window, drafts, lg, *, greedy: bool, temperature, top_k: int, wkeys, kcap=None,
+            n_draws=None, accept: str = "exact", typical_eps: float = 0.3,
+            typical_delta: float = 0.09):
+    """One linear window's verification with the point-mass proposals of the
+    n-gram proposer: greedy, rejection-sampled or typical.  Returns (g, a),
+    the row emitting ``g[:, :a+1]``.  ``kcap``/``n_draws``: the fixed
+    engine's adaptive cap (the window stays ``k`` wide).  A width-0 window
+    is one plain draw on the window key's second half."""
+    if greedy:
+        g, a = greedy_accept(window, lg)
+        return g, a if kcap is None else torch.minimum(a, kcap)
+    if drafts.shape[1] == 0:
+        _, kf = split(wkeys)
+        t0 = categorical(kf, warp_logits(lg[:, 0], temperature, top_k))
+        return t0[:, None], torch.zeros(lg.shape[0], dtype=torch.int64, device=lg.device)
+    p = torch.softmax(warp_logits(lg, temperature, top_k), dim=-1)
+    if accept == "typical":
+        return typical_accept_sample(wkeys, drafts, p, kcap=kcap, eps=typical_eps,
+                                     delta=typical_delta)
+    q = torch.zeros(drafts.shape + (lg.shape[-1],), dtype=torch.float32, device=lg.device)
+    q.scatter_(2, drafts.to(torch.int64)[..., None], 1.0)
+    return rejection_sample(wkeys, drafts, q, p, kcap=kcap, n_draws=n_draws)
+
+
+def _verify_kw(spec: SpecConfig) -> dict:
+    return dict(accept=spec.accept, typical_eps=spec.typical_eps,
+                typical_delta=spec.typical_delta)
+
+
+def _last_emitted(g: torch.Tensor, m: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """Each row's new current token: ``g[m - 1]``, or ``tok`` where m is 0."""
+    at = torch.clamp_min(m - 1, 0)[:, None]
+    return torch.where((m > 0)[:, None], g.gather(1, at), tok)
+
+
+# ---------------------------------------------------------- the fixed engine --
+class SpecState:
+    """The static buffers of one batch's speculative generation: the dense
+    cache (shared with the batch's ``DecodeState``), the current token
+    (B, 1) int32, the emitted count, window counter (B,) int64 and
+    acceptance EMA (B,) f32, each row's window-stream key (B, 2), the
+    temperature, the history and the output (B, max_seq + 1) int32 (column
+    max_seq takes the writes the reference drops), and the prompt length,
+    the token budget and the window counts: int64 views of ``ints``."""
+
+    def __init__(self, batch: int, max_seq: int, cache: dict, device):
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.max_seq = max_seq
+        self.cache = cache
+        self.tok = zeros((batch, 1), torch.int32)
+        self.n_em = zeros((batch,), torch.int64)
+        self.wctr = zeros((batch,), torch.int64)
+        self.ema = zeros((batch,), torch.float32)
+        self.wkeys = zeros((batch, 2), torch.int64)
+        self.temperature = zeros((), torch.float32)
+        self.hist = zeros((batch, max_seq + 1), torch.int32)
+        self.out = zeros((batch, max_seq + 1), torch.int32)
+        self.ints = zeros((4,), torch.int64)
+        self.s, self.n_new, self.steps, self.live_steps = (self.ints[i] for i in range(4))
+
+    def reset(self) -> None:
+        """A state a window may run from (the capture's warm-up): one prompt
+        token, nothing left to emit."""
+        self.ints.zero_()
+        self.s.fill_(1)
+        self.n_em.fill_(1)
+
+    def start(self, params, cfg: ModelConfig, prompt: torch.Tensor, key, temperature,
+              n_new: int, *, greedy: bool, top_k: int, ctrl_init: float) -> None:
+        """Zero the cache, prefill ``prompt`` (B, S) and draw token 0 from its
+        last logits (``draw_keys(key, row, 0, TAG_TOKEN)``), as plain
+        ``generate`` does; then the history is the prompt and token 0."""
+        for leaf in self.cache["layers"].values():
+            leaf.zero_()
+        logits, _ = prefill(params, cfg, prompt, self.cache)
+        b, s = prompt.shape
+        base = prng_key(0 if key is None else key, prompt.device)
+        rids = torch.arange(b, device=prompt.device)
+        keys = None if greedy else fold_in(row_keys(base, rids, TAG_TOKEN), 0)
+        self.temperature.fill_(temperature)
+        tok = sample_rows(logits[:, -1], keys, greedy=greedy, temperature=self.temperature,
+                          top_k=top_k)
+        self.tok.copy_(tok[:, None])
+        self.hist.zero_()
+        self.hist[:, :s] = prompt
+        self.hist[:, s] = tok
+        self.out.zero_()
+        self.out[:, 0] = tok
+        self.n_em.fill_(1)
+        self.wctr.zero_()
+        self.ema.fill_(ctrl_init)
+        self.wkeys.copy_(row_keys(base, rids, TAG_WINDOW))
+        self.ints.copy_(torch.tensor([s, n_new, 0, 0], device=prompt.device))
+
+
+def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, greedy: bool,
+                top_k: int) -> None:
+    """One window of the fixed engine (an iteration of the JAX package's
+    ``_spec_generate_body`` loop) on ``st``'s buffers: propose ``k``
+    tokens per row from its history, verify the window at the row's
+    position against the dense cache, accept (capped at ``_ctrl_k`` under
+    the adaptive controller, whose EMA then takes the window's
+    observation), and write each live row's emissions to its output and
+    history.  A row that has its ``n_new`` tokens emits nothing; its
+    window's writes land at or past its last position, or are dropped past
+    the store."""
+    b, k, ms = st.tok.shape[0], spec.k, st.max_seq
+    dev = st.tok.device
+    live = st.n_em < st.n_new
+    pos = st.s - 1 + st.n_em
+    wkeys = None if greedy else fold_in(st.wkeys, st.wctr)
+    drafts = propose_ngram(st.hist[:, :ms], st.s + st.n_em, k, spec.ngram_n)
+    window = torch.cat([st.tok, drafts], dim=1)
+    lg, cache = verify_step(params, cfg, window, st.cache, pos)
+    if spec.adaptive:
+        keff = _ctrl_k(st.ema, live, k, spec.ctrl_cost)
+        kcap = keff.expand(b)
+    else:
+        keff, kcap = k, None
+    g, a = _accept(window, drafts, lg, greedy=greedy, temperature=st.temperature, top_k=top_k,
+                   wkeys=wkeys, kcap=kcap, n_draws=k, **_verify_kw(spec))
+    if spec.adaptive:
+        phat0 = _ctrl_probe(lg[:, 0], drafts[:, 0], greedy=greedy, temperature=st.temperature,
+                            top_k=top_k)
+        st.ema.copy_(_ctrl_update(st.ema, live, a, keff, phat0, spec.ctrl_alpha))
+    m = torch.where(live, torch.minimum(a + 1, st.n_new - st.n_em), 0)
+    j = torch.arange(k + 1, device=dev)[None]
+    emit = j < m[:, None]
+    cols = st.n_em[:, None] + j
+    rows = torch.arange(b, device=dev)[:, None].expand(b, k + 1)
+    st.out[rows, torch.where(emit, cols, ms)] = g
+    st.hist[rows, torch.where(emit, st.s + cols, ms)] = g
+    commit_verify(cfg, cache, torch.clamp_min(m - 1, 0))
+    st.tok.copy_(_last_emitted(g, m, st.tok))
+    st.n_em += m
+    st.wctr += live
+    st.steps += live.any()
+    st.live_steps += live.sum()
+
+
+# ----------------------------------------------------- the continuous engine --
+def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: torch.Tensor,
+                    ms: torch.Tensor, *, k: int, spec: SpecConfig, greedy: bool, top_k: int,
+                    pad_id: int) -> None:
+    """One iteration of the JAX package's speculative chunk
+    (``_spec_chunk_body``) at the round's width ``k`` on ``ChunkState``
+    ``st``: every slot proposes ``k`` tokens from its history, the window is
+    verified against the paged pool at the slot's position, accepted
+    emissions stop at the budget and just after a stop token (``stops``),
+    and the slot's emissions (``pad_id`` past its count) and count go to row
+    ``st.it`` of ``emits`` (chunk, B, k+1) and ``ms`` (chunk, B).  A done
+    slot emits nothing and keeps its window counter; its writes land in its
+    own pages or the trash page."""
+    b = st.tok.shape[0]
+    dev = st.tok.device
+    w = st.hist.shape[1] - 1  # column w takes the writes the reference drops
+    live = ~st.done
+    wkeys = None if greedy else fold_in(st.wkeys, st.wctr)
+    props = propose_ngram(st.hist[:, :w], st.pos + 1, max(k, 1), spec.ngram_n)
+    drafts = props[:, :k]
+    window = torch.cat([st.tok, drafts], dim=1)
+    lg, cache = verify_step(params, cfg, window, st.cache, st.pos)
+    g, a = _accept(window, drafts, lg, greedy=greedy, temperature=st.temperature, top_k=top_k,
+                   wkeys=wkeys, **_verify_kw(spec))
+    if spec.adaptive:
+        phat0 = _ctrl_probe(lg[:, 0], props[:, 0], greedy=greedy, temperature=st.temperature,
+                            top_k=top_k)
+        st.ema.copy_(_ctrl_update(st.ema, live, a, k, phat0, spec.ctrl_alpha))
+    m = torch.minimum(a + 1, st.max_new - st.n_out)
+    # a stop token inside the window ends it there: the stop is emitted,
+    # nothing after it reaches the output, the history or the token
+    j = torch.arange(k + 1, device=dev)[None]
+    hit = (g[:, :, None] == stops[:, None, :]).any(dim=-1) & (j < m[:, None])
+    any_hit = hit.any(dim=1)
+    m = torch.where(any_hit, hit.to(torch.int32).argmax(dim=1) + 1, m)
+    m = torch.where(live, m, 0)
+    emit_mask = j < m[:, None]
+    rows = torch.arange(b, device=dev)[:, None].expand(b, k + 1)
+    st.hist[rows, torch.where(emit_mask, st.pos[:, None] + 1 + j, w)] = g
+    st.tok.copy_(_last_emitted(g, m, st.tok))
+    st.pos += m
+    st.n_out += m
+    st.done |= (live & any_hit) | (st.n_out >= st.max_new)
+    commit_verify(cfg, cache, torch.clamp_min(m - 1, 0))
+    row = st.it.reshape(1)
+    emits.index_copy_(0, row, torch.where(emit_mask, g, pad_id)[None])
+    ms.index_copy_(0, row, m[None])
+    st.wctr += live
+    st.it += 1

@@ -21,7 +21,8 @@ import numpy as np  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
 from repro.serving import mask_after_stop as jax_mask_after_stop  # noqa: E402
 from repro_torch.models import decode_step, init_cache, prefill  # noqa: E402
-from repro_torch.serving import ServingEngine, mask_after_stop, quantize_tree  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    ServingEngine, SpecConfig, mask_after_stop, quantize_tree)
 from repro_torch.serving.sampling import (  # noqa: E402
     TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits)
 
@@ -86,10 +87,15 @@ def test_generate_guards():
         eng.generate(toks, n_new=2, extras={"image": None})
     with pytest.raises(NotImplementedError):
         eng.generate_reference(toks, n_new=2, extras={"image": None})
-    with pytest.raises(NotImplementedError):
-        eng.generate(toks, n_new=2, speculate=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4b "):
+        eng.generate(toks, n_new=2, speculate=SpecConfig(mode="draft"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4c "):
+        eng.generate(toks, n_new=2, speculate=SpecConfig(tree_fan=2))
     with pytest.raises(NotImplementedError):
         ServingEngine(tcfg, tparams, max_seq=12, device="cpu", mesh=object())
+    for option in (dict(draft_cfg=tcfg), dict(draft_params=tparams), dict(draft_pim_bits=8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 4b "):
+            ServingEngine(tcfg, tparams, max_seq=12, device="cpu", **option)
     assert eng.generate(toks, n_new=0).shape == (2, 0)
 
 

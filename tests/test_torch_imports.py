@@ -76,10 +76,11 @@ def test_import_without_cuda_pulls_in_no_jax():
                                     "repro_torch.serving.resilience",
                                     "repro_torch.serving.chaos",
                                     "repro_torch.serving.router",
+                                    "repro_torch.serving.speculative",
                                     "repro_torch.runtime.fault"])
 def test_kernel_module_imports_alone_without_card_or_build(module):
-    """A kernel module, or a module of the paged serving path or its
-    resilience tier, imported on its own, with no card and no CUDA toolkit,
+    """A kernel module, or a module of the paged serving path, its
+    resilience tier or its speculation, imported on its own, with no card and no CUDA toolkit,
     pulls in neither jax nor the JAX package and builds nothing."""
     assert (PKG / Path(*module.split(".")[1:])).with_suffix(".py").is_file()
     code = (f"import sys, {module}\n"
@@ -110,5 +111,7 @@ def test_entry_points_default_to_the_card():
         ServingEngine(cfg, {}, max_seq=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatchingEngine(cfg, {}, slots=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatchingEngine(cfg, {}, slots=1, max_seq=8, speculate=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_paged_cache(cfg, 1, 8, 3, 4)

@@ -28,7 +28,7 @@ from repro.serving import Request as JaxRequest  # noqa: E402
 from repro_torch.kernels import flash_attn  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
-    ContinuousBatchingEngine, Request, ServingEngine)
+    ContinuousBatchingEngine, Request, ServingEngine, SpecConfig)
 
 from torch_helpers import (  # noqa: E402
     assert_serve_match, prompt, reduced_model, serve_deciding, serve_events)
@@ -282,9 +282,12 @@ def test_guards():
     eng._alloc_pages(1)
     with pytest.raises(AssertionError, match="page leak"):
         eng.assert_quiescent()
-    for option in (dict(mesh=object()), dict(speculate=2), dict(draft_cfg=tcfg),
-                   dict(draft_params=tparams), dict(draft_pim_bits=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for option, item in ((dict(mesh=object()), "item 7"),
+                         (dict(speculate=SpecConfig(mode="draft")), "item 4b"),
+                         (dict(speculate=SpecConfig(tree_fan=2)), "item 4c"),
+                         (dict(draft_cfg=tcfg), "item 4b"), (dict(draft_params=tparams), "item 4b"),
+                         (dict(draft_pim_bits=8), "item 4b")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item} "):
             ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
                                      **option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,8 +5,8 @@ tests/test_chaos.py's geometry (2 slots, 4-token pages, chunk 3).
 
 Under a ``VirtualClock`` and ``policy.round_time`` both packages' serves are
 deterministic, so the scheduler must decide alike: the same statuses and
-reasons, the same events with their times, the same round counters (the
-JAX package's speculation width ``eff_k`` dropped), retries, sheds,
+reasons, the same events with their times, the same round counters (with
+the speculation width ``eff_k``, 0 without speculation), retries, sheds,
 rejects, squeezed pages, injected latency, ladder trace, SLO attainment,
 goodput, and the same snapshot JSON round by round.  Tokens are compared
 margin-aware (``torch_helpers.assert_serve_match``, logit tolerance 1e-4
@@ -88,7 +88,7 @@ def _policies(**kw):
 
 
 def _counters(report):
-    return [{k: v for k, v in c.items() if k != "eff_k"} for c in report.counters]
+    return list(report.counters)
 
 
 def _facts(report):

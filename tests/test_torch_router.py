@@ -12,7 +12,7 @@ on its replica may have missed solo; a hit's window and a miss's prefill
 differ by ~1e-7 on the CPU).  And ``tools/trace_export.py`` renders the
 port's solo and router reports, under a ``VirtualClock``, into traces that
 pass ``validate_trace`` and equal the JAX package's, its speculation-width
-(``eff_k``) counter track dropped.
+(``eff_k``) counter track included.
 """
 import importlib.util
 import json
@@ -129,8 +129,7 @@ def test_router_tokens_match_a_solo_engine(prefix_cache):
 
 
 def _dump(trace):
-    """A trace as sorted JSON, without the JAX package's eff_k counter track."""
-    trace = dict(trace, traceEvents=[e for e in trace["traceEvents"] if e["name"] != "eff_k"])
+    """A trace as sorted JSON."""
     return json.dumps(trace_export._jsonable(trace), sort_keys=True)
 
 
