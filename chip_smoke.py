@@ -283,6 +283,31 @@ Phases:
    alternating rounds phase 9's plain serve against the speculative and
    adaptive serves, greedy and sampled: tokens/s, chunk-iteration ms,
    emitted tokens an iteration; graphs captured and their capture cost.
+13. draft-model speculation at k = SPEC_K (after phase 12; counters, not the
+   profiler), the draft qwen2-1.5b itself: the target's int8 tree (a
+   self-draft) or the same weights' int4 tree.  (a) the fixed engine at
+   1 x 128, 32 new, int8 self-draft, greedy, window by window: every
+   window accepts all it may, or each rejection sits where the plain
+   run's top-2 gap is within PAGED_BAR (their count reported), tokens
+   ``torch.equal`` to plain batch-1 decoding, ``pim_matvec`` launched
+   196 x (k + 2) a window (k + 1 one-row draft steps and the 5-row
+   verify); (b) phase 3's 4 x 128 prompts, 32 new: int8 self-draft and
+   int4 draft, greedy and sampled, the int4 sampled run ``torch.equal``
+   to an eager loop of windows (at 16 new), greedy ones against plain
+   greedy decoding at HIT_BAR (the count beyond PAGED_BAR beside it),
+   acceptance,
+   ``pim_matvec`` 196 x (k + 1) a window (the 4-row draft steps; the
+   20-row verify runs ``x @ dq(w)``); (c) the continuous engine on phase
+   9's engine geometry and trace with the int4 draft, greedy captured
+   ``torch.equal`` to eager and against phase 9's solo dense runs at
+   HIT_BAR, sampled, ``pim_matvec`` 196 x (k + 1) an iteration, phase 9's
+   small pool (preemption) ``torch.equal``, ``prefix_cache=True`` serving
+   no hit, a recompute crash replay ``torch.equal``; (d) a planted fault,
+   the draft chain one position off, must lower (a)'s acceptance; (e)
+   device ms of a draft step (int8, int4; 1 and 4 rows), of windows at
+   k = 1, 2, 4 (int4 draft, 4 rows) and of (a)'s window against the plain
+   step, then (c)'s tokens/s against phase 9's plain serve, in alternating
+   rounds.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -572,6 +597,10 @@ def main() -> int:
 
     # ---- 12. n-gram speculative decoding ---------------------------------------------
     spec_launches = SpecPhase(cfg, eng8.params, prompt, toks, serving, prefix_phase).run()
+
+    # ---- 13. draft-model speculation --------------------------------------------------
+    spec_launches.update(DraftPhase(cfg, eng8.params, eng4.params, prompt, serving,
+                                    prefix_phase).run())
 
     # ---- 8. the captured decode step ---------------------------------------------
     counted, traced = captured_phase(
@@ -3524,6 +3553,8 @@ class SpecPhase:
     """Phase 12: n-gram speculative decoding on both engines, (a) to (d) of
     the module's docstring."""
 
+    NAME = "phase 12"
+
     def __init__(self, cfg, params, prompt, toks, serving, prefix):
         self.cfg, self.params, self.prompt, self.toks = cfg, params, prompt, toks
         self.serving, self.prefix, self.dev = serving, prefix, prompt.device
@@ -3549,7 +3580,7 @@ class SpecPhase:
                "beyond_bar": sum(beyond(d, HIT_BAR) for d in div),
                "beyond_paged_bar": sum(beyond(d, PAGED_BAR) for d in div),
                "divergences": div, "bar": HIT_BAR}
-        print(f"phase 12 {label}: " + json.dumps(rep), flush=True)
+        print(f"{self.NAME} {label}: " + json.dumps(rep), flush=True)
         if check_bar:
             check(rep["beyond_bar"] == 0, f"{label}: diverges from plain greedy decoding beyond "
                                           f"the bar {HIT_BAR}: {rep}")
@@ -3694,7 +3725,7 @@ class SpecPhase:
         same["tokens_per_chunk_iter"] = same["tokens"] / max(1, eng.decode_chunk_iters)
         check(same["tokens_equal"] and same["events_equal"]
               and eng.peak_pages_in_use == eager.peak_pages_in_use,
-              f"(b) {label}: the captured serve differs from the eager one: {same}")
+              f"{self.NAME} {label}: the captured serve differs from the eager one: {same}")
         eng.assert_quiescent()
         return out, same
 
@@ -3707,7 +3738,7 @@ class SpecPhase:
         rep["beyond_paged_bar"] = sum(beyond(d, PAGED_BAR) for d in rep["divergences"])
         rep["requests_equal_plain_serve"] = sum(
             np.array_equal(a, b) for a, b in zip(out, sv.out))
-        print(f"phase 12 {label}: " + json.dumps(rep), flush=True)
+        print(f"{self.NAME} {label}: " + json.dumps(rep), flush=True)
         return rep
 
     def continuous(self, report):
@@ -3830,6 +3861,350 @@ class SpecPhase:
         t0 = time.perf_counter()
         self.launches = {}
         for part in (self.fixed, self.window_times, self.continuous, self.serve_times):
+            t = time.perf_counter()
+            part(report)
+            report["section_s"][part.__name__] = time.perf_counter() - t
+        report["launches"] = self.launches
+        report["phase_s"] = time.perf_counter() - t0
+        print(json.dumps(report), flush=True)
+        return self.launches
+
+
+# ---- 13. draft-model speculation -------------------------------------------------------
+# The draft is qwen2-1.5b itself: the target's int8 tree (a self-draft) or the
+# same weights' int4 tree (eng4's), both at k = SPEC_K.  (a) and (d) run the
+# fixed engine at batch 1, (b) at phase 3's batch, (c) the continuous engine
+# on phase 9's trace.
+DRAFT_ROUNDS = 3  # (e): alternating rounds of steps, windows and serves
+DRAFT_TIME_REPS = 8  # (e): replays a timed step or window, per round
+DRAFT_EAGER_NEW = 16  # (b), (c): the eager twins' budget (an eager window runs k + 2
+                      # forward passes op by op)
+
+
+@contextlib.contextmanager
+def draft_reads_one_off():
+    """The planted fault of (d): the draft chain runs one position past the
+    window's, reading and writing its cache at ``pos + i + 1``."""
+    sound = speculative.draft_propose
+
+    def faulted(draft_params, draft_cfg, dcache, tok, pos, k, **kw):
+        return sound(draft_params, draft_cfg, dcache, tok, pos + 1, k, **kw)
+    speculative.draft_propose = faulted
+    try:
+        yield
+    finally:
+        speculative.draft_propose = sound
+
+
+class DraftPhase(SpecPhase):
+    """Phase 13: draft-model speculation on both engines, (a) to (e) of the
+    module's docstring."""
+
+    NAME = "phase 13"
+
+    def __init__(self, cfg, params8, params4, prompt, serving, prefix):
+        super().__init__(cfg, params8, prompt, None, serving, prefix)
+        self.drafts = {8: params8, 4: params4}
+        self.spec = SpecConfig(k=SPEC_K, mode="draft")
+
+    def _fixed(self, bits, cls=ServingEngine):
+        return cls(self.cfg, self.params, max_seq=PROMPT + N_NEW, device=self.dev,
+                   draft_cfg=self.cfg, draft_params=self.drafts[bits])
+
+    def _engines(self, spec, **kw):
+        return super()._engines(spec, draft_cfg=self.cfg, draft_params=self.drafts[4], **kw)
+
+    @torch.inference_mode()
+    def _windows(self, eng, prompt):
+        """One batch-1 generation window by window, the emitted count read
+        after each: [(tokens before, tokens emitted)], and the tokens."""
+        k = self.spec.k
+        step = eng.spec_step(1, self.spec, greedy=True, top_k=0)
+        st = eng.spec_state(1)
+        st.start(eng.params, self.cfg, prompt, None, 1.0, N_NEW, greedy=True, top_k=0,
+                 ctrl_init=0.0, draft_params=eng.draft_params, k=k)
+        rows, n = [], 1
+        while n < N_NEW:
+            step()
+            m = int(st.n_em[0]) - n
+            rows.append((n, m))
+            n += m
+        return rows, st.out[:, :N_NEW].clone()
+
+    def _acceptance(self, eng, prompt, plain, label):
+        """Windows that accepted fewer proposals than the budget allowed, each
+        with the plain run's top-2 gap at the token the target chose there."""
+        k = self.spec.k
+        rows, toks = self._windows(eng, prompt)
+        short = [(n, m) for n, m in rows if m < min(k + 1, N_NEW - n)]
+        with torch.inference_mode():
+            rejected = [{"token": n + m - 1, "plain_top2_gap": self._plain_gap(
+                self.eng8, prompt, 0, n + m - 1)} for n, m in short]
+        rep = {"check": f"{label}: acceptance, batch 1, k = {k}", "windows": len(rows),
+               "full_windows": len(rows) - len(short),
+               "tokens_per_window": (N_NEW - 1) / len(rows),
+               "emitted_by_window": [m for _, m in rows], "rejections": rejected,
+               "rejections_beyond_paged_bar": sum(r["plain_top2_gap"] > PAGED_BAR
+                                                  for r in rejected),
+               "tokens_equal_plain_batch_1": torch.equal(toks, plain)}
+        print(f"{self.NAME} {label}: " + json.dumps(rep), flush=True)
+        return rep
+
+    # ---- (a) full acceptance, (b) the fixed engine ----------------------------------------
+    def fixed(self, report):
+        cfg, prompt, k = self.cfg, self.prompt, self.spec.k
+        self.eng8, self.eng4 = self._fixed(8), self._fixed(4)
+        self.graphs8 = count_captures(self.eng8)
+        p1 = prompt[:1]
+        self.plain1 = self.eng8.generate(p1, N_NEW)
+        acc = self._acceptance(self.eng8, p1, self.plain1, "(a) int8 self-draft")
+        got1, launches, counted_as = counted_launches(
+            self.graphs8, lambda: self.eng8.generate(p1, N_NEW, speculate=self.spec))
+        acc["tokens_equal_plain_batch_1"] &= torch.equal(got1, self.plain1)
+        check(acc["tokens_equal_plain_batch_1"], f"(a) the self-draft's tokens differ from "
+                                                 f"plain batch-1 greedy decoding: {acc}")
+        check(acc["rejections_beyond_paged_bar"] == 0, f"(a) the self-draft rejected a "
+              f"proposal where the plain run's top-2 gap exceeds {PAGED_BAR}: {acc}")
+        windows = self.eng8.spec_stats["verify_steps"]
+        want = dict.fromkeys(launches, 0)
+        want["pim_matvec"] = self.per_step * (k + 2) * windows
+        check(windows == acc["windows"] and launches == want,
+              f"(a) launches {launches}, expected {want}: {windows} windows of {k + 1} one-row "
+              f"draft steps and a {k + 1}-row verify")
+        acc.update(launches=launches, launches_counted_as=counted_as,
+                   spec_stats=dict(self.eng8.spec_stats))
+        report["full_acceptance"] = acc
+        self.launches["draft, fixed engine, batch 1 (self-draft)"] = launches
+
+        plain = self.eng8.generate(prompt, N_NEW)
+        eager4 = self._fixed(4, EagerServingEngine)
+        rows, greedy = [], {}
+        for bits, eng in ((8, self.eng8), (4, self.eng4)):
+            for label, mode in (("greedy", GREEDY), ("sampled", SAMPLED)):
+                name = f"int{bits} draft, {label}"
+                got = eng.generate(prompt, N_NEW, speculate=self.spec, **mode)
+                check(got.dtype == torch.int32 and bool(((got >= 0) & (got < cfg.vocab)).all()),
+                      f"(b) {name}: tokens {got.dtype} out of range")
+                row = {"case": name, "batch": BATCH, "spec_stats": dict(eng.spec_stats),
+                       "tokens_per_window": eng.spec_stats["acceptance_per_live_row"]}
+                if mode["greedy"]:
+                    # greedy tokens are the verify's whatever the draft: a repeat
+                    # of the int8 draft's tokens needs no second comparison
+                    same = bits == 4 and torch.equal(got, greedy[8])
+                    row["tokens_equal_int8_draft"] = same
+                    if not same:
+                        row["vs_plain"] = self._against_plain(f"(b) {name}", eng, prompt, got,
+                                                              plain)
+                    greedy[bits] = got
+                if bits == 4 and not mode["greedy"]:
+                    short = eng.generate(prompt, DRAFT_EAGER_NEW, speculate=self.spec, **mode)
+                    stats = dict(eng.spec_stats)
+                    want = eager4.generate(prompt, DRAFT_EAGER_NEW, speculate=self.spec, **mode)
+                    row["eager_new_tokens"] = DRAFT_EAGER_NEW
+                    row["tokens_equal_eager"] = torch.equal(short, want)
+                    row["windows_equal_eager"] = stats == eager4.spec_stats
+                    check(torch.equal(short, got[:, :DRAFT_EAGER_NEW]),
+                          f"(b) {name}: {DRAFT_EAGER_NEW} tokens differ from the first of "
+                          f"{N_NEW}")
+                    check(row["tokens_equal_eager"] and row["windows_equal_eager"],
+                          f"(b) {name}: the captured windows differ from the eager ones: {row}")
+                rows.append(row)
+        del eager4
+        _, launches4, _ = counted_launches(
+            self.graphs8, lambda: self.eng8.generate(prompt, N_NEW, speculate=self.spec))
+        windows = self.eng8.spec_stats["verify_steps"]
+        want = dict.fromkeys(launches4, 0)
+        want["pim_matvec"] = self.per_step * (k + 1) * windows
+        check(launches4 == want, f"(b) batch {BATCH}: launches {launches4}, expected {want} "
+              f"({windows} windows of {k + 1} {BATCH}-row draft steps; the "
+              f"{BATCH * (k + 1)}-row verify through x @ dq(w))")
+        report["fixed"] = rows
+        report["fixed_launches"] = launches4
+        self.launches["draft, fixed engine, batch 4 (self-draft)"] = launches4
+
+    # ---- (c) the continuous engine -------------------------------------------------------
+    def continuous(self, report):
+        sv, reqs, dev = self.serving, self.serving.reqs, self.dev
+        # built with the prefix cache asked for: draft mode keeps it off
+        eng, graphs, eager = self._engines(self.spec, prefix_cache=True)
+        self.serve_eng, self.serve_graphs = eng, graphs
+        self.out = eng.serve(reqs)
+        rep = eng.last_report
+        eng.assert_quiescent()
+        rows = [{"case": "(c) int4 draft, greedy", "rounds": rep.rounds,
+                 "decode_chunk_iters": eng.decode_chunk_iters,
+                 "tokens": sum(len(o) for o in self.out),
+                 "acceptance": eng.spec_emitted / max(1, eng.spec_live_steps),
+                 "peak_pages": eng.peak_pages_in_use,
+                 "vs_dense": self._against_dense("(c) int4 draft, greedy", self.out)}]
+        # the eager twin serves the trace's first requests at a cut budget: an
+        # eager iteration runs k + 2 forward passes op by op
+        sub = [Request(prompt=r.prompt, max_new=min(r.max_new, DRAFT_EAGER_NEW),
+                       stop_tokens=r.stop_tokens) for r in reqs[:SERVE["slots"]]]
+        _, same = self._captured_vs_eager("(c) int4 draft, greedy, first requests", eng, eager,
+                                          sub)
+        rows.append(same)
+        del eager
+        out_s = eng.serve(reqs, **SAMPLED)
+        eng.assert_quiescent()
+        check(not same_tokens(out_s, self.out), "(c) sampled tokens equal greedy ones")
+        rows.append({"case": "(c) int4 draft, sampled", "rounds": eng.last_report.rounds,
+                     "decode_chunk_iters": eng.decode_chunk_iters,
+                     "tokens": sum(len(o) for o in out_s),
+                     "acceptance": eng.spec_emitted / max(1, eng.spec_live_steps)})
+        report["continuous"] = rows
+
+        # the prefix cache stays off: phase 10's repeated prompt, twice
+        preqs = [Request(prompt=self.prefix.reqs[i].prompt, max_new=8) for i in (2, 6)]
+        check(np.array_equal(preqs[0].prompt, preqs[1].prompt), "(c) no repeated prompt")
+        prep = eng.serve_detailed(preqs)
+        report["prefix_cache"] = {"hits": prep.prefix_hits, "cow_forks": prep.cow_forks,
+                                  "prefill_tokens": prep.prefill_tokens,
+                                  "prompt_tokens": sum(len(r.prompt) for r in preqs)}
+        check(prep.prefix_hits == prep.cow_forks == 0
+              and prep.prefill_tokens == report["prefix_cache"]["prompt_tokens"],
+              f"(c) the prefix cache served a draft-mode request: {report['prefix_cache']}")
+
+        small = sv.report["preemption"]["num_pages"]
+        pre = ContinuousBatchingEngine(self.cfg, self.params, speculate=self.spec, device=dev,
+                                       draft_cfg=self.cfg, draft_params=self.drafts[4],
+                                       **{**SERVE, "num_pages": small})
+        out_p = pre.serve(reqs)
+        report["preemption"] = {"num_pages": small, "preemptions": pre.preemptions,
+                                "tokens_equal": same_tokens(out_p, self.out)}
+        check(pre.preemptions > 0 and report["preemption"]["tokens_equal"],
+              f"(c) the preempted draft serve: {report['preemption']}")
+        pre.assert_quiescent()
+        del pre
+
+        # round 1: a draft serve of this trace may take only a few rounds
+        inj = FaultInjector(ChaosConfig(crash_rounds=(1,)))
+        rep = ServingSupervisor(eng, policy=ResiliencePolicy(resume_mode="recompute"),
+                                chaos=inj).run(reqs)
+        crash = {"restarts": rep.restarts, "failures": [f.kind for f in rep.failures],
+                 "tokens_equal": same_tokens(rep.outputs, self.out)}
+        check(rep.restarts == 1 and injected_only(rep.failures, inj) and crash["tokens_equal"],
+              f"(c) recompute crash replay of the draft serve: {crash}")
+        eng.assert_quiescent()
+        report["crash_replay_recompute"] = crash
+
+    # ---- (d) the planted fault -----------------------------------------------------------
+    def planted_fault(self, report):
+        with draft_reads_one_off():
+            faulty = self._fixed(8)
+            acc = self._acceptance(faulty, self.prompt[:1], self.plain1, "(d) planted fault")
+        del faulty
+        report["planted_fault"] = {"fault": "the draft chain runs at pos + i + 1", **acc}
+        check(acc["full_windows"] < acc["windows"] and acc["tokens_per_window"]
+              < report["full_acceptance"]["tokens_per_window"],
+              f"(d) the planted fault keeps the self-draft's full acceptance: {acc}")
+
+    # ---- (e) times -----------------------------------------------------------------------
+    def _draft_step(self, eng, b):
+        """One single-token draft step of ``b`` rows on the draft cache of
+        ``eng``'s k-wide windows, as a call with no arguments."""
+        st, k = eng.spec_state(b), self.spec.k
+        dcache = st.draft_cache(k)
+
+        def run():
+            speculative.draft_propose(eng.draft_params, self.cfg, dcache, st.tok,
+                                      st.s - 1 + st.n_em, 0)
+        return eng.graphs.get(eng._weights(), ("draft step", b, k), b, run, st.reset)
+
+    def _spec_start(self, eng, prompt, k):
+        return functools.partial(eng.spec_state(prompt.shape[0]).start, self.params, self.cfg,
+                                 prompt, None, 1.0, N_NEW, greedy=True, top_k=0, ctrl_init=0.0,
+                                 draft_params=eng.draft_params, k=k)
+
+    @torch.inference_mode()
+    def times(self, report):
+        """Device ms of a draft step (int8 and int4, 1 and 4 rows), of a
+        window at k = 1, 2 and 4 (int4 draft, 4 rows) and of the batch-1
+        self-draft window, against the plain step (CUDA events over replays,
+        alternating rounds); then tokens/s of (c)'s serve against phase 9's
+        plain serve."""
+        runs, k = {}, self.spec.k
+        for b in (1, BATCH):
+            p = self.prompt[:b]
+            runs[f"plain step, {b} rows"] = (
+                self.eng8.step(b, greedy=True, top_k=0), functools.partial(
+                    self.eng8.state(b).start, self.params, self.cfg, p, None, 1.0, greedy=True,
+                    top_k=0))
+            for bits, eng in ((8, self.eng8), (4, self.eng4)):
+                runs[f"draft step int{bits}, {b} rows"] = (self._draft_step(eng, b),
+                                                          self._spec_start(eng, p, k))
+        for kk in SPEC_WIDTHS:
+            runs[f"window int4 draft k={kk}, {BATCH} rows"] = (
+                self.eng4.spec_step(BATCH, SpecConfig(k=kk, mode="draft"), greedy=True,
+                                    top_k=0), self._spec_start(self.eng4, self.prompt, kk))
+        for b in (BATCH, 1):
+            runs[f"window int8 self-draft k={k}, {b} rows"] = (
+                self.eng8.spec_step(b, self.spec, greedy=True, top_k=0),
+                self._spec_start(self.eng8, self.prompt[:b], k))
+
+        def ms(step, start):
+            start()
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(DRAFT_TIME_REPS):
+                step()
+            z.record()
+            z.synchronize()
+            return a.elapsed_time(z) / DRAFT_TIME_REPS
+
+        rounds = []
+        for _ in range(DRAFT_ROUNDS):
+            rounds.append({name: ms(*run) for name, run in runs.items()})
+            rounds[-1]["sm_clock_mhz"] = tracing.sm_clock_mhz()
+        med = {name: sorted(r[name] for r in rounds)[len(rounds) // 2] for name in runs}
+        plain4 = med[f"plain step, {BATCH} rows"]
+        report["step_and_window_ms"] = {
+            "timing": f"device ms a replay, CUDA events over {DRAFT_TIME_REPS} replays, median "
+                      f"of {DRAFT_ROUNDS} alternating rounds",
+            "medians": {name: {"ms": v, "over_plain_step_4_rows": v / plain4}
+                        for name, v in med.items()}, "rounds": rounds}
+
+        plain, draft = self.serving.eng, self.serve_eng
+        serves = {"plain": (plain, self.serving.out), "int4 draft": (draft, self.out)}
+        srounds = []
+        for i in range(DRAFT_ROUNDS):
+            row = {}
+            for name, (e, want) in serves.items():
+                if i or e is plain:
+                    out, t = e.timed_serve(self.serving.reqs)
+                else:  # (c)'s launches: the first timed draft serve's
+                    (out, t), launches, counted_as = counted_launches(
+                        self.serve_graphs, lambda: e.timed_serve(self.serving.reqs))
+                    want_l = dict.fromkeys(launches, 0)
+                    want_l["pim_matvec"] = self.per_step * (k + 1) * t["iters"]
+                    check(launches == want_l, f"(c) serve: launches {launches}, expected "
+                          f"{want_l} ({t['iters']} iterations of {k + 1} {SERVE['slots']}-row "
+                          f"draft steps; the {SERVE['slots'] * (k + 1)}-row verify through "
+                          "x @ dq(w))")
+                    report["serve_launches"] = {"launches": launches, "counted_as": counted_as,
+                                                "decode_chunk_iters": t["iters"]}
+                    self.launches["draft, continuous engine, serve"] = launches
+                check(same_tokens(out, want), f"(e) the timed serve {name!r} changed")
+                row[name] = {**timing_row(t), "tokens_per_chunk_iter": t["tokens"] / t["iters"]}
+            row["sm_clock_mhz"] = tracing.sm_clock_mhz()
+            srounds.append(row)
+        smed = {name: {key: sorted(r[name][key] for r in srounds)[len(srounds) // 2]
+                       for key in ("tokens_per_s", "step_ms_per_iter", "tokens_per_chunk_iter",
+                                   "host_ms_per_round_outside_steps")} for name in serves}
+        smed["int4 draft"]["tokens_per_s_over_plain"] = (smed["int4 draft"]["tokens_per_s"]
+                                                         / smed["plain"]["tokens_per_s"])
+        smed["int4 draft"]["acceptance"] = draft.spec_emitted / max(1, draft.spec_live_steps)
+        report["serve_times"] = {"rounds": srounds, "medians": smed}
+        report["graphs"] = {"fixed engine, int8 self-draft": capture_report(self.eng8,
+                                                                             self.graphs8),
+                            "serve, int4 draft": capture_report(draft, self.serve_graphs)}
+
+    def run(self):
+        report = {"check": "phase 13: draft-model speculation, qwen2-1.5b int8, drafts int8 "
+                           "(self) and int4", "section_s": {}}
+        t0 = time.perf_counter()
+        self.launches = {}
+        for part in (self.fixed, self.continuous, self.planted_fault, self.times):
             t = time.perf_counter()
             part(report)
             report["section_s"][part.__name__] = time.perf_counter() - t

@@ -18,6 +18,7 @@ Public API:
                                            -> (logits (B, 1, V), cache)
   verify_step(params, cfg, tokens, cache, pos[, page_size])
                                            -> (logits (B, T, V), cache)
+  stack_verify_caches(cfg, caches)         -> cache
   commit_verify(cfg, cache, sel)           -> cache
 """
 from __future__ import annotations
@@ -185,6 +186,18 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     cache)."""
     x = verify_hidden(params, cfg, tokens, cache, pos, page_size)
     return unembed(x, params.get("head", params["embed"])), cache
+
+
+def stack_verify_caches(cfg: ModelConfig, caches: list) -> dict:
+    """Merge a chain of ``verify_step`` caches (successive windows over
+    consecutive positions, each committed into the next, as a draft model's
+    single-token steps are) into one cache that ``commit_verify`` commits
+    once at any accepted length.  The dense family's windows write their
+    K/V in place, so the last cache already holds the whole chain's.  The
+    families with per-step state, whose chains concatenate along the
+    window's time axis, are not ported."""
+    _check_family(cfg)
+    return caches[-1]
 
 
 def commit_verify(cfg: ModelConfig, cache: dict, sel: torch.Tensor) -> dict:

@@ -2,9 +2,10 @@
 fixed-batch engine, and the continuous-batching engine over a paged cache with
 its prefix cache, its resilience tier (``serving.resilience``, fault injection
 in ``serving.chaos``) and the multi-replica router (``serving.router``).
-Both engines speculate with n-gram proposals under ``speculate=SpecConfig(k=...)``
-(``serving.speculative``; rejection-sampled verification in
-``serving.sampling``)."""
+Both engines speculate under ``speculate=SpecConfig(k=...)`` with n-gram
+proposals, or with a draft model's (``mode="draft"``, the engines'
+``draft_cfg``/``draft_params``) (``serving.speculative``; rejection-sampled
+verification in ``serving.sampling``)."""
 from .chaos import ChaosConfig, ChunkFault, EngineCrash, FaultInjector, VirtualClock
 from .engine import (CapturedSteps, ChunkState, ContinuousBatchingEngine, DecodeState,
                      Request, ServingEngine, admit_cached, admit_miss, admit_prefill,
@@ -17,7 +18,8 @@ from .router import ReplicaRouter, RouterReport
 from .sampling import (TAG_TOKEN, TAG_WINDOW, acceptance_probs, draw_keys, fold_in, prng_key,
                        rejection_sample, residual_dist, sample_rows, split,
                        typical_accept_sample, warp_logits)
-from .speculative import SpecConfig, SpecState, propose_ngram, spec_chunk_step, spec_window
+from .speculative import (SpecConfig, SpecState, draft_propose, propose_ngram, spec_chunk_step,
+                          spec_window)
 
 __all__ = ["CapturedSteps", "ChaosConfig", "ChunkFault", "ChunkState",
            "ContinuousBatchingEngine", "DecodeState", "EngineCrash", "FaultInjector",
@@ -25,7 +27,8 @@ __all__ = ["CapturedSteps", "ChaosConfig", "ChunkFault", "ChunkState",
            "RequestRecord", "ResiliencePolicy", "RouterReport", "ServeReport", "ServeSnapshot",
            "ServingEngine", "ServingSupervisor", "SpecConfig", "SpecState", "TAG_TOKEN",
            "TAG_WINDOW", "VirtualClock", "acceptance_probs", "admit_cached", "admit_miss",
-           "admit_prefill", "chunk_keys", "decode_and_emit", "decode_chunk_step", "draw_keys",
+           "admit_prefill", "chunk_keys", "decode_and_emit", "decode_chunk_step",
+           "draft_propose", "draw_keys",
            "extras_fingerprint", "fold_in", "load_snapshot", "mask_after_stop", "pim_bytes",
            "prng_key", "propose_ngram", "quantize_tree", "rejection_sample", "residual_dist",
            "sample_logits", "sample_rows", "save_snapshot", "spec_chunk_step", "spec_window",

@@ -3,8 +3,8 @@ continuous-batching engine over a paged KV cache.
 
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
 ``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense
-family, with n-gram speculation, the prefix cache and the resilience tier,
-without draft-model or tree speculation or a mesh).  ``quantize_tree``
+family, with n-gram and draft-model speculation, the prefix cache and the
+resilience tier, without tree drafts or a mesh).  ``quantize_tree``
 turns every large matmul weight into ``{"codes": int8, "scale": f32}``
 (int4: nibble-packed codes plus a marker leaf); at decode time each of
 those weights is streamed once per step by the ``pim_matvec`` kernel.
@@ -19,9 +19,9 @@ one replay; on the CPU the same function runs eagerly.  Sampled draws are
 keyed per row and per draw index with the JAX package's own keys
 (``serving.sampling``).  ``generate_reference`` is the per-token loop
 (prompt included), the parity oracle.  With ``speculate=`` each verify
-window (``speculative.spec_window``) is one replay instead, and the host
-reads the rows' emitted counts only between runs of windows that the
-slowest row needs anyway.
+window (``speculative.spec_window``) is one replay instead, a draft model's
+steps included, and the host reads the rows' emitted counts only between
+runs of windows that the slowest row needs anyway.
 
 ``ContinuousBatchingEngine.serve`` schedules requests on the host in numpy,
 as the reference does, and runs each round's decode chunk (the reference's
@@ -37,7 +37,9 @@ retries, sheds, rejects and degrades on the host and snapshots each round;
 a crash-replayed request is re-admitted by the same captured admit over its
 prompt and emitted tokens.  With ``speculate=`` a round of width k > 0 runs
 ``speculative.spec_chunk_step`` (one replay per iteration, captured per
-width) and a round of width 0 the plain chunk step.
+width) and a round of width 0 the plain chunk step.  A draft model keeps
+its K/V in a pool of its own that shares the target's block tables, so one
+page allocator serves both and every admit prefills both.
 """
 from __future__ import annotations
 
@@ -239,10 +241,6 @@ def decode_and_emit(params, cfg: ModelConfig, st: DecodeState, *, greedy: bool,
 # Options of the JAX package's engines that the port does not run yet, and the
 # ROADMAP.md item (section 1) that brings each.
 _LATER = {"mesh": "item 7 (tensor-parallel decode)",
-          "draft_cfg": "item 4b (draft-model speculation)",
-          "draft_params": "item 4b (draft-model speculation)",
-          "draft_pim_bits": "item 4b (draft-model speculation)",
-          "mode": "item 4b (draft-model speculation)",
           "tree_fan": "item 4c (tree drafts)",
           "extras": "item 5 (the vlm and encdec families)"}
 
@@ -257,13 +255,21 @@ def _unported(**options) -> None:
 
 
 def _spec_of(speculate) -> Optional[SpecConfig]:
-    """``speculate=`` as a SpecConfig (None: no speculation); draft-model
-    mode and tree drafts raise NotImplementedError."""
+    """``speculate=`` as a SpecConfig (None: no speculation); tree drafts
+    raise NotImplementedError."""
     if speculate is None:
         return None
     spec = as_spec(speculate)
-    _unported(mode=spec.mode == "draft", tree_fan=spec.tree_fan)
+    _unported(tree_fan=spec.tree_fan)
     return spec
+
+
+_NO_DRAFT = "speculate mode='draft' needs the engine constructed with draft_cfg/draft_params"
+
+
+def _draft_params(draft_params, bits: int):
+    """The draft model's parameters, quantized when ``bits`` is non-zero."""
+    return quantize_tree(draft_params, bits) if draft_params is not None and bits else draft_params
 
 
 class CapturedSteps:
@@ -341,6 +347,8 @@ class ServingEngine:
     """Fixed-batch engine: single-pass prefill, then one decode step per new
     token, or one verify window per several under ``speculate=``, each one
     CUDA graph replay on the card.  ``device=None`` means the card.
+    ``draft_cfg``/``draft_params`` (quantized at ``draft_pim_bits`` when
+    non-zero) are the draft model of ``SpecConfig(mode="draft")``.
     ``spec_stats`` holds the realised acceptance of the last speculative
     ``generate``."""
 
@@ -348,11 +356,12 @@ class ServingEngine:
                  pim_bits: int = 0, device=None, mesh=None,
                  draft_cfg: Optional[ModelConfig] = None, draft_params=None,
                  draft_pim_bits: int = 0):
-        _unported(mesh=mesh, draft_cfg=draft_cfg, draft_params=draft_params,
-                  draft_pim_bits=draft_pim_bits)
+        _unported(mesh=mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = quantize_tree(params, pim_bits) if pim_bits else params
+        self.draft_cfg = draft_cfg
+        self.draft_params = _draft_params(draft_params, draft_pim_bits)
         self.max_seq = max_seq
         self._states: dict[int, DecodeState] = {}
         self._spec_states: dict[int, SpecState] = {}
@@ -389,27 +398,35 @@ class ServingEngine:
         def reset():
             st.pos.zero_()
             st.idx.zero_()
-        return self.graphs.get(self.params, (batch, bool(greedy), top_k), batch, run, reset)
+        return self.graphs.get(self._weights(), (batch, bool(greedy), top_k), batch, run, reset)
+
+    def _weights(self) -> dict:
+        """Every parameter leaf a kept step may read, the draft's included:
+        the tree whose leaves ``CapturedSteps`` watches."""
+        return {"params": self.params, "draft": self.draft_params}
 
     def spec_state(self, batch: int) -> SpecState:
         """The speculative buffers of a batch of ``batch`` rows, on the cache
         of ``state(batch)`` (made at first use and kept)."""
         if batch not in self._spec_states:
             self._spec_states[batch] = SpecState(batch, self.max_seq, self.state(batch).cache,
-                                                 self.device)
+                                                 self.device, self.draft_cfg)
         return self._spec_states[batch]
 
     def spec_step(self, batch: int, spec: SpecConfig, *, greedy: bool, top_k: int):
         """One verify window of ``batch`` rows as a call with no arguments:
-        ``spec_window`` on the current parameters, kept on the card per
-        (batch, spec, greedy, top_k) and dispatch mode, in the graph memory
-        pool of the batch's decode step.  Its warm-up writes the buffers,
-        which ``SpecState.start`` resets."""
+        ``spec_window`` on the current parameters (the draft's too), kept
+        on the card per (batch, spec, greedy, top_k) and dispatch mode, in
+        the graph memory pool of the batch's decode step.  Its warm-up
+        writes the buffers, which ``SpecState.start`` resets; a draft
+        model's cache is made before it."""
         top_k = 0 if greedy else int(top_k)
         st = self.spec_state(batch)
+        if spec.mode == "draft":
+            st.draft_cache(spec.k)
         run = functools.partial(spec_window, self.params, self.cfg, st, spec=spec,
-                                greedy=bool(greedy), top_k=top_k)
-        return self.graphs.get(self.params, ("spec", batch, spec, bool(greedy), top_k), batch,
+                                greedy=bool(greedy), top_k=top_k, draft_params=self.draft_params)
+        return self.graphs.get(self._weights(), ("spec", batch, spec, bool(greedy), top_k), batch,
                                run, st.reset)
 
     def _generate_speculative(self, prompt: torch.Tensor, n_new: int, spec: SpecConfig, *,
@@ -426,7 +443,9 @@ class ServingEngine:
             step = self.spec_step(b, spec, greedy=greedy, top_k=top_k)
             st = self.spec_state(b)
             st.start(self.params, self.cfg, prompt, key, temperature, n_new, greedy=greedy,
-                     top_k=0 if greedy else int(top_k), ctrl_init=spec.ctrl_init)
+                     top_k=0 if greedy else int(top_k), ctrl_init=spec.ctrl_init,
+                     draft_params=self.draft_params if spec.mode == "draft" else None,
+                     k=spec.k)
             while True:
                 left = n_new - int(st.n_em.min())
                 if left <= 0:
@@ -461,14 +480,18 @@ class ServingEngine:
         ``stop_tokens`` masks every token a row emits after its first stop
         token with ``pad_id`` (the stop token itself is kept).
 
-        ``speculate`` (a ``SpecConfig`` or an int ``k``, n-gram proposals)
-        verifies ``k`` proposals and the current token in one window a step
+        ``speculate`` (a ``SpecConfig`` or an int ``k``, n-gram proposals;
+        ``mode="draft"``: the engine's draft model's) verifies ``k``
+        proposals and the current token in one window a step
         (``_generate_speculative``): greedy tokens are plain greedy
         decoding's; sampled ones are rejection-sampled (or typical-accepted)
         with ``draw_keys(key, row, window, TAG_WINDOW)``, as the JAX
         package draws them."""
         prompt = self._check(prompt_tokens, n_new, extras)
         spec = _spec_of(speculate)
+        if spec is not None and spec.mode == "draft" and (
+                self.draft_params is None or self.draft_cfg is None):
+            raise ValueError(_NO_DRAFT)
         if spec is not None:
             toks = self._generate_speculative(prompt, n_new, spec, greedy=bool(greedy),
                                               temperature=temperature, top_k=top_k, key=key)
@@ -637,14 +660,22 @@ class ChunkState:
     reference drops), the window counter (B,) int64, the acceptance EMA
     (B,) f32 and the row key of its window stream (B, 2), and per window
     width k the round's emissions (chunk, B, k+1) int32 and counts (chunk,
-    B) int64."""
+    B) int64.  With a draft model (``draft_cfg``), its pool ``dcache``: the
+    target pool's geometry, storage of its own, and the target's block
+    tables as the same tensor, so that one upload serves both pools."""
 
     def __init__(self, cfg: ModelConfig, slots: int, store_seq: int, num_pages: int,
-                 page_size: int, chunk: int, device):
+                 page_size: int, chunk: int, device, draft_cfg: Optional[ModelConfig] = None):
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         self.cache = init_paged_cache(cfg, slots, store_seq, num_pages, page_size, device)
+        self.draft_cfg = draft_cfg
+        self.dcache = None
+        if draft_cfg is not None:
+            self.dcache = init_paged_cache(draft_cfg, slots, store_seq, num_pages, page_size,
+                                           device)
+            self.dcache["block_tables"] = self.cache["block_tables"]
         self.tok = zeros((slots, 1), torch.int32)
         self.pos = zeros((slots,), torch.int64)
         self.n_out = zeros((slots,), torch.int64)
@@ -695,7 +726,9 @@ class ChunkState:
     def zero_(self) -> None:
         """Every buffer as a fresh state holds it (the reference makes a fresh
         cache for every serve; a captured step must keep its memory)."""
-        for t in (*self.cache["layers"].values(), self.cache["block_tables"], self.tok,
+        pools = (self.cache, self.dcache) if self.dcache is not None else (self.cache,)
+        for t in (*(t for c in pools for t in c["layers"].values()),
+                  self.cache["block_tables"], self.tok,
                   self.pos, self.n_out, self.max_new, self.done, self.keys, self.base,
                   self.temperature, self.it, self.emits, self.lives, self.hist, self.wctr,
                   self.ema, self.wkeys, *(t for pair in self._spec.values() for t in pair)):
@@ -732,12 +765,17 @@ def decode_chunk_step(params, cfg: ModelConfig, st: ChunkState, stops: torch.Ten
 
 
 def admit_miss(params, cfg: ModelConfig, st: ChunkState, a: AdmitState, *, greedy: bool,
-               top_k: int) -> None:
+               top_k: int, draft_params=None) -> None:
     """An uncached admit on static buffers: ``admit_prefill`` of ``a``'s
     prompt into ``a``'s pages of ``st``'s pool, draw 0 with ``st``'s base
-    key and temperature, the token written to ``a.tok``."""
+    key and temperature, the token written to ``a.tok``.  With a draft
+    model (``draft_params``) the prompt is prefilled into the same page ids
+    of the draft pool too; the token always comes from the target."""
     a.tok.copy_(admit_prefill(params, cfg, st.cache, a.prompt, a.length, None, a.pages, a.rid,
                               st.base, st.temperature, greedy=greedy, top_k=top_k))
+    if draft_params is not None:
+        prefill(draft_params, st.draft_cfg, a.prompt, st.dcache, length=a.length,
+                pages=a.pages)
 
 
 def admit_cached(params, cfg: ModelConfig, st: ChunkState, w: WindowState, *, greedy: bool,
@@ -763,9 +801,9 @@ MAX_ADMIT_GRAPHS = 64
 
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
-    package's, for the dense family, with n-gram speculation, the prefix
-    cache and the resilience tier, without draft-model or tree speculation
-    or a mesh).
+    package's, for the dense family, with n-gram and draft-model
+    speculation, the prefix cache and the resilience tier, without tree
+    drafts or a mesh).
 
     ``slots`` is the decode batch width; ``num_pages`` bounds the cache
     (pages of ``page_size`` tokens, page 0 the trash page; default: every
@@ -782,7 +820,15 @@ class ContinuousBatchingEngine:
     host picks each round's width from the slots' acceptance EMAs, and a
     width-0 round is a plain chunk whose emissions the host probes.  After a
     serve ``spec_emitted / spec_live_steps`` is the window acceptance and
-    ``decode_chunk_iters`` the weight streams paid.
+    ``decode_chunk_iters`` the weight streams paid.  ``SpecConfig(mode=
+    "draft")`` proposes with the draft model ``draft_cfg``/``draft_params``
+    (quantized at ``draft_pim_bits`` when non-zero), whose K/V live in a
+    pool of their own under the target's block tables: every request's
+    pages hold both, and every admit prefills both.  Both pools then carry
+    ``k`` positions (whole pages) past ``max_seq``, which the top-up
+    provisions so that the draft's read-back of its chain stays in the
+    request's pages; the prefix cache stays off (the draft pool has no
+    trie).
 
     The host schedules in numpy as the reference does.  Each round: admit
     queued requests into free slots while pages last, retire what finished
@@ -818,18 +864,27 @@ class ContinuousBatchingEngine:
                  draft_params=None, draft_pim_bits: int = 0, clock=None,
                  prefix_cache: bool = False, device=None):
         self.spec = _spec_of(speculate)
-        _unported(mesh=mesh, draft_cfg=draft_cfg, draft_params=draft_params,
-                  draft_pim_bits=draft_pim_bits)
+        self._draft_mode = self.spec is not None and self.spec.mode == "draft"
+        if self._draft_mode and (draft_params is None or draft_cfg is None):
+            raise ValueError(_NO_DRAFT)
+        _unported(mesh=mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = quantize_tree(params, pim_bits) if pim_bits else params
+        self.draft_cfg = draft_cfg
+        self.draft_params = _draft_params(draft_params, draft_pim_bits)
         self._clock = clock if clock is not None else time.monotonic
         self.last_snapshot: Optional[ServeSnapshot] = None  # the latest (crash recovery)
         self.last_round = -1
         self.slots = int(slots)
         self.page_size = int(page_size)
         self.max_seq = -(-int(max_seq) // self.page_size) * self.page_size
-        self.width = self.max_seq // self.page_size
+        # Draft mode: the draft chain reads back the window positions it
+        # writes, so both pools carry k positions (whole pages) past
+        # max_seq, where a request of the full budget still has pages.
+        reserve = self.spec.k if self._draft_mode else 0
+        self._store_seq = self.max_seq + -(-reserve // self.page_size) * self.page_size
+        self.width = self._store_seq // self.page_size
         self.num_pages = int(num_pages) if num_pages is not None else self.slots * self.width + 1
         self.chunk = int(chunk)
         self.pad_id = int(pad_id)
@@ -841,7 +896,7 @@ class ContinuousBatchingEngine:
         # share pages; for the others the cache stays off.
         self.prefix_cache = bool(prefix_cache)
         self._prefix_on = (self.prefix_cache and cfg.family in _PREFIX_FAMILIES
-                           and not getattr(cfg, "mla", None))
+                           and not getattr(cfg, "mla", None) and not self._draft_mode)
         # The strict pending sweep of a serve under a policy: None defers to
         # the REPRO_STRICT_SERVE environment variable; a bool decides.
         self.strict_pending: Optional[bool] = None
@@ -899,12 +954,14 @@ class ContinuousBatchingEngine:
         """``run`` as a call with no arguments (``CapturedSteps.get``): on the
         card one replay of its graph, every graph of the engine in one
         graph memory pool."""
-        return self.graphs.get(self.params, key, "serve", run, reset, bounded)
+        return self.graphs.get({"params": self.params, "draft": self.draft_params}, key, "serve",
+                               run, reset, bounded)
 
     def _round_reset(self) -> None:
         """Where a chunk step's warm-up may run in the middle of a serve: every
-        block-table row zeroed, so its cache writes land in the trash page;
-        the round's ``_load`` then overwrites every buffer it wrote."""
+        block-table row (both pools') zeroed, so its cache writes land in the
+        trash page; the round's ``_load`` then overwrites every buffer it
+        wrote."""
         self._state.it.zero_()
         self._state.cache["block_tables"].zero_()
 
@@ -928,7 +985,8 @@ class ContinuousBatchingEngine:
         emits, ms = st.spec(k)
         run = functools.partial(spec_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
                                 emits, ms, k=k, spec=self.spec, greedy=bool(greedy),
-                                top_k=top_k, pad_id=self.pad_id)
+                                top_k=top_k, pad_id=self.pad_id,
+                                draft_params=self.draft_params if self._draft_mode else None)
         return self._kept(("spec", self.slots, k, bool(greedy), top_k, n_stops), run,
                           self._round_reset)
 
@@ -943,7 +1001,8 @@ class ContinuousBatchingEngine:
         a = st.admit(spad)
         top_k = 0 if greedy else int(top_k)
         run = functools.partial(admit_miss, self.params, self.cfg, st, a, greedy=bool(greedy),
-                                top_k=top_k)
+                                top_k=top_k,
+                                draft_params=self.draft_params if self._draft_mode else None)
         if spad > CHUNKED_THRESHOLD:
             return run
 
@@ -976,8 +1035,9 @@ class ContinuousBatchingEngine:
     def _reset(self, requests, n_stops: int) -> None:
         b, w = self.slots, self.width
         if self._state is None:
-            self._state = ChunkState(self.cfg, b, self.max_seq, self.num_pages,
-                                     self.page_size, self.chunk, self.device)
+            self._state = ChunkState(self.cfg, b, self._store_seq, self.num_pages,
+                                     self.page_size, self.chunk, self.device,
+                                     self.draft_cfg if self._draft_mode else None)
         else:
             self._state.zero_()
         # The trie's pages are valid against this serve's pool only, so both
@@ -1224,9 +1284,15 @@ class ContinuousBatchingEngine:
         chunk = self.chunk if eff_chunk is None else eff_chunk
         k = (self.spec.k if self.spec is not None else None) if eff_chunk is None else eff_k
         # the round's live writes reach pos + chunk * (k + 1) - 1, at most the
-        # last live position length + max_new - 2; the prefill covered spad - 1
+        # last live position length + max_new - 2; the prefill covered spad - 1.
+        # A draft chain reads back up to k positions past that, which must be
+        # the request's pages, not the trash page the target's writes past it
+        # may go to (the pools carry them past max_seq).
         adv = chunk * (k + 1 if k is not None else 1)
-        last = min(int(self._pos[slot]) + adv - 1, length + req.max_new - 2)
+        cap = length + req.max_new - 2
+        if self._draft_mode and k is not None:
+            cap = min(cap + k, self._store_seq - 1)
+        last = min(int(self._pos[slot]) + adv - 1, cap)
         need = max(last, self._spad(length) - 1) // ps + 1
         have = len(self._slot_pages[slot])
         if need <= have:

@@ -1,18 +1,22 @@
-"""Speculative multi-token decode with the n-gram (prompt-lookup) proposer:
-one weight stream per verify window of ``k + 1`` tokens, which emits the
-accepted proposals and one more token (twin of ``repro.serving.speculative``
-for linear windows; draft-model mode and tree drafts are ROADMAP.md items 4b
-and 4c).
+"""Speculative multi-token decode: one weight stream per verify window of
+``k + 1`` tokens, which emits the accepted proposals and one more token
+(twin of ``repro.serving.speculative`` for linear windows; tree drafts are
+ROADMAP.md item 4c).
 
-The proposer matches the trailing ``ngram_n`` tokens of a row's history
-(prompt and every emission) against its earlier positions and proposes the
-``k`` tokens that followed the most recent match, else repeats the last
-token.  The target runs the window once (``models.verify_step``) and
+Proposals come from the n-gram proposer or from a draft model.  The n-gram
+proposer matches the trailing ``ngram_n`` tokens of a row's history (prompt
+and every emission) against its earlier positions and proposes the ``k``
+tokens that followed the most recent match, else repeats the last token.  A
+draft model (``draft_propose``) runs ``k + 1`` single-token steps on a cache
+of its own, dense on the fixed engine and paged on the continuous one (its
+pool shares the target's block tables), proposing its argmax or, sampled, a
+draw from its warped distribution, whose probabilities go to the rejection
+sampler.  The target runs the window once (``models.verify_step``) and
 accepts, per row, the longest prefix of proposals its greedy argmax agrees
 with (``greedy_accept``), or, sampled, by rejection sampling against its
 warped distribution (``sampling.rejection_sample``, exact) or by the entropy
 band (``sampling.typical_accept_sample``, lossy).  Greedy speculation emits
-the tokens plain greedy decoding does.
+the tokens plain greedy decoding does, whatever the proposer.
 
 The adaptive controller keeps a per-row acceptance EMA: the fixed engine
 caps acceptance at ``_ctrl_k``'s width of the EMA inside each window (the
@@ -21,21 +25,24 @@ from the EMA on the host (``adaptive_k_host``) and runs its width-0 rounds
 as plain decode chunks, probing host-side (``propose_first_host``).
 
 Everything here runs on tensors of static shape: a window never reads a
-value of the device on the host, so on the card each window is one replay
-of a captured program.  ``spec_window`` is one iteration of the JAX
-package's fixed-engine loop (``_spec_generate_body``) on ``SpecState``'s
-buffers, ``spec_chunk_step`` one iteration of its continuous-engine scan
-(``_spec_chunk_body``) on ``ChunkState``'s.
+value of the device on the host, so on the card each window, the draft
+model's steps included, is one replay of a captured program.
+``spec_window`` is one iteration of the JAX package's fixed-engine loop
+(``_spec_generate_body``) on ``SpecState``'s buffers, ``spec_chunk_step``
+one iteration of its continuous-engine scan (``_spec_chunk_body``) on
+``ChunkState``'s.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import commit_verify, prefill, verify_step
+from repro_torch.models import (commit_verify, init_cache, prefill, stack_verify_caches,
+                                 verify_step)
 
 from .sampling import (TAG_TOKEN, TAG_WINDOW, categorical, fold_in, prng_key, rejection_sample,
                        row_keys, sample_rows, split, typical_accept_sample, warp_logits)
@@ -51,7 +58,7 @@ class SpecConfig:
     ``ctrl_cost`` of one more window position relative to a decode step;
     ``tree_fan`` > 0 tree drafts; ``accept`` "exact" (rejection sampling)
     or "typical" (entropy band ``typical_eps``/``typical_delta``, lossy).
-    The port's engines run ``mode="ngram"`` linear windows."""
+    The port's engines run linear windows of either mode."""
 
     k: int = 4
     mode: str = "ngram"
@@ -217,6 +224,43 @@ def propose_first_host(hist_row: np.ndarray, hlen: int, n: int) -> int:
     return int(hist_row[max(hlen - 1, 0)])
 
 
+def draft_propose(draft_params, draft_cfg: ModelConfig, dcache: dict, tok: torch.Tensor,
+                  pos: torch.Tensor, k: int, *, wkeys=None, greedy: bool = True, temperature=1.0,
+                  top_k: int = 0):
+    """A draft model's proposals (the JAX package's ``_draft_propose``):
+    ``k + 1`` single-token ``verify_step``s at ``pos + i`` on the draft's
+    cache ``dcache`` consume the whole window ``[tok, d_1 .. d_k]`` (the
+    last step eats ``d_k``, so every accepted length leaves the cache a
+    state).  Greedy, each proposal is the draft's argmax; sampled, a draw
+    from its warped distribution with the row's window key folded with
+    ``3 + i``, whose probabilities are returned.  ``dcache`` is dense (the
+    fixed engine) or paged (the continuous engine, through its block
+    tables at per-slot positions ``pos`` (B,)); ``k == 0`` still runs the
+    step that consumes ``tok``.  Reads nothing on the host.  Returns
+    (drafts (B, k) int32, q (B, k, V) f32 or None when greedy, the chain's
+    cache for ``commit_verify``)."""
+    b = tok.shape[0]
+    zero = torch.zeros((b,), dtype=torch.int64, device=tok.device)
+    dc, t, ds, qs, vcs = dcache, tok, [], [], []
+    for i in range(k + 1):
+        lg, vc = verify_step(draft_params, draft_cfg, t, dc, pos + i)
+        vcs.append(vc)
+        dc = commit_verify(draft_cfg, vc, zero)
+        if i < k:
+            last = lg[:, -1]
+            if greedy:
+                t = last.argmax(dim=-1).to(torch.int32)[:, None]
+            else:
+                wl = warp_logits(last, temperature, top_k)
+                t = categorical(fold_in(wkeys, 3 + i), wl)[:, None]
+                qs.append(torch.softmax(wl, dim=-1))
+            ds.append(t)
+    drafts = (torch.cat(ds, dim=1) if ds
+              else torch.zeros((b, 0), dtype=torch.int32, device=tok.device))
+    return (drafts, torch.stack(qs, dim=1) if qs else None,
+            stack_verify_caches(draft_cfg, vcs))
+
+
 # -------------------------------------------------------------- acceptance --
 def greedy_accept(window: torch.Tensor, logits: torch.Tensor):
     """Longest matching prefix: ``window`` (B, k+1) the current token and k
@@ -228,11 +272,12 @@ def greedy_accept(window: torch.Tensor, logits: torch.Tensor):
     return g, torch.cumprod(match, dim=1).sum(dim=1)
 
 
-def _accept(window, drafts, lg, *, greedy: bool, temperature, top_k: int, wkeys, kcap=None,
-            n_draws=None, accept: str = "exact", typical_eps: float = 0.3,
+def _accept(window, drafts, lg, *, greedy: bool, temperature, top_k: int, wkeys, q=None,
+            kcap=None, n_draws=None, accept: str = "exact", typical_eps: float = 0.3,
             typical_delta: float = 0.09):
-    """One linear window's verification with the point-mass proposals of the
-    n-gram proposer: greedy, rejection-sampled or typical.  Returns (g, a),
+    """One linear window's verification: greedy, rejection-sampled or
+    typical.  ``q`` (B, k, V) is the proposals' distribution (a draft
+    model's), None for the n-gram proposer's point masses.  Returns (g, a),
     the row emitting ``g[:, :a+1]``.  ``kcap``/``n_draws``: the fixed
     engine's adaptive cap (the window stays ``k`` wide).  A width-0 window
     is one plain draw on the window key's second half."""
@@ -247,8 +292,9 @@ def _accept(window, drafts, lg, *, greedy: bool, temperature, top_k: int, wkeys,
     if accept == "typical":
         return typical_accept_sample(wkeys, drafts, p, kcap=kcap, eps=typical_eps,
                                      delta=typical_delta)
-    q = torch.zeros(drafts.shape + (lg.shape[-1],), dtype=torch.float32, device=lg.device)
-    q.scatter_(2, drafts.to(torch.int64)[..., None], 1.0)
+    if q is None:
+        q = torch.zeros(drafts.shape + (lg.shape[-1],), dtype=torch.float32, device=lg.device)
+        q.scatter_(2, drafts.to(torch.int64)[..., None], 1.0)
     return rejection_sample(wkeys, drafts, q, p, kcap=kcap, n_draws=n_draws)
 
 
@@ -271,14 +317,21 @@ class SpecState:
     acceptance EMA (B,) f32, each row's window-stream key (B, 2), the
     temperature, the history and the output (B, max_seq + 1) int32 (column
     max_seq takes the writes the reference drops), and the prompt length,
-    the token budget and the window counts: int64 views of ``ints``."""
+    the token budget and the window counts: int64 views of ``ints``.  With
+    a draft model (``draft_cfg``), its dense cache for windows of ``k``
+    proposals (``draft_cache(k)``): ``max_seq + k`` positions, so that the
+    chain's read-back of the positions it writes past the last token stays
+    inside the store."""
 
-    def __init__(self, batch: int, max_seq: int, cache: dict, device):
+    def __init__(self, batch: int, max_seq: int, cache: dict, device,
+                 draft_cfg: Optional[ModelConfig] = None):
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         self.max_seq = max_seq
         self.cache = cache
+        self.draft_cfg = draft_cfg
+        self._dcaches: dict[int, dict] = {}
         self.tok = zeros((batch, 1), torch.int32)
         self.n_em = zeros((batch,), torch.int64)
         self.wctr = zeros((batch,), torch.int64)
@@ -290,6 +343,14 @@ class SpecState:
         self.ints = zeros((4,), torch.int64)
         self.s, self.n_new, self.steps, self.live_steps = (self.ints[i] for i in range(4))
 
+    def draft_cache(self, k: int) -> dict:
+        """The draft model's cache for windows of ``k`` proposals (made at
+        first use and kept: a captured window reads it)."""
+        if k not in self._dcaches:
+            self._dcaches[k] = init_cache(self.draft_cfg, self.tok.shape[0], self.max_seq + k,
+                                          self.tok.device)
+        return self._dcaches[k]
+
     def reset(self) -> None:
         """A state a window may run from (the capture's warm-up): one prompt
         token, nothing left to emit."""
@@ -298,13 +359,21 @@ class SpecState:
         self.n_em.fill_(1)
 
     def start(self, params, cfg: ModelConfig, prompt: torch.Tensor, key, temperature,
-              n_new: int, *, greedy: bool, top_k: int, ctrl_init: float) -> None:
+              n_new: int, *, greedy: bool, top_k: int, ctrl_init: float, draft_params=None,
+              k: int = 0) -> None:
         """Zero the cache, prefill ``prompt`` (B, S) and draw token 0 from its
         last logits (``draw_keys(key, row, 0, TAG_TOKEN)``), as plain
-        ``generate`` does; then the history is the prompt and token 0."""
+        ``generate`` does; then the history is the prompt and token 0.  With
+        ``draft_params``, zero the draft's cache for ``k`` proposals and
+        prefill the prompt into it too."""
         for leaf in self.cache["layers"].values():
             leaf.zero_()
         logits, _ = prefill(params, cfg, prompt, self.cache)
+        if draft_params is not None:
+            dcache = self.draft_cache(k)
+            for leaf in dcache["layers"].values():
+                leaf.zero_()
+            prefill(draft_params, self.draft_cfg, prompt, dcache)
         b, s = prompt.shape
         base = prng_key(0 if key is None else key, prompt.device)
         rids = torch.arange(b, device=prompt.device)
@@ -326,12 +395,13 @@ class SpecState:
 
 
 def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, greedy: bool,
-                top_k: int) -> None:
+                top_k: int, draft_params=None) -> None:
     """One window of the fixed engine (an iteration of the JAX package's
     ``_spec_generate_body`` loop) on ``st``'s buffers: propose ``k``
-    tokens per row from its history, verify the window at the row's
-    position against the dense cache, accept (capped at ``_ctrl_k`` under
-    the adaptive controller, whose EMA then takes the window's
+    tokens per row, from its history or, in draft mode, by the draft model
+    (``draft_params``) on ``st.draft_cache(k)``, verify the window at the
+    row's position against the dense cache, accept (capped at ``_ctrl_k``
+    under the adaptive controller, whose EMA then takes the window's
     observation), and write each live row's emissions to its output and
     history.  A row that has its ``n_new`` tokens emits nothing; its
     window's writes land at or past its last position, or are dropped past
@@ -341,7 +411,12 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
     live = st.n_em < st.n_new
     pos = st.s - 1 + st.n_em
     wkeys = None if greedy else fold_in(st.wkeys, st.wctr)
-    drafts = propose_ngram(st.hist[:, :ms], st.s + st.n_em, k, spec.ngram_n)
+    if spec.mode == "draft":
+        drafts, q, dstack = draft_propose(
+            draft_params, st.draft_cfg, st.draft_cache(k), st.tok, pos, k, wkeys=wkeys,
+            greedy=greedy, temperature=st.temperature, top_k=top_k)
+    else:
+        drafts, q = propose_ngram(st.hist[:, :ms], st.s + st.n_em, k, spec.ngram_n), None
     window = torch.cat([st.tok, drafts], dim=1)
     lg, cache = verify_step(params, cfg, window, st.cache, pos)
     if spec.adaptive:
@@ -350,7 +425,7 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
     else:
         keff, kcap = k, None
     g, a = _accept(window, drafts, lg, greedy=greedy, temperature=st.temperature, top_k=top_k,
-                   wkeys=wkeys, kcap=kcap, n_draws=k, **_verify_kw(spec))
+                   wkeys=wkeys, q=q, kcap=kcap, n_draws=k, **_verify_kw(spec))
     if spec.adaptive:
         phat0 = _ctrl_probe(lg[:, 0], drafts[:, 0], greedy=greedy, temperature=st.temperature,
                             top_k=top_k)
@@ -362,7 +437,10 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
     rows = torch.arange(b, device=dev)[:, None].expand(b, k + 1)
     st.out[rows, torch.where(emit, cols, ms)] = g
     st.hist[rows, torch.where(emit, st.s + cols, ms)] = g
-    commit_verify(cfg, cache, torch.clamp_min(m - 1, 0))
+    sel = torch.clamp_min(m - 1, 0)
+    commit_verify(cfg, cache, sel)
+    if spec.mode == "draft":
+        commit_verify(st.draft_cfg, dstack, sel)
     st.tok.copy_(_last_emitted(g, m, st.tok))
     st.n_em += m
     st.wctr += live
@@ -373,10 +451,12 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
 # ----------------------------------------------------- the continuous engine --
 def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: torch.Tensor,
                     ms: torch.Tensor, *, k: int, spec: SpecConfig, greedy: bool, top_k: int,
-                    pad_id: int) -> None:
+                    pad_id: int, draft_params=None) -> None:
     """One iteration of the JAX package's speculative chunk
     (``_spec_chunk_body``) at the round's width ``k`` on ``ChunkState``
-    ``st``: every slot proposes ``k`` tokens from its history, the window is
+    ``st``: every slot proposes ``k`` tokens from its history or, in draft
+    mode, by the draft model (``draft_params``) on the draft pool
+    ``st.dcache`` through the block tables both pools share, the window is
     verified against the paged pool at the slot's position, accepted
     emissions stop at the budget and just after a stop token (``stops``),
     and the slot's emissions (``pad_id`` past its count) and count go to row
@@ -388,14 +468,18 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
     w = st.hist.shape[1] - 1  # column w takes the writes the reference drops
     live = ~st.done
     wkeys = None if greedy else fold_in(st.wkeys, st.wctr)
-    props = propose_ngram(st.hist[:, :w], st.pos + 1, max(k, 1), spec.ngram_n)
-    drafts = props[:, :k]
+    if spec.mode == "draft":
+        drafts, q, dstack = draft_propose(
+            draft_params, st.draft_cfg, st.dcache, st.tok, st.pos, k, wkeys=wkeys,
+            greedy=greedy, temperature=st.temperature, top_k=top_k)
+    else:
+        drafts, q = propose_ngram(st.hist[:, :w], st.pos + 1, k, spec.ngram_n), None
     window = torch.cat([st.tok, drafts], dim=1)
     lg, cache = verify_step(params, cfg, window, st.cache, st.pos)
     g, a = _accept(window, drafts, lg, greedy=greedy, temperature=st.temperature, top_k=top_k,
-                   wkeys=wkeys, **_verify_kw(spec))
+                   wkeys=wkeys, q=q, **_verify_kw(spec))
     if spec.adaptive:
-        phat0 = _ctrl_probe(lg[:, 0], props[:, 0], greedy=greedy, temperature=st.temperature,
+        phat0 = _ctrl_probe(lg[:, 0], drafts[:, 0], greedy=greedy, temperature=st.temperature,
                             top_k=top_k)
         st.ema.copy_(_ctrl_update(st.ema, live, a, k, phat0, spec.ctrl_alpha))
     m = torch.minimum(a + 1, st.max_new - st.n_out)
@@ -413,7 +497,10 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
     st.pos += m
     st.n_out += m
     st.done |= (live & any_hit) | (st.n_out >= st.max_new)
-    commit_verify(cfg, cache, torch.clamp_min(m - 1, 0))
+    sel = torch.clamp_min(m - 1, 0)
+    commit_verify(cfg, cache, sel)
+    if spec.mode == "draft":
+        commit_verify(st.draft_cfg, dstack, sel)
     row = st.it.reshape(1)
     emits.index_copy_(0, row, torch.where(emit_mask, g, pad_id)[None])
     ms.index_copy_(0, row, m[None])

@@ -102,7 +102,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs import get_reduced
     from repro_torch.models import init_params
     from repro_torch.models import init_paged_cache
-    from repro_torch.serving import ContinuousBatchingEngine, ServingEngine
+    from repro_torch.serving import ContinuousBatchingEngine, ServingEngine, SpecConfig
 
     cfg = get_reduced("qwen2-1.5b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -113,5 +113,8 @@ def test_entry_points_default_to_the_card():
         ContinuousBatchingEngine(cfg, {}, slots=1, max_seq=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatchingEngine(cfg, {}, slots=1, max_seq=8, speculate=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatchingEngine(cfg, {}, slots=1, max_seq=8, speculate=SpecConfig(mode="draft"),
+                                 draft_cfg=cfg, draft_params={})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_paged_cache(cfg, 1, 8, 3, 4)

@@ -283,13 +283,17 @@ def test_guards():
     with pytest.raises(AssertionError, match="page leak"):
         eng.assert_quiescent()
     for option, item in ((dict(mesh=object()), "item 7"),
-                         (dict(speculate=SpecConfig(mode="draft")), "item 4b"),
-                         (dict(speculate=SpecConfig(tree_fan=2)), "item 4c"),
-                         (dict(draft_cfg=tcfg), "item 4b"), (dict(draft_params=tparams), "item 4b"),
-                         (dict(draft_pim_bits=8), "item 4b")):
+                         (dict(speculate=SpecConfig(tree_fan=2)), "item 4c")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item} "):
             ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
                                      **option)
+    with pytest.raises(ValueError, match="draft_cfg/draft_params"):
+        ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
+                                 speculate=SpecConfig(mode="draft"))
+    for option in (dict(draft_cfg=tcfg), dict(draft_params=tparams), dict(draft_pim_bits=8),
+                   dict(draft_cfg=tcfg, draft_params=tparams,
+                        speculate=SpecConfig(k=3, mode="draft"))):
+        ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu", **option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.serve([Request(prompt=p, max_new=2, extras={"image": np.zeros(3)})])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
