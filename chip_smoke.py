@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Eight paths run, at qwen2-1.5b's full width (28 layers, bf16, random
+Nine paths run, at qwen2-1.5b's full width (28 layers, bf16, random
 weights from a seeded generator on the card):
 
 * decoding from PIM-quantized weights: ``serving.quantize_tree`` ->
@@ -37,7 +37,11 @@ weights from a seeded generator on the card):
   each verify window one replay of a captured program, windows of at most
   8 rows (one row a slot and k + 1 positions) through ``pim_matvec``, wider
   ones through ``x @ dq(w)``, the adaptive controller's width-0 rounds the
-  plain captured chunk step.
+  plain captured chunk step;
+* tree drafts on both engines (``SpecConfig(tree_fan=F)``): F n-gram
+  chains verified in one window under a shared-prefix mask, the kept
+  chain's K/V relocated to the linear columns inside the same captured
+  program, on a dense store and through the block tables of a paged one.
 
 Phases:
 
@@ -308,6 +312,39 @@ Phases:
    k = 1, 2, 4 (int4 draft, 4 rows) and of (a)'s window against the plain
    step, then (c)'s tokens/s against phase 9's plain serve, in alternating
    rounds.
+14. tree drafts (after phase 13; counters, not the profiler): (a) the
+   fixed engine at 1 x 128, 32 new, ``SpecConfig(k=3, tree_fan=2)`` (7-row
+   windows), greedy: captured ``torch.equal`` to an eager loop of
+   windows, tokens against plain batch-1 decoding (a divergence only at a
+   plain top-2 gap within PAGED_BAR, the count reported), ``tree_fan=1``
+   equal to linear k = 3, ``pim_matvec`` 196 a window; (b) planted chains:
+   the prompt prefilled into a dense store and into a paged pool of
+   8-token pages under a shuffled block table (the window's columns cross
+   a page boundary), a fan-3 x depth-3 window whose chain 2 holds plain
+   greedy decoding's next three tokens, ``greedy_tree_accept`` must keep
+   chain 2 whole (or reject only at a plain gap within PAGED_BAR),
+   ``tree_relocate``'s linear columns byte-equal to the tree columns they
+   came from and every other column unchanged, then 8 decode steps on from
+   the relocated cache within HIT_BAR of plain decoding (logits and
+   tokens); a planted fault, the relocation's sources one column late,
+   must fail both the byte check and the continuation; (c) phase 3's
+   4 x 128 prompts, 32 new, ``SpecConfig(k=2, tree_fan=2)`` (20-row
+   windows, no ``pim_matvec``): greedy against plain greedy decoding at
+   HIT_BAR, sampled captured ``torch.equal`` to an eager loop of windows
+   at 16 new, and the continuous engine on the same key: equal tokens, or
+   a first divergence where the fixed engine's draw was a near-tie (its
+   margin, the draw's top-2 gap or the top-k cut's as phase 10 takes it,
+   within HIT_BAR over the temperature); (d) the continuous
+   engine on phase 9's engine geometry and trace, greedy and sampled,
+   captured ``torch.equal`` to eager (tokens, events, peak pages), greedy
+   against phase 9's solo dense runs at HIT_BAR, phase 9's small pool
+   (preemption) ``torch.equal``, phase 10's repeated prompt with
+   ``prefix_cache=True`` (one hit), a recompute crash replay
+   ``torch.equal``; (e) device ms of the batch-1 tree window against the
+   linear k = 3 window and the plain step, and of the batch-4 tree window
+   against the linear k = 4 window and the plain step (CUDA events over
+   replays, alternating rounds), then (d)'s tokens/s against phase 9's
+   plain serve, acceptance, and the first timed tree serve's launches (0).
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -341,7 +378,8 @@ from repro_torch.kernels.pim_matmul import plan as matmul_plan  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import plan as matvec_plan  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    attention, common, decode_step, init_cache, init_params, prefill, verify_hidden)
+    attention, common, decode_step, init_cache, init_paged_cache, init_params, lm, prefill,
+    tree_relocate, verify_hidden, verify_step)
 from repro_torch.models.common import unembed  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     QuantizedTensor, dequantize, quantize_symmetric, to_bitplanes)
@@ -349,7 +387,7 @@ from repro_torch.serving import (  # noqa: E402
     ChaosConfig, ChunkState, ContinuousBatchingEngine, DecodeState, EngineCrash, FaultInjector,
     LadderConfig, ReplicaRouter, Request, ResiliencePolicy, ServingEngine, ServingSupervisor,
     SpecConfig, VirtualClock, admit_prefill, decode_and_emit, load_snapshot, quantize_tree,
-    save_snapshot, speculative)
+    sampling, save_snapshot, speculative)
 from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits  # noqa: E402
 
 SEED = 20260
@@ -601,6 +639,9 @@ def main() -> int:
     # ---- 13. draft-model speculation --------------------------------------------------
     spec_launches.update(DraftPhase(cfg, eng8.params, eng4.params, prompt, serving,
                                     prefix_phase).run())
+
+    # ---- 14. tree drafts ----------------------------------------------------------------
+    spec_launches.update(TreePhase(cfg, eng8.params, prompt, toks, serving, prefix_phase).run())
 
     # ---- 8. the captured decode step ---------------------------------------------
     counted, traced = captured_phase(
@@ -4211,6 +4252,487 @@ class DraftPhase(SpecPhase):
         report["launches"] = self.launches
         report["phase_s"] = time.perf_counter() - t0
         print(json.dumps(report), flush=True)
+        return self.launches
+
+
+# ---- 14. tree drafts -------------------------------------------------------------------
+# (a) the fixed engine at batch 1, fan 2 x depth 3 (7-row windows, through
+# pim_matvec); (b) planted chains at full width, fan 3 x depth 3, dense and
+# paged; (c) the fixed engine at phase 3's batch, fan 2 x depth 2 (20-row
+# windows); (d) the continuous engine on phase 9's trace, fan 2 x depth 2;
+# (e) times.
+TREE_SPEC1 = dict(k=3, tree_fan=2)   # (a): 1 + 2 x 3 = 7 rows
+TREE_SPEC4 = dict(k=2, tree_fan=2)   # (c), (d): 4 x (1 + 2 x 2) = 20 rows
+TREE_PLANT = (3, 3)                  # (b): fan 3, depth 3; chain 2 holds the plain tokens
+TREE_PLANT_PS = 8                    # (b): the paged pool's page size: the window's
+                                     # columns 128..137 cross a page boundary
+TREE_CONTINUE = 8                    # (b): decode steps on from the relocated cache
+TREE_EAGER_NEW = 16                  # (c): the eager twin's and the cross-engine budget
+TREE_ROUNDS = 3                      # (e): alternating rounds of steps and windows
+TREE_SERVE_ROUNDS = 2                # (e): alternating rounds of plain and tree serves
+
+
+def late_sources(cfg, cache, pos, a, cf, *, fan, depth, page_size=None):
+    """The planted fault of (b): the relocation gathers each kept step one
+    column late."""
+    src, dst, ok = lm.tree_columns(pos, a, cf, depth)
+    return lm.move_columns(cache, src + 1, dst, ok)
+
+
+def draw_margins(lg, keys, logdist, a, cf, depth, temperature, top_k):
+    """Each row's margin of a tree window's final draw, in warped logits: the
+    least of the top-2 gap of gumbel noise plus the warped logits it drew
+    from (eliminated or cut tokens out) and the top-k cut's margins, as
+    phase 10's ``_gap`` takes them.  ``lg`` (B, T, V) the window's logits,
+    ``keys``/``logdist`` the categorical's arguments, ``a``/``cf`` the
+    window's acceptance: the draw came from node ``cf*depth + a`` (0 when
+    nothing was accepted)."""
+    b, _, v = lg.shape
+    node = torch.where(a > 0, cf * depth + a, 0)
+    lgn = lg[torch.arange(b, device=lg.device), node].float()
+    noise = gumbel(keys, v)
+    values = torch.where(logdist > float("-inf"), lgn / temperature + noise, float("-inf"))
+    margins = []
+    for r in range(b):
+        gap = top2_gap(values[r])
+        kth, first_cut = torch.topk(lgn[r], top_k + 1).values[top_k - 1:]
+        cut = ((lgn[r, values[r].argmax()] - first_cut) / temperature).item()
+        entering = (lgn[r] < kth) & (lgn[r] / temperature + noise[r] > values[r].max())
+        if bool(entering.any()):
+            cut = min(cut, ((kth - lgn[r][entering].max()) / temperature).item())
+        margins.append(min(gap, cut))
+    return margins
+
+
+@contextlib.contextmanager
+def recorded_tree_draws(log, temperature, top_k):
+    """Each eager tree window's final draws: ``draw_margins`` per row
+    appended to ``log``, one list a window."""
+    seen = {}
+    verify, accept, draw = (speculative.verify_step, speculative.tree_reject_sample,
+                            sampling.categorical)
+
+    def verify_rec(*args, **kw):
+        seen["lg"], cache = verify(*args, **kw)
+        return seen["lg"], cache
+
+    def draw_rec(keys, logits):
+        seen["keys"], seen["logdist"] = keys, logits
+        return draw(keys, logits)
+
+    def accept_rec(keys, chains, p, **kw):
+        toks, a, cf = accept(keys, chains, p, **kw)
+        log.append(draw_margins(seen["lg"], seen["keys"], seen["logdist"], a, cf,
+                                chains.shape[2], temperature, top_k))
+        return toks, a, cf
+    speculative.verify_step, speculative.tree_reject_sample = verify_rec, accept_rec
+    sampling.categorical = draw_rec
+    try:
+        yield
+    finally:
+        speculative.verify_step, speculative.tree_reject_sample = verify, accept
+        sampling.categorical = draw
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+class TreePhase(SpecPhase):
+    """Phase 14: tree drafts on both engines, (a) to (e) of the module's
+    docstring."""
+
+    NAME = "phase 14"
+
+    # ---- (a) the fixed engine at batch 1 ---------------------------------------------------
+    def batch1(self, report):
+        cfg, dev, p1 = self.cfg, self.dev, self.prompt[:1]
+        spec = SpecConfig(**TREE_SPEC1)
+        self.eng = eng = ServingEngine(cfg, self.params, max_seq=PROMPT + N_NEW, device=dev)
+        self.graphs = count_captures(eng)
+        self.eager = EagerServingEngine(cfg, self.params, max_seq=PROMPT + N_NEW, device=dev)
+        self.plain1 = eng.generate(p1, N_NEW)
+        got = eng.generate(p1, N_NEW, speculate=spec)
+        stats = dict(eng.spec_stats)
+        want = self.eager.generate(p1, N_NEW, speculate=spec)
+        row = {"case": "greedy, batch 1, fan 2 x depth 3", "window_rows": 1 + 2 * 3,
+               "tokens_equal_eager": torch.equal(got, want),
+               "windows_equal_eager": stats == self.eager.spec_stats, "spec_stats": stats}
+        check(row["tokens_equal_eager"] and row["windows_equal_eager"],
+              f"(a) the captured tree windows differ from the eager ones: {row}")
+        vs = self._against_plain("(a) batch 1", eng, p1, got, self.plain1, check_bar=False)
+        row["vs_plain_batch_1"] = vs
+        check(vs["beyond_paged_bar"] == 0, f"(a) batch-1 tree tokens leave plain batch-1 "
+              f"decoding beyond the bar {PAGED_BAR}: {vs}")
+        fan1 = eng.generate(p1, N_NEW, speculate=SpecConfig(k=3, tree_fan=1))
+        linear = eng.generate(p1, N_NEW, speculate=SpecConfig(k=3))
+        row["fan_1_equal_linear_k_3"] = torch.equal(fan1, linear)
+        check(row["fan_1_equal_linear_k_3"], "(a) tree_fan=1, k=3 differs from linear k=3")
+        _, launches, counted_as = counted_launches(
+            self.graphs, lambda: eng.generate(p1, N_NEW, speculate=spec))
+        windows = eng.spec_stats["verify_steps"]
+        want_l = dict.fromkeys(launches, 0)
+        want_l["pim_matvec"] = self.per_step * windows
+        check(launches == want_l, f"(a) launches {launches}, expected {want_l} ({windows} "
+                                  "7-row tree windows)")
+        row.update(launches=launches, launches_counted_as=counted_as,
+                   pim_matvec_per_window=launches["pim_matvec"] // max(1, windows))
+        report["batch_1"] = row
+        self.launches["tree, fixed engine, batch 1 windows"] = launches
+
+    # ---- (b) planted chains ----------------------------------------------------------------
+    def _caches(self, store):
+        """A dense cache of ``store`` positions and a paged pool of
+        TREE_PLANT_PS-token pages under a shuffled block table, each with the
+        batch-1 prompt prefilled."""
+        cfg, dev, p1 = self.cfg, self.dev, self.prompt[:1]
+        dense = init_cache(cfg, 1, store, dev)
+        prefill(self.params, cfg, p1, dense)
+        ps = TREE_PLANT_PS
+        width = -(-store // ps)
+        paged = init_paged_cache(cfg, 1, width * ps, width + 1, ps, dev)
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 14)
+        bt = (torch.randperm(width, generator=gen) + 1).to(dev)
+        paged["block_tables"].copy_(bt[None])
+        prefill(self.params, cfg, p1, paged, length=PROMPT, pages=bt[:PROMPT // ps])
+        return {"dense": dense, "paged": paged}
+
+    def _columns(self, cache, cols):
+        """Each leaf's columns ``cols`` of row 0 (dense) or through the block
+        table (paged), as bytes: {name: (L, n, KV, ...) uint8}."""
+        bt = cache.get("block_tables")
+        cols = torch.as_tensor(cols, device=self.dev)
+        out = {}
+        for name, leaf in cache["layers"].items():
+            if bt is None:
+                t = leaf[:, 0][:, :, cols].transpose(1, 2)
+            else:
+                ps = leaf.shape[3]
+                t = leaf[:, bt[0, cols // ps].long(), :, cols % ps]
+            out[name] = _bytes(t)
+        return out
+
+    def _unchanged_but(self, cache, before, cols):
+        """Whether every column of ``cache`` but ``cols`` holds the bytes of
+        the snapshot ``before`` (a paged pool's trash page aside)."""
+        bt = cache.get("block_tables")
+        cols = torch.as_tensor(cols, dtype=torch.int64, device=self.dev)
+        for name, leaf in cache["layers"].items():
+            want = before[name].clone()
+            if bt is None:
+                want[:, :, :, cols] = leaf[:, :, :, cols]
+            else:
+                ps = leaf.shape[3]
+                at = (bt[0, cols // ps].long(), cols % ps)
+                want[:, at[0], :, at[1]] = leaf[:, at[0], :, at[1]]
+                want, leaf = want[:, 1:], leaf[:, 1:]
+            if not torch.equal(_bytes(want), _bytes(leaf)):
+                return False
+        return True
+
+    def _continue(self, cache, toks, first):
+        """Decode ``toks`` (plain tokens) one at a time from position
+        ``first`` on: the logits after each, (n, V) f32."""
+        out = []
+        for i, t in enumerate(toks):
+            tok = torch.tensor([[int(t)]], dtype=torch.int32, device=self.dev)
+            pos = first + i
+            if "block_tables" in cache:
+                pos = torch.tensor([pos], device=self.dev)
+            lg, _ = decode_step(self.params, self.cfg, tok, cache, pos)
+            out.append(lg[0, -1].float())
+        return torch.stack(out)
+
+    def planted(self, report):
+        cfg, dev = self.cfg, self.dev
+        fan, depth = TREE_PLANT
+        t = self.plain1[0].tolist()
+        store = PROMPT + N_NEW + fan * depth
+        rows = {}
+        with torch.inference_mode():
+            # the plain run's logits after t0 .. t_{depth + TREE_CONTINUE}, one
+            # eager decode step each
+            ref_cache = init_cache(cfg, 1, store, dev)
+            prefill(self.params, cfg, self.prompt[:1], ref_cache)
+            ref = self._continue(ref_cache, t[:depth + TREE_CONTINUE + 1], PROMPT)
+            check([int(x) for x in ref.argmax(-1)] == t[1:depth + TREE_CONTINUE + 2],
+                  "(b) the eager plain steps' tokens differ from plain greedy decoding")
+            chains = torch.tensor([[[(t[1 + i] + 1 + f) % cfg.vocab for i in range(depth)]
+                                    for f in range(fan - 1)] + [t[1:1 + depth]]],
+                                  dtype=torch.int32, device=dev)
+            window = torch.cat([torch.tensor([[t[0]]], dtype=torch.int32, device=dev),
+                                chains.reshape(1, -1)], dim=1)
+            pos = torch.tensor([PROMPT], device=dev)
+            tree_cols = [PROMPT + 1 + (fan - 1) * depth + i for i in range(depth)]
+            lin_cols = [PROMPT + 1 + i for i in range(depth)]
+            for layout, cache in self._caches(store).items():
+                lg, _ = verify_step(self.params, cfg, window, cache, pos, tree=(fan, depth))
+                g, a, cf = speculative.greedy_tree_accept(chains, lg)
+                a, cf = int(a[0]), int(cf[0])
+                row = {"accepted": a, "kept_chain": cf, "emitted": g[0, :a + 1].tolist(),
+                       "plain": t[1:depth + 2]}
+                if a < depth:  # a rejection: only where the plain run's gap is a near-tie
+                    row["rejected_at_plain_top2_gap"] = top2_gap(ref[a])
+                check(a == depth and cf == fan - 1 or (
+                    row.get("rejected_at_plain_top2_gap", 1.0) <= PAGED_BAR
+                    and (a == 0 or cf == fan - 1)),
+                    f"(b) {layout}: the planted chain {fan - 1} was not accepted: {row}")
+                before = {name: leaf.clone() for name, leaf in cache["layers"].items()}
+                src = self._columns(cache, tree_cols[:a])
+                for fault in (False, True):
+                    if fault:  # back to the window's state, then the late relocation
+                        for name, leaf in cache["layers"].items():
+                            leaf.copy_(before[name])
+                        late_sources(cfg, cache, pos, torch.tensor([a], device=dev),
+                                     torch.tensor([cf], device=dev), fan=fan, depth=depth)
+                    else:
+                        tree_relocate(cfg, cache, pos, torch.tensor([a], device=dev),
+                                      torch.tensor([cf], device=dev), fan=fan, depth=depth)
+                    moved = self._columns(cache, lin_cols[:a])
+                    unchanged = self._unchanged_but(cache, before, lin_cols[:a])
+                    byte_equal = all(torch.equal(moved[n], src[n]) for n in src)
+                    cont = self._continue(cache, t[a + 1:a + 1 + TREE_CONTINUE], PROMPT + a + 1)
+                    want = ref[a + 1:a + 1 + TREE_CONTINUE]
+                    diff = (cont - want).abs().max().item()
+                    toks = [int(x) for x in cont.argmax(-1)]
+                    plain_next = t[a + 2:a + 2 + TREE_CONTINUE]
+                    div = next((j for j in range(TREE_CONTINUE) if toks[j] != plain_next[j]),
+                               None)
+                    gap = None if div is None else top2_gap(want[div])
+                    res = {"relocated_bytes_equal_tree_columns": byte_equal,
+                           "other_columns_unchanged": unchanged,
+                           "continued_max_abs_logit_diff": diff,
+                           "continued_tokens_equal_plain": div is None,
+                           "first_divergence": div, "plain_top2_gap_there": gap}
+                    res["within_bar"] = diff <= HIT_BAR and (gap is None or gap <= HIT_BAR)
+                    if fault:
+                        res["flagged_by_bytes"] = not byte_equal
+                        res["flagged_by_continuation"] = not res["within_bar"]
+                        check(res["flagged_by_bytes"] and res["flagged_by_continuation"],
+                              f"(b) {layout}: the late relocation passes: {res}")
+                        row["planted_fault"] = res
+                    else:
+                        check(byte_equal and unchanged and res["within_bar"],
+                              f"(b) {layout}: the relocation of chain {cf}: {res}")
+                        row["relocation"] = res
+                rows[layout] = row
+                print(f"{self.NAME} (b) {layout}: " + json.dumps(row), flush=True)
+        report["planted_chains"] = {"fan": fan, "depth": depth, "page_size": TREE_PLANT_PS,
+                                    "bar": HIT_BAR, **rows}
+
+    # ---- (c) the fixed engine at batch 4 ---------------------------------------------------
+    def _eager_windows(self, spec, n_new, mode):
+        """The eager engine's windows one at a time: tokens, and per window
+        the rows' emitted counts before and after and the margin of each
+        row's final draw (``recorded_tree_draws``)."""
+        eng, b = self.eager, self.prompt.shape[0]
+        step = eng.spec_step(b, spec, greedy=False, top_k=mode["top_k"])
+        st = eng.spec_state(b)
+        st.start(self.params, self.cfg, self.prompt, mode["key"], mode["temperature"], n_new,
+                 greedy=False, top_k=mode["top_k"], ctrl_init=0.0, k=spec.k,
+                 tree_fan=spec.tree_fan)
+        log, windows = [], []
+        with recorded_tree_draws(log, mode["temperature"], mode["top_k"]):
+            while int(st.n_em.min()) < n_new:
+                before = st.n_em.tolist()
+                step()
+                windows.append((before, st.n_em.tolist(), log[-1]))
+        return st.out[:, :n_new].clone(), windows
+
+    @staticmethod
+    def _draw_gap(windows, r, j):
+        """The margin of the draw that emitted token j of row r: a window's
+        final draw; None where j was an accepted proposal."""
+        for before, after, gaps in windows:
+            if before[r] <= j < after[r]:
+                return gaps[r] if j == after[r] - 1 else None
+        return None
+
+    def batch4(self, report):
+        cfg, dev, prompt = self.cfg, self.dev, self.prompt
+        spec = SpecConfig(**TREE_SPEC4)
+        eng = self.eng
+        got = eng.generate(prompt, N_NEW, speculate=spec)
+        row = {"case": "greedy, batch 4, fan 2 x depth 2", "window_rows": BATCH * 5,
+               "spec_stats": dict(eng.spec_stats),
+               "vs_plain": self._against_plain("(c) greedy", eng, prompt, got, self.toks)}
+        _, launches, _ = counted_launches(
+            self.graphs, lambda: eng.generate(prompt, N_NEW, speculate=spec))
+        check(launches == dict.fromkeys(launches, 0), f"(c) launches {launches}, expected "
+              "none (20-row windows go through x @ dq(w))")
+        self.launches["tree, fixed engine, batch 4 windows"] = launches
+        mode = {k: v for k, v in SAMPLED.items() if k != "greedy"}
+        got_s = eng.generate(prompt, TREE_EAGER_NEW, speculate=spec, **SAMPLED)
+        stats = dict(eng.spec_stats)
+        with torch.inference_mode():
+            want, windows = self._eager_windows(spec, TREE_EAGER_NEW, mode)
+        sampled = {"case": "sampled, batch 4", "n_new": TREE_EAGER_NEW,
+                   "tokens_equal_eager": torch.equal(got_s, want),
+                   "windows_equal_eager": stats["verify_steps"] == len(windows),
+                   "spec_stats": stats}
+        check(sampled["tokens_equal_eager"] and sampled["windows_equal_eager"],
+              f"(c) the captured sampled tree windows differ from the eager ones: {sampled}")
+        cont = ContinuousBatchingEngine(cfg, self.params, speculate=spec, device=dev,
+                                        **{**SERVE, "max_seq": PROMPT + N_NEW})
+        got_c = cont.generate(prompt, TREE_EAGER_NEW, **SAMPLED)
+        bar = HIT_BAR / SAMPLED["temperature"]
+        divs = []
+        for r in range(BATCH):
+            diff = torch.nonzero(got_c[r] != got_s[r]).flatten().tolist()
+            if diff:
+                divs.append({"row": r, "token": diff[0],
+                             "draw_margin": self._draw_gap(windows, r, diff[0])})
+        sampled["continuous_engine"] = {
+            "rows_equal": BATCH - len(divs), "divergences": divs, "bar": bar,
+            "beyond_bar": sum(d["draw_margin"] is None or d["draw_margin"] > bar
+                              for d in divs)}
+        check(sampled["continuous_engine"]["beyond_bar"] == 0, f"(c) the continuous engine's "
+              f"sampled tree tokens leave the fixed engine's beyond a near-tie: {sampled}")
+        report["batch_4"] = [row, sampled]
+        del cont
+
+    # ---- (d) the continuous engine ---------------------------------------------------------
+    def continuous(self, report):
+        sv, reqs = self.serving, self.serving.reqs
+        spec = SpecConfig(**TREE_SPEC4)
+        eng, graphs, eager = self._engines(spec)
+        self.serve_eng, self.serve_graphs = eng, graphs
+        self.out, same = self._captured_vs_eager("greedy", eng, eager, reqs)
+        same["vs_dense"] = self._against_dense("(d) tree greedy", self.out)
+        rows = [same]
+        self.out_sampled, same = self._captured_vs_eager("sampled", eng, eager, reqs, SAMPLED)
+        check(not same_tokens(self.out_sampled, self.out), "(d) sampled tokens equal greedy ones")
+        rows.append(same)
+        del eager
+        small = sv.report["preemption"]["num_pages"]
+        pre = ContinuousBatchingEngine(self.cfg, self.params, speculate=spec, device=self.dev,
+                                       **{**SERVE, "num_pages": small})
+        out_p = pre.serve(reqs)
+        report["preemption"] = {"num_pages": small, "preemptions": pre.preemptions,
+                                "tokens_equal": same_tokens(out_p, self.out)}
+        check(pre.preemptions > 0 and report["preemption"]["tokens_equal"],
+              f"(d) the preempted tree serve: {report['preemption']}")
+        pre.assert_quiescent()
+        del pre
+        # the prefix cache stays on: phase 10's repeated prompt, twice
+        preqs = [Request(prompt=self.prefix.reqs[i].prompt, max_new=8) for i in (2, 6)]
+        check(np.array_equal(preqs[0].prompt, preqs[1].prompt), "(d) no repeated prompt")
+        peng = ContinuousBatchingEngine(self.cfg, self.params, speculate=spec, device=self.dev,
+                                        prefix_cache=True, **SERVE)
+        peng.debug_check_hist = True
+        prep = peng.serve_detailed(preqs)
+        out_u = eng.serve(preqs)
+        report["prefix_cache"] = {"hits": prep.prefix_hits, "hit_tokens": prep.prefix_hit_tokens,
+                                  "cow_forks": prep.cow_forks,
+                                  "prompt_tokens": len(preqs[0].prompt),
+                                  "tokens_equal_uncached": same_tokens(prep.outputs, out_u)}
+        check(prep.prefix_hits == 1 and prep.prefix_hit_tokens > 0,
+              f"(d) the repeated prompt did not hit: {report['prefix_cache']}")
+        peng.assert_quiescent()
+        del peng
+        inj = FaultInjector(ChaosConfig(crash_rounds=(CRASH_ROUNDS[0],)))
+        rep = ServingSupervisor(eng, policy=ResiliencePolicy(resume_mode="recompute"),
+                                chaos=inj).run(reqs)
+        crash = {"restarts": rep.restarts, "failures": [f.kind for f in rep.failures],
+                 "tokens_equal": same_tokens(rep.outputs, self.out)}
+        check(rep.restarts == 1 and injected_only(rep.failures, inj) and crash["tokens_equal"],
+              f"(d) recompute crash replay of the tree serve: {crash}")
+        eng.assert_quiescent()
+        report["crash_replay_recompute"] = crash
+        report["continuous"] = rows
+
+    # ---- (e) times -------------------------------------------------------------------------
+    @torch.inference_mode()
+    def times(self, report):
+        eng, cfg = self.eng, self.cfg
+        runs = {}
+        for b in (1, BATCH):
+            p = self.prompt[:b]
+            runs[f"plain step, {b} rows"] = (
+                eng.step(b, greedy=True, top_k=0), functools.partial(
+                    eng.state(b).start, self.params, cfg, p, None, 1.0, greedy=True, top_k=0),
+                b)
+            specs = ((TREE_SPEC1, dict(k=3)) if b == 1 else (TREE_SPEC4, dict(k=SPEC_K)))
+            for sp in specs:
+                spec = SpecConfig(**sp)
+                name = (f"tree window fan {spec.tree_fan} x k {spec.k}" if spec.tree_fan
+                        else f"linear window k {spec.k}")
+                runs[f"{name}, {b} rows"] = (
+                    eng.spec_step(b, spec, greedy=True, top_k=0), functools.partial(
+                        eng.spec_state(b).start, self.params, cfg, p, None, 1.0, N_NEW,
+                        greedy=True, top_k=0, ctrl_init=0.0, k=spec.k, tree_fan=spec.tree_fan),
+                    b * (1 + max(1, spec.tree_fan) * spec.k))
+
+        def ms(step, start):
+            start()
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(SPEC_TIME_REPS):
+                step()
+            z.record()
+            z.synchronize()
+            return a.elapsed_time(z) / SPEC_TIME_REPS
+
+        rounds = []
+        for _ in range(TREE_ROUNDS):
+            rounds.append({name: ms(step, start) for name, (step, start, _) in runs.items()})
+            rounds[-1]["sm_clock_mhz"] = tracing.sm_clock_mhz()
+        med = {name: sorted(r[name] for r in rounds)[len(rounds) // 2] for name in runs}
+        rows = []
+        for name, (_, _, m) in runs.items():
+            b = 1 if name.endswith(" 1 rows") else BATCH
+            rows.append({"run": name, "rows": m,
+                         "linears_through": ("pim_matvec" if m <= common.MATVEC_MAX_M
+                                             else "x @ dq(w)"),
+                         "ms": med[name], "over_plain_step": med[name] / med[
+                             f"plain step, {b} rows"]})
+        report["window_ms"] = {"timing": "device ms a replay, CUDA events over "
+                                         f"{SPEC_TIME_REPS} replays, median of {TREE_ROUNDS} "
+                                         "alternating rounds", "rows": rows, "rounds": rounds}
+
+        plain, tree = self.serving.eng, self.serve_eng
+        serves = {"plain": (plain, self.serving.out), "tree": (tree, self.out)}
+        srounds = []
+        for i in range(TREE_SERVE_ROUNDS):
+            row = {}
+            for name, (e, want) in serves.items():
+                if i or e is plain:
+                    out, t = e.timed_serve(self.serving.reqs)
+                else:  # (d)'s launches: the first timed tree serve's
+                    (out, t), launches, counted_as = counted_launches(
+                        self.serve_graphs, lambda: e.timed_serve(self.serving.reqs))
+                    check(launches == dict.fromkeys(launches, 0), f"(d) serve: launches "
+                          f"{launches}, expected none (20-row tree windows and admits go "
+                          "through x @ dq(w))")
+                    report["serve_launches"] = {"launches": launches, "counted_as": counted_as,
+                                                "decode_chunk_iters": t["iters"]}
+                    self.launches["tree, continuous engine, serve"] = launches
+                check(same_tokens(out, want), f"(e) the timed serve {name!r} changed")
+                row[name] = {**timing_row(t), "tokens_per_chunk_iter": t["tokens"] / t["iters"]}
+            row["sm_clock_mhz"] = tracing.sm_clock_mhz()
+            srounds.append(row)
+        smed = {name: {key: sorted(r[name][key] for r in srounds)[len(srounds) // 2]
+                       for key in ("tokens_per_s", "step_ms_per_iter", "tokens_per_chunk_iter",
+                                   "host_ms_per_round_outside_steps")} for name in serves}
+        smed["tree"]["tokens_per_s_over_plain"] = (smed["tree"]["tokens_per_s"]
+                                                   / smed["plain"]["tokens_per_s"])
+        smed["tree"]["acceptance"] = tree.spec_emitted / max(1, tree.spec_live_steps)
+        report["serve_times"] = {"rounds": srounds, "medians": smed}
+        report["graphs"] = {"fixed engine": capture_report(self.eng, self.graphs),
+                            "serve": capture_report(tree, self.serve_graphs)}
+
+    def run(self):
+        report = {"check": "phase 14: tree drafts, qwen2-1.5b int8", "section_s": {}}
+        t0 = time.perf_counter()
+        self.launches = {}
+        for part in (self.batch1, self.planted, self.batch4, self.continuous, self.times):
+            t = time.perf_counter()
+            part(report)
+            report["section_s"][part.__name__] = time.perf_counter() - t
+        report["launches"] = self.launches
+        report["phase_s"] = time.perf_counter() - t0
+        print(json.dumps(report), flush=True)
+        del self.eager
         return self.launches
 
 

@@ -21,7 +21,10 @@ gathers through the block tables with device ops only.
 ``attn_verify`` runs a window of T tokens per row at positions ``pos ..
 pos+T-1`` against either cache: each query attends as a decode step at its
 own position does, with the window's queries taken in blocks that bound the
-scores' memory (``VERIFY_SCORES_BYTES``).
+scores' memory (``VERIFY_SCORES_BYTES``).  With ``tree=(fan, depth)`` the
+window is a fan of candidate chains sharing its first token
+(``tree_layout``): each query attends to the cached prefix and to the
+window columns on its own root path, at the rope position of its depth.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attn import flash_attention_gqa
@@ -55,6 +59,58 @@ def attn_init(gen, d: int, n_heads: int, n_kv: int, head_dim: int, dtype,
         p["bk"] = torch.zeros(lead + (n_kv * head_dim,), dtype=dtype, device=device)
         p["bv"] = torch.zeros(lead + (n_kv * head_dim,), dtype=dtype, device=device)
     return p
+
+
+@functools.lru_cache(maxsize=None)
+def tree_layout(fan: int, depth: int):
+    """The static layout of a fan-of-chains window of ``1 + fan*depth``
+    nodes in node order: node 0 is the shared root (the current token),
+    node ``1 + f*depth + i`` step i of chain f.  Returns numpy ``(dep,
+    vis)``: ``dep[j]`` node j's depth (its rope offset from the root),
+    ``vis[q, j]`` True where node j is node q's ancestor or itself.  At
+    ``fan == 1`` this is the linear window: ``dep == arange`` and ``vis``
+    lower-triangular."""
+    t = 1 + fan * depth
+    dep = np.zeros((t,), np.int32)
+    vis = np.zeros((t, t), np.bool_)
+    vis[:, 0] = True  # the root is every node's ancestor
+    for f in range(fan):
+        for i in range(depth):
+            j = 1 + f * depth + i
+            dep[j] = i + 1
+            vis[j, 1 + f * depth: j + 1] = True  # its own chain's prefix and itself
+    return dep, vis
+
+
+def tree_tensors(fan: int, depth: int, device) -> tuple:
+    """``tree_layout`` on ``device``: dep (T,) int64, vis (T, T) bool, and
+    pred (fan, depth) int64, the node before each chain step (the root for
+    step 0, else node ``f*depth + i``).  Made once per (fan, depth, device)
+    and kept, so a captured window reads them without a host copy (make
+    them before the capture)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _tree_tensors(fan, depth, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_tensors(fan: int, depth: int, device: torch.device) -> tuple:
+    dep, vis = tree_layout(fan, depth)
+    steps = np.arange(depth)
+    pred = np.where(steps > 0, np.arange(fan)[:, None] * depth + steps, 0)
+    return tuple(torch.from_numpy(t).to(device) for t in (dep.astype(np.int64), vis, pred))
+
+
+def tree_valid(vis: torch.Tensor, pos: torch.Tensor, store: int) -> torch.Tensor:
+    """(B, T, S) bool: query node q of the window rooted at each row's
+    ``pos`` (B,) may attend store column c iff c holds the cached prefix (c
+    < pos) or a window node on q's root path (``vis[q, c - pos]``)."""
+    t = vis.shape[0]
+    rel = torch.arange(store, device=pos.device)[None] - pos[:, None]  # (B, S)
+    inwin = (rel >= 0) & (rel < t)
+    vm = vis[:, rel.clamp(0, t - 1)].transpose(0, 1)  # (B, T, S)
+    return (rel < 0)[:, None] | (inwin[:, None] & vm)
 
 
 def _split_heads(x, n, d):
@@ -208,20 +264,25 @@ def pv_f32(w, v):
     return bmm_f32(wc, v.reshape(n * c, chunk, d)).reshape(n, c, g, d).sum(dim=1)
 
 
-def decode_attention(q, ck, cv, pos: torch.Tensor) -> torch.Tensor:
+def decode_attention(q, ck, cv, pos: Optional[torch.Tensor],
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step's attention: q (B, KV, G, D) over the cache ck, cv
     (B, KV, S, D), keys past ``pos`` masked: a 0-d tensor shared by the
     batch, one position per row, (B,), or one per row and query, (B, G)
-    (a verify window's queries, each with its own frontier).  q is cast to
-    the cache dtype, scores and softmax are f32, the weights are cast back
-    to the cache dtype before p.v, as in the JAX package.  Returns
-    (B, KV, G, D) f32."""
+    (a verify window's queries, each with its own frontier).  Or, in place
+    of ``pos``, ``valid`` (B, G, S) bool names each query's keys (a tree
+    window's).  q is cast to the cache dtype, scores and softmax are f32,
+    the weights are cast back to the cache dtype before p.v, as in the JAX
+    package.  Returns (B, KV, G, D) f32."""
     b, kv, g, d = q.shape
     s_len = ck.shape[2]
     qg = q.to(ck.dtype).reshape(b * kv, g, d)
     s = bmm_f32(qg, ck.reshape(b * kv, s_len, d).transpose(1, 2)) / math.sqrt(d)
-    front = pos[:, None, :, None] if pos.dim() == 2 else pos.reshape(-1, 1, 1, 1)
-    valid = torch.arange(s_len, device=q.device) <= front
+    if valid is None:
+        front = pos[:, None, :, None] if pos.dim() == 2 else pos.reshape(-1, 1, 1, 1)
+        valid = torch.arange(s_len, device=q.device) <= front
+    else:
+        valid = valid[:, None]
     s = s.reshape(b, kv, g, s_len).masked_fill(~valid, float("-inf"))
     w = torch.softmax(s, dim=-1).reshape(b * kv, g, s_len)
     o = pv_f32(w.to(cv.dtype), cv.reshape(b * kv, s_len, d))
@@ -324,7 +385,8 @@ def attn_decode_paged(p: dict, x: torch.Tensor, cache: dict, block_tables: torch
 
 def attn_verify(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, n_heads: int,
                 n_kv: int, head_dim: int, rope_theta: float = 0.0,
-                block_tables: Optional[torch.Tensor] = None, page_size: Optional[int] = None):
+                block_tables: Optional[torch.Tensor] = None, page_size: Optional[int] = None,
+                tree: Optional[tuple] = None):
     """A window of T tokens x (B, T, D) per row at positions ``pos .. pos+T-1``
     (``pos`` (B,) int64, tokens already cached) against a dense cache or,
     with ``block_tables`` (B, W) int64, the paged pool (in place).  The
@@ -336,14 +398,25 @@ def attn_verify(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, n_h
     VERIFY_SCORES_BYTES of scores allow; the per-query arithmetic does not
     depend on the block.  Returns (out (B, T, D), cache).
 
+    ``tree=(fan, depth)`` makes the window a candidate tree in node order
+    (``T == 1 + fan*depth``, ``tree_layout``): the write columns stay ``pos
+    + node``, the rope positions become ``pos + dep[node]``, and each query
+    attends to the cached prefix and its root path's columns
+    (``tree_valid``), so every chain scores as if verified alone.
+
     Neither form reads a value of the device on the host, so a CUDA graph of
     the window replays for any positions."""
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
     posm = pos.reshape(b, 1) + torch.arange(t, device=x.device)  # (B, T)
+    if tree is None:
+        posr = posm  # a linear window: each position is its write column
+    else:
+        dep, vis, _ = tree_tensors(*tree, x.device)
+        posr = pos.reshape(b, 1) + dep
     if rope_theta:
-        q = apply_rope(q, posm, rope_theta)
-        k = apply_rope(k, posm, rope_theta)
+        q = apply_rope(q, posr, rope_theta)
+        k = apply_rope(k, posr, rope_theta)
     # k/v are (B, T, KV, D), the rows the writes scatter; _quant_kv reduces
     # over the last axis, so it applies to them as they are.
     if "k_scale" in cache:
@@ -391,11 +464,16 @@ def attn_verify(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, n_h
     s_len = ck.shape[2]
     query_block = max(1, VERIFY_SCORES_BYTES // (b * n_heads * s_len * 4))
     qg = q.reshape(b, t, n_kv, g, head_dim).transpose(1, 2)  # (B, KV, T, G, D)
+    tvalid = None if tree is None else tree_valid(vis, pos.reshape(b), s_len)  # (B, T, S)
     outs = []
     for t0 in range(0, t, query_block):
         t1 = min(t, t0 + query_block)
         qb = qg[:, :, t0:t1].reshape(b, n_kv, (t1 - t0) * g, head_dim)
-        front = posm[:, t0:t1].repeat_interleave(g, dim=1)  # (B, queries x G)
-        outs.append(decode_attention(qb, ck, cv, front).reshape(b, n_kv, t1 - t0, g, head_dim))
+        if tvalid is None:
+            front = posm[:, t0:t1].repeat_interleave(g, dim=1)  # (B, queries x G)
+            o = decode_attention(qb, ck, cv, front)
+        else:
+            o = decode_attention(qb, ck, cv, None, tvalid[:, t0:t1].repeat_interleave(g, dim=1))
+        outs.append(o.reshape(b, n_kv, t1 - t0, g, head_dim))
     o = torch.cat(outs, dim=2).transpose(1, 2).reshape(b, t, n_heads * head_dim).to(x.dtype)
     return linear(o, p["wo"]), cache

@@ -49,11 +49,12 @@ def dense_block_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
 
 
 def dense_block_verify(p, x, cache, block_tables, pos: torch.Tensor, cfg: ModelConfig,
-                       page_size=None):
+                       page_size=None, tree=None):
     """A window of T tokens x (B, T, D) at per-row positions ``pos`` (B,): a
-    dense cache when ``block_tables`` is None, the paged pool otherwise
-    (``attention.attn_verify``)."""
+    dense cache when ``block_tables`` is None, the paged pool otherwise;
+    ``tree=(fan, depth)`` verifies a candidate tree (``attention.attn_verify``)."""
     h, cache = attn_verify(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, pos,
-                           block_tables=block_tables, page_size=page_size, **_attn_kw(cfg))
+                           block_tables=block_tables, page_size=page_size, tree=tree,
+                           **_attn_kw(cfg))
     x = x + h
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache

@@ -16,10 +16,11 @@ Public API:
   paged_insert(cfg, paged, dense, slot, pages) -> paged cache
   decode_step(params, cfg, tokens, cache, pos[, page_size])
                                            -> (logits (B, 1, V), cache)
-  verify_step(params, cfg, tokens, cache, pos[, page_size])
+  verify_step(params, cfg, tokens, cache, pos[, page_size, tree])
                                            -> (logits (B, T, V), cache)
   stack_verify_caches(cfg, caches)         -> cache
   commit_verify(cfg, cache, sel)           -> cache
+  tree_relocate(cfg, cache, pos, a, cf, fan=, depth=) -> cache
 """
 from __future__ import annotations
 
@@ -154,7 +155,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
 
 
 def verify_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos,
-                  page_size: Optional[int] = None) -> torch.Tensor:
+                  page_size: Optional[int] = None, tree: Optional[tuple] = None) -> torch.Tensor:
     """``verify_step`` up to the final norm: the window's hidden states
     (B, T, D), the cache written in place.  A caller that needs the logits
     of a few positions only unembeds those."""
@@ -169,12 +170,12 @@ def verify_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: d
     x = embed_lookup(params["embed"], tokens)
     for i in range(cfg.n_layers):
         x, _ = bk.dense_block_verify(_layer(params["layers"], i), x,
-                                     _layer(cache["layers"], i), bt, pos, cfg, ps)
+                                     _layer(cache["layers"], i), bt, pos, cfg, ps, tree)
     return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
 
 def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos,
-                page_size: Optional[int] = None):
+                page_size: Optional[int] = None, tree: Optional[tuple] = None):
     """One forward pass over a window of T tokens (B, T) per row at positions
     ``pos .. pos+T-1``, ``pos`` (B,) integers (tokens already cached),
     against a dense cache (``init_cache``) or a paged one (told by its
@@ -182,9 +183,12 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     Every window position's K/V is written in place (the dense family needs
     no commit step: positions past an accepted frontier are masked by later
     queries and written again by the next window), and each query attends
-    as ``decode_step`` at its position does.  Returns (logits (B, T, V),
-    cache)."""
-    x = verify_hidden(params, cfg, tokens, cache, pos, page_size)
+    as ``decode_step`` at its position does.  ``tree=(fan, depth)``
+    verifies a fan-of-chains candidate tree of ``T == 1 + fan*depth``
+    tokens in node order (``attention.tree_layout``): each chain scores as
+    if verified alone, and ``tree_relocate`` moves the accepted chain's
+    K/V into the linear columns.  Returns (logits (B, T, V), cache)."""
+    x = verify_hidden(params, cfg, tokens, cache, pos, page_size, tree)
     return unembed(x, params.get("head", params["embed"])), cache
 
 
@@ -207,4 +211,69 @@ def commit_verify(cfg: ModelConfig, cache: dict, sel: torch.Tensor) -> dict:
     and written again by the next window, so the cache is returned as it
     is.  The families with per-step state are not ported."""
     _check_family(cfg)
+    return cache
+
+
+def tree_relocate(cfg: ModelConfig, cache: dict, pos: torch.Tensor, a: torch.Tensor,
+                  cf: torch.Tensor, *, fan: int, depth: int,
+                  page_size: Optional[int] = None) -> dict:
+    """After a tree window at ``pos`` (B,) accepted ``a`` (B,) proposals of
+    chain ``cf`` (B,), copy that chain's K/V (codes and scales of an int8
+    cache) from its tree columns ``pos + 1 + cf*depth + i`` to the linear
+    columns ``pos + 1 + i``, i < a, where the next window's frontier mask
+    expects them; in place, reading nothing on the host.  Every source is
+    gathered before any write, so chain 0 is the identity.  On a dense
+    cache a step that writes nothing live (i >= a, or a destination past
+    the store) writes its source column with the value it holds; on the
+    paged pool (told by ``block_tables``; ``page_size``, if given, must be
+    the pool's) columns go through the block tables, a source past them
+    reads the trash page and such a step writes into it.  The store must
+    reach ``fan*depth`` columns past a live row's frontier, or a gather
+    reads the wrong rows.  Returns the cache."""
+    _check_family(cfg)
+    if "block_tables" in cache:
+        ps = cache["layers"]["k"].shape[3]
+        if page_size not in (None, ps):
+            raise ValueError(f"page_size {page_size} is not the pool's {ps}")
+    return move_columns(cache, *tree_columns(pos, a, cf, depth))
+
+
+def tree_columns(pos: torch.Tensor, a: torch.Tensor, cf: torch.Tensor, depth: int) -> tuple:
+    """``tree_relocate``'s columns, each (B, depth) int64: the sources
+    ``pos + 1 + cf*depth + i``, the destinations ``pos + 1 + i``, and
+    whether step i moves (i < a)."""
+    steps = torch.arange(depth, device=pos.device)
+    pos, a, cf = (t.reshape(-1, 1).to(torch.int64) for t in (pos, a, cf))
+    return pos + 1 + cf * depth + steps, pos + 1 + steps, steps < a
+
+
+def move_columns(cache: dict, src: torch.Tensor, dst: torch.Tensor, ok: torch.Tensor) -> dict:
+    """Copy each row's columns ``src`` to ``dst`` where ``ok`` (all (B, n))
+    in every leaf of a dense cache or, through its block tables, a paged
+    pool, gathering before writing (``tree_relocate``'s rules for the
+    steps that move nothing live)."""
+    layers = cache["layers"]
+    bt = cache.get("block_tables")
+    if bt is None:
+        seq = layers["k"].shape[3]
+        src = src.clamp(0, seq - 1)
+        rows = torch.arange(src.shape[0], device=src.device)[:, None].expand_as(src)
+        # a step that moves nothing live writes its source back: only a
+        # source at its own destination (chain 0) can be another step's
+        # destination, so no column takes two values
+        at_src = (rows, src)
+        at_dst = (rows, torch.where(ok & (dst < seq), dst, src))
+    else:
+        ps = layers["k"].shape[3]
+        bt = bt.to(torch.int64)
+        w = bt.shape[1]
+
+        def at(col, live):
+            page = bt.gather(1, (col // ps).clamp(0, w - 1))
+            return torch.where(live, page, 0), col % ps  # outside: the trash page
+        at_src = at(src, src < w * ps)
+        at_dst = at(dst, ok & (dst < w * ps))
+    for leaf in layers.values():
+        # (L, B | P, KV, S | ps, ...): the two index tensors lead the result
+        leaf[:, at_dst[0], :, at_dst[1]] = leaf[:, at_src[0], :, at_src[1]]
     return cache

@@ -3,8 +3,8 @@ continuous-batching engine over a paged KV cache.
 
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
 ``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense
-family, with n-gram and draft-model speculation, the prefix cache and the
-resilience tier, without tree drafts or a mesh).  ``quantize_tree``
+family, with n-gram, tree and draft-model speculation, the prefix cache and
+the resilience tier, without a mesh).  ``quantize_tree``
 turns every large matmul weight into ``{"codes": int8, "scale": f32}``
 (int4: nibble-packed codes plus a marker leaf); at decode time each of
 those weights is streamed once per step by the ``pim_matvec`` kernel.
@@ -20,8 +20,9 @@ keyed per row and per draw index with the JAX package's own keys
 (``serving.sampling``).  ``generate_reference`` is the per-token loop
 (prompt included), the parity oracle.  With ``speculate=`` each verify
 window (``speculative.spec_window``) is one replay instead, a draft model's
-steps included, and the host reads the rows' emitted counts only between
-runs of windows that the slowest row needs anyway.
+steps or a tree window's relocation included, and the host reads the rows'
+emitted counts only between runs of windows that the slowest row needs
+anyway.
 
 ``ContinuousBatchingEngine.serve`` schedules requests on the host in numpy,
 as the reference does, and runs each round's decode chunk (the reference's
@@ -56,7 +57,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (common, decode_step, init_cache, init_paged_cache, prefill,
                                  verify_hidden)
-from repro_torch.models.attention import CHUNKED_THRESHOLD
+from repro_torch.models.attention import CHUNKED_THRESHOLD, tree_tensors
 from repro_torch.models.common import dtype_of, resolve_device, unembed
 from repro_torch.quant import quantize_symmetric
 
@@ -241,7 +242,6 @@ def decode_and_emit(params, cfg: ModelConfig, st: DecodeState, *, greedy: bool,
 # Options of the JAX package's engines that the port does not run yet, and the
 # ROADMAP.md item (section 1) that brings each.
 _LATER = {"mesh": "item 7 (tensor-parallel decode)",
-          "tree_fan": "item 4c (tree drafts)",
           "extras": "item 5 (the vlm and encdec families)"}
 
 
@@ -255,13 +255,8 @@ def _unported(**options) -> None:
 
 
 def _spec_of(speculate) -> Optional[SpecConfig]:
-    """``speculate=`` as a SpecConfig (None: no speculation); tree drafts
-    raise NotImplementedError."""
-    if speculate is None:
-        return None
-    spec = as_spec(speculate)
-    _unported(tree_fan=spec.tree_fan)
-    return spec
+    """``speculate=`` as a SpecConfig (None: no speculation)."""
+    return None if speculate is None else as_spec(speculate)
 
 
 _NO_DRAFT = "speculate mode='draft' needs the engine constructed with draft_cfg/draft_params"
@@ -419,11 +414,15 @@ class ServingEngine:
         on the card per (batch, spec, greedy, top_k) and dispatch mode, in
         the graph memory pool of the batch's decode step.  Its warm-up
         writes the buffers, which ``SpecState.start`` resets; a draft
-        model's cache is made before it."""
+        model's cache, or a tree window's cache and tables, are made before
+        it."""
         top_k = 0 if greedy else int(top_k)
         st = self.spec_state(batch)
         if spec.mode == "draft":
             st.draft_cache(spec.k)
+        if spec.tree_fan:
+            st.tree_cache(spec.tree_fan, spec.k)
+            tree_tensors(spec.tree_fan, spec.k, self.device)
         run = functools.partial(spec_window, self.params, self.cfg, st, spec=spec,
                                 greedy=bool(greedy), top_k=top_k, draft_params=self.draft_params)
         return self.graphs.get(self._weights(), ("spec", batch, spec, bool(greedy), top_k), batch,
@@ -445,7 +444,7 @@ class ServingEngine:
             st.start(self.params, self.cfg, prompt, key, temperature, n_new, greedy=greedy,
                      top_k=0 if greedy else int(top_k), ctrl_init=spec.ctrl_init,
                      draft_params=self.draft_params if spec.mode == "draft" else None,
-                     k=spec.k)
+                     k=spec.k, tree_fan=spec.tree_fan)
             while True:
                 left = n_new - int(st.n_em.min())
                 if left <= 0:
@@ -483,7 +482,8 @@ class ServingEngine:
         ``speculate`` (a ``SpecConfig`` or an int ``k``, n-gram proposals;
         ``mode="draft"``: the engine's draft model's) verifies ``k``
         proposals and the current token in one window a step
-        (``_generate_speculative``): greedy tokens are plain greedy
+        (``_generate_speculative``; ``tree_fan=F``: F n-gram chains of
+        depth ``k`` in one tree window): greedy tokens are plain greedy
         decoding's; sampled ones are rejection-sampled (or typical-accepted)
         with ``draw_keys(key, row, window, TAG_WINDOW)``, as the JAX
         package draws them."""
@@ -801,9 +801,8 @@ MAX_ADMIT_GRAPHS = 64
 
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
-    package's, for the dense family, with n-gram and draft-model
-    speculation, the prefix cache and the resilience tier, without tree
-    drafts or a mesh).
+    package's, for the dense family, with n-gram, tree and draft-model
+    speculation, the prefix cache and the resilience tier, without a mesh).
 
     ``slots`` is the decode batch width; ``num_pages`` bounds the cache
     (pages of ``page_size`` tokens, page 0 the trash page; default: every
@@ -828,7 +827,11 @@ class ContinuousBatchingEngine:
     ``k`` positions (whole pages) past ``max_seq``, which the top-up
     provisions so that the draft's read-back of its chain stays in the
     request's pages; the prefix cache stays off (the draft pool has no
-    trie).
+    trie).  ``SpecConfig(tree_fan=F)`` verifies F n-gram chains of depth
+    ``k`` in one tree window an iteration; the pool carries ``F*k``
+    positions (whole pages) past ``max_seq``, which the top-up provisions
+    so that the relocation's gathers from the tree columns stay in the
+    request's pages.
 
     The host schedules in numpy as the reference does.  Each round: admit
     queued requests into free slots while pages last, retire what finished
@@ -881,8 +884,16 @@ class ContinuousBatchingEngine:
         self.max_seq = -(-int(max_seq) // self.page_size) * self.page_size
         # Draft mode: the draft chain reads back the window positions it
         # writes, so both pools carry k positions (whole pages) past
-        # max_seq, where a request of the full budget still has pages.
-        reserve = self.spec.k if self._draft_mode else 0
+        # max_seq, where a request of the full budget still has pages.  Tree
+        # mode: the relocation gathers the kept chain from tree columns up
+        # to fan*k past the frontier, which must be the request's pages (a
+        # gather through the trash page would corrupt committed positions).
+        if self._draft_mode:
+            reserve = self.spec.k
+        elif self.spec is not None and self.spec.tree_fan:
+            reserve = self.spec.tree_fan * self.spec.k
+        else:
+            reserve = 0
         self._store_seq = self.max_seq + -(-reserve // self.page_size) * self.page_size
         self.width = self._store_seq // self.page_size
         self.num_pages = int(num_pages) if num_pages is not None else self.slots * self.width + 1
@@ -976,18 +987,22 @@ class ContinuousBatchingEngine:
         return self._kept((self.slots, bool(greedy), top_k, n_stops), run, self._round_reset)
 
     def spec_chunk(self, k: int, n_stops: int, *, greedy: bool, top_k: int):
-        """One iteration of a round of width-``k`` windows:
-        ``spec_chunk_step`` on the current parameters, kept on the card per
-        (slots, k, greedy, top_k, n_stops) and dispatch mode.  Got before a
-        round's ``_load`` (``_round_reset``)."""
+        """One iteration of a round of width-``k`` windows (tree windows of
+        chains of depth ``k`` under ``tree_fan``): ``spec_chunk_step`` on
+        the current parameters, kept on the card per (slots, k, tree_fan,
+        greedy, top_k, n_stops) and dispatch mode.  Got before a round's
+        ``_load`` (``_round_reset``)."""
         st = self._state
         top_k = 0 if greedy else int(top_k)
+        fan = self.spec.tree_fan
+        if fan:
+            tree_tensors(fan, k, self.device)
         emits, ms = st.spec(k)
         run = functools.partial(spec_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
                                 emits, ms, k=k, spec=self.spec, greedy=bool(greedy),
                                 top_k=top_k, pad_id=self.pad_id,
                                 draft_params=self.draft_params if self._draft_mode else None)
-        return self._kept(("spec", self.slots, k, bool(greedy), top_k, n_stops), run,
+        return self._kept(("spec", self.slots, k, fan, bool(greedy), top_k, n_stops), run,
                           self._round_reset)
 
     def admit_step(self, spad: int, *, greedy: bool, top_k: int):
@@ -1287,11 +1302,16 @@ class ContinuousBatchingEngine:
         # last live position length + max_new - 2; the prefill covered spad - 1.
         # A draft chain reads back up to k positions past that, which must be
         # the request's pages, not the trash page the target's writes past it
-        # may go to (the pools carry them past max_seq).
+        # may go to (the pools carry them past max_seq); a tree relocation
+        # gathers from up to fan * k positions past it.
         adv = chunk * (k + 1 if k is not None else 1)
         cap = length + req.max_new - 2
         if self._draft_mode and k is not None:
             cap = min(cap + k, self._store_seq - 1)
+        fan = self.spec.tree_fan if self.spec is not None else 0
+        if fan and k is not None:
+            adv = chunk * (k + 1) + fan * k
+            cap = min(cap + fan * k, self._store_seq - 1)
         last = min(int(self._pos[slot]) + adv - 1, cap)
         need = max(last, self._spad(length) - 1) // ps + 1
         have = len(self._slot_pages[slot])

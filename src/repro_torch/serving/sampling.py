@@ -1,7 +1,6 @@
 """Sampled decoding: counter-derived per-row keys, the temperature/top-k
-warp, and the rejection-sampling verification of a speculative window (twin
-of ``repro.serving.sampling`` but ``tree_reject_sample``, which tree drafts
-bring, ROADMAP.md item 4c).
+warp, and the rejection-sampling verification of a speculative window, a
+linear one or a tree of candidate chains (twin of ``repro.serving.sampling``).
 
 The keys ARE the JAX package's keys.  ``jax.random``'s default generator is
 threefry2x32, a pure function of 32-bit integers; it is written out here in
@@ -22,7 +21,8 @@ counters: the key of part i is the hash of the counter (0, i), which is
 ``fold_in(key, i)``.
 
 Verification (``acceptance_probs``, ``residual_dist``, ``rejection_sample``,
-``typical_accept_sample``) works on whole batches of static shape, so a
+``typical_accept_sample``, ``tree_reject_sample``) works on whole batches of
+static shape, so a
 captured window replays it: every row's uniforms and its final categorical
 draw come from its window key, as each row of the JAX package's ``vmap``
 draws them.
@@ -261,3 +261,65 @@ def typical_accept_sample(keys: torch.Tensor, drafts: torch.Tensor, p: torch.Ten
     acc = (_take(pk, drafts) > thr) & (at < kc[:, None])
     a = torch.cumprod(acc.to(torch.int64), dim=1).sum(dim=1)
     return _emitted(drafts, a, categorical(kf, torch.log(_row(p, a)))), a
+
+
+def tree_reject_sample(keys: torch.Tensor, chains: torch.Tensor, p_nodes: torch.Tensor, *,
+                       kcap: Optional[torch.Tensor] = None):
+    """Exact rejection-sampling verification of a tree window of point-mass
+    proposals (the n-gram proposer's chains), each row on its own window key
+    (``keys`` (B, 2)).  ``chains`` (B, F, D): chain f's step i is node ``1 +
+    f*D + i`` of the window, node 0 the current token; ``p_nodes`` (B, 1 +
+    F*D, V) the target's warped distributions in node order.
+
+    The chains' heads are tried in order at the root: head f is accepted
+    when its uniform is below its mass in the current root distribution,
+    which, on a rejection, loses the head's mass and is renormalised in
+    f32 (a duplicate head is rejected: its mass is gone).  The first
+    accepted head picks its chain, whose later steps are verified as
+    ``rejection_sample`` verifies a window; a rejection draws from that
+    node's residual (its distribution without the rejected token), full
+    acceptance the bonus from the last accepted node's distribution, and
+    no accepted head from the root's residual.  The output is distributed
+    as plain sampling from ``p`` is.  ``kcap`` (B,) caps each row's
+    accepted depth (0: a plain draw from the root).  The draws are fixed in
+    shape, the key's first half giving ``F + D - 1`` uniforms (heads, then
+    steps 2..D), its second half one categorical, so a row's stream does
+    not depend on its cap.  Returns (tokens (B, D+1) int32, a (B,) int64,
+    cf (B,) int64, the kept chain, 0 where nothing was accepted): the row
+    emits ``tokens[:, :a+1]``."""
+    b, nf, nd = chains.shape
+    dev = chains.device
+    kc = _kcap(kcap, b, nd, dev)
+    p = p_nodes.to(torch.float32)
+    ch = chains.to(torch.int64)
+    ku, kf = split(keys)
+    u = uniform(ku, max(nf + nd - 1, nf))  # its prefix is the reference's (F + D - 1,) draw
+    uh, uc = u[:, :nf], u[:, nf:nf + nd - 1]
+    p_cur = p[:, 0]
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    cf = torch.zeros((b,), dtype=torch.int64, device=dev)
+    for f in range(nf):
+        h = ch[:, f, :1]
+        tried = ~done & (kc >= 1)
+        acc = tried & (uh[:, f] < p_cur.gather(1, h)[:, 0])
+        pz = p_cur.scatter(1, h, 0.0)
+        s = pz.sum(dim=-1, keepdim=True)
+        p_rej = torch.where(s > 0.0, pz / torch.clamp_min(s, 1e-38), p_cur)
+        p_cur = torch.where((tried & ~acc)[:, None], p_rej, p_cur)
+        cf = torch.where(acc, f, cf)
+        done = done | acc
+    rows = torch.arange(b, device=dev)[:, None]
+    chain = ch.gather(1, cf[:, None, None].expand(b, 1, nd))[:, 0]  # (B, D)
+    base = 1 + cf * nd
+    # the chain's step j (j = 2..D) is verified against node base + j - 2
+    j = torch.arange(2, nd + 1, device=dev)[None]
+    pdj = p[rows, base[:, None] + j - 2, chain[:, 1:]]  # (B, D-1)
+    accj = ((uc < pdj) & (j <= kc[:, None])).to(torch.int64)
+    a = torch.where(done, 1 + torch.cumprod(accj, dim=1).sum(dim=1), 0)
+    cap = torch.clamp_max(kc, nd)
+    last = _row(p, torch.clamp(base + a - 1, 0, p.shape[1] - 1))
+    rejected = chain.gather(1, a.clamp(0, nd - 1)[:, None])
+    onehot = torch.zeros_like(last).scatter_(1, rejected, 1.0)
+    dist = torch.where((a == 0)[:, None], p_cur,
+                       torch.where((a == cap)[:, None], last, residual_dist(last, onehot)))
+    return _emitted(chain, a, categorical(kf, torch.log(dist))), a, cf

@@ -1,7 +1,6 @@
 """Speculative multi-token decode: one weight stream per verify window of
 ``k + 1`` tokens, which emits the accepted proposals and one more token
-(twin of ``repro.serving.speculative`` for linear windows; tree drafts are
-ROADMAP.md item 4c).
+(twin of ``repro.serving.speculative``).
 
 Proposals come from the n-gram proposer or from a draft model.  The n-gram
 proposer matches the trailing ``ngram_n`` tokens of a row's history (prompt
@@ -17,6 +16,18 @@ with (``greedy_accept``), or, sampled, by rejection sampling against its
 warped distribution (``sampling.rejection_sample``, exact) or by the entropy
 band (``sampling.typical_accept_sample``, lossy).  Greedy speculation emits
 the tokens plain greedy decoding does, whatever the proposer.
+
+Tree drafts (``SpecConfig(tree_fan=F)``, n-gram proposals, exact
+acceptance) verify ``F`` candidate chains of depth ``k`` that share the
+current token in one window of ``1 + F*k`` nodes (``propose_ngram_tree``;
+``models.verify_step(tree=(F, k))``'s shared-prefix mask).  The window
+keeps one chain: greedy, the longest matching prefix over the chains
+(``greedy_tree_accept``); sampled, sequential elimination of the chains'
+heads and then the chosen chain's rejection sampling
+(``sampling.tree_reject_sample``, exact).  ``models.tree_relocate`` then
+moves the kept chain's K/V from its tree columns to the linear ones, so a
+dense store carries ``F*k`` columns past ``max_seq``, and a paged one
+provisions them.
 
 The adaptive controller keeps a per-row acceptance EMA: the fixed engine
 caps acceptance at ``_ctrl_k``'s width of the EMA inside each window (the
@@ -42,10 +53,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (commit_verify, init_cache, prefill, stack_verify_caches,
-                                 verify_step)
+                                 tree_relocate, verify_step)
+from repro_torch.models.attention import tree_tensors
 
 from .sampling import (TAG_TOKEN, TAG_WINDOW, categorical, fold_in, prng_key, rejection_sample,
-                       row_keys, sample_rows, split, typical_accept_sample, warp_logits)
+                       row_keys, sample_rows, split, tree_reject_sample, typical_accept_sample,
+                       warp_logits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +71,8 @@ class SpecConfig:
     ``ctrl_cost`` of one more window position relative to a decode step;
     ``tree_fan`` > 0 tree drafts; ``accept`` "exact" (rejection sampling)
     or "typical" (entropy band ``typical_eps``/``typical_delta``, lossy).
-    The port's engines run linear windows of either mode."""
+    Tree drafts take the n-gram proposer and exact acceptance, and no
+    adaptive controller."""
 
     k: int = 4
     mode: str = "ngram"
@@ -177,10 +191,11 @@ def _ctrl_update(ema, live, a, k_window, phat0, alpha: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- proposer --
-def _ngram_matches(hist: torch.Tensor, hlen: torch.Tensor, n: int):
-    """Start of the most recent earlier occurrence of each row's trailing
-    ``n``-gram in ``hist`` (B, W) of live length ``hlen`` (B,), -1 where
-    there is none (B,); and the last live token (B, 1)."""
+def _ngram_matches(hist: torch.Tensor, hlen: torch.Tensor, fan: int, n: int):
+    """Starts of the ``fan`` most recent earlier occurrences of each row's
+    trailing ``n``-gram in ``hist`` (B, W) of live length ``hlen`` (B,),
+    most recent first, -1 past the last (B, fan); and the last live token
+    (B, 1)."""
     b, w = hist.shape
     ar = torch.arange(w, device=hist.device)
     gi = hlen[:, None] - n + ar[:n]
@@ -192,7 +207,7 @@ def _ngram_matches(hist: torch.Tensor, hlen: torch.Tensor, n: int):
         match = match & (shifted == gram[:, i:i + 1])
     q = ar[None]
     valid = match & (q <= hlen[:, None] - n - 1)  # strictly earlier windows
-    j = torch.where(valid, q, -1).max(dim=1).values
+    j = torch.where(valid, q, -1).topk(fan, dim=1).values
     last = hist.gather(1, (hlen - 1).clamp(0, w - 1)[:, None])
     return j, last
 
@@ -201,13 +216,23 @@ def propose_ngram(hist: torch.Tensor, hlen: torch.Tensor, k: int, n: int) -> tor
     """Prompt-lookup proposals (B, k) int32: the ``k`` tokens after the most
     recent earlier occurrence of each row's trailing ``n``-gram; positions
     past the live end, and rows without a match, repeat the last token."""
+    return propose_ngram_tree(hist, hlen, 1, k, n)[:, 0]
+
+
+def propose_ngram_tree(hist: torch.Tensor, hlen: torch.Tensor, fan: int, depth: int,
+                       n: int) -> torch.Tensor:
+    """Prompt-lookup chains (B, fan, depth) int32: chain f holds the
+    ``depth`` tokens after the f-th most recent earlier occurrence of each
+    row's trailing ``n``-gram, so chain 0 is ``propose_ngram``'s proposal;
+    positions past the live end, and chains without a match, repeat the
+    last token."""
     w = hist.shape[1]
     hlen = hlen.to(torch.int64)
-    j, last = _ngram_matches(hist, hlen, n)
-    src = j[:, None] + n + torch.arange(k, device=hist.device)[None]
-    prop = hist.gather(1, src.clamp(0, w - 1))
-    use = (j >= 0)[:, None] & (src < hlen[:, None])
-    return torch.where(use, prop, last).to(torch.int32)
+    j, last = _ngram_matches(hist, hlen, fan, n)
+    src = j[:, :, None] + n + torch.arange(depth, device=hist.device)  # (B, F, D)
+    prop = hist.gather(1, src.clamp(0, w - 1).reshape(-1, fan * depth)).reshape(src.shape)
+    use = (j >= 0)[:, :, None] & (src < hlen[:, None, None])
+    return torch.where(use, prop, last[:, :, None]).to(torch.int32)
 
 
 def propose_first_host(hist_row: np.ndarray, hlen: int, n: int) -> int:
@@ -272,6 +297,32 @@ def greedy_accept(window: torch.Tensor, logits: torch.Tensor):
     return g, torch.cumprod(match, dim=1).sum(dim=1)
 
 
+def greedy_tree_accept(chains: torch.Tensor, logits: torch.Tensor, *,
+                       kcap: Optional[torch.Tensor] = None):
+    """Greedy acceptance of a tree window: per chain, the longest prefix whose
+    tokens are the argmax at their predecessor node; the window keeps the
+    chain of the longest (ties: the lowest index, the linear proposer's),
+    at most ``kcap`` (B,) long.  ``chains`` (B, F, D); ``logits`` (B, 1 +
+    F*D, V) in node order.  Returns (tokens (B, D+1) int32, a (B,) int64,
+    cf (B,) int64), laid out as ``sampling.tree_reject_sample``'s: the row
+    emits ``tokens[:, :a+1]``, the accepted proposals and the argmax at the
+    deepest accepted node."""
+    b, fan, depth = chains.shape
+    g = logits.argmax(dim=-1)  # (B, 1+F*D)
+    _, _, pred = tree_tensors(fan, depth, chains.device)
+    match = (chains.to(torch.int64) == g[:, pred]).to(torch.int64)  # (B, F, D)
+    af = torch.cumprod(match, dim=2).sum(dim=2)  # (B, F)
+    if kcap is not None:
+        af = torch.minimum(af, kcap.to(torch.int64)[:, None])
+    a, cf = af.max(dim=1).values, af.argmax(dim=1)
+    ch = chains.gather(1, cf[:, None, None].expand(b, 1, depth))[:, 0]  # (B, D)
+    last = torch.where(a > 0, cf * depth + a, 0)
+    bonus = g.gather(1, last[:, None]).to(torch.int32)
+    padded = torch.cat([ch, ch[:, -1:]], dim=1)
+    at = torch.arange(depth + 1, device=chains.device)[None] < a[:, None]
+    return torch.where(at, padded, bonus), a, cf
+
+
 def _accept(window, drafts, lg, *, greedy: bool, temperature, top_k: int, wkeys, q=None,
             kcap=None, n_draws=None, accept: str = "exact", typical_eps: float = 0.3,
             typical_delta: float = 0.09):
@@ -321,7 +372,10 @@ class SpecState:
     a draft model (``draft_cfg``), its dense cache for windows of ``k``
     proposals (``draft_cache(k)``): ``max_seq + k`` positions, so that the
     chain's read-back of the positions it writes past the last token stays
-    inside the store."""
+    inside the store.  Tree windows of ``fan`` > 1 chains of depth ``k``
+    run on a dense cache of their own (``tree_cache(fan, k)``): ``max_seq +
+    fan*k`` positions, so that the relocation's gathers from the tree
+    columns past the last token stay inside the store."""
 
     def __init__(self, batch: int, max_seq: int, cache: dict, device,
                  draft_cfg: Optional[ModelConfig] = None):
@@ -332,6 +386,7 @@ class SpecState:
         self.cache = cache
         self.draft_cfg = draft_cfg
         self._dcaches: dict[int, dict] = {}
+        self._tcaches: dict[tuple, dict] = {}
         self.tok = zeros((batch, 1), torch.int32)
         self.n_em = zeros((batch,), torch.int64)
         self.wctr = zeros((batch,), torch.int64)
@@ -351,6 +406,21 @@ class SpecState:
                                           self.tok.device)
         return self._dcaches[k]
 
+    def tree_cache(self, fan: int, k: int) -> dict:
+        """The target's cache for tree windows of ``fan`` chains of depth
+        ``k`` (made at first use and kept: a captured window reads it).  A
+        one-chain tree is the linear window, whose relocation is the
+        identity and gathers nothing past the window: it runs on the
+        batch's own cache, so it is linear speculation bit for bit."""
+        if fan == 1:
+            return self.cache
+        if (fan, k) not in self._tcaches:
+            self._tcaches[fan, k] = {"layers": {
+                name: torch.zeros(leaf.shape[:3] + (self.max_seq + fan * k,) + leaf.shape[4:],
+                                  dtype=leaf.dtype, device=leaf.device)
+                for name, leaf in self.cache["layers"].items()}}
+        return self._tcaches[fan, k]
+
     def reset(self) -> None:
         """A state a window may run from (the capture's warm-up): one prompt
         token, nothing left to emit."""
@@ -360,15 +430,17 @@ class SpecState:
 
     def start(self, params, cfg: ModelConfig, prompt: torch.Tensor, key, temperature,
               n_new: int, *, greedy: bool, top_k: int, ctrl_init: float, draft_params=None,
-              k: int = 0) -> None:
+              k: int = 0, tree_fan: int = 0) -> None:
         """Zero the cache, prefill ``prompt`` (B, S) and draw token 0 from its
         last logits (``draw_keys(key, row, 0, TAG_TOKEN)``), as plain
         ``generate`` does; then the history is the prompt and token 0.  With
         ``draft_params``, zero the draft's cache for ``k`` proposals and
-        prefill the prompt into it too."""
-        for leaf in self.cache["layers"].values():
+        prefill the prompt into it too.  With ``tree_fan``, the cache is
+        ``tree_cache(tree_fan, k)``."""
+        cache = self.tree_cache(tree_fan, k) if tree_fan else self.cache
+        for leaf in cache["layers"].values():
             leaf.zero_()
-        logits, _ = prefill(params, cfg, prompt, self.cache)
+        logits, _ = prefill(params, cfg, prompt, cache)
         if draft_params is not None:
             dcache = self.draft_cache(k)
             for leaf in dcache["layers"].values():
@@ -405,12 +477,24 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
     observation), and write each live row's emissions to its output and
     history.  A row that has its ``n_new`` tokens emits nothing; its
     window's writes land at or past its last position, or are dropped past
-    the store."""
+    the store.  Under ``spec.tree_fan`` the window is a tree of chains of
+    depth ``k`` on ``st.tree_cache(tree_fan, k)`` (``_spec_tree_generate_body``):
+    the kept chain is relocated to the linear columns before the commit."""
     b, k, ms = st.tok.shape[0], spec.k, st.max_seq
     dev = st.tok.device
     live = st.n_em < st.n_new
     pos = st.s - 1 + st.n_em
     wkeys = None if greedy else fold_in(st.wkeys, st.wctr)
+    if spec.tree_fan:
+        fan = spec.tree_fan
+        cache = st.tree_cache(fan, k)
+        chains = propose_ngram_tree(st.hist[:, :ms], st.s + st.n_em, fan, k, spec.ngram_n)
+        g, a, cf = _tree_verify(params, cfg, cache, st.tok, chains, pos, greedy=greedy,
+                                temperature=st.temperature, top_k=top_k, wkeys=wkeys)
+        m = torch.where(live, torch.minimum(a + 1, st.n_new - st.n_em), 0)
+        _emit_window(st, g, m, live)
+        _tree_commit(cfg, cache, pos, m, cf, fan, k)
+        return
     if spec.mode == "draft":
         drafts, q, dstack = draft_propose(
             draft_params, st.draft_cfg, st.draft_cache(k), st.tok, pos, k, wkeys=wkeys,
@@ -431,21 +515,54 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
                             top_k=top_k)
         st.ema.copy_(_ctrl_update(st.ema, live, a, keff, phat0, spec.ctrl_alpha))
     m = torch.where(live, torch.minimum(a + 1, st.n_new - st.n_em), 0)
-    j = torch.arange(k + 1, device=dev)[None]
-    emit = j < m[:, None]
-    cols = st.n_em[:, None] + j
-    rows = torch.arange(b, device=dev)[:, None].expand(b, k + 1)
-    st.out[rows, torch.where(emit, cols, ms)] = g
-    st.hist[rows, torch.where(emit, st.s + cols, ms)] = g
     sel = torch.clamp_min(m - 1, 0)
     commit_verify(cfg, cache, sel)
     if spec.mode == "draft":
         commit_verify(st.draft_cfg, dstack, sel)
+    _emit_window(st, g, m, live)
+
+
+def _emit_window(st: SpecState, g: torch.Tensor, m: torch.Tensor, live: torch.Tensor) -> None:
+    """A fixed-engine window's end: each row's ``m`` emissions ``g`` (B, w)
+    to its output and history, its current token, and the counters."""
+    b, w = g.shape
+    ms = st.max_seq
+    j = torch.arange(w, device=g.device)[None]
+    emit = j < m[:, None]
+    cols = st.n_em[:, None] + j
+    rows = torch.arange(b, device=g.device)[:, None].expand(b, w)
+    st.out[rows, torch.where(emit, cols, ms)] = g
+    st.hist[rows, torch.where(emit, st.s + cols, ms)] = g
     st.tok.copy_(_last_emitted(g, m, st.tok))
     st.n_em += m
     st.wctr += live
     st.steps += live.any()
     st.live_steps += live.sum()
+
+
+def _tree_verify(params, cfg: ModelConfig, cache: dict, tok: torch.Tensor, chains: torch.Tensor,
+                 pos: torch.Tensor, *, greedy: bool, temperature, top_k: int, wkeys):
+    """A tree window: the current token and the chains (B, F, D) in node
+    order, verified at ``pos`` (B,) against ``cache`` (dense or paged), then
+    accepted greedily or by ``tree_reject_sample``.  Returns (g (B, D+1), a,
+    cf)."""
+    b, fan, depth = chains.shape
+    window = torch.cat([tok, chains.reshape(b, fan * depth)], dim=1)
+    lg, _ = verify_step(params, cfg, window, cache, pos, tree=(fan, depth))
+    if greedy:
+        return greedy_tree_accept(chains, lg)
+    return tree_reject_sample(wkeys, chains, torch.softmax(warp_logits(lg, temperature, top_k),
+                                                           dim=-1))
+
+
+def _tree_commit(cfg: ModelConfig, cache: dict, pos: torch.Tensor, m: torch.Tensor,
+                 cf: torch.Tensor, fan: int, depth: int) -> None:
+    """A tree window's cache commit: the ``m - 1`` kept proposals of chain
+    ``cf`` relocated to the linear columns, then ``commit_verify`` at the
+    deepest kept node."""
+    acc = torch.clamp_min(m - 1, 0)
+    tree_relocate(cfg, cache, pos, acc, cf, fan=fan, depth=depth)
+    commit_verify(cfg, cache, torch.where(acc > 0, cf * depth + acc, 0))
 
 
 # ----------------------------------------------------- the continuous engine --
@@ -462,22 +579,31 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
     and the slot's emissions (``pad_id`` past its count) and count go to row
     ``st.it`` of ``emits`` (chunk, B, k+1) and ``ms`` (chunk, B).  A done
     slot emits nothing and keeps its window counter; its writes land in its
-    own pages or the trash page."""
+    own pages or the trash page.  Under ``spec.tree_fan`` the window is a
+    tree of chains of depth ``k`` (``_spec_tree_chunk_body``): the kept
+    chain's K/V are relocated through the block tables, whose pages must
+    reach ``tree_fan * k`` positions past each live slot's frontier."""
     b = st.tok.shape[0]
     dev = st.tok.device
     w = st.hist.shape[1] - 1  # column w takes the writes the reference drops
     live = ~st.done
     wkeys = None if greedy else fold_in(st.wkeys, st.wctr)
-    if spec.mode == "draft":
-        drafts, q, dstack = draft_propose(
-            draft_params, st.draft_cfg, st.dcache, st.tok, st.pos, k, wkeys=wkeys,
-            greedy=greedy, temperature=st.temperature, top_k=top_k)
+    fan = spec.tree_fan
+    if fan:
+        chains = propose_ngram_tree(st.hist[:, :w], st.pos + 1, fan, k, spec.ngram_n)
+        g, a, cf = _tree_verify(params, cfg, st.cache, st.tok, chains, st.pos, greedy=greedy,
+                                temperature=st.temperature, top_k=top_k, wkeys=wkeys)
     else:
-        drafts, q = propose_ngram(st.hist[:, :w], st.pos + 1, k, spec.ngram_n), None
-    window = torch.cat([st.tok, drafts], dim=1)
-    lg, cache = verify_step(params, cfg, window, st.cache, st.pos)
-    g, a = _accept(window, drafts, lg, greedy=greedy, temperature=st.temperature, top_k=top_k,
-                   wkeys=wkeys, q=q, **_verify_kw(spec))
+        if spec.mode == "draft":
+            drafts, q, dstack = draft_propose(
+                draft_params, st.draft_cfg, st.dcache, st.tok, st.pos, k, wkeys=wkeys,
+                greedy=greedy, temperature=st.temperature, top_k=top_k)
+        else:
+            drafts, q = propose_ngram(st.hist[:, :w], st.pos + 1, k, spec.ngram_n), None
+        window = torch.cat([st.tok, drafts], dim=1)
+        lg, _ = verify_step(params, cfg, window, st.cache, st.pos)
+        g, a = _accept(window, drafts, lg, greedy=greedy, temperature=st.temperature,
+                       top_k=top_k, wkeys=wkeys, q=q, **_verify_kw(spec))
     if spec.adaptive:
         phat0 = _ctrl_probe(lg[:, 0], drafts[:, 0], greedy=greedy, temperature=st.temperature,
                             top_k=top_k)
@@ -494,13 +620,16 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
     rows = torch.arange(b, device=dev)[:, None].expand(b, k + 1)
     st.hist[rows, torch.where(emit_mask, st.pos[:, None] + 1 + j, w)] = g
     st.tok.copy_(_last_emitted(g, m, st.tok))
+    if fan:
+        _tree_commit(cfg, st.cache, st.pos, m, cf, fan, k)
+    else:
+        sel = torch.clamp_min(m - 1, 0)
+        commit_verify(cfg, st.cache, sel)
+        if spec.mode == "draft":
+            commit_verify(st.draft_cfg, dstack, sel)
     st.pos += m
     st.n_out += m
     st.done |= (live & any_hit) | (st.n_out >= st.max_new)
-    sel = torch.clamp_min(m - 1, 0)
-    commit_verify(cfg, cache, sel)
-    if spec.mode == "draft":
-        commit_verify(st.draft_cfg, dstack, sel)
     row = st.it.reshape(1)
     emits.index_copy_(0, row, torch.where(emit_mask, g, pad_id)[None])
     ms.index_copy_(0, row, m[None])

@@ -89,8 +89,8 @@ def test_generate_guards():
         eng.generate_reference(toks, n_new=2, extras={"image": None})
     with pytest.raises(ValueError, match="draft_cfg/draft_params"):
         eng.generate(toks, n_new=2, speculate=SpecConfig(mode="draft"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4c "):
-        eng.generate(toks, n_new=2, speculate=SpecConfig(tree_fan=2))
+    tree = eng.generate(toks[:, :4], n_new=2, speculate=SpecConfig(tree_fan=2))
+    assert tree.dtype == torch.int32 and tuple(tree.shape) == (2, 2)
     with pytest.raises(NotImplementedError):
         ServingEngine(tcfg, tparams, max_seq=12, device="cpu", mesh=object())
     for option in (dict(draft_cfg=tcfg), dict(draft_params=tparams), dict(draft_pim_bits=8)):

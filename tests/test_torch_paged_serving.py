@@ -282,11 +282,12 @@ def test_guards():
     eng._alloc_pages(1)
     with pytest.raises(AssertionError, match="page leak"):
         eng.assert_quiescent()
-    for option, item in ((dict(mesh=object()), "item 7"),
-                         (dict(speculate=SpecConfig(tree_fan=2)), "item 4c")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item} "):
-            ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
-                                     **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7 "):
+        ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
+                                 mesh=object())
+    tree = ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
+                                    speculate=SpecConfig(tree_fan=2))
+    assert tree.spec.tree_fan == 2 and tree._store_seq == tree.max_seq + 8
     with pytest.raises(ValueError, match="draft_cfg/draft_params"):
         ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu",
                                  speculate=SpecConfig(mode="draft"))
