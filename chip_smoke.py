@@ -43,6 +43,11 @@ weights from a seeded generator on the card):
   chain's K/V relocated to the linear columns inside the same captured
   program, on a dense store and through the block tables of a paged one.
 
+Besides, the paper's own machine runs at the paper's array sizes (no
+model): PiCaSO's bit-serial PE array (``repro_torch.core``), the Alveo
+U55's 64,512 PEs, the Virtex-7 485's 32,768 as one dot-product row, and the
+paper's tables.
+
 Phases:
 
 1. the card's name and power limit; the kernels build, one ``nvcc`` per
@@ -345,6 +350,30 @@ Phases:
    against the linear k = 4 window and the plain step (CUDA events over
    replays, alternating rounds), then (d)'s tokens/s against phase 9's
    plain serve, acceptance, and the first timed tree serve's launches (0).
+15. the PiCaSO machine (``repro_torch.core``) at the paper's array sizes,
+   on inputs from ``np.random.default_rng(SEED + 5)``: (a) each bit-level
+   function (``to_bits``/``from_bits``/``sign_extend_bits``, the Booth
+   decoder and Op-Encoder, ``serial_alu``, ``booth_multiply_bits``,
+   ``booth_nop_fraction``, ``fold_operand``/``fold_reduce_block``,
+   ``network_reduce_bits`` at 2 to 2,048 blocks) on CUDA tensors
+   ``torch.equal`` to the same function on the CPU; (b) the Alveo U55's
+   whole array, ``PicasoArray(n_blocks=4032)`` (64,512 PEs, 1,024-bit
+   register files): two sets of 8-bit operands, ``alu_op`` ADD and SUB,
+   ``mult``, ``fold_accumulate`` at 20 bits, every PE against an int64
+   oracle, each block's lane 0 ``torch.equal`` to ``fold_sum`` (the
+   ``fold_reduce`` kernel, counted) over the same products in f32, the
+   cycles against ``costmodel``; (c) the Virtex-7 485's whole array as one
+   row, ``simulate_dot_product`` at q = 32,768 (2,048 blocks, 32-bit
+   accumulator) against numpy's int64 dot product and
+   ``mult_cycles_overlay(8) + accum_cycles_picaso(32768, 32)``; (d)
+   ``simulate_matvec`` at 16 x 2,048 against ``W @ x`` and
+   ``matvec_cycles``; (e) ``paper_tables.ALL`` on the card: every row's
+   name and ``derived`` equal to the CPU run's; (f) a planted fault, one
+   product bit of one PE flipped between ``mult`` and ``fold_accumulate``,
+   caught by (b)'s oracle and by the ``fold_sum`` comparison; (g) ms of
+   (b)'s ``mult`` and ``fold_accumulate``, of (c), and the tables'
+   ``us_per_call`` (the cycle counts are the paper's model, not this
+   card's).
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -365,7 +394,10 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch import core as picaso  # noqa: E402
 from repro_torch import tracing  # noqa: E402
+from repro_torch.core import costmodel as pcm, mapping as pmapping  # noqa: E402
+from repro_torch.core import paper_tables, simulator as psim  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.bitplane import bitplane_matmul, bitplane_matmul_plain  # noqa: E402
@@ -658,6 +690,9 @@ def main() -> int:
     long_against_plain(cfg, gen_fa, long_prompt)
     fa_times = flash_timings(cfg, gen_fa)
     print(json.dumps(fa_times))
+
+    # ---- 15. the PiCaSO machine ----------------------------------------------------------
+    picaso_launches = PicasoPhase(dev).run()
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
@@ -698,7 +733,10 @@ def main() -> int:
         "name": "fold_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fold_reduce.cu",
         "replaces": "src/repro/kernels/fold_reduce.py:21",
-        "launches": fold["launches"], "max_abs_err": fold["max_abs_err"],
+        "launches": fold["launches"] + picaso_launches,
+        "launches_by_path": {"fold_sum (phase 6)": fold["launches"],
+                             "PiCaSO U55 array, block sums (phase 15 (b))": picaso_launches},
+        "max_abs_err": fold["max_abs_err"],
         "ms": fold["kernel_ms"], "plain_ms": fold["plain_ms"],
         "bound_ms": fold["bound_ms"], "bound_by": "bytes",
         "library_ms": fold["library_ms"], "library_note": "torch.sum(x, -1), another order",
@@ -3916,7 +3954,8 @@ class SpecPhase:
 # same weights' int4 tree (eng4's), both at k = SPEC_K.  (a) and (d) run the
 # fixed engine at batch 1, (b) at phase 3's batch, (c) the continuous engine
 # on phase 9's trace.
-DRAFT_ROUNDS = 3  # (e): alternating rounds of steps, windows and serves
+DRAFT_ROUNDS = 3  # (e): alternating rounds of steps and windows
+DRAFT_SERVE_ROUNDS = 2  # (e): alternating rounds of serves (3 before phase 15)
 DRAFT_TIME_REPS = 8  # (e): replays a timed step or window, per round
 DRAFT_EAGER_NEW = 16  # (b), (c): the eager twins' budget (an eager window runs k + 2
                       # forward passes op by op)
@@ -4208,7 +4247,7 @@ class DraftPhase(SpecPhase):
         plain, draft = self.serving.eng, self.serve_eng
         serves = {"plain": (plain, self.serving.out), "int4 draft": (draft, self.out)}
         srounds = []
-        for i in range(DRAFT_ROUNDS):
+        for i in range(DRAFT_SERVE_ROUNDS):
             row = {}
             for name, (e, want) in serves.items():
                 if i or e is plain:
@@ -4735,6 +4774,223 @@ class TreePhase(SpecPhase):
         del self.eager
         return self.launches
 
+
+
+# ---- 15. the PiCaSO machine ----------------------------------------------------------
+# The paper's own machine (repro_torch.core) at the paper's array sizes: the
+# Alveo U55's whole PiCaSO array (scalability.max_array("picaso", ALVEO_U55):
+# 252 tiles, 64,512 PEs = 4,032 blocks of 16) and the Virtex-7 485's whole
+# array (32,768 PEs) as one dot-product row.  Every check is exact.
+PICASO_U55_BLOCKS = 4032
+PICASO_V7_Q = 32768
+PICASO_MATVEC = (16, 2048)
+PICASO_NET_BLOCKS = (2, 3, 5, 16, 48, 100, 1000, 2048)  # (a): any count, as the reference
+PICASO_LANES = 4096  # (a): lanes of the ALU, Booth and fold checks
+PICASO_ACC = 2 * 8 + 4  # (b): 16-bit products and log2(16) guard bits for the folds
+PICASO_FAULT = (1234, 5, 3)  # (f): block, lane, product bit flipped
+
+
+class PicasoPhase:
+    """Phase 15 on ``dev`` (the card), its inputs from one numpy generator;
+    (a) holds each bit-level function on ``dev`` against the CPU."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.rng = np.random.default_rng(SEED + 5)
+
+    def _ints(self, shape, width):
+        return torch.from_numpy(self.rng.integers(-(1 << (width - 1)), 1 << (width - 1),
+                                                  size=shape))
+
+    def _bits(self, shape):
+        return torch.from_numpy(self.rng.integers(0, 2, size=shape).astype(np.uint8))
+
+    def same(self, label, fn, *args):
+        """``fn`` on ``dev`` equal (values, dtype and shape) to ``fn`` on the
+        CPU, for the same CPU inputs."""
+        on = [a.to(self.dev) if isinstance(a, torch.Tensor) else a for a in args]
+        got, want = fn(*on), fn(*args)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            check(g.device.type == self.dev.type and g.dtype == w.dtype
+                  and torch.equal(g.cpu(), w), f"phase 15 (a) {label}: the card differs from "
+                  "the CPU")
+        self.cases += 1
+
+    def bit_level(self, report):
+        """(a) each bit-level function on the card against the CPU."""
+        self.cases = 0
+        edges = torch.tensor([0, 1, -1, 2**31 - 1, -2**31, 2**31, 2**32 + 5, -2**31 - 1])
+        for width in range(1, 35):
+            vals = torch.cat([self._ints(4096, min(width, 32)), edges])
+            self.same(f"to_bits {width}", picaso.to_bits, vals, width)
+            if width <= 32:
+                planes = self._bits((4096, width))
+                for signed in (True, False):
+                    self.same(f"from_bits {width}", picaso.from_bits, planes, signed)
+                self.same(f"sign_extend_bits {width}", picaso.sign_extend_bits, planes,
+                          width + 3)
+        pairs = torch.from_numpy(self.rng.integers(0, 4, size=PICASO_LANES).astype(np.int32))
+        self.same("booth_decode", picaso.booth_decode, pairs)
+        for conf in range(8):
+            self.same(f"encode {conf:#05b}", picaso.encode, conf, pairs)
+        ops = torch.from_numpy(self.rng.integers(0, 4, size=PICASO_LANES).astype(np.int32))
+        for width in (4, 8, 16, 32):
+            self.same(f"serial_alu {width}", picaso.serial_alu, self._bits((PICASO_LANES, width)),
+                      self._bits((PICASO_LANES, width)), ops)
+        for width in (4, 8, 16):
+            self.same(f"booth_multiply_bits {width}", picaso.booth_multiply_bits,
+                      self._bits((PICASO_LANES, width)), self._bits((PICASO_LANES, width)))
+            self.same(f"booth_nop_fraction {width}", picaso.booth_nop_fraction,
+                      self._ints(PICASO_LANES, width), width)
+        for block in (8, 16, 32):
+            for pattern in ("a", "b"):
+                a_bits = picaso.to_bits(self._ints((256, block), 12), 16)
+                for level in range(1, block.bit_length()):
+                    self.same(f"fold_operand {block} {level} {pattern}", picaso.fold_operand,
+                              a_bits, level, pattern)
+                self.same(f"fold_reduce_block {block} {pattern}", picaso.fold_reduce_block,
+                          a_bits[0], pattern)
+        for n in PICASO_NET_BLOCKS:
+            bits = picaso.to_bits(self._ints(n, 11), 24)
+            on = bits.to(self.dev)
+            got = picaso.network_reduce_bits(on)
+            check(torch.equal(got.cpu(), picaso.network_reduce_bits(bits))
+                  and torch.equal(on.cpu(), bits), f"phase 15 (a) network_reduce_bits {n}: "
+                  "the card differs from the CPU, or its input changed")
+            self.cases += 1
+        report["bit_level"] = {"cases": self.cases, "network_blocks": list(PICASO_NET_BLOCKS),
+                               "equal": True}
+
+    def u55(self, report, fault=None):
+        """(b) the U55's whole array: every PE against an int64 oracle, each
+        block's lane 0 against ``fold_sum``, the cycles against the model.
+        With ``fault`` (block, lane, bit) one product bit is flipped before
+        the folds; returns what each check saw."""
+        arr = psim.PicasoArray(n_blocks=PICASO_U55_BLOCKS, device=self.dev)
+        rng = np.random.default_rng(SEED + 5)  # the same operands for (b) and (f)
+        x, w = (torch.from_numpy(rng.integers(-128, 128, size=(PICASO_U55_BLOCKS, 16)))
+                .to(self.dev) for _ in range(2))
+        times = {}
+
+        def timed(name, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+
+        arr.write_operands(0, x, 8)
+        arr.write_operands(8, w, 8)
+        timed("alu_op ADD", arr.alu_op, picaso.OpCode.ADD, 0, 8, 16, 8)
+        timed("alu_op SUB", arr.alu_op, picaso.OpCode.SUB, 0, 8, 24, 8)
+        timed("mult", arr.mult, 0, 8, 32, 8)
+        if fault is not None:
+            b, lane, bit = fault
+            arr.rf[b, lane, 32 + bit] ^= 1
+        arr._store(32, picaso.sign_extend_bits(arr._slice(32, 16), PICASO_ACC))
+        prod = arr.read_operands(32, PICASO_ACC).long()
+        timed("fold_accumulate", arr.fold_accumulate, 32, PICASO_ACC)
+
+        wrap8 = lambda v: (v + 128) % 256 - 128  # noqa: E731
+        want = x * w
+        for level in range(1, 5):  # the folds of pattern (a), in int64
+            span = 16 >> level
+            want[:, :span] += want[:, span:2 * span]
+        folded = arr.read_operands(32, PICASO_ACC).long()
+        seen = {"add": torch.equal(arr.read_operands(16, 8).long(), wrap8(x + w)),
+                "sub": torch.equal(arr.read_operands(24, 8).long(), wrap8(x - w)),
+                "product": torch.equal(prod, x * w),
+                "folds": torch.equal(folded, want),
+                "pes_off": int((folded != want).sum())}
+        fold_reduce.launches = 0
+        sums = ops.fold_sum((x * w).to(torch.float32))
+        torch.cuda.synchronize()
+        launches = fold_reduce.launches
+        seen["fold_sum"] = torch.equal(folded[:, 0].to(torch.float32), sums)
+        seen["cycles"] = arr.cycles
+        want_cycles = (2 * pcm.add_sub_cycles(8) + pcm.mult_cycles_overlay(8)
+                       + 4 * PICASO_ACC)  # the 4N fold term of accum_cycles_picaso
+        if fault is None:
+            check(all(seen[k] for k in ("add", "sub", "product", "folds", "fold_sum")),
+                  f"phase 15 (b) the U55 array: {seen}")
+            check(arr.cycles == want_cycles, f"phase 15 (b) cycles {arr.cycles}, "
+                  f"model {want_cycles}")
+            check(launches == 1, f"phase 15 (b) fold_sum launched fold_reduce {launches} times")
+            report["u55"] = {"pes": arr.num_pes, "blocks": arr.n_blocks,
+                             "rf_bytes": arr.rf.numel(), "acc_width": PICASO_ACC,
+                             "cycles": arr.cycles, "model_cycles": want_cycles,
+                             "fold_reduce_launches": launches, "ms": times, **seen}
+            self.launches = launches
+        del arr
+        return seen
+
+    def v7_row(self, report):
+        """(c) the Virtex-7 485's whole array as one dot-product row."""
+        x = self.rng.integers(-128, 128, size=PICASO_V7_Q)
+        w = self.rng.integers(-128, 128, size=PICASO_V7_Q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val, cycles = psim.simulate_dot_product(x, w, 8, device=self.dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = int(np.dot(x.astype(np.int64), w.astype(np.int64)))
+        acc = 2 * 8 + pcm.log2i(PICASO_V7_Q) + 1  # 32 bits at q = 32,768: from_bits' most
+        want_cycles = pcm.mult_cycles_overlay(8) + pcm.accum_cycles_picaso(PICASO_V7_Q, acc)
+        check(val == want and cycles == want_cycles, f"phase 15 (c) q={PICASO_V7_Q}: "
+              f"{val}, {cycles} cycles; numpy {want}, model {want_cycles}")
+        report["v7_row"] = {"q": PICASO_V7_Q, "blocks": PICASO_V7_Q // 16, "acc_width": acc,
+                            "value": val, "numpy": want, "cycles": cycles,
+                            "model_cycles": want_cycles, "ms": ms}
+
+    def matvec(self, report):
+        """(d) W (16, 2048) @ x, a row per wave."""
+        m, k = PICASO_MATVEC
+        wm = self.rng.integers(-128, 128, size=(m, k))
+        x = self.rng.integers(-128, 128, size=k)
+        t0 = time.perf_counter()
+        vals, cycles = pmapping.simulate_matvec(wm, x, 8, device=self.dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = wm.astype(np.int64) @ x.astype(np.int64)
+        want_cycles = pmapping.matvec_cycles(m, k, 8, total_pes=m * k)
+        check(np.array_equal(vals, want) and cycles == want_cycles,
+              f"phase 15 (d) matvec {m} x {k}: {cycles} cycles, model {want_cycles}")
+        report["matvec"] = {"shape": [m, k], "equal": True, "cycles": cycles,
+                            "model_cycles": want_cycles, "ms": ms}
+
+    def tables(self, report):
+        """(e) every table row on the card equal to the CPU run's."""
+        rows = {f.__name__: f(device=self.dev) for f in paper_tables.ALL}
+        cpu = {f.__name__: f(device="cpu") for f in paper_tables.ALL}
+        for name in rows:
+            check([(r[0], r[2]) for r in rows[name]] == [(r[0], r[2]) for r in cpu[name]],
+                  f"phase 15 (e) {name}: the card's rows differ from the CPU's")
+        report["tables"] = {"rows": sum(len(r) for r in rows.values()), "equal_to_cpu": True,
+                            "us_per_call": {r[0]: r[1] for rs in rows.values() for r in rs
+                                            if r[1] > 0}}
+
+    def planted_fault(self, report):
+        """(f) one flipped product bit: both checks of (b) must see it."""
+        seen = self.u55(report, fault=PICASO_FAULT)
+        check(not seen["folds"] and not seen["fold_sum"], f"phase 15 (f) the planted fault "
+              f"at {PICASO_FAULT} passed: {seen}")
+        report["planted_fault"] = {"flipped": dict(zip(("block", "lane", "bit"), PICASO_FAULT)),
+                                   "caught_by_oracle": not seen["folds"],
+                                   "pes_off": seen["pes_off"],
+                                   "caught_by_fold_sum": not seen["fold_sum"]}
+
+    def run(self):
+        report = {"check": "phase 15: the PiCaSO machine at the paper's array sizes (cycles "
+                           "are the paper's model, not this card's)", "section_s": {}}
+        t0 = time.perf_counter()
+        for part in (self.bit_level, self.u55, self.v7_row, self.matvec, self.tables,
+                     self.planted_fault):
+            t = time.perf_counter()
+            part(report)
+            report["section_s"][part.__name__] = time.perf_counter() - t
+        report["phase_s"] = time.perf_counter() - t0
+        print(json.dumps(report), flush=True)
+        return self.launches
 
 if __name__ == "__main__":
     sys.exit(main())

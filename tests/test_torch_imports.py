@@ -48,6 +48,20 @@ def test_kernels_export_every_name_of_the_jax_kernels():
     assert not missing, missing
 
 
+def test_core_exports_every_name_of_the_jax_core():
+    """``repro_torch.core`` has every name of ``repro.core.__all__``, read
+    from the JAX package's source."""
+    tree = ast.parse((ROOT / "src" / "repro" / "core" / "__init__.py").read_text())
+    (names,) = [ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__" for t in node.targets)]
+    assert "PicasoArray" in names and "scalability" in names
+    import repro_torch.core as core
+
+    assert core.__all__ == names
+    assert all(hasattr(core, n) for n in names)
+
+
 def test_import_without_cuda_pulls_in_no_jax():
     """Every module imports with no visible card and leaves jax unloaded."""
     mods = sorted("repro_torch." + ".".join(f.relative_to(PKG).with_suffix("").parts)
@@ -77,11 +91,14 @@ def test_import_without_cuda_pulls_in_no_jax():
                                     "repro_torch.serving.chaos",
                                     "repro_torch.serving.router",
                                     "repro_torch.serving.speculative",
-                                    "repro_torch.runtime.fault"])
+                                    "repro_torch.runtime.fault",
+                                    "repro_torch.core.simulator",
+                                    "repro_torch.core.paper_tables"])
 def test_kernel_module_imports_alone_without_card_or_build(module):
-    """A kernel module, or a module of the paged serving path, its
-    resilience tier or its speculation, imported on its own, with no card and no CUDA toolkit,
-    pulls in neither jax nor the JAX package and builds nothing."""
+    """A kernel module, a module of the paged serving path, its resilience
+    tier or its speculation, or of the PiCaSO machine, imported on its own,
+    with no card and no CUDA toolkit, pulls in neither jax nor the JAX
+    package and builds nothing."""
     assert (PKG / Path(*module.split(".")[1:])).with_suffix(".py").is_file()
     code = (f"import sys, {module}\n"
             "from repro_torch.kernels import build\n"
@@ -118,3 +135,9 @@ def test_entry_points_default_to_the_card():
                                  draft_cfg=cfg, draft_params={})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_paged_cache(cfg, 1, 8, 3, 4)
+    from repro_torch.core import PicasoArray, simulate_dot_product
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PicasoArray(n_blocks=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_dot_product(list(range(16)), list(range(16)), 8)
