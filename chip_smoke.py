@@ -43,6 +43,10 @@ weights from a seeded generator on the card):
   chain's K/V relocated to the linear columns inside the same captured
   program, on a dense store and through the block tables of a paged one.
 
+Then the rest of the dense family, llama3.2-3b, starcoder2-7b and
+starcoder2-15b, each at its full width and depth through the same
+decoding path, and the int8 KV cache on qwen2-1.5b's serving path.
+
 Besides, the paper's own machine runs at the paper's array sizes (no
 model): PiCaSO's bit-serial PE array (``repro_torch.core``), the Alveo
 U55's 64,512 PEs, the Virtex-7 485's 32,768 as one dot-product row, and the
@@ -281,7 +285,9 @@ Phases:
    launched 196 x the iterations of its width-0 and 8-row rounds), then
    phase 10's trace with ``prefix_cache=True``: each
    captured serve ``torch.equal`` to the eager one (tokens, events, peak
-   pages), greedy ones against phase 9's solo dense runs at HIT_BAR;
+   pages; the eager twins serve each trace's first 4 requests at
+   SPEC_EAGER_NEW new tokens), greedy ones against phase 9's solo dense
+   runs at HIT_BAR;
    CHAOS_SCRIPTED's transient faults with the ladder off ``torch.equal``
    to the undisturbed serve, stragglers lifting the ladder through
    ``halve_k`` and ``no_spec``, and a supervisor's recompute crash replay
@@ -341,7 +347,8 @@ Phases:
    margin, the draw's top-2 gap or the top-k cut's as phase 10 takes it,
    within HIT_BAR over the temperature); (d) the continuous
    engine on phase 9's engine geometry and trace, greedy and sampled,
-   captured ``torch.equal`` to eager (tokens, events, peak pages), greedy
+   captured ``torch.equal`` to eager on the trace's first 4 requests at
+   SPEC_EAGER_NEW new tokens (tokens, events, peak pages), greedy
    against phase 9's solo dense runs at HIT_BAR, phase 9's small pool
    (preemption) ``torch.equal``, phase 10's repeated prompt with
    ``prefix_cache=True`` (one hit), a recompute crash replay
@@ -374,6 +381,34 @@ Phases:
    (b)'s ``mult`` and ``fold_accumulate``, of (c), and the tables'
    ``us_per_call`` (the cycle counts are the paper's model, not this
    card's).
+16. the dense family (after phase 15): (h) phase 9's trace served greedy
+   with ``kv_cache_bits=8``, captured ``torch.equal`` to ``EagerEngine``,
+   each request against the bf16-cache serve at HIT_BAR (the count beyond
+   PAGED_BAR beside it), its launches counted (196 x chunk iterations), a
+   4 x 128 int8-cache ``generate`` captured against eager, and the
+   int8-cache step's ms beside the bf16 one's; then for each of FAMILY,
+   one at a time, its weights drawn on the card layer by layer
+   (``layerwise_params``) and quantized at int8, the bf16 tree dropped:
+   (a) a captured ``generate`` on 4 x 128 prompts, 32 new, greedy and
+   sampled, ``torch.equal`` to the eager loop of ``decode_and_emit``; (b)
+   over (a)'s first FAMILY_CHECK_NEW greedy tokens, as (c), against the
+   overlay path (``against_overlay``), margin-aware, the
+   logits below what (c)'s planted fault does to them (FAMILY_F32_LAYERS'
+   comment says why not LOGIT_TOL); (c) the f32 path at full width and
+   FAMILY_F32_LAYERS layers against its plain twin within PATH_TOL, a
+   planted fault (layer n/2's ``down`` loses its last K split) caught; (d)
+   ``pim_matvec`` launches 7 x layers (+ 1 for an untied head) a step,
+   from the counters, and each call's plan: an untied head on the
+   kernel's chunked bf16 route; (e) captured ms a step (CUDA events,
+   alternating rounds) beside the weight-stream floor and the SM clock,
+   and the device ms of the step's ``pim_matvec`` calls alone;
+   (f) ``pim_matvec`` against its plain version at each of the config's
+   weight shapes and its (d, vocab) one, bits 8 and 4, M in {1, 4, 8},
+   with a planted fault, the last x chunk of every CTA slice dropped; (g)
+   ``flash_attention_gqa`` against plain at the config's (KV, G, 128),
+   Sq = Sk of 2,048 and 1,000, and one layer's ``decode_attention`` over a
+   4 x 2,048 cache against its f32 form; the peak memory of each config.
+   Every phase prints a ``wall:`` line, the run's seconds at its start.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -418,8 +453,9 @@ from repro_torch.quant import (  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ChaosConfig, ChunkState, ContinuousBatchingEngine, DecodeState, EngineCrash, FaultInjector,
     LadderConfig, ReplicaRouter, Request, ResiliencePolicy, ServingEngine, ServingSupervisor,
-    SpecConfig, VirtualClock, admit_prefill, decode_and_emit, load_snapshot, quantize_tree,
-    sampling, save_snapshot, speculative)
+    SpecConfig, VirtualClock, admit_prefill, decode_and_emit, load_snapshot, pim_bytes,
+    quantize_tree, sampling, save_snapshot, speculative)
+from repro_torch.serving.engine import gc_paused  # noqa: E402
 from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits  # noqa: E402
 
 SEED = 20260
@@ -453,7 +489,7 @@ DECODE_ATTN_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
-TIME_BUDGET_S = 1.0  # about this long per measurement, at most `reps` passes
+TIME_BUDGET_S = 0.5  # about this long per measurement, at most `reps` passes (was 1.0)
 PREFILL_ROWS = BATCH * PROMPT  # one prefill's rows: what pim_dense is held at
 PREFILL_PASS = f"one prefill's linears at {BATCH} x {PROMPT} tokens"
 MATMUL_ROWS = (9, PREFILL_ROWS)  # just past pim_matvec's M <= 8, and a prefill
@@ -494,7 +530,7 @@ LONG_PATH_TOL = 2e-4
 # the alternating timing.
 GREEDY = {"greedy": True}
 SAMPLED = {"greedy": False, "temperature": 0.8, "top_k": 50, "key": SEED}
-STALE_NEW, TIMING_ROUNDS = 4, 4
+STALE_NEW, TIMING_ROUNDS = 4, 2  # 4 rounds before phase 16
 LINEARS = (("attn", "wq", "bq"), ("attn", "wk", "bk"), ("attn", "wv", "bv"),
            ("attn", "wo", None), ("mlp", "gate", None), ("mlp", "up", None),
            ("mlp", "down", None))
@@ -522,6 +558,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}")
+    start = time.perf_counter()
+
+    def wall(phase):
+        """The run's host seconds so far, printed where ``phase`` starts."""
+        print(f"wall: {time.perf_counter() - start:.1f} s at {phase}", flush=True)
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -540,6 +581,7 @@ def main() -> int:
     # decode path's inputs do not depend on them.
     gen_mm = torch.Generator(device=dev).manual_seed(SEED + 1)
 
+    wall("phase 2")
     # ---- 2. kernel vs plain ------------------------------------------------
     max_err = kernel_vs_plain(pim_matvec, pim_matvec_plain, matvec_cases(eng8, eng4), gen)
     max_err = max(max_err, odd_k_case(gen))
@@ -563,6 +605,7 @@ def main() -> int:
         gen_mm2, lambda: pim_matvec(xv, qv.codes, qv.scale, bits=8))
     print(json.dumps(mm_build))
 
+    wall("phase 3")
     # ---- 3. the decode path --------------------------------------------------
     # Each decode step is one replay of a captured step, which runs no Python:
     # its launches are counted in phase 8, where the same generation runs
@@ -601,11 +644,13 @@ def main() -> int:
                       "max_abs_logit_diff_vs_overlay": diff4}))
     against_plain(eng8, gen, prompt, toks, lo8)
 
+    wall("phase 4")
     # ---- 4. the entry point ----------------------------------------------------
     mm_weights, entry = entry_point(params, gen_mm)
     print(json.dumps(entry))
     mm_err = max(mm_err, entry["max_abs_err"])
 
+    wall("phase 5")
     # ---- 5. times ------------------------------------------------------------
     mv_weights = {bits: engine_weights(eng, bits) for eng, bits in ((eng8, 8), (eng4, 4))}
     shapes, steps = timings(pim_matvec, pim_matvec_plain, BATCH, mv_weights, gen,
@@ -625,6 +670,7 @@ def main() -> int:
     mm_pass = mm_passes[8]
     del mm_weights
 
+    wall("phase 6")
     # ---- 6. the bit-plane entry point ------------------------------------------
     # A generator of its own, so the earlier phases' inputs do not depend on it.
     gen_bp = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -639,6 +685,7 @@ def main() -> int:
     bp_err = max(bp_err, bp_entry["max_abs_err"])
     fold = fold_phase(gen_bp)
 
+    wall("phase 7")
     # ---- 7. the long prompt through flash_attention ------------------------------
     gen_fa = torch.Generator(device=dev).manual_seed(SEED + 3)
     fa_build = flash_build_report()
@@ -650,6 +697,7 @@ def main() -> int:
                                                                                gen_fa)
     print(json.dumps(long_path))
 
+    wall("phase 9")
     # ---- 9. continuous batching on the paged cache ---------------------------------
     # Its counted serves are windows of phase 8's profiler session, the run's
     # only one: ``ServingPhase.finish`` reads them after it.
@@ -657,24 +705,30 @@ def main() -> int:
     serving = ServingPhase(cfg, eng8, long_eng, long_prompt, long_toks, gen_serve)
     serve_windows = serving.run()
 
+    wall("phase 10")
     # ---- 10. the shared-prefix serve -----------------------------------------------
     prefix_phase = PrefixPhase(cfg, eng8.params, dev)
     serve_windows += prefix_phase.run()
 
+    wall("phase 11")
     # ---- 11. the resilience tier -----------------------------------------------------
     resilience = ResiliencePhase(cfg, serving, prefix_phase)
     serve_windows += resilience.run()
 
+    wall("phase 12")
     # ---- 12. n-gram speculative decoding ---------------------------------------------
     spec_launches = SpecPhase(cfg, eng8.params, prompt, toks, serving, prefix_phase).run()
 
+    wall("phase 13")
     # ---- 13. draft-model speculation --------------------------------------------------
     spec_launches.update(DraftPhase(cfg, eng8.params, eng4.params, prompt, serving,
                                     prefix_phase).run())
 
+    wall("phase 14")
     # ---- 14. tree drafts ----------------------------------------------------------------
     spec_launches.update(TreePhase(cfg, eng8.params, prompt, toks, serving, prefix_phase).run())
 
+    wall("phase 8")
     # ---- 8. the captured decode step ---------------------------------------------
     counted, traced = captured_phase(
         cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls,
@@ -683,26 +737,38 @@ def main() -> int:
     served = {**serving.finish(traced), **prefix_phase.finish(traced),
               **resilience.finish(traced)}
     resumed_flash = resilience.long_resumed_flash
+    # phase 16 (h)'s inputs: the int8 tree, phase 9's trace and its bf16-cache tokens
+    kv_inputs = (eng8.params, serving.reqs, serving.out, prompt)
     del params, eng8, eng4, long_eng, graphs8, graphs4, graphs_long, one_calls, long_toks
     del serving, prefix_phase, resilience, serve_windows, traced
     gc.collect()  # the counted captures hold each engine in a cycle
     torch.cuda.empty_cache()
+    wall("phase 7: the long prefill against plain")
     long_against_plain(cfg, gen_fa, long_prompt)
+    wall("phase 7: flash_attention's times")
     fa_times = flash_timings(cfg, gen_fa)
     print(json.dumps(fa_times))
 
+    wall("phase 15")
     # ---- 15. the PiCaSO machine ----------------------------------------------------------
     picaso_launches = PicasoPhase(dev).run()
+
+    wall("phase 16")
+    # ---- 16. the rest of the dense family ------------------------------------------------
+    family = FamilyPhase(dev, kv_inputs)
+    del kv_inputs  # the phase drops qwen2-1.5b's tree after (h)
+    family = family.run()
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
         "replaces": "src/repro/kernels/pim_matvec.py:40",
         "launches": counted["int8"]["traced"]["pim_matvec"] + sum(
-            t["pim_matvec"] for t in (*served.values(), *spec_launches.values())),
+            t["pim_matvec"] for t in (*served.values(), *spec_launches.values(),
+                                      *family.values())),
         "launches_by_path": {"int8 generate": counted["int8"]["traced"]["pim_matvec"],
                              **{k: t["pim_matvec"] for k, t in served.items()},
                              **{f"{k} (counters)": t["pim_matvec"]
-                                for k, t in spec_launches.items()}},
+                                for k, t in (*spec_launches.items(), *family.items())}},
         "launches_counted_as": counted["int8"]["counted_as"], "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
@@ -749,7 +815,9 @@ def main() -> int:
         + served["long serve"]["flash_attention"] + resumed_flash,
         "launches_by_path": {"long generate": counted["long"]["traced"]["flash_attention"],
                              "long serve": served["long serve"]["flash_attention"],
-                             "long serve, resumed admit (counter)": resumed_flash},
+                             "long serve, resumed admit (counter)": resumed_flash,
+                             **{f"{k} (counters)": t["flash_attention"]
+                                for k, t in family.items()}},
         "launches_counted_as": counted["long"]["counted_as"],
         "max_abs_err": fa_check["max_abs_err"],
         "bf16_tol_share": fa_check["bf16_tol_share"],
@@ -758,6 +826,7 @@ def main() -> int:
         "library_ms": fa_times["library_ms"], "library_note": fa_times["library_note"],
         "per_layer": _measured(fa_times["per_layer"]), "per": fa_times["per"],
     }]}))
+    wall("the end")
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -940,10 +1009,11 @@ def bitplane_equals_packed(params, gen):
     return cases
 
 
-def decode_attention_check(cfg, gen):
-    """One bf16 layer's decode attention over the long path's cache
-    (LONG_PROMPT + LONG_NEW slots, the query at position LONG_PROMPT), the
-    cache kept in bf16 with f32 outputs (``attention.decode_attention``),
+def decode_attention_check(cfg, gen, batch=1, slots=LONG_PROMPT + LONG_NEW, pos=LONG_PROMPT):
+    """One bf16 layer's decode attention over ``batch`` rows of a cache of
+    ``slots`` positions (by default the long path's: LONG_PROMPT + LONG_NEW
+    slots, the query at position LONG_PROMPT), the cache kept in bf16 with
+    f32 outputs (``attention.decode_attention``),
     against the form that copied the cache to f32.  Each contraction sums
     the same exact bf16 products in another order: the scores q.k, and p.v
     on the same bf16 weights, must agree within DECODE_ATTN_TOL of their
@@ -957,9 +1027,8 @@ def decode_attention_check(cfg, gen):
     graph replays).  Prints its report."""
     dev = gen.device
     kv, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    slots, pos = LONG_PROMPT + LONG_NEW, LONG_PROMPT
-    q = torch.randn((1, kv, g, d), generator=gen, device=dev).to(torch.bfloat16)
-    ck, cv = (torch.randn((1, kv, slots, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((batch, kv, g, d), generator=gen, device=dev).to(torch.bfloat16)
+    ck, cv = (torch.randn((batch, kv, slots, d), generator=gen, device=dev).to(torch.bfloat16)
               for _ in range(2))
     valid = torch.arange(slots, device=dev) <= pos
 
@@ -979,10 +1048,11 @@ def decode_attention_check(cfg, gen):
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
     # The bf16-cache form's two contractions, step by step.
-    s_new = attention.bmm_f32(q.reshape(kv, g, d), ck.reshape(kv, slots, d).transpose(1, 2))
+    n = batch * kv
+    s_new = attention.bmm_f32(q.reshape(n, g, d), ck.reshape(n, slots, d).transpose(1, 2))
     s_new = (s_new / math.sqrt(d)).reshape(s_old.shape)
     w_new = torch.softmax(s_new.masked_fill(~valid, float("-inf")), dim=-1).to(cv.dtype)
-    pv_new = attention.pv_f32(w_new.reshape(kv, g, slots), cv.reshape(kv, slots, d))
+    pv_new = attention.pv_f32(w_new.reshape(n, g, slots), cv.reshape(n, slots, d))
     _, _, pv_old = f32_copy_form(w_new)
 
     def rel(a, b):
@@ -999,12 +1069,12 @@ def decode_attention_check(cfg, gen):
               "end_to_end_max_abs_diff_over_max_abs": end_rel,
               "step_by_step_bit_identical": torch.equal(got, pv_new.reshape(got.shape)),
               "weights_rounded_differently": int((w_new != w_old).sum()),
-              "weights": int(valid.sum()) * kv * g,
+              "weights": int(valid.sum()) * batch * kv * g,
               "peak_bytes_above_inputs": extra, "f32_copy_of_k_bytes": f32_copy,
               "bf16_cache_ms": _time_ms([lambda: attention.decode_attention(q, ck, cv, pos_t)], 50),
               "f32_copy_ms": _time_ms([lambda: f32_copy_form()[2]], 50),
-              "per": "one layer's decode attention at (B 1, KV 2, G 6, D 128); device time "
-                     "(CUDA graph replay)"}
+              "per": f"one layer's decode attention at (B {batch}, KV {kv}, G {g}, D {d}); "
+                     "device time (CUDA graph replay)"}
     print(json.dumps(report))
     check(got.dtype == torch.float32 and got.shape == want.shape and bool(torch.isfinite(got).all()),
           f"decode_attention gave {got.dtype} {tuple(got.shape)}")
@@ -1134,8 +1204,9 @@ def forced_logits(eng, prompt, toks, n_new):
     return torch.stack(out, dim=1)
 
 
-def against_overlay(eng, prompt, toks, n_new, label):
-    """Hold the kernel path's generation against the overlay path's.
+def against_overlay(eng, prompt, toks, n_new, label, tol=LOGIT_TOL):
+    """Hold the kernel path's generation against the overlay path's: the
+    logits within ``tol``, and the tokens margin-aware.
 
     Returns (max |logit difference|, seconds of the overlay generation, the
     overlay path's teacher-forced logits)."""
@@ -1154,8 +1225,8 @@ def against_overlay(eng, prompt, toks, n_new, label):
     check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
     dpos = (lk - lo).abs().amax(dim=-1)  # (B, n_new)
     diff = dpos.max().item()
-    check(diff <= LOGIT_TOL, f"{label}: decode logits differ from the overlay "
-          f"path by {diff:.4g} > {LOGIT_TOL}")
+    check(diff <= tol, f"{label}: decode logits differ from the overlay "
+          f"path by {diff:.4g} > {tol}")
     # Where the two generations first part, both saw the same prefix, so the
     # two argmaxes can differ only if the kernel path's top-2 margin there is
     # within twice the two paths' largest logit difference at that position.
@@ -1173,7 +1244,7 @@ def against_overlay(eng, prompt, toks, n_new, label):
               f"{label}: row {row} differs from the overlay path at token {j} "
               f"with top-2 margin {margin[row, j].item():.4g} > twice the "
               f"logit difference {dpos[row, j].item():.4g}")
-    print(json.dumps({"check": f"{label} vs overlay", "max_abs_logit_diff": diff,
+    print(json.dumps({"check": f"{label} vs overlay", "max_abs_logit_diff": diff, "tol": tol,
                       "mean_abs_logit_diff": (lk - lo).abs().mean().item(),
                       "logit_std": lk.std().item(),
                       "tokens_agreeing_before_first_flip": agree,
@@ -1191,56 +1262,73 @@ def decode_linears_through(fn):
         common.pim_matvec = prev
 
 
-def dropped_split(n_layers, layer, index):
+def matvec_calls_per_step(cfg):
+    """``pim_matvec`` calls of one decode step: the seven linears of every
+    layer, and an untied head."""
+    return len(LINEARS) * cfg.n_layers + (not cfg.tie_embeddings)
+
+
+def dropped_split(cfg, layer, index, rows=DROPPED_ROWS):
     """The wrapper with one planted fault: in linear ``index`` (of LINEARS)
-    of ``layer``, the last DROPPED_ROWS K rows add nothing (the activations
+    of ``layer``, the last ``rows`` K rows add nothing (the activations
     they multiply are zeroed).  Counts decode calls, so it holds for a
     prefill (which makes none) and then decode steps."""
     calls = 0
 
     def faulty(x, w_codes, scale, *, bits=8, **kw):
         nonlocal calls
-        if calls % (n_layers * len(LINEARS)) == layer * len(LINEARS) + index:
+        if calls % matvec_calls_per_step(cfg) == layer * len(LINEARS) + index:
             x = x.clone()
-            x[:, -DROPPED_ROWS:] = 0
+            x[:, -rows:] = 0
         calls += 1
         return pim_matvec(x, w_codes, scale, bits=bits, **kw)
     return faulty
 
 
 def against_plain(eng8, gen, prompt, toks, lo8):
-    """The int8 path at full width in f32, kernel vs plain version: the
-    teacher-forced logits through the kernel against the same path with
-    every decode linear through ``pim_matvec_plain`` on the card, within
-    PATH_TOL.  Then a planted fault (layer n/2's ``down`` loses its last K
-    split) must fail that check; its size under the bf16 overlay check is
-    printed beside LOGIT_TOL."""
+    """The int8 path at full width in f32, kernel vs plain version
+    (``plain_path_check``), on a model of its own drawn from ``gen``."""
     cfg = eng8.cfg.replace(param_dtype="float32")
     eng = ServingEngine(cfg, init_params(cfg, gen, device=gen.device),
                         max_seq=eng8.max_seq, pim_bits=8, device=gen.device)
-    lk = forced_logits(eng, prompt, toks, N_NEW)
+    plain_path_check(eng, eng8, prompt, toks, lo8, "int8 f32 kernel path vs plain path")
+
+
+def plain_path_check(eng, eng8, prompt, toks, lo8, label, rows=DROPPED_ROWS):
+    """The f32 engine ``eng``'s teacher-forced logits through the kernel
+    against the same path with every decode linear through
+    ``pim_matvec_plain`` on the card, within PATH_TOL.  Then a planted
+    fault (layer n/2's ``down`` loses its last ``rows`` K rows) must fail
+    that check; its size under the bf16 overlay check (``eng8``'s logits
+    against ``lo8``, the overlay path's) is printed beside LOGIT_TOL.
+    Returns the report."""
+    cfg, cfg8, n_new = eng.cfg, eng8.cfg, toks.shape[1]
+    lk = forced_logits(eng, prompt, toks, n_new)
     with decode_linears_through(pim_matvec_plain):
-        lp = forced_logits(eng, prompt, toks, N_NEW)
+        lp = forced_logits(eng, prompt, toks, n_new)
     down = [name for _, name, _ in LINEARS].index("down")
-    with decode_linears_through(dropped_split(cfg.n_layers, cfg.n_layers // 2, down)):
-        lf = forced_logits(eng, prompt, toks, N_NEW)
-    with decode_linears_through(dropped_split(cfg.n_layers, cfg.n_layers // 2, down)):
-        lf8 = forced_logits(eng8, prompt, toks, N_NEW)
+    with decode_linears_through(dropped_split(cfg, cfg.n_layers // 2, down, rows)):
+        lf = forced_logits(eng, prompt, toks, n_new)
+    with decode_linears_through(dropped_split(cfg8, cfg8.n_layers // 2, down, rows)):
+        lf8 = forced_logits(eng8, prompt, toks, n_new)
     diff = (lk - lp).abs().max().item()
     fault = (lf - lp).abs().max().item()
     fault8 = (lf8 - lo8).abs().max().item()
-    print(json.dumps({"check": "int8 f32 kernel path vs plain path",
-                      "max_abs_logit_diff": diff, "tol": PATH_TOL,
-                      "logit_std": lp.std().item(),
-                      "planted_fault": f"layer {cfg.n_layers // 2} down: last {DROPPED_ROWS} K rows dropped",
-                      "planted_fault_f32_diff_vs_plain": fault,
-                      "planted_fault_bf16_diff_vs_overlay": fault8,
-                      "logit_tol": LOGIT_TOL}))
-    check(bool(torch.isfinite(lk).all()), "f32 path: non-finite logits")
-    check(diff <= PATH_TOL, f"f32 path: kernel logits differ from the plain "
+    report = {"check": label, "layers": cfg.n_layers,
+              "max_abs_logit_diff": diff, "tol": PATH_TOL,
+              "logit_std": lp.std().item(),
+              "planted_fault": f"layer {cfg.n_layers // 2} down: last {rows} K rows dropped",
+              "planted_fault_f32_diff_vs_plain": fault,
+              "planted_fault_bf16_diff_vs_overlay": fault8,
+              "planted_fault_bf16_layers": cfg8.n_layers,
+              "logit_tol": LOGIT_TOL}
+    print(json.dumps(report))
+    check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
+    check(diff <= PATH_TOL, f"{label}: kernel logits differ from the plain "
           f"version's by {diff:.4g} > {PATH_TOL}")
-    check(fault > PATH_TOL, f"the planted fault moved the f32 logits by only "
+    check(fault > PATH_TOL, f"{label}: the planted fault moved the f32 logits by only "
           f"{fault:.4g} <= {PATH_TOL}: the check cannot see it")
+    return report
 
 
 def _linear_params(params, i):
@@ -1365,7 +1453,7 @@ def _time_ms(calls, reps, graph=True):
     reps = max(1, min(reps, int(TIME_BUDGET_S * 1e3 / max(start.elapsed_time(end), 1e-3))))
     if graph:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with gc_paused(), torch.cuda.graph(g):
             for c in calls:
                 c()
         g.replay()
@@ -2328,7 +2416,7 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, pa
 # mid-chunk in their solo run.
 SERVE = dict(slots=4, page_size=16, chunk=8, max_seq=512, page_alloc_seed=SEED)
 SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW, SERVE_STOPPED = 10, (17, 300), (8, 64), 2
-SERVE_ROUNDS = 3  # alternating rounds of (e): captured, then eager
+SERVE_ROUNDS = 1  # rounds of (e): captured, then eager (3 before phase 16)
 # (e)'s captured serve when its admits ran eagerly, as PERF.md records it
 # (NVIDIA H100 80GB HBM3 at 700 W): the yardstick the captured admits are
 # reported beside.
@@ -2826,7 +2914,7 @@ PREFIX_TRACE = dict(system=512, shared=8, tails=(20, 200), repeated=256, repeats
 # (d): small enough that retained pages are evicted and slots preempted (a
 # request needs at most 49 pages here).
 PREFIX_SMALL_POOL = 60
-PREFIX_ROUNDS = 3  # alternating rounds of (f): cached, then uncached
+PREFIX_ROUNDS = 2  # alternating rounds of (f): cached, then uncached (3 before phase 16)
 # Hits against misses: a hit's tail runs the verify window, whose attention
 # keeps f32 scores as a decode step does, where a miss's prefill rounds its
 # scores to bf16 (the JAX package's arithmetic).  Through 28 layers the two
@@ -3190,7 +3278,7 @@ CHAOS_COMBINED = dict(seed=SEED, fault_rate=0.3, straggle_rate=0.3, squeeze_rate
 LADDER_STRAGGLES, LADDER_COOLDOWN = (0, 1), 2
 CRASH_ROUNDS = (2, 5)  # (d): the supervisor's scripted crashes (calls of the crash site)
 DISK_CRASH_ROUND = 3   # (e): the crash that takes the engine object with it
-RESILIENCE_ROUNDS = 3  # alternating rounds of (i)
+RESILIENCE_ROUNDS = 2  # alternating rounds of (i) (3 before phase 16)
 SNAPSHOT = Path(__file__).resolve().parent / "build" / "snapshots" / "serve.snap"
 
 
@@ -3580,13 +3668,17 @@ class ResiliencePhase:
 SPEC_K = 4
 SPEC_WIDTHS = (1, 2, 4)   # (d): window ms at 4 rows, each width
 SPEC_TIME_REPS = 16       # (d): replays a timed window or step, per round
-SPEC_ROUNDS = 3           # (d): alternating rounds of plain steps and windows
-SPEC_SERVE_ROUNDS = 2     # (d): alternating rounds of plain and speculative serves
+SPEC_ROUNDS = 2           # (d): alternating rounds of plain steps and windows (was 3)
+SPEC_SERVE_ROUNDS = 1     # (d): rounds of plain and speculative serves (2 before phase 16)
 # (b): the continuous engine's controller starts optimistic (an acceptance
 # estimate of 1), so its first rounds run k-wide windows and it narrows them
 # as it measures; from the default estimate of 0 it would stay at width 0 on
 # text whose proposals it never sees accepted.
 SPEC_ADAPTIVE = dict(k=SPEC_K, adaptive=True, ctrl_init=1.0)
+# (b), and phase 14 (d): the eager twins serve the trace's first requests at
+# this budget (an eager window runs op by op: the whole trace eagerly took
+# 5-10 s a serve; they served it whole before phase 16).
+SPEC_EAGER_NEW = 16
 
 
 @contextlib.contextmanager
@@ -3603,6 +3695,13 @@ def greedy_accept_one_more():
         yield
     finally:
         speculative.greedy_accept = sound
+
+
+def first_requests(reqs):
+    """The trace's first SERVE["slots"] requests at a budget of at most
+    SPEC_EAGER_NEW new tokens, their stops kept."""
+    return [Request(prompt=r.prompt, max_new=min(r.max_new, SPEC_EAGER_NEW),
+                    stop_tokens=r.stop_tokens) for r in reqs[:SERVE["slots"]]]
 
 
 class EagerServingEngine(ServingEngine):
@@ -3789,19 +3888,31 @@ class SpecPhase:
         eager = EagerEngine(self.cfg, self.params, speculate=spec, device=self.dev, **geo)
         return eng, count_captures(eng), eager
 
-    def _captured_vs_eager(self, label, eng, eager, reqs, mode=GREEDY):
+    def _captured_vs_eager(self, label, eng, eager, reqs, mode=GREEDY, first=False):
+        """``eng``'s serve of ``reqs`` (returned, with its numbers) against
+        ``eager``'s (tokens, events, peak pages): of the same requests, or
+        with ``first`` of the trace's first requests at SPEC_EAGER_NEW
+        (``first_requests``), served by both engines again."""
         out = eng.serve(reqs, **mode)
         rep = eng.last_report
-        out_e = eager.serve(reqs, **mode)
-        same = {"case": label, "tokens_equal": same_tokens(out, out_e),
-                "events_equal": events_of(rep) == events_of(eager.last_report),
-                "peak_pages": [eng.peak_pages_in_use, eager.peak_pages_in_use],
-                "rounds": rep.rounds, "decode_chunk_iters": eng.decode_chunk_iters,
+        same = {"case": label, "rounds": rep.rounds, "decode_chunk_iters": eng.decode_chunk_iters,
                 "spec_emitted": eng.spec_emitted, "spec_live_steps": eng.spec_live_steps,
                 "tokens": sum(len(o) for o in out),
-                "eff_k_by_round": [c["eff_k"] for c in rep.counters]}
+                "eff_k_by_round": [c["eff_k"] for c in rep.counters],
+                "prefix_hits": rep.prefix_hits, "prefix_hit_tokens": rep.prefix_hit_tokens,
+                "cow_forks": rep.cow_forks}
         same["acceptance"] = eng.spec_emitted / max(1, eng.spec_live_steps)
         same["tokens_per_chunk_iter"] = same["tokens"] / max(1, eng.decode_chunk_iters)
+        twin, got = reqs, out
+        if first:
+            twin = first_requests(reqs)
+            got, rep = eng.serve(twin, **mode), eng.last_report
+            same["eager_twin"] = (f"the first {len(twin)} requests, at most {SPEC_EAGER_NEW} "
+                                  "new tokens each")
+        out_e = eager.serve(twin, **mode)
+        same.update(tokens_equal=same_tokens(got, out_e),
+                    events_equal=events_of(rep) == events_of(eager.last_report),
+                    peak_pages=[eng.peak_pages_in_use, eager.peak_pages_in_use])
         check(same["tokens_equal"] and same["events_equal"]
               and eng.peak_pages_in_use == eager.peak_pages_in_use,
               f"{self.NAME} {label}: the captured serve differs from the eager one: {same}")
@@ -3826,10 +3937,11 @@ class SpecPhase:
         spec = SpecConfig(k=SPEC_K)
         eng, graphs, eager = self._engines(spec)
         self.serve_eng, self.serve_graphs = eng, graphs
-        self.out, same = self._captured_vs_eager("greedy", eng, eager, reqs)
+        self.out, same = self._captured_vs_eager("greedy", eng, eager, reqs, first=True)
         same["vs_dense"] = self._against_dense("(b) greedy speculation", self.out)
         rows.append(same)
-        self.out_sampled, same = self._captured_vs_eager("sampled", eng, eager, reqs, SAMPLED)
+        self.out_sampled, same = self._captured_vs_eager("sampled", eng, eager, reqs, SAMPLED,
+                                                         first=True)
         check(not same_tokens(self.out_sampled, self.out), "(b) sampled tokens equal greedy ones")
         rows.append(same)
         del eager
@@ -3837,7 +3949,7 @@ class SpecPhase:
         # the adaptive controller: widths per round, k = 0 rounds plain
         aeng, agraphs, aeager = self._engines(SpecConfig(**SPEC_ADAPTIVE))
         widths = RecordedWidths(aeng)
-        out_a, same = self._captured_vs_eager("adaptive greedy", aeng, aeager, reqs)
+        out_a, same = self._captured_vs_eager("adaptive greedy", aeng, aeager, reqs, first=True)
         same["vs_dense"] = self._against_dense("(b) adaptive greedy speculation", out_a)
         rows.append(same)
         del aeager
@@ -3859,11 +3971,8 @@ class SpecPhase:
         # the prefix cache stays on under n-gram speculation
         peng, pgraphs, peager = self._engines(spec, prefix_cache=True, **PREFIX_SERVE)
         out_p, same = self._captured_vs_eager("prefix cache, greedy", peng, peager,
-                                              self.prefix.reqs)
-        prep = peng.last_report
-        same.update(prefix_hits=prep.prefix_hits, prefix_hit_tokens=prep.prefix_hit_tokens,
-                    cow_forks=prep.cow_forks)
-        check(prep.prefix_hits > 0, "(b) no prefix hit under speculation")
+                                              self.prefix.reqs, first=True)
+        check(same["prefix_hits"] > 0, "(b) no prefix hit under speculation")
         rows.append(same)
         report["continuous"] = rows
         report["graphs"] = {"fixed engine": capture_report(self.fixed_eng, self.fixed_graphs),
@@ -3954,11 +4063,11 @@ class SpecPhase:
 # same weights' int4 tree (eng4's), both at k = SPEC_K.  (a) and (d) run the
 # fixed engine at batch 1, (b) at phase 3's batch, (c) the continuous engine
 # on phase 9's trace.
-DRAFT_ROUNDS = 3  # (e): alternating rounds of steps and windows
-DRAFT_SERVE_ROUNDS = 2  # (e): alternating rounds of serves (3 before phase 15)
+DRAFT_ROUNDS = 2  # (e): alternating rounds of steps and windows (3 before phase 16)
+DRAFT_SERVE_ROUNDS = 1  # (e): rounds of serves (3 before phase 15, 2 before phase 16)
 DRAFT_TIME_REPS = 8  # (e): replays a timed step or window, per round
-DRAFT_EAGER_NEW = 16  # (b), (c): the eager twins' budget (an eager window runs k + 2
-                      # forward passes op by op)
+DRAFT_EAGER_NEW = 16  # (b): the eager twins' budget (an eager window runs k + 2
+                      # forward passes op by op); (c)'s is SPEC_EAGER_NEW
 
 
 @contextlib.contextmanager
@@ -4119,10 +4228,8 @@ class DraftPhase(SpecPhase):
                  "vs_dense": self._against_dense("(c) int4 draft, greedy", self.out)}]
         # the eager twin serves the trace's first requests at a cut budget: an
         # eager iteration runs k + 2 forward passes op by op
-        sub = [Request(prompt=r.prompt, max_new=min(r.max_new, DRAFT_EAGER_NEW),
-                       stop_tokens=r.stop_tokens) for r in reqs[:SERVE["slots"]]]
         _, same = self._captured_vs_eager("(c) int4 draft, greedy, first requests", eng, eager,
-                                          sub)
+                                          first_requests(reqs))
         rows.append(same)
         del eager
         out_s = eng.serve(reqs, **SAMPLED)
@@ -4307,8 +4414,8 @@ TREE_PLANT_PS = 8                    # (b): the paged pool's page size: the wind
                                      # columns 128..137 cross a page boundary
 TREE_CONTINUE = 8                    # (b): decode steps on from the relocated cache
 TREE_EAGER_NEW = 16                  # (c): the eager twin's and the cross-engine budget
-TREE_ROUNDS = 3                      # (e): alternating rounds of steps and windows
-TREE_SERVE_ROUNDS = 2                # (e): alternating rounds of plain and tree serves
+TREE_ROUNDS = 2                      # (e): alternating rounds of steps and windows (was 3)
+TREE_SERVE_ROUNDS = 1                # (e): rounds of plain and tree serves (2 before phase 16)
 
 
 def late_sources(cfg, cache, pos, a, cf, *, fan, depth, page_size=None):
@@ -4636,10 +4743,11 @@ class TreePhase(SpecPhase):
         spec = SpecConfig(**TREE_SPEC4)
         eng, graphs, eager = self._engines(spec)
         self.serve_eng, self.serve_graphs = eng, graphs
-        self.out, same = self._captured_vs_eager("greedy", eng, eager, reqs)
+        self.out, same = self._captured_vs_eager("greedy", eng, eager, reqs, first=True)
         same["vs_dense"] = self._against_dense("(d) tree greedy", self.out)
         rows = [same]
-        self.out_sampled, same = self._captured_vs_eager("sampled", eng, eager, reqs, SAMPLED)
+        self.out_sampled, same = self._captured_vs_eager("sampled", eng, eager, reqs, SAMPLED,
+                                                         first=True)
         check(not same_tokens(self.out_sampled, self.out), "(d) sampled tokens equal greedy ones")
         rows.append(same)
         del eager
@@ -4991,6 +5099,450 @@ class PicasoPhase:
         report["phase_s"] = time.perf_counter() - t0
         print(json.dumps(report), flush=True)
         return self.launches
+
+
+# ---- 16. the rest of the dense family -------------------------------------------------
+# The reference's other dense configs, one at a time, at full width and depth,
+# seeded random weights at pim_bits=8 (each on a generator of its own,
+# SEED + 7 + its index); then (h) the int8 KV cache on qwen2-1.5b.
+FAMILY = ("llama3.2-3b", "starcoder2-7b", "starcoder2-15b")
+# (c): the f32 path at full width but this many layers: the whole f32 model
+# (40.5 / 88.0 GB for starcoder2-7b / -15b) does not fit beside the rest.
+FAMILY_F32_LAYERS = 4
+# (b): the bf16 kernel path against the overlay path at full depth.
+# LOGIT_TOL (0.25) was set on qwen2-1.5b, whose sound paths differ by 0.16
+# at a logit spread of 0.78.  The overlay rounds every weight to bf16, and
+# on these wider random-weight models every layer amplifies that rounding
+# (a linear of N(0, 0.02) weights over more than 2,500 inputs has a gain
+# above one): on the H100 the sound paths differed by 0.32-0.33, 0.47-0.49
+# and 0.64-0.68 at logit spreads of 1.11, 1.36 and 1.57, while the same
+# kernels agree with their plain twins to 3e-5 in f32 ((c)).  So the logits are held
+# below what (c)'s planted fault (layer n/2's `down` loses its last K
+# split) does to this same comparison, with LOGIT_TOL printed beside.
+FAMILY_ROUNDS = 3  # (e): alternating rounds of the captured greedy and sampled step
+FAMILY_CHECK_NEW = 16  # (b), (c): the first tokens of (a)'s greedy generation, teacher-forced
+FAMILY_FLASH = (2048, 1000)  # (g): Sq = Sk, at the config's (KV, G, D)
+FAMILY_CACHE = 2048  # (g): decode attention over BATCH rows of this many positions,
+FAMILY_CACHE_POS = 1536  # the query at this one (the keys past it masked)
+FAMILY_M = (1, 4, 8)  # (f): x rows of the kernel cases
+
+
+def layerwise_params(cfg, gen):
+    """``init_params``' tree for ``cfg`` on the card, every weight drawn from
+    ``gen`` as N(0, 0.02), each stacked leaf one layer at a time into its
+    preallocated stack (one layer's f32 draw at a time: starcoder2-15b's
+    stacked ``gate`` is 24 GB in f32), norms one, biases zero, and the untied
+    head as ``init_params`` lays it out, the transpose of a (vocab, d) draw."""
+    dev = gen.device
+
+    def draw(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).mul_(0.02).to(dtype)
+
+    def fill(name, meta):
+        if name in ("ln1", "ln2", "ln_f"):
+            return torch.ones(meta.shape, dtype=meta.dtype, device=dev)
+        if name in ("bq", "bk", "bv"):
+            return torch.zeros(meta.shape, dtype=meta.dtype, device=dev)
+        if name == "head":
+            return draw(meta.shape[::-1], meta.dtype).T
+        if name == "embed":
+            return draw(meta.shape, meta.dtype)
+        out = torch.empty(meta.shape, dtype=meta.dtype, device=dev)
+        for i in range(meta.shape[0]):
+            out[i] = draw(meta.shape[1:], meta.dtype)
+        return out
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else fill(k, v) for k, v in tree.items()}
+    return walk(init_params(cfg, torch.Generator(), device="meta"))
+
+
+def stream_bytes(eng):
+    """The bytes a decode step must stream at least: every quantized layer
+    weight's codes and scales, the biases and norms, and the unembedding
+    (an untied head's codes and scales, or the whole tied bf16 table)."""
+    p = eng.params
+    return (pim_bytes(p["layers"]) + pim_bytes({"head": p.get("head", p["embed"])})
+            + p["ln_f"].numel() * p["ln_f"].element_size())
+
+
+def step_routes(eng, prompt, toks, sms):
+    """Each ``pim_matvec`` call of one eager decode step: its weight's code
+    rows and columns, x's dtype and the kernel's plan for them (chunked
+    where x is staged in more than one chunk per CTA slice)."""
+    calls = []
+
+    def noting(x, w_codes, scale, *, bits=8, **kw):
+        calls.append((x.shape[0], *w_codes.shape, bits, x.dtype))
+        return pim_matvec(x, w_codes, scale, bits=bits, **kw)
+    with decode_linears_through(noting):
+        forced_logits(eng, prompt, toks, 2)  # the prefill makes no call, the step all
+    routes = []
+    for m, rows, n, bits, dtype in calls:
+        pl = matvec_plan(rows, n, m, bits, sms, 1 if dtype == torch.bfloat16 else 3)
+        routes.append({"rows": rows, "N": n, "M": m, "x": str(dtype).split(".")[-1],
+                       "chunk_rows": pl.chunk_rows, "rows_per_cta": pl.rows_per_cta,
+                       "cluster": pl.cluster, "col_tiles": pl.col_tiles,
+                       "chunks": -(-pl.rows_per_cta // pl.chunk_rows),
+                       "chunked": pl.chunk_rows < pl.rows_per_cta})
+    return routes
+
+
+def last_chunks(k, n, m, bits, sms):
+    """The code rows of the last x chunk of each CTA slice of a (k, n) weight
+    at m bf16 x rows (``pim_matvec.plan``): the rows a kernel that dropped
+    its last chunk would leave out."""
+    pl = matvec_plan(k, n, m, bits, sms, 1)
+    out = []
+    for lo in range(0, k, pl.rows_per_cta):
+        hi = min(lo + pl.rows_per_cta, k)
+        out.append((lo + (-(-(hi - lo) // pl.chunk_rows) - 1) * pl.chunk_rows, hi))
+    return pl, out
+
+
+def family_kernel_cases(cfg, gen):
+    """(f): ``pim_matvec`` against ``pim_matvec_plain`` on each of the
+    config's weight shapes (the seven linears and its (d, vocab)
+    unembedding, the tied table's as a quantized weight too), random
+    weights at bits 8 and 4, M in FAMILY_M, f32 and bf16 x
+    (``kernel_vs_plain``).  Then the planted fault: the kernel on x whose
+    last chunk of every CTA slice of the (d, vocab) weight is zeroed (as
+    if the chunk loop stopped one chunk short), bf16, M = BATCH, must fail
+    the check.  Returns the report."""
+    dev, sms = gen.device, torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = []
+    for group, name, _ in LINEARS:
+        k, n = {"wq": (cfg.d_model, cfg.q_dim), "wk": (cfg.d_model, cfg.kv_dim),
+                "wv": (cfg.d_model, cfg.kv_dim), "wo": (cfg.q_dim, cfg.d_model),
+                "gate": (cfg.d_model, cfg.d_ff), "up": (cfg.d_model, cfg.d_ff),
+                "down": (cfg.d_ff, cfg.d_model)}[name]
+        if (k, n) not in shapes:
+            shapes.append((k, n))
+    shapes.append((cfg.d_model, cfg.vocab))
+    cases, head = [], {}
+    for k, n in shapes:
+        w = 0.02 * torch.randn((k, n), generator=gen, device=dev)
+        for bits in (8, 4):
+            q = ops.quantize_for_pim(w, bits)
+            cases += [_packed_case(f"{k} x {n}", m, q) for m in FAMILY_M]
+            head[bits] = q
+        del w
+    max_err = kernel_vs_plain(pim_matvec, pim_matvec_plain, cases, gen)
+    chunked = []  # (K, N, M, bits) of the cases whose bf16 x the kernel stages in chunks
+    for _, m, k, n, (codes, _), fixed in cases:
+        pl = matvec_plan(codes.shape[0], n, m, fixed["bits"], sms, 1)
+        if pl.chunk_rows < pl.rows_per_cta:
+            chunked.append([k, n, m, fixed["bits"]])
+    q = head[8]
+    k, n = q.shape
+    pl, dropped = last_chunks(k, n, BATCH, 8, sms)
+    check(pl.chunk_rows < pl.rows_per_cta, f"(f) the {k} x {n} weight is not chunked: {pl}")
+    x = torch.randn((BATCH, k), generator=gen, device=dev).to(torch.bfloat16)
+    faulty = x.clone()
+    for lo, hi in dropped:
+        faulty[:, lo:hi] = 0
+    ok, fault_err = within_tol(pim_matvec(faulty, q.codes, q.scale, bits=8),
+                               pim_matvec_plain(x, q.codes, q.scale, bits=8))
+    check(not ok, f"(f) the dropped last chunk moved pim_matvec's output by only "
+          f"{fault_err:.3g}: the check cannot see it")
+    return {"shapes": [list(s) for s in shapes], "cases": 32 * len(cases),
+            "max_abs_err": max_err, "tol": KERNEL_TOL,
+            "chunked_bf16_cases_K_N_M_bits": chunked,
+            "planted_fault": f"{k} x {n} int8, bf16 x, M = {BATCH}: the last chunk of each CTA "
+                             f"slice dropped, code rows {dropped} (plan: {pl.cluster} CTAs of "
+                             f"{pl.rows_per_cta} rows in chunks of {pl.chunk_rows})",
+            "planted_fault_max_abs_err": fault_err}
+
+
+def family_attention(cfg, gen):
+    """(g): ``flash_attention_gqa`` against ``flash_attention_plain`` at the
+    config's (KV, G, D), f32 within KERNEL_TOL and bf16 within that plus one
+    ulp, causal and not, at Sq = Sk in FAMILY_FLASH; then one bf16 layer's
+    ``decode_attention`` over BATCH rows of FAMILY_CACHE positions against
+    its f32-copy form (``decode_attention_check``)."""
+    dev = gen.device
+    kv, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    share, n = 0.0, 0
+    for s in FAMILY_FLASH:
+        q32 = torch.randn((1, s, kv, g, d), generator=gen, device=dev)
+        k32, v32 = (torch.randn((1, s, kv, d), generator=gen, device=dev) for _ in range(2))
+        for dtype in errs:
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            for causal in (True, False):
+                got = flash_attention_gqa(q, k, v, causal=causal)
+                ref = flash_attention_plain(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    ok, err = within_tol(got, ref)
+                else:
+                    ok, err, sh, _ = within_bf16_ulp(got, ref)
+                    share = max(share, sh)
+                check(ok and got.dtype == dtype and got.shape == ref.shape,
+                      f"(g) flash_attention {(1, s, s, kv, g, d)} {dtype} causal={causal}: "
+                      f"max err {err:.3g}")
+                errs[dtype] = max(errs[dtype], err)
+                n += 1
+    dec = decode_attention_check(cfg, gen, batch=BATCH, slots=FAMILY_CACHE,
+                                 pos=FAMILY_CACHE_POS)
+    return {"heads": {"kv": kv, "group": g, "head_dim": d}, "lengths": list(FAMILY_FLASH),
+            "flash_cases": n, "f32_max_abs_err": errs[torch.float32],
+            "bf16_max_abs_err": errs[torch.bfloat16], "bf16_tol_share": share,
+            "decode_attention": {k: dec[k] for k in (
+                "scores_max_abs_diff_over_max_abs", "pv_same_weights_max_abs_diff_over_max_abs",
+                "end_to_end_max_abs_diff_over_max_abs", "bf16_cache_ms", "f32_copy_ms")}}
+
+
+def step_kernels_ms(eng, gen):
+    """Device ms of one decode step's ``pim_matvec`` calls alone, back to
+    back in a CUDA graph (``_time_ms``): every layer's seven linears and an
+    untied head on the engine's own codes, x of BATCH seeded bf16 rows."""
+    cfg, p, dev = eng.cfg, eng.params, gen.device
+    xs = {k: torch.randn((BATCH, k), generator=gen, device=dev).to(torch.bfloat16)
+          for k in (cfg.d_model, cfg.q_dim, cfg.d_ff)}
+    weights = [p["layers"][group][name] for group, name, _ in LINEARS]
+    calls = [functools.partial(pim_matvec, xs[w["codes"].shape[1]], w["codes"][i],
+                               w["scale"][i], bits=8)
+             for i in range(cfg.n_layers) for w in weights]
+    if "head" in p:
+        calls.append(functools.partial(pim_matvec, xs[cfg.d_model], p["head"]["codes"],
+                                       p["head"]["scale"], bits=8))
+    return _time_ms(calls, 20) * len(calls)
+
+
+def step_ms(engines, prompt, n_new, rounds):
+    """Captured decode ms a step of each of ``engines`` ({label: (engine,
+    mode)}), device time (CUDA events over n_new - 1 replays from a
+    prefill that is not timed), in ``rounds`` alternating rounds; the SM
+    clock after each round.  Returns (medians, rounds)."""
+    b, out = prompt.shape[0], []
+    for _ in range(rounds):
+        row = {}
+        for label, (eng, mode) in engines.items():
+            greedy, top_k = mode["greedy"], mode.get("top_k", 0)
+            step = eng.step(b, greedy=greedy, top_k=top_k)
+            eng.state(b).start(eng.params, eng.cfg, prompt, mode.get("key"),
+                               mode.get("temperature", 1.0), greedy=greedy, top_k=top_k)
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n_new - 1):
+                step()
+            z.record()
+            z.synchronize()
+            row[label] = a.elapsed_time(z) / (n_new - 1)
+        row["sm_clock_mhz"] = tracing.sm_clock_mhz()
+        out.append(row)
+    return {label: sorted(r[label] for r in out)[len(out) // 2] for label in engines}, out
+
+
+class FamilyPhase:
+    """Phase 16: (h) the int8 KV cache on qwen2-1.5b, from phase 9's trace and
+    bf16-cache serve (``kv``: the int8 parameters, the requests, their
+    tokens, phase 3's prompt), then (a) to (g) for each of FAMILY."""
+
+    def __init__(self, dev, kv):
+        self.dev, self.kv = dev, kv
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.launches = {}
+
+    def int8_kv(self, report):
+        """(h): phase 9's trace served greedy with ``kv_cache_bits=8``."""
+        params, reqs, want, prompt = self.kv
+        dev, cfg = self.dev, get_config("qwen2-1.5b")
+        cfg8 = cfg.replace(kv_cache_bits=8)
+        eng = TimedEngine(cfg8, params, device=dev, **SERVE)
+        graphs = count_captures(eng)
+        eager = EagerEngine(cfg8, params, device=dev, **SERVE)
+        out = eng.serve(reqs)
+        out_e = eager.serve(reqs)
+        same = {"tokens_equal": same_tokens(out, out_e),
+                "events_equal": events_of(eng.last_report) == events_of(eager.last_report),
+                "peak_pages": [eng.peak_pages_in_use, eager.peak_pages_in_use],
+                "decode_chunk_iters": eng.decode_chunk_iters,
+                "tokens": sum(len(o) for o in out)}
+        check(same["tokens_equal"] and same["events_equal"]
+              and eng.peak_pages_in_use == eager.peak_pages_in_use,
+              f"(h) the int8-cache serve, captured, differs from the eager one: {same}")
+        del eager
+
+        def gap_at(r, j):  # the bf16-cache path's top-2 gap before token j
+            seq = np.concatenate([reqs[r].prompt, np.asarray(want[r][:j], np.int32)])
+            seq = torch.from_numpy(seq)[None].to(dev)
+            logits, _ = prefill(params, cfg, seq, init_cache(cfg, 1, seq.shape[1], dev))
+            return top2_gap(logits[0, -1])
+        with torch.inference_mode():
+            vs = paged_vs_dense("(h) int8 cache vs the bf16-cache serve", out, want,
+                                [len(w) for w in want], gap_at, HIT_BAR)
+        vs["beyond_paged_bar"] = sum(beyond(d, PAGED_BAR) for d in vs["divergences"])
+        _, launches, counted_as = counted_launches(graphs, lambda: eng.serve(reqs))
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = matvec_calls_per_step(cfg) * eng.decode_chunk_iters
+        check(launches == expect, f"(h) int8-cache serve: launches {launches}, expected {expect}")
+        self.launches["phase 16 (h) int8-cache serve"] = launches
+        del eng, graphs
+        geng = ServingEngine(cfg8, params, max_seq=PROMPT + N_NEW, device=dev)
+        beng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+        with torch.inference_mode():
+            gen_rep, _ = captured_vs_eager(geng, prompt, N_NEW, f"qwen2-1.5b int8, int8 KV "
+                                           f"cache, greedy, {BATCH} x {PROMPT}", **GREEDY)
+            beng.generate(prompt, 2)  # the bf16-cache step's capture
+            med, rounds = step_ms({"bf16_cache_ms": (beng, GREEDY),
+                                   "int8_cache_ms": (geng, GREEDY)}, prompt, N_NEW,
+                                  FAMILY_ROUNDS)
+        report["int8_kv_cache"] = {
+            "serve_captured_vs_eager": same, "serve_vs_bf16_cache": vs,
+            "serve_launches": {"launches": launches, "counted_as": counted_as},
+            "generate_captured_vs_eager": gen_rep,
+            "step_ms": {**med, "int8_over_bf16": med["int8_cache_ms"] / med["bf16_cache_ms"],
+                        "rounds": rounds,
+                        "timing": f"device ms a captured greedy step at {BATCH} x {PROMPT}, "
+                                  f"CUDA events over {N_NEW - 1} replays, median of "
+                                  f"{FAMILY_ROUNDS} alternating rounds"}}
+        print("phase 16 (h): " + json.dumps(report["int8_kv_cache"]), flush=True)
+
+    def config(self, arch, seed):
+        """(a) to (g) for one config at full width and depth."""
+        dev, cfg = self.dev, get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = layerwise_params(cfg, gen)
+        eng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, pim_bits=8, device=dev)
+        del params  # the bf16 tree: the engine holds the quantized one
+        gc.collect()
+        torch.cuda.synchronize()
+        rep = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+               "heads": [cfg.n_heads, cfg.n_kv_heads], "group": cfg.n_heads // cfg.n_kv_heads,
+               "d_ff": cfg.d_ff, "vocab": cfg.vocab, "tied": cfg.tie_embeddings,
+               "weights_s": time.perf_counter() - t0,
+               "peak_bytes_drawing_and_quantizing": torch.cuda.max_memory_allocated(),
+               "section_s": {}}
+        prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
+        per_step = matvec_calls_per_step(cfg)
+        graphs = count_captures(eng)
+
+        t = time.perf_counter()  # (a) captured against eager, greedy and sampled
+        with torch.inference_mode():
+            greedy, toks = captured_vs_eager(eng, prompt, N_NEW, f"{arch} int8 greedy, "
+                                             f"{BATCH} x {PROMPT}", **GREEDY)
+            sampled, stoks = captured_vs_eager(eng, prompt, N_NEW, f"{arch} int8 sampled, "
+                                               f"{BATCH} x {PROMPT}", **SAMPLED)
+        check(not torch.equal(stoks, toks), f"(a) {arch}: sampled tokens equal greedy ones")
+        rep["captured_vs_eager"] = [greedy, sampled]
+        rep["section_s"]["a"] = time.perf_counter() - t
+
+        t = time.perf_counter()  # (d) launches of the main path, and the step's routes
+        _, launches, counted_as = counted_launches(graphs, lambda: eng.generate(prompt, N_NEW))
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = per_step * (N_NEW - 1)
+        check(launches == expect, f"(d) {arch}: launches {launches}, expected {expect}")
+        check(all(g.launches["pim_matvec"] == per_step for g in graphs),
+              f"(d) {arch}: captured steps launch {[g.launches for g in graphs]}, expected "
+              f"{per_step} pim_matvec each")
+        self.launches[f"phase 16 {arch} generate"] = launches
+        routes = step_routes(eng, prompt, toks, self.sms)
+        check(len(routes) == per_step, f"(d) {arch}: {len(routes)} pim_matvec calls a step")
+        if not cfg.tie_embeddings:
+            head = routes[-1]
+            check((head["rows"], head["N"], head["x"]) == (cfg.d_model, cfg.vocab, "bfloat16")
+                  and head["chunked"], f"(d) {arch}: the head's call {head} is not on the "
+                  "chunked bf16 route")
+        rep["launches"] = {"launches": launches, "per_step": per_step,
+                           "counted_as": counted_as,
+                           "step_routes": {f"{r['rows']} x {r['N']}": r for r in routes}}
+        rep["section_s"]["d"] = time.perf_counter() - t
+
+        t = time.perf_counter()  # (b) the kernel path against the overlay path
+        ftoks = toks[:, :FAMILY_CHECK_NEW]
+        diff, _, lo = against_overlay(eng, prompt, ftoks, FAMILY_CHECK_NEW, f"{arch} int8",
+                                      tol=math.inf)
+        rep["section_s"]["b"] = time.perf_counter() - t
+
+        t = time.perf_counter()  # (c) the f32 path, FAMILY_F32_LAYERS deep, against plain
+        cfg32 = cfg.replace(n_layers=FAMILY_F32_LAYERS, param_dtype="float32")
+        eng32 = ServingEngine(cfg32, layerwise_params(cfg32, gen), max_seq=PROMPT + N_NEW,
+                              pim_bits=8, device=dev)
+        pl = matvec_plan(cfg.d_ff, cfg.d_model, BATCH, 8, self.sms)
+        rows = cfg.d_ff - (pl.cluster - 1) * pl.rows_per_cta  # down's last K split
+        rep["f32_path"] = plain_path_check(eng32, eng, prompt, ftoks, lo,
+                                           f"{arch} int8 f32 kernel path vs plain path, "
+                                           f"{FAMILY_F32_LAYERS} layers", rows)
+        del eng32, lo
+        fault8 = rep["f32_path"]["planted_fault_bf16_diff_vs_overlay"]
+        rep["overlay"] = {"max_abs_logit_diff": diff, "bar": "below the planted fault's",
+                          "planted_fault_max_abs_logit_diff": fault8, "logit_tol": LOGIT_TOL}
+        check(diff < fault8, f"(b) {arch}: the kernel path differs from the overlay path by "
+              f"{diff:.4g}, no less than the planted fault's {fault8:.4g}")
+        rep["section_s"]["c"] = time.perf_counter() - t
+
+        t = time.perf_counter()  # (e) ms a step beside the weight-stream floor
+        with torch.inference_mode():
+            med, rounds = step_ms({"captured_ms": (eng, GREEDY),
+                                   "captured_sampled_ms": (eng, SAMPLED)},
+                                  prompt, N_NEW, FAMILY_ROUNDS)
+        floor_ms = stream_bytes(eng) / HBM_BYTES_PER_S * 1e3
+        kernel_ms = step_kernels_ms(eng, gen)
+        rep["step"] = {**med, "stream_bytes": stream_bytes(eng), "floor_ms": floor_ms,
+                       "floor_share": floor_ms / med["captured_ms"],
+                       "pim_matvec_ms": kernel_ms, "pim_matvec_share": kernel_ms
+                       / med["captured_ms"], "pim_matvec_over_floor": kernel_ms / floor_ms,
+                       "rounds": rounds,
+                       "timing": f"device ms a captured step at {BATCH} x {PROMPT}, CUDA "
+                                 f"events over {N_NEW - 1} replays, median of {FAMILY_ROUNDS} "
+                                 "alternating rounds; floor: the stream at 3.35 TB/s"}
+        rep["section_s"]["e"] = time.perf_counter() - t
+        del eng, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()  # (f) the kernel at the new shapes
+        rep["kernel_vs_plain"] = family_kernel_cases(cfg, gen)
+        rep["section_s"]["f"] = time.perf_counter() - t
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated()  # before (g) resets it
+        t = time.perf_counter()  # (g) attention at the config's group
+        rep["attention"] = family_attention(cfg, gen)
+        rep["section_s"]["g"] = time.perf_counter() - t
+        check(rep["peak_bytes"] < torch.cuda.get_device_properties(0).total_memory,
+              f"{arch}: peak {rep['peak_bytes']} bytes")
+        print(f"phase 16 {arch}: " + json.dumps(rep), flush=True)
+        return rep
+
+    def run(self):
+        report = {"check": "phase 16: the dense family at full width, int8 weights, "
+                           "and the int8 KV cache", "configs": {}, "section_s": {}}
+        t0 = time.perf_counter()
+        self.int8_kv(report)
+        self.kv = None  # qwen2-1.5b's tree goes before the larger models
+        report["section_s"]["h"] = time.perf_counter() - t0
+        for i, arch in enumerate(FAMILY):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            rep = self.config(arch, SEED + 7 + i)
+            report["configs"][arch] = {
+                "captured_equal_eager": all(r["tokens_equal"] and r["last_logits_equal"]
+                                            for r in rep["captured_vs_eager"]),
+                "overlay_max_abs_logit_diff": rep["overlay"]["max_abs_logit_diff"],
+                "overlay_planted_fault": rep["overlay"]["planted_fault_max_abs_logit_diff"],
+                "f32_path_max_abs_logit_diff": rep["f32_path"]["max_abs_logit_diff"],
+                "f32_path_planted_fault": rep["f32_path"]["planted_fault_f32_diff_vs_plain"],
+                "pim_matvec_per_step": rep["launches"]["per_step"],
+                "pim_matvec": rep["launches"]["launches"]["pim_matvec"],
+                "kernel_max_abs_err": rep["kernel_vs_plain"]["max_abs_err"],
+                "kernel_planted_fault": rep["kernel_vs_plain"]["planted_fault_max_abs_err"],
+                "flash_max_abs_err": {"f32": rep["attention"]["f32_max_abs_err"],
+                                      "bf16": rep["attention"]["bf16_max_abs_err"]},
+                "step_ms": rep["step"]["captured_ms"],
+                "sampled_step_ms": rep["step"]["captured_sampled_ms"],
+                "floor_ms": rep["step"]["floor_ms"], "floor_share": rep["step"]["floor_share"],
+                "pim_matvec_ms": rep["step"]["pim_matvec_ms"],
+                "sm_clock_mhz": [r["sm_clock_mhz"] for r in rep["step"]["rounds"]],
+                "peak_bytes": rep["peak_bytes"]}
+            report["section_s"][arch] = time.perf_counter() - t
+        report["phase_s"] = time.perf_counter() - t0
+        print(json.dumps(report), flush=True)
+        return self.launches
+
 
 if __name__ == "__main__":
     sys.exit(main())

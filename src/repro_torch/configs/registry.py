@@ -1,14 +1,18 @@
 """--arch registry: id -> (full config, reduced smoke config).
 
-Holds only the architectures the port runs; the others wait for their
-slices (ROADMAP.md)."""
+Holds the architectures the port runs: the dense family, in the JAX
+package's order.  The other families wait for their slices (ROADMAP.md),
+and ``get_config`` of their ids raises ``KeyError``."""
 from __future__ import annotations
 
-from . import qwen2_1_5b
+from . import llama3_2_3b, qwen2_1_5b, starcoder2_7b, starcoder2_15b
 from .base import ModelConfig
 
 _MODULES = {
     "qwen2-1.5b": qwen2_1_5b,
+    "starcoder2-7b": starcoder2_7b,
+    "llama3.2-3b": llama3_2_3b,
+    "starcoder2-15b": starcoder2_15b,
 }
 
 ARCH_IDS = list(_MODULES)

@@ -44,8 +44,10 @@ page allocator serves both and every admit prefills both.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import os
 import time
 from collections import OrderedDict, deque
@@ -59,7 +61,7 @@ from repro_torch.models import (common, decode_step, init_cache, init_paged_cach
                                  verify_hidden)
 from repro_torch.models.attention import CHUNKED_THRESHOLD, tree_tensors
 from repro_torch.models.common import dtype_of, resolve_device, unembed
-from repro_torch.quant import quantize_symmetric
+from repro_torch.quant import pack_int4, quantize_symmetric
 
 from .chaos import ChunkFault, EngineCrash
 from .prefix import PagePool, PrefixTrie, chunk_keys, extras_fingerprint
@@ -90,21 +92,37 @@ def _should_quantize(name: str, leaf: torch.Tensor) -> bool:
     return leaf.shape[-1] >= 8 and leaf.shape[-2] >= 8
 
 
-def _quantize_leaf(leaf: torch.Tensor, bits: int):
-    q = quantize_symmetric(leaf.to(torch.float32), bits=bits, axis=-2)
-    if bits != 4:
-        return {"codes": q.codes, "scale": q.scale}
+def _quantize_slice(w: torch.Tensor, bits: int):
+    """One (K, N) weight's codes (int4: nibble-packed, a zero pad row first
+    where K is odd) and its (1, N) scales."""
+    q = quantize_symmetric(w.to(torch.float32), bits=bits, axis=-2)
     codes = q.codes
-    odd = codes.shape[-2] % 2
-    if odd:
-        codes = torch.cat([codes, torch.zeros_like(codes[..., :1, :])], dim=-2)
-    lo = codes[..., 0::2, :] & 0xF
-    hi = codes[..., 1::2, :] & 0xF
-    packed = (lo | (hi << 4)).to(torch.int8)
-    marker = "nibbles_odd" if odd else "nibbles"
-    return {"codes": packed, "scale": q.scale,
-            marker: torch.zeros(packed.shape[:-2], dtype=torch.int8,
-                                device=packed.device)}
+    if bits == 4:
+        if codes.shape[0] % 2:
+            codes = torch.cat([codes, torch.zeros_like(codes[:1])])
+        codes = pack_int4(codes)
+    return codes, q.scale
+
+
+def _quantize_leaf(leaf: torch.Tensor, bits: int):
+    """Quantize a (..., K, N) leaf one (K, N) slice at a time along its
+    leading dims, into contiguous codes and scales made first: the scales
+    are per output column over K, so each slice is independent and the
+    result is the whole leaf's bit for bit, with one slice's f32 copy and
+    temporaries at a time (a layer of starcoder2-15b's ``gate`` is 0.6 GB
+    in f32, the stack 24 GB).  The leaf's strides do not matter: an untied
+    head is a transposed view."""
+    lead, (k, n) = leaf.shape[:-2], leaf.shape[-2:]
+    rows = k if bits != 4 else -(-k // 2)
+    codes = torch.empty(lead + (rows, n), dtype=torch.int8, device=leaf.device)
+    scale = torch.empty(lead + (1, n), dtype=torch.float32, device=leaf.device)
+    for idx in np.ndindex(*lead):
+        codes[idx], scale[idx] = _quantize_slice(leaf[idx], bits)
+    if bits != 4:
+        return {"codes": codes, "scale": scale}
+    marker = "nibbles_odd" if k % 2 else "nibbles"
+    return {"codes": codes, "scale": scale,
+            marker: torch.zeros(lead, dtype=torch.int8, device=leaf.device)}
 
 
 def quantize_tree(params, bits: int = 8):
@@ -262,6 +280,21 @@ def _spec_of(speculate) -> Optional[SpecConfig]:
 _NO_DRAFT = "speculate mode='draft' needs the engine constructed with draft_cfg/draft_params"
 
 
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cycle collector off for the block, as it was after: a CUDA
+    graph that a collected cycle frees while another graph is being
+    captured invalidates that capture (``cudaErrorStreamCaptureInvalidated``),
+    and ``torch.cuda.graph`` no longer collects before it begins."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def _draft_params(draft_params, bits: int):
     """The draft model's parameters, quantized when ``bits`` is non-zero."""
     return quantize_tree(draft_params, bits) if draft_params is not None and bits else draft_params
@@ -333,7 +366,7 @@ class CapturedSteps:
         """Capture one call of ``run`` into the memory pool ``pool`` (the
         kernels it launches are recorded, not run)."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=self._stream):
+        with gc_paused(), torch.cuda.graph(graph, pool=pool, stream=self._stream):
             run()
         return graph
 

@@ -93,12 +93,15 @@ def test_import_without_cuda_pulls_in_no_jax():
                                     "repro_torch.serving.speculative",
                                     "repro_torch.runtime.fault",
                                     "repro_torch.core.simulator",
-                                    "repro_torch.core.paper_tables"])
+                                    "repro_torch.core.paper_tables",
+                                    "repro_torch.configs.llama3_2_3b",
+                                    "repro_torch.configs.starcoder2_7b",
+                                    "repro_torch.configs.starcoder2_15b"])
 def test_kernel_module_imports_alone_without_card_or_build(module):
     """A kernel module, a module of the paged serving path, its resilience
-    tier or its speculation, or of the PiCaSO machine, imported on its own,
-    with no card and no CUDA toolkit, pulls in neither jax nor the JAX
-    package and builds nothing."""
+    tier or its speculation, of the PiCaSO machine, or a dense config,
+    imported on its own, with no card and no CUDA toolkit, pulls in
+    neither jax nor the JAX package and builds nothing."""
     assert (PKG / Path(*module.split(".")[1:])).with_suffix(".py").is_file()
     code = (f"import sys, {module}\n"
             "from repro_torch.kernels import build\n"
@@ -122,6 +125,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.serving import ContinuousBatchingEngine, ServingEngine, SpecConfig
 
     cfg = get_reduced("qwen2-1.5b")
+    for arch in ("llama3.2-3b", "starcoder2-7b", "starcoder2-15b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(get_reduced(arch), torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -39,10 +39,11 @@ def to_numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def reduced_pair(**overrides):
-    """(JAX config, port config) of reduced qwen2-1.5b with the same fields."""
-    return (jax_reduced(ARCH).replace(**overrides),
-            get_reduced(ARCH).replace(**overrides))
+def reduced_pair(arch=ARCH, **overrides):
+    """(JAX config, port config) of reduced ``arch`` (qwen2-1.5b by default)
+    with the same fields."""
+    return (jax_reduced(arch).replace(**overrides),
+            get_reduced(arch).replace(**overrides))
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,11 +51,11 @@ def _jax_params(seed, jcfg):
     return jax_init_params(jcfg, jax.random.PRNGKey(seed))
 
 
-def reduced_model(seed=0, **overrides):
-    """(jax cfg, jax params, port cfg, port params on the CPU).  The JAX
-    parameters are built once per process and config (the cache layout does
-    not change them); the port gets fresh tensors."""
-    jcfg, tcfg = reduced_pair(**overrides)
+def reduced_model(seed=0, arch=ARCH, **overrides):
+    """(jax cfg, jax params, port cfg, port params on the CPU) of reduced
+    ``arch``.  The JAX parameters are built once per process and config
+    (the cache layout does not change them); the port gets fresh tensors."""
+    jcfg, tcfg = reduced_pair(arch, **overrides)
     jparams = _jax_params(seed, jcfg.replace(kv_cache_bits=16))
     return jcfg, jparams, tcfg, params_from_numpy(to_numpy(jparams), CPU)
 
