@@ -45,7 +45,12 @@ weights from a seeded generator on the card):
 
 Then the rest of the dense family, llama3.2-3b, starcoder2-7b and
 starcoder2-15b, each at its full width and depth through the same
-decoding path, and the int8 KV cache on qwen2-1.5b's serving path.
+decoding path, and the int8 KV cache on qwen2-1.5b's serving path; then
+the vlm and encdec families, seamless-m4t-medium (a non-causal encoder, a
+decoder that cross-attends to its output) at full width and depth and
+llama-3.2-vision-90b (groups of four dense blocks and a gated
+cross-attention block over image embeds) at full width and 16 of its 20
+groups, through both engines with per-request extras.
 
 Besides, the paper's own machine runs at the paper's array sizes (no
 model): PiCaSO's bit-serial PE array (``repro_torch.core``), the Alveo
@@ -313,11 +318,12 @@ Phases:
    acceptance,
    ``pim_matvec`` 196 x (k + 1) a window (the 4-row draft steps; the
    20-row verify runs ``x @ dq(w)``); (c) the continuous engine on phase
-   9's engine geometry and trace with the int4 draft, greedy captured
-   ``torch.equal`` to eager and against phase 9's solo dense runs at
-   HIT_BAR, sampled, ``pim_matvec`` 196 x (k + 1) an iteration, phase 9's
-   small pool (preemption) ``torch.equal``, ``prefix_cache=True`` serving
-   no hit, a recompute crash replay ``torch.equal``; (d) a planted fault,
+   9's engine geometry and trace with the int4 draft, greedy against
+   phase 9's solo dense runs at HIT_BAR, ``pim_matvec`` 196 x (k + 1) an
+   iteration; on the trace's first 4 requests at SPEC_EAGER_NEW new
+   tokens: greedy captured ``torch.equal`` to eager, sampled, phase 9's
+   small pool (preemption) ``torch.equal``, a recompute crash replay
+   ``torch.equal``; ``prefix_cache=True`` serving no hit; (d) a planted fault,
    the draft chain one position off, must lower (a)'s acceptance; (e)
    device ms of a draft step (int8, int4; 1 and 4 rows), of windows at
    k = 1, 2, 4 (int4 draft, 4 rows) and of (a)'s window against the plain
@@ -382,7 +388,9 @@ Phases:
    ``us_per_call`` (the cycle counts are the paper's model, not this
    card's).
 16. the dense family (after phase 15): (h) phase 9's trace served greedy
-   with ``kv_cache_bits=8``, captured ``torch.equal`` to ``EagerEngine``,
+   with ``kv_cache_bits=8``, captured ``torch.equal`` to ``EagerEngine`` on
+   the trace's first 5 requests at SPEC_EAGER_NEW new tokens, the fifth
+   admitted into a freed slot (the whole trace before phase 17),
    each request against the bf16-cache serve at HIT_BAR (the count beyond
    PAGED_BAR beside it), its launches counted (196 x chunk iterations), a
    4 x 128 int8-cache ``generate`` captured against eager, and the
@@ -408,6 +416,44 @@ Phases:
    ``flash_attention_gqa`` against plain at the config's (KV, G, 128),
    Sq = Sk of 2,048 and 1,000, and one layer's ``decode_attention`` over a
    4 x 2,048 cache against its f32 form; the peak memory of each config.
+17. the vlm and encdec families (after phase 16), for each of CROSS, one at
+   a time, its int8 tree drawn and quantized on the card one (K, N) slice
+   at a time (``quantized_params``; the vlm at CROSS_VLM_GROUPS of its 20
+   groups, its cross blocks' gates planted in CROSS_GATES), seeded extras
+   (the vlm's image embeds, the encdec's frames through ``encode`` on the
+   card): (a) a captured ``generate`` on 4 x 128 prompts, 32 new, greedy
+   and sampled, ``torch.equal`` to the eager loop; (b) as phase 16 (b), over
+   (a)'s first CROSS_CHECK_NEW greedy tokens, against the overlay path
+   (the vlm's run eagerly: a captured overlay step would keep its
+   dequantized head) within CROSS_OVERLAY_TOL, which a planted fault
+   (CROSS_FAULT: the encdec's middle decoder block's ``down`` loses its
+   last K split, the vlm's head its last chunk of K rows) must exceed; (c)
+   the f32 path at full width and
+   CROSS_F32's depth against its plain twin within PATH_TOL, with the
+   planted fault of each row's extras rolled to the next row; (d)
+   ``pim_matvec`` launches a step (529 for the vlm, 109 for the encdec:
+   a cross block's K and V and the encoder see a row per key, ``x @
+   dq(w)``), and none in the encoder pass or the cross K/V, by the
+   counters; (e) the continuous engine (``prefix_cache=True``) on
+   CROSS_TRACE over 2 slots: captured ``torch.equal`` to ``EagerEngine``,
+   each miss ``torch.equal`` to itself served alone on the same geometry,
+   each request against its solo ``generate`` margin-aware at the family's
+   CROSS_SOLO_BARS (the encdec's PAGED_BAR, the hit HIT_BAR; the vlm's
+   from its recorded sound divergences), one prefix hit under the same extras and
+   none under other extras, launches per_step x (iterations + full hits)
+   + 1 an uncached admit (its head unembeds one position);
+   (f) planted faults on the same engines: a ``generate`` that leaves the
+   static extras buffer as the previous call left it (``stale_extras``),
+   and admits that write their extras into the next slot
+   (``admits_into_next_slot``), each caught against the sound output of
+   the same graphs; (g) captured ms a step beside
+   the weight-stream floor, the cross K/V recomputation's and the step's
+   ``pim_matvec`` calls' ms, the head's; (h) ``pim_matvec`` against plain
+   at the config's shapes, (d, CROSS_SMALL_N) and the head's (d, vocab),
+   with the head's last CROSS_TAIL columns checked alone and a planted
+   fault (those columns zeroed) caught, and where the head is chunked the
+   dropped-chunk fault.  Phase 13 (c)'s sampled, preempted and crashed
+   draft serves run the trace's first 4 requests to make room for it.
    Every phase prints a ``wall:`` line, the run's seconds at its start.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
@@ -445,9 +491,10 @@ from repro_torch.kernels.pim_matmul import plan as matmul_plan  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import plan as matvec_plan  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    attention, common, decode_step, init_cache, init_paged_cache, init_params, lm, prefill,
-    tree_relocate, verify_hidden, verify_step)
+    attention, common, decode_step, encode, init_cache, init_paged_cache, init_params, lm,
+    prefill, tree_relocate, verify_hidden, verify_step)
 from repro_torch.models.common import unembed  # noqa: E402
+from repro_torch.models.draw import layerwise_params, quantized_params  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     QuantizedTensor, dequantize, quantize_symmetric, to_bitplanes)
 from repro_torch.serving import (  # noqa: E402
@@ -455,6 +502,7 @@ from repro_torch.serving import (  # noqa: E402
     LadderConfig, ReplicaRouter, Request, ResiliencePolicy, ServingEngine, ServingSupervisor,
     SpecConfig, VirtualClock, admit_prefill, decode_and_emit, load_snapshot, pim_bytes,
     quantize_tree, sampling, save_snapshot, speculative)
+from repro_torch.serving import engine as serving_engine  # noqa: E402
 from repro_torch.serving.engine import gc_paused  # noqa: E402
 from repro_torch.serving.sampling import TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits  # noqa: E402
 
@@ -596,6 +644,7 @@ def main() -> int:
     print(f"pim_matmul vs plain: max |err| {mm_err:.3g} within rtol "
           f"{KERNEL_TOL['rtol']} atol {KERNEL_TOL['atol']} over "
           f"{32 * len(mm_cases)} cases")
+    del mm_cases
     # The checks of the slice that redesigned pim_matmul and bitplane_matmul
     # draw from a generator of their own.
     gen_mm2 = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -643,6 +692,7 @@ def main() -> int:
                       "launches": "counted in phase 8 (counted_generation)",
                       "max_abs_logit_diff_vs_overlay": diff4}))
     against_plain(eng8, gen, prompt, toks, lo8)
+    del lo8
 
     wall("phase 4")
     # ---- 4. the entry point ----------------------------------------------------
@@ -668,7 +718,7 @@ def main() -> int:
         print(json.dumps(row))
     print(json.dumps({"prefill_pass_launches": mm_passes}))
     mm_pass = mm_passes[8]
-    del mm_weights
+    del mm_weights, mv_weights  # views of the engines' codes: they would outlive them
 
     wall("phase 6")
     # ---- 6. the bit-plane entry point ------------------------------------------
@@ -758,6 +808,13 @@ def main() -> int:
     family = FamilyPhase(dev, kv_inputs)
     del kv_inputs  # the phase drops qwen2-1.5b's tree after (h)
     family = family.run()
+
+    wall("phase 17")
+    # ---- 17. the vlm and encdec families -------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17: {torch.cuda.memory_allocated()} bytes allocated before it", flush=True)
+    family.update(CrossPhase(dev).run())
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
@@ -1189,35 +1246,44 @@ def odd_k_case(gen) -> float:
     return err
 
 
-def forced_logits(eng, prompt, toks, n_new):
+def forced_logits(eng, prompt, toks, n_new, extras=None):
     """(B, n_new, V) f32: the logits that chose each emitted token, with the
-    emitted tokens fed back (teacher-forced), under the current dispatch."""
+    emitted tokens fed back (teacher-forced), under the current dispatch;
+    ``extras``: the rows' image embeds or encoder output, where the model
+    takes them."""
     cfg = eng.cfg
     with torch.inference_mode():
         cache = init_cache(cfg, toks.shape[0], eng.max_seq, eng.device)
-        logits, cache = prefill(eng.params, cfg, prompt, cache)
+        logits, cache = prefill(eng.params, cfg, prompt, cache, extras)
         out = [logits[:, -1].float()]
         for i in range(n_new - 1):
             logits, cache = decode_step(eng.params, cfg, toks[:, i:i + 1], cache,
-                                        prompt.shape[1] + i)
+                                        prompt.shape[1] + i, extras)
             out.append(logits[:, -1].float())
     return torch.stack(out, dim=1)
 
 
-def against_overlay(eng, prompt, toks, n_new, label, tol=LOGIT_TOL):
+def against_overlay(eng, prompt, toks, n_new, label, tol=LOGIT_TOL, extras=None,
+                    capture=True):
     """Hold the kernel path's generation against the overlay path's: the
-    logits within ``tol``, and the tokens margin-aware.
+    logits within ``tol``, and the tokens margin-aware.  With ``capture``
+    False the overlay generation runs eagerly, on an engine of its own over
+    the same parameters (a captured overlay step would keep a dequantized
+    copy of the largest weight in its graph pool).
 
     Returns (max |logit difference|, seconds of the overlay generation, the
     overlay path's teacher-forced logits)."""
-    lk = forced_logits(eng, prompt, toks, n_new)
+    lk = forced_logits(eng, prompt, toks, n_new, extras)
     prev = common.set_matvec_dispatch("off")
     try:
-        lo = forced_logits(eng, prompt, toks, n_new)
-        eng.generate(prompt, 2)  # warm-up: the overlay step's own capture
+        lo = forced_logits(eng, prompt, toks, n_new, extras)
+        off = eng if capture else EagerServingEngine(eng.cfg, eng.params, max_seq=eng.max_seq,
+                                                     device=eng.device)
+        if capture:
+            off.generate(prompt, 2, extras=extras)  # warm-up: the overlay step's own capture
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks_off = eng.generate(prompt, n_new)
+        toks_off = off.generate(prompt, n_new, extras=extras)
         torch.cuda.synchronize()
         t_off = time.perf_counter() - t0
     finally:
@@ -1262,27 +1328,72 @@ def decode_linears_through(fn):
         common.pim_matvec = prev
 
 
+# The decode-step linears of a vlm cross block and an encdec decoder block
+# that run pim_matvec (their other linears, the cross-attention's K and V,
+# see one row per key: x @ dq(w)).
+CROSS_BLOCK_LINEARS = (("xattn", "wq"), ("xattn", "wo"), ("mlp", "gate"), ("mlp", "up"),
+                       ("mlp", "down"))
+DEC_BLOCK_LINEARS = (("self", "wq"), ("self", "wk"), ("self", "wv"), ("self", "wo"),
+                     ("cross", "wq"), ("cross", "wo"), ("mlp", "gate"), ("mlp", "up"),
+                     ("mlp", "down"))
+
+
+def step_calls(cfg):
+    """The weights of one decode step's ``pim_matvec`` calls in call order,
+    as paths into the parameter tree (stack indices included): each dense
+    layer's seven linears; the vlm's groups of dense blocks and a cross
+    block; the encdec's decoder blocks; then an untied head."""
+    dense = [(group, name) for group, name, _ in LINEARS]
+    if cfg.family == "vlm":
+        every = cfg.vision.cross_attn_every
+        out = []
+        for j in range(cfg.n_layers // every):
+            out += [("groups", "self", j, i, *w) for i in range(every - 1) for w in dense]
+            out += [("groups", "cross", j, *w) for w in CROSS_BLOCK_LINEARS]
+    elif cfg.family == "encdec":
+        out = [("decoder", i, *w) for i in range(cfg.dec_layers) for w in DEC_BLOCK_LINEARS]
+    else:
+        out = [("layers", i, *w) for i in range(cfg.n_layers) for w in dense]
+    return out + ([] if cfg.tie_embeddings else [("head",)])
+
+
+def weight_at(params, path):
+    """The quantized weight at a ``step_calls`` path: its codes and scales
+    (views of the stacks)."""
+    node, idx = params, ()
+    for part in path:
+        if isinstance(part, int):
+            idx += (part,)
+        else:
+            node = node[part]
+    return {k: v[idx] for k, v in node.items()}
+
+
 def matvec_calls_per_step(cfg):
-    """``pim_matvec`` calls of one decode step: the seven linears of every
-    layer, and an untied head."""
-    return len(LINEARS) * cfg.n_layers + (not cfg.tie_embeddings)
+    """``pim_matvec`` calls of one decode step (``step_calls``)."""
+    return len(step_calls(cfg))
 
 
-def dropped_split(cfg, layer, index, rows=DROPPED_ROWS):
-    """The wrapper with one planted fault: in linear ``index`` (of LINEARS)
-    of ``layer``, the last ``rows`` K rows add nothing (the activations
-    they multiply are zeroed).  Counts decode calls, so it holds for a
-    prefill (which makes none) and then decode steps."""
+def dropped_call(per_step, index, rows):
+    """The wrapper with one planted fault: in call ``index`` of each decode
+    step of ``per_step`` calls, the last ``rows`` K rows add nothing (the
+    activations they multiply are zeroed).  Counts decode calls, so it
+    holds for a prefill (which makes none) and then decode steps."""
     calls = 0
 
     def faulty(x, w_codes, scale, *, bits=8, **kw):
         nonlocal calls
-        if calls % matvec_calls_per_step(cfg) == layer * len(LINEARS) + index:
+        if calls % per_step == index:
             x = x.clone()
             x[:, -rows:] = 0
         calls += 1
         return pim_matvec(x, w_codes, scale, bits=bits, **kw)
     return faulty
+
+
+def dropped_split(cfg, layer, index, rows=DROPPED_ROWS):
+    """``dropped_call`` at linear ``index`` (of LINEARS) of dense ``layer``."""
+    return dropped_call(matvec_calls_per_step(cfg), layer * len(LINEARS) + index, rows)
 
 
 def against_plain(eng8, gen, prompt, toks, lo8):
@@ -2197,20 +2308,23 @@ def check_counted(label, window, out, toks, want):
     return {"path": label, "launches": traced, "launches_counted_as": out["counted_as"]}
 
 
-def captured_vs_eager(eng, prompt, n_new, label, *, greedy, temperature=1.0, top_k=0, key=None):
+def captured_vs_eager(eng, prompt, n_new, label, *, greedy, temperature=1.0, top_k=0, key=None,
+                      extras=None):
     """(a)/(b): ``eng.generate`` (each decode step one replay of the captured
     step) against an eager loop of the same step function,
-    ``decode_and_emit``, from the same prefill on buffers of its own: the
-    tokens and the last step's logits must be equal (``torch.equal``)."""
+    ``decode_and_emit``, from the same prefill on buffers of its own (the
+    rows' ``extras`` copied into them too): the tokens and the last step's
+    logits must be equal (``torch.equal``)."""
     b = prompt.shape[0]
     kw = dict(greedy=greedy, top_k=top_k)
     with torch.inference_mode():
-        toks = eng.generate(prompt, n_new, temperature=temperature, key=key, **kw)
+        toks = eng.generate(prompt, n_new, temperature=temperature, key=key, extras=extras,
+                            **kw)
         logits = eng.state(b).logits.clone()
         st = DecodeState(eng.cfg, b, eng.max_seq, prompt.device)
-        st.start(eng.params, eng.cfg, prompt, key, temperature, **kw)
+        st.start(eng.params, eng.cfg, prompt, key, temperature, extras=extras, **kw)
         for _ in range(n_new - 1):
-            decode_and_emit(eng.params, eng.cfg, st, **kw)
+            decode_and_emit(eng.params, eng.cfg, st, extras=st.extras.get(extras), **kw)
         eager = st.out[:, :n_new].clone()
         torch.cuda.synchronize()
     same_toks, same_logits = torch.equal(toks, eager), torch.equal(logits, st.logits)
@@ -3697,11 +3811,11 @@ def greedy_accept_one_more():
         speculative.greedy_accept = sound
 
 
-def first_requests(reqs):
-    """The trace's first SERVE["slots"] requests at a budget of at most
+def first_requests(reqs, n=SERVE["slots"]):
+    """The trace's first ``n`` requests at a budget of at most
     SPEC_EAGER_NEW new tokens, their stops kept."""
     return [Request(prompt=r.prompt, max_new=min(r.max_new, SPEC_EAGER_NEW),
-                    stop_tokens=r.stop_tokens) for r in reqs[:SERVE["slots"]]]
+                    stop_tokens=r.stop_tokens) for r in reqs[:n]]
 
 
 class EagerServingEngine(ServingEngine):
@@ -4227,14 +4341,17 @@ class DraftPhase(SpecPhase):
                  "peak_pages": eng.peak_pages_in_use,
                  "vs_dense": self._against_dense("(c) int4 draft, greedy", self.out)}]
         # the eager twin serves the trace's first requests at a cut budget: an
-        # eager iteration runs k + 2 forward passes op by op
-        _, same = self._captured_vs_eager("(c) int4 draft, greedy, first requests", eng, eager,
-                                          first_requests(reqs))
+        # eager iteration runs k + 2 forward passes op by op; the sampled, the
+        # preempted and the crashed serves run those requests too (they served
+        # the whole trace before phase 17)
+        sub = first_requests(reqs)
+        sub_out, same = self._captured_vs_eager("(c) int4 draft, greedy, first requests", eng,
+                                                eager, sub)
         rows.append(same)
         del eager
-        out_s = eng.serve(reqs, **SAMPLED)
+        out_s = eng.serve(sub, **SAMPLED)
         eng.assert_quiescent()
-        check(not same_tokens(out_s, self.out), "(c) sampled tokens equal greedy ones")
+        check(not same_tokens(out_s, sub_out), "(c) sampled tokens equal greedy ones")
         rows.append({"case": "(c) int4 draft, sampled", "rounds": eng.last_report.rounds,
                      "decode_chunk_iters": eng.decode_chunk_iters,
                      "tokens": sum(len(o) for o in out_s),
@@ -4256,20 +4373,22 @@ class DraftPhase(SpecPhase):
         pre = ContinuousBatchingEngine(self.cfg, self.params, speculate=self.spec, device=dev,
                                        draft_cfg=self.cfg, draft_params=self.drafts[4],
                                        **{**SERVE, "num_pages": small})
-        out_p = pre.serve(reqs)
-        report["preemption"] = {"num_pages": small, "preemptions": pre.preemptions,
-                                "tokens_equal": same_tokens(out_p, self.out)}
+        out_p = pre.serve(sub)
+        report["preemption"] = {"num_pages": small, "requests": len(sub),
+                                "preemptions": pre.preemptions,
+                                "tokens_equal": same_tokens(out_p, sub_out)}
         check(pre.preemptions > 0 and report["preemption"]["tokens_equal"],
               f"(c) the preempted draft serve: {report['preemption']}")
         pre.assert_quiescent()
         del pre
 
-        # round 1: a draft serve of this trace may take only a few rounds
+        # round 1: a draft serve of these requests takes two rounds
         inj = FaultInjector(ChaosConfig(crash_rounds=(1,)))
         rep = ServingSupervisor(eng, policy=ResiliencePolicy(resume_mode="recompute"),
-                                chaos=inj).run(reqs)
-        crash = {"restarts": rep.restarts, "failures": [f.kind for f in rep.failures],
-                 "tokens_equal": same_tokens(rep.outputs, self.out)}
+                                chaos=inj).run(sub)
+        crash = {"requests": len(sub), "restarts": rep.restarts,
+                 "failures": [f.kind for f in rep.failures],
+                 "tokens_equal": same_tokens(rep.outputs, sub_out)}
         check(rep.restarts == 1 and injected_only(rep.failures, inj) and crash["tokens_equal"],
               f"(c) recompute crash replay of the draft serve: {crash}")
         eng.assert_quiescent()
@@ -5119,42 +5238,12 @@ FAMILY_F32_LAYERS = 4
 # kernels agree with their plain twins to 3e-5 in f32 ((c)).  So the logits are held
 # below what (c)'s planted fault (layer n/2's `down` loses its last K
 # split) does to this same comparison, with LOGIT_TOL printed beside.
-FAMILY_ROUNDS = 3  # (e): alternating rounds of the captured greedy and sampled step
+FAMILY_ROUNDS = 2  # (e): alternating rounds of the greedy and sampled step (3 before phase 17)
 FAMILY_CHECK_NEW = 16  # (b), (c): the first tokens of (a)'s greedy generation, teacher-forced
 FAMILY_FLASH = (2048, 1000)  # (g): Sq = Sk, at the config's (KV, G, D)
 FAMILY_CACHE = 2048  # (g): decode attention over BATCH rows of this many positions,
 FAMILY_CACHE_POS = 1536  # the query at this one (the keys past it masked)
 FAMILY_M = (1, 4, 8)  # (f): x rows of the kernel cases
-
-
-def layerwise_params(cfg, gen):
-    """``init_params``' tree for ``cfg`` on the card, every weight drawn from
-    ``gen`` as N(0, 0.02), each stacked leaf one layer at a time into its
-    preallocated stack (one layer's f32 draw at a time: starcoder2-15b's
-    stacked ``gate`` is 24 GB in f32), norms one, biases zero, and the untied
-    head as ``init_params`` lays it out, the transpose of a (vocab, d) draw."""
-    dev = gen.device
-
-    def draw(shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).mul_(0.02).to(dtype)
-
-    def fill(name, meta):
-        if name in ("ln1", "ln2", "ln_f"):
-            return torch.ones(meta.shape, dtype=meta.dtype, device=dev)
-        if name in ("bq", "bk", "bv"):
-            return torch.zeros(meta.shape, dtype=meta.dtype, device=dev)
-        if name == "head":
-            return draw(meta.shape[::-1], meta.dtype).T
-        if name == "embed":
-            return draw(meta.shape, meta.dtype)
-        out = torch.empty(meta.shape, dtype=meta.dtype, device=dev)
-        for i in range(meta.shape[0]):
-            out[i] = draw(meta.shape[1:], meta.dtype)
-        return out
-
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else fill(k, v) for k, v in tree.items()}
-    return walk(init_params(cfg, torch.Generator(), device="meta"))
 
 
 def stream_bytes(eng):
@@ -5200,15 +5289,16 @@ def last_chunks(k, n, m, bits, sms):
     return pl, out
 
 
-def family_kernel_cases(cfg, gen):
+def family_kernel_cases(cfg, gen, extra=(), chunk_fault=True):
     """(f): ``pim_matvec`` against ``pim_matvec_plain`` on each of the
-    config's weight shapes (the seven linears and its (d, vocab)
-    unembedding, the tied table's as a quantized weight too), random
-    weights at bits 8 and 4, M in FAMILY_M, f32 and bf16 x
-    (``kernel_vs_plain``).  Then the planted fault: the kernel on x whose
-    last chunk of every CTA slice of the (d, vocab) weight is zeroed (as
-    if the chunk loop stopped one chunk short), bf16, M = BATCH, must fail
-    the check.  Returns the report."""
+    config's weight shapes (the seven linears, the (K, N) of ``extra``, and
+    its (d, vocab) unembedding, the tied table's as a quantized weight
+    too), random weights at bits 8 and 4, M in FAMILY_M, f32 and bf16 x
+    (``kernel_vs_plain``).  Then, with ``chunk_fault``, the planted fault:
+    the kernel on x whose last chunk of every CTA slice of the (d, vocab)
+    weight is zeroed (as if the chunk loop stopped one chunk short), bf16,
+    M = BATCH, must fail the check.  Returns the report and the (d, vocab)
+    weight at int8."""
     dev, sms = gen.device, torch.cuda.get_device_properties(0).multi_processor_count
     shapes = []
     for group, name, _ in LINEARS:
@@ -5218,7 +5308,7 @@ def family_kernel_cases(cfg, gen):
                 "down": (cfg.d_ff, cfg.d_model)}[name]
         if (k, n) not in shapes:
             shapes.append((k, n))
-    shapes.append((cfg.d_model, cfg.vocab))
+    shapes += [tuple(e) for e in extra] + [(cfg.d_model, cfg.vocab)]
     cases, head = [], {}
     for k, n in shapes:
         w = 0.02 * torch.randn((k, n), generator=gen, device=dev)
@@ -5236,6 +5326,11 @@ def family_kernel_cases(cfg, gen):
     q = head[8]
     k, n = q.shape
     pl, dropped = last_chunks(k, n, BATCH, 8, sms)
+    report = {"shapes": [list(s) for s in shapes], "cases": 32 * len(cases),
+              "max_abs_err": max_err, "tol": KERNEL_TOL,
+              "chunked_bf16_cases_K_N_M_bits": chunked}
+    if not chunk_fault:
+        return report, q
     check(pl.chunk_rows < pl.rows_per_cta, f"(f) the {k} x {n} weight is not chunked: {pl}")
     x = torch.randn((BATCH, k), generator=gen, device=dev).to(torch.bfloat16)
     faulty = x.clone()
@@ -5245,13 +5340,11 @@ def family_kernel_cases(cfg, gen):
                                pim_matvec_plain(x, q.codes, q.scale, bits=8))
     check(not ok, f"(f) the dropped last chunk moved pim_matvec's output by only "
           f"{fault_err:.3g}: the check cannot see it")
-    return {"shapes": [list(s) for s in shapes], "cases": 32 * len(cases),
-            "max_abs_err": max_err, "tol": KERNEL_TOL,
-            "chunked_bf16_cases_K_N_M_bits": chunked,
+    return {**report,
             "planted_fault": f"{k} x {n} int8, bf16 x, M = {BATCH}: the last chunk of each CTA "
                              f"slice dropped, code rows {dropped} (plan: {pl.cluster} CTAs of "
                              f"{pl.rows_per_cta} rows in chunks of {pl.chunk_rows})",
-            "planted_fault_max_abs_err": fault_err}
+            "planted_fault_max_abs_err": fault_err}, q
 
 
 def family_attention(cfg, gen):
@@ -5310,19 +5403,21 @@ def step_kernels_ms(eng, gen):
     return _time_ms(calls, 20) * len(calls)
 
 
-def step_ms(engines, prompt, n_new, rounds):
+def step_ms(engines, prompt, n_new, rounds, extras=None):
     """Captured decode ms a step of each of ``engines`` ({label: (engine,
     mode)}), device time (CUDA events over n_new - 1 replays from a
-    prefill that is not timed), in ``rounds`` alternating rounds; the SM
-    clock after each round.  Returns (medians, rounds)."""
+    prefill that is not timed, with the rows' ``extras``), in ``rounds``
+    alternating rounds; the SM clock after each round.  Returns (medians,
+    rounds)."""
     b, out = prompt.shape[0], []
     for _ in range(rounds):
         row = {}
         for label, (eng, mode) in engines.items():
             greedy, top_k = mode["greedy"], mode.get("top_k", 0)
-            step = eng.step(b, greedy=greedy, top_k=top_k)
+            step = eng.step(b, greedy=greedy, top_k=top_k, extras=extras)
             eng.state(b).start(eng.params, eng.cfg, prompt, mode.get("key"),
-                               mode.get("temperature", 1.0), greedy=greedy, top_k=top_k)
+                               mode.get("temperature", 1.0), greedy=greedy, top_k=top_k,
+                               extras=extras)
             a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             for _ in range(n_new - 1):
@@ -5354,12 +5449,19 @@ class FamilyPhase:
         graphs = count_captures(eng)
         eager = EagerEngine(cfg8, params, device=dev, **SERVE)
         out = eng.serve(reqs)
-        out_e = eager.serve(reqs)
-        same = {"tokens_equal": same_tokens(out, out_e),
+        iters, tokens = eng.decode_chunk_iters, sum(len(o) for o in out)
+        # the eager twin serves the trace's first requests at a cut budget (it
+        # served the whole trace before phase 17): one more than the slots,
+        # so the last admit lands in a freed slot
+        sub = first_requests(reqs, SERVE["slots"] + 1)
+        out_c = eng.serve(sub)
+        out_e = eager.serve(sub)
+        same = {"tokens_equal": same_tokens(out_c, out_e),
                 "events_equal": events_of(eng.last_report) == events_of(eager.last_report),
                 "peak_pages": [eng.peak_pages_in_use, eager.peak_pages_in_use],
-                "decode_chunk_iters": eng.decode_chunk_iters,
-                "tokens": sum(len(o) for o in out)}
+                "eager_twin": f"the first {len(sub)} requests on {SERVE['slots']} slots, at "
+                              f"most {SPEC_EAGER_NEW} new tokens each",
+                "decode_chunk_iters": iters, "tokens": tokens}
         check(same["tokens_equal"] and same["events_equal"]
               and eng.peak_pages_in_use == eager.peak_pages_in_use,
               f"(h) the int8-cache serve, captured, differs from the eager one: {same}")
@@ -5377,7 +5479,8 @@ class FamilyPhase:
         _, launches, counted_as = counted_launches(graphs, lambda: eng.serve(reqs))
         expect = dict.fromkeys(launches, 0)
         expect["pim_matvec"] = matvec_calls_per_step(cfg) * eng.decode_chunk_iters
-        check(launches == expect, f"(h) int8-cache serve: launches {launches}, expected {expect}")
+        check(launches == expect and eng.decode_chunk_iters == iters,
+              f"(h) int8-cache serve: launches {launches}, expected {expect}")
         self.launches["phase 16 (h) int8-cache serve"] = launches
         del eng, graphs
         geng = ServingEngine(cfg8, params, max_seq=PROMPT + N_NEW, device=dev)
@@ -5496,7 +5599,7 @@ class FamilyPhase:
         torch.cuda.empty_cache()
 
         t = time.perf_counter()  # (f) the kernel at the new shapes
-        rep["kernel_vs_plain"] = family_kernel_cases(cfg, gen)
+        rep["kernel_vs_plain"], _ = family_kernel_cases(cfg, gen)
         rep["section_s"]["f"] = time.perf_counter() - t
         rep["peak_bytes"] = torch.cuda.max_memory_allocated()  # before (g) resets it
         t = time.perf_counter()  # (g) attention at the config's group
@@ -5544,5 +5647,550 @@ class FamilyPhase:
         return self.launches
 
 
+# ---- 17. the vlm and encdec families ---------------------------------------------------
+# seamless-m4t-medium at full width and depth; llama-3.2-vision-90b at full
+# width and CROSS_VLM_GROUPS of its 20 groups: all 20 are 88.7 GB at int8,
+# more than the card holds.  Each on a generator of its own (SEED + 10 + its
+# index), weights drawn and quantized one (K, N) slice at a time
+# (``quantized_params``), the vlm's gates planted (CROSS_GATES): its init's
+# zero gates would make every cross block pass x through, whatever the image.
+CROSS = ("seamless-m4t-medium", "llama-3.2-vision-90b")
+CROSS_VLM_GROUPS = 16
+CROSS_GATES = (0.5, 1.0)  # each gate of each cross block uniform in this range, seeded
+# (c): the f32 path at full width, reduced depth: one vlm group, two encoder
+# and two decoder layers (the f32 vlm group alone is 17 GB).
+CROSS_F32 = {"vlm": dict(n_layers=5), "encdec": dict(n_layers=2, dec_layers=2)}
+CROSS_ROUNDS = 1  # (g): rounds of the captured greedy and sampled step (2 at first)
+CROSS_CHECK_NEW = 8  # (b), (c): the first tokens of (a)'s greedy generation, teacher-forced
+# (b): the bar of the kernel path's distance from the overlay path, and the
+# planted fault (``CrossPhase._faults``) that must exceed it.  The encdec
+# keeps LOGIT_TOL.  The vlm's two sound bf16 arithmetics drift apart with
+# depth, 0.27 / 0.52 / 1.20-1.27 at 1 / 4 / 16 groups on the H100
+# (``--overlay-depths``, PERF.md section 6), where a middle ``down``'s
+# dropped K split moves the logits by only 1.41 and the head's dropped last
+# chunk by 4.9.
+CROSS_OVERLAY_TOL = {"encdec": LOGIT_TOL, "vlm": 1.5}
+CROSS_FAULT = {"encdec": "middle down", "vlm": "head"}
+# (e): the solo top-2 gap up to which a paged request's first divergence from
+# its solo run is sound.  The encdec keeps qwen2-1.5b's PAGED_BAR and
+# HIT_BAR; the vlm's sound divergences sat at solo gaps 0.09-0.56 on the
+# H100 (PERF.md section 6).
+CROSS_SOLO_BARS = {"encdec": {"miss": PAGED_BAR, "hit": HIT_BAR},
+                   "vlm": {"miss": 0.75, "hit": 0.75}}
+# (e): six requests over two slots (a freed slot takes a new image), mixed
+# prompt lengths and budgets; request 3 repeats request 1's prompt and extras
+# (a prefix hit), request 5 its prompt under other extras (no hit); request 2
+# stops at the first new token its solo run emits mid-way.
+CROSS_SERVE = dict(slots=2, page_size=16, chunk=8, max_seq=160, page_alloc_seed=SEED)
+CROSS_TRACE = ((100, 10), (128, 12), (37, 10), (128, 8), (64, 10), (128, 8))
+CROSS_HIT, CROSS_MISS, CROSS_STOPPED = 3, 5, 2
+CROSS_TAIL = 14  # (h): the head's last columns, checked on their own (256,206 % 16)
+CROSS_SMALL_N = 1030  # (h): a small N with N % 16 != 0
+
+
+@contextlib.contextmanager
+def stale_extras():
+    """A planted fault of (f): no call refreshes the engines' static extras
+    buffers, so a captured step reads the previous call's."""
+    prev, serving_engine._copy_tree = serving_engine._copy_tree, lambda dst, src: None
+    try:
+        yield
+    finally:
+        serving_engine._copy_tree = prev
+
+
+@contextlib.contextmanager
+def admits_into_next_slot(eng):
+    """A planted fault of (f): ``eng``'s admits write their request's extras
+    into the next slot's row."""
+    sound = eng._set_slot_extras
+    eng._set_slot_extras = lambda slot, extras: sound((slot + 1) % eng.slots, extras)
+    try:
+        yield
+    finally:
+        del eng._set_slot_extras
+
+
+def cross_stream_bytes(eng):
+    """The bytes a decode step reads at least: every weight of the decoder
+    stack (the vlm's groups, cross K/V included; the encdec's decoder, not
+    its encoder), the head and the final norm."""
+    p = eng.params
+    return pim_bytes({k: v for k, v in p.items() if k not in ("embed", "encoder")})
+
+
+class CrossPhase:
+    """Phase 17: for each of CROSS, (a) to (h) of the module's docstring."""
+
+    def __init__(self, dev):
+        self.dev, self.launches = dev, {}
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def _took(self, rep, section, t0):
+        """Record a section's seconds, and print them as it ends."""
+        rep["section_s"][section] = time.perf_counter() - t0
+        print(f"phase 17 {rep['arch']} ({section}): {rep['section_s'][section]:.1f} s", flush=True)
+
+    def _config(self, arch, groups=CROSS_VLM_GROUPS):
+        cfg = get_config(arch)
+        if cfg.family == "vlm":
+            cfg = cfg.replace(n_layers=groups * cfg.vision.cross_attn_every)
+        return cfg
+
+    def _extras(self, cfg, params, gen, batch):
+        """Seeded extras of ``batch`` rows: the vlm's image embeds (a stub of
+        the vision tower, as in the JAX package), or the encdec's frames
+        through ``encode`` on the card (counted: it launches no kernel)."""
+        if cfg.family == "vlm":
+            n = cfg.vision.n_image_tokens
+            return {"image_embeds": torch.randn((batch, n, cfg.d_model), generator=gen,
+                                                device=self.dev).to(torch.bfloat16)}
+        frames = torch.randn((batch, cfg.audio.n_frames, cfg.d_model), generator=gen,
+                             device=self.dev)
+        with torch.inference_mode():
+            enc, launches, _ = counted_launches([], lambda: encode(params, cfg, frames))
+        check(not any(launches.values()), f"the encoder pass launched {launches}")
+        self.encode_launches = launches
+        return {"enc_out": enc}
+
+    def _weights(self, cfg, gen):
+        params = quantized_params(cfg, gen, 8)
+        if cfg.family == "vlm":
+            lo, hi = CROSS_GATES
+            for name in ("gate_attn", "gate_mlp"):
+                g = params["groups"]["cross"][name]
+                g.copy_(lo + (hi - lo) * torch.rand(g.shape, generator=gen, device=self.dev))
+        return params
+
+    def _kv_calls(self, eng, ex):
+        """One decode step's cross-attention K/V recomputation: every cross
+        block's ``linear`` of wk and wv over the batch's memory."""
+        cfg = eng.cfg
+        if cfg.family == "vlm":
+            mem, paths = ex["image_embeds"], [
+                ("groups", "cross", j, "xattn", w)
+                for j in range(cfg.n_layers // cfg.vision.cross_attn_every) for w in ("wk", "wv")]
+        else:
+            mem, paths = ex["enc_out"], [("decoder", i, "cross", w)
+                                         for i in range(cfg.dec_layers) for w in ("wk", "wv")]
+        return [functools.partial(common.linear, mem, weight_at(eng.params, path))
+                for path in paths]
+
+    def _faults(self, cfg):
+        """(b)'s planted faults, each a decode call whose last K split (where
+        the plan splits K over a cluster) or last chunk of K rows is
+        dropped, as {name: (call index, K rows)}: the middle ungated block's
+        ``down`` (dense or decoder), the last one's, and the head's."""
+        calls = step_calls(cfg)
+
+        def split(i):  # the last K split, or the last chunk of an unsplit K
+            k, n = (cfg.d_model, cfg.vocab) if calls[i] == ("head",) else (cfg.d_ff, cfg.d_model)
+            pl = matvec_plan(k, n, BATCH, 8, self.sms)
+            if pl.cluster > 1:
+                return i, k - (pl.cluster - 1) * pl.rows_per_cta
+            return i, k - (k - 1) // pl.chunk_rows * pl.chunk_rows
+        downs = [i for i, c in enumerate(calls) if c[-1] == "down" and "cross" not in c]
+        return {"middle down": split(max(i for i in downs if i <= len(calls) // 2)),
+                "last down": split(downs[-1]), "head": split(len(calls) - 1)}
+
+    def overlay(self, eng, prompt, toks, ex, tol, faults=None):
+        """(b): the kernel path against the overlay path over the
+        teacher-forced ``toks`` (the vlm's overlay generation eager: a
+        captured overlay step would keep its dequantized head), within
+        ``tol``, and the planted faults ``faults`` (default: the family's
+        CROSS_FAULT), the first past ``tol``.  Returns (the report, each
+        fault's distance from the overlay path)."""
+        cfg = eng.cfg
+        n, per_step, calls = toks.shape[1], matvec_calls_per_step(cfg), step_calls(cfg)
+        diff, _, lo = against_overlay(eng, prompt, toks, n, f"{cfg.arch_id} int8", tol=tol,
+                                      extras=ex, capture=cfg.family != "vlm")
+        every = self._faults(cfg)
+        faults = faults or (CROSS_FAULT[cfg.family],)
+        dist = {}
+        for name in faults:
+            with decode_linears_through(dropped_call(per_step, *every[name])):
+                dist[name] = (forced_logits(eng, prompt, toks, n, ex) - lo).abs().max().item()
+        rep = {"max_abs_logit_diff": diff, "tol": tol, "planted_faults": {
+            name: {"call": f"{every[name][0]} of {per_step} ({calls[every[name][0]]})",
+                   "k_rows_dropped": every[name][1], "max_abs_logit_diff": dist[name]}
+            for name in faults}}
+        first = faults[0]
+        rep.update(planted_fault=f"{first}: " + rep["planted_faults"][first]["call"],
+                   planted_fault_max_abs_logit_diff=dist[first])
+        if math.isfinite(tol):
+            check(dist[first] > tol, f"(b) {cfg.arch_id}: the planted fault ({first}) moved the "
+                  f"logits by {dist[first]:.4g}, within the bar {tol}: the check cannot see it")
+        return rep, dist
+
+    def serve(self, rep, cfg, params, gen):
+        """(e) and the slot fault of (f)."""
+        dev, b = self.dev, len(CROSS_TRACE)
+        laps, t = {}, [time.perf_counter()]
+
+        def lap(part):  # the seconds of (e)'s parts, for the run's time budget
+            torch.cuda.synchronize()
+            laps[part], t[0] = time.perf_counter() - t[0], time.perf_counter()
+        ex = self._extras(cfg, params, gen, b)
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev).cpu().numpy()
+                   .astype(np.int32) for n, _ in CROSS_TRACE]
+        prompts[CROSS_HIT] = prompts[CROSS_MISS] = prompts[1]
+        budgets = [m for _, m in CROSS_TRACE]
+        rows = [{k: v[r] for k, v in ex.items()} for r in range(b)]
+        rows[CROSS_HIT] = rows[1]
+        solo = ServingEngine(cfg, params, max_seq=CROSS_SERVE["max_seq"], device=dev)
+        with torch.inference_mode():
+            dense = [solo.generate(torch.from_numpy(p)[None].to(dev), m,
+                                   extras={k: v[None] for k, v in e.items()})[0].cpu().numpy()
+                     for p, m, e in zip(prompts, budgets, rows)]
+        del solo
+        lap("solo generates")
+        d = dense[CROSS_STOPPED]  # the first new token nearest the middle of its solo run
+        j = min((j for j in range(1, len(d)) if d[j] not in d[:j]),
+                key=lambda j: abs(j - len(d) // 2), default=0)
+        stops = [()] * b
+        stops[CROSS_STOPPED] = (int(d[j]),)
+        reqs = [Request(prompt=p, max_new=m, stop_tokens=st, extras=e)
+                for p, m, st, e in zip(prompts, budgets, stops, rows)]
+        lengths = [expected_length(dn, m, st) for dn, m, st in zip(dense, budgets, stops)]
+        eng = TimedEngine(cfg, params, prefix_cache=True, device=dev, **CROSS_SERVE)
+        graphs = count_captures(eng)
+        eager = EagerEngine(cfg, params, prefix_cache=True, device=dev, **CROSS_SERVE)
+        out = eng.serve(reqs)
+        lap("captured serve")
+        out_e = eager.serve(reqs)
+        lap("eager serve")
+        report = eng.last_report
+        admits = {r: [e for e in rec.events if e["name"] == "admit"]
+                  for r, rec in enumerate(report.records)}
+        same = {"tokens_equal": same_tokens(out, out_e),
+                "events_equal": events_of(report) == events_of(eager.last_report),
+                "peak_pages": [eng.peak_pages_in_use, eager.peak_pages_in_use],
+                "rounds": report.rounds, "decode_chunk_iters": eng.decode_chunk_iters,
+                "tokens": sum(len(o) for o in out), "prefix_hits": report.prefix_hits,
+                "cow_forks": report.cow_forks,
+                "cached_tokens": [a[0]["cached_tokens"] for a in admits.values()]}
+        check(same["tokens_equal"] and same["events_equal"]
+              and eng.peak_pages_in_use == eager.peak_pages_in_use,
+              f"(e) {cfg.arch_id}: the captured serve differs from the eager one: {same}")
+        check(report.prefix_hits == 1 and same["cached_tokens"][CROSS_HIT] > 0
+              and same["cached_tokens"][CROSS_MISS] == 0,
+              f"(e) {cfg.arch_id}: the prefix cache did not hit only under the same extras: "
+              f"{same}")
+        del eager
+        _, launches, counted_as = counted_launches(graphs, lambda: eng.serve(reqs))
+        # a step's calls an iteration and a full hit's window; an uncached
+        # admit unembeds its last position through the untied head
+        misses_n = sum(e["cached_tokens"] == 0 for rec in eng.last_report.records
+                       for e in rec.events if e["name"] == "admit")
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = (matvec_calls_per_step(cfg) * (eng.decode_chunk_iters
+                                                              + eng.cow_forks)
+                                + (0 if cfg.tie_embeddings else misses_n))
+        check(launches == expect, f"(e) {cfg.arch_id} serve: launches {launches}, expected "
+              f"{expect}")
+        self.launches[f"phase 17 {cfg.arch_id} serve"] = launches
+        lap("counted serve")
+        # each miss served alone on the same engine (its graphs kept), then
+        # the planted fault
+        out_a = [eng.serve([reqs[r]])[0] for r in range(b)]
+        lap("each request served alone")
+        with admits_into_next_slot(eng):
+            out_w = eng.serve(reqs)
+        lap("planted next-slot serve")
+        del eng, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def gap_at(r, j):  # the solo run's top-2 gap before token j
+            seq = np.concatenate([prompts[r], dense[r][:j]])
+            seq = torch.from_numpy(seq)[None].to(dev)
+            logits, _ = prefill(params, cfg, seq, init_cache(cfg, 1, seq.shape[1], dev),
+                                {k: v[None] for k, v in rows[r].items()})
+            return top2_gap(logits[0, -1])
+        # Against the solo runs, margin-aware at the family's CROSS_SOLO_BARS
+        # (ROADMAP section 3).  Each miss is held exactly against itself
+        # served alone on the same geometry: its tokens may not depend on its
+        # slot or its slot-mates.
+        bars = CROSS_SOLO_BARS[cfg.family]
+        misses = [r for r in range(b) if r != CROSS_HIT]
+        with torch.inference_mode():
+            vs = paged_vs_dense(f"(e) {cfg.arch_id} misses", [out[r] for r in misses],
+                                [dense[r] for r in misses], [lengths[r] for r in misses],
+                                lambda r, j: gap_at(misses[r], j), bars["miss"])
+            hit = paged_vs_dense(f"(e) {cfg.arch_id} the hit", [out[CROSS_HIT]],
+                                 [dense[CROSS_HIT]], [lengths[CROSS_HIT]],
+                                 lambda r, j: gap_at(CROSS_HIT, j), bars["hit"])
+        lap("vs solo")
+        for v in (vs, hit):
+            v["beyond_paged_bar"] = sum(beyond(dv, PAGED_BAR) for dv in v["divergences"])
+        apart = [r for r in misses if not np.array_equal(out_a[r], out[r])]
+        check(not apart, f"(e) {cfg.arch_id}: requests {apart} differ from themselves served "
+              "alone")
+        # the sound and the faulty serve replay the same graphs on the same
+        # inputs: any token apart is the fault's
+        caught = sum(not np.array_equal(a, w) for a, w in zip(out, out_w))
+        check(caught > 0, f"(f) {cfg.arch_id}: the admit writing into the next slot went "
+              "unseen")
+        rep["serve"] = {"captured_vs_eager": same, "vs_solo_misses": vs, "vs_solo_hit": hit,
+                        "bars": bars, "misses_equal_served_alone": len(misses),
+                        "launches": {"launches": launches, "counted_as": counted_as},
+                        "stop": {"request": CROSS_STOPPED, "token": stops[CROSS_STOPPED][0],
+                                 "emitted": len(out[CROSS_STOPPED])},
+                        "planted_next_slot": {"requests_differing": caught},
+                        "section_s": laps}
+
+    def config(self, arch, seed):
+        dev, cfg = self.dev, self._config(arch)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = self._weights(cfg, gen)
+        torch.cuda.synchronize()
+        eng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+        per_step = matvec_calls_per_step(cfg)
+        rep = {"arch": arch, "layers": cfg.n_layers, "dec_layers": cfg.dec_layers,
+               "d_model": cfg.d_model,
+               "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+               "d_ff": cfg.d_ff, "vocab": cfg.vocab, "weights_s": time.perf_counter() - t0,
+               "int8_bytes": pim_bytes(params),
+               "peak_bytes_drawing": torch.cuda.max_memory_allocated(), "section_s": {}}
+        if cfg.family == "vlm":
+            rep["groups"] = f"{CROSS_VLM_GROUPS} of {get_config(arch).n_layers // 5}"
+            rep["gates"] = [params["groups"]["cross"][n].float().cpu().tolist()
+                            for n in ("gate_attn", "gate_mlp")]
+        print(f"phase 17 {arch} (weights): {rep['weights_s']:.1f} s, "
+              f"{rep['int8_bytes']} bytes, peak {rep['peak_bytes_drawing']}", flush=True)
+        prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
+        ex = self._extras(cfg, params, gen, BATCH)
+        graphs = count_captures(eng)
+
+        t = time.perf_counter()  # (a) captured against eager, greedy and sampled
+        with torch.inference_mode():
+            greedy, toks = captured_vs_eager(eng, prompt, N_NEW, f"{arch} int8 greedy, "
+                                             f"{BATCH} x {PROMPT}", extras=ex, **GREEDY)
+            sampled, stoks = captured_vs_eager(eng, prompt, N_NEW, f"{arch} int8 sampled, "
+                                               f"{BATCH} x {PROMPT}", extras=ex, **SAMPLED)
+        check(not torch.equal(stoks, toks), f"(a) {arch}: sampled tokens equal greedy ones")
+        rep["captured_vs_eager"] = [greedy, sampled]
+        self._took(rep, "a", t)
+
+        t = time.perf_counter()  # (d) launches: the step's, the encoder's, the cross K/V's
+        _, launches, counted_as = counted_launches(
+            graphs, lambda: eng.generate(prompt, N_NEW, extras=ex))
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = per_step * (N_NEW - 1)
+        check(launches == expect, f"(d) {arch}: launches {launches}, expected {expect}")
+        check(all(g.launches["pim_matvec"] == per_step for g in graphs),
+              f"(d) {arch}: captured steps launch {[g.launches for g in graphs]}, expected "
+              f"{per_step} pim_matvec each")
+        kv_calls = self._kv_calls(eng, ex)
+        with torch.inference_mode():
+            _, kv_launches, _ = counted_launches([], lambda: [c() for c in kv_calls])
+        check(not any(kv_launches.values()), f"(d) {arch}: the cross K/V launched {kv_launches}")
+        self.launches[f"phase 17 {arch} generate"] = launches
+        rep["launches"] = {"launches": launches, "per_step": per_step, "counted_as": counted_as,
+                           "cross_kv_linears": {"calls": len(kv_calls),
+                                                "launches": kv_launches}}
+        if cfg.family == "encdec":
+            rep["launches"]["encoder_pass"] = self.encode_launches
+        self._took(rep, "d", t)
+
+        t = time.perf_counter()  # (b) the kernel path against the overlay path
+        ftoks = toks[:, :CROSS_CHECK_NEW]
+        rep["overlay"], _ = self.overlay(eng, prompt, ftoks, ex, CROSS_OVERLAY_TOL[cfg.family])
+        self._took(rep, "b", t)
+
+        t = time.perf_counter()  # (f) the stale-extras replay
+        # A second call's extras replayed (and held against the eager loop),
+        # the first call's again, then the second's with the buffer left
+        # unrefreshed: the same graphs on the first call's extras.
+        ex2 = self._extras(cfg, params, gen, BATCH)
+        with torch.inference_mode():
+            sound, want2 = captured_vs_eager(eng, prompt, STALE_NEW, f"{arch} int8 greedy, "
+                                             "second extras", extras=ex2, **GREEDY)
+            logits2 = eng.state(BATCH).logits.clone()
+            eng.generate(prompt, STALE_NEW, extras=ex)
+            with stale_extras():
+                got2 = eng.generate(prompt, STALE_NEW, extras=ex2)
+            stale2 = eng.state(BATCH).logits
+            caught = not torch.equal(stale2, logits2)
+            stale_diff = (stale2.float() - logits2.float()).abs().max().item()
+        check(caught, f"(f) {arch}: a replay on the previous call's extras went unseen")
+        rep["planted_stale_extras"] = {"second_call_captured_vs_eager": sound,
+                                       "stale_tokens_differing": int((got2 != want2).sum()),
+                                       "last_logits_max_abs_diff": stale_diff}
+        del logits2
+        self._took(rep, "f_stale", t)
+
+        t = time.perf_counter()  # (g) ms a step, the cross K/V's share, the head
+        with torch.inference_mode():
+            med, rounds = step_ms({"captured_ms": (eng, GREEDY),
+                                   "captured_sampled_ms": (eng, SAMPLED)},
+                                  prompt, N_NEW, CROSS_ROUNDS, extras=ex)
+            kv_ms = _time_ms(kv_calls, 20) * len(kv_calls)
+            mv = [weight_at(eng.params, c) for c in step_calls(cfg)]
+            xs = {k: torch.randn((BATCH, k), generator=gen, device=dev).to(torch.bfloat16)
+                  for k in {w["codes"].shape[0] for w in mv}}
+            mv_ms = _time_ms([functools.partial(pim_matvec, xs[w["codes"].shape[0]], w["codes"],
+                                                w["scale"], bits=8) for w in mv], 20) * len(mv)
+            head = eng.params["head"]
+            head_ms = _time_ms([functools.partial(pim_matvec, xs[cfg.d_model], head["codes"],
+                                                  head["scale"], bits=8)], 50)
+        floor_ms = cross_stream_bytes(eng) / HBM_BYTES_PER_S * 1e3
+        head_floor = pim_bytes({"head": head}) / HBM_BYTES_PER_S * 1e3
+        rep["step"] = {**med, "stream_bytes": cross_stream_bytes(eng), "floor_ms": floor_ms,
+                       "floor_share": floor_ms / med["captured_ms"],
+                       "pim_matvec_ms": mv_ms, "pim_matvec_share": mv_ms / med["captured_ms"],
+                       "cross_kv_ms": kv_ms, "cross_kv_share": kv_ms / med["captured_ms"],
+                       "head_ms": head_ms, "head_floor_ms": head_floor,
+                       "head_over_floor": head_ms / head_floor,
+                       "head_route": {"N": cfg.vocab, "N_mod_16": cfg.vocab % 16},
+                       "rounds": rounds,
+                       "timing": f"device ms a captured step at {BATCH} x {PROMPT}, CUDA events "
+                                 f"over {N_NEW - 1} replays, median of {CROSS_ROUNDS} alternating "
+                                 "rounds; floor: the stream at 3.35 TB/s; the cross K/V, the "
+                                 "step's pim_matvec calls and the head alone in CUDA graphs"}
+        self._took(rep, "g", t)
+
+        del eng, graphs, ex, ex2, kv_calls, mv, head
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()  # (e) the continuous engine, and its planted fault
+        self.serve(rep, cfg, params, gen)
+        self._took(rep, "e", t)
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()  # (c) the f32 path at reduced depth against plain
+        cfg32 = cfg.replace(param_dtype="float32", **CROSS_F32[cfg.family])
+        eng32 = ServingEngine(cfg32, self._weights(cfg32, gen), max_seq=PROMPT + N_NEW,
+                              device=dev)
+        ex32 = self._extras(cfg32, eng32.params, gen, BATCH)
+        lk = forced_logits(eng32, prompt, ftoks, CROSS_CHECK_NEW, ex32)
+        with decode_linears_through(pim_matvec_plain):
+            lp = forced_logits(eng32, prompt, ftoks, CROSS_CHECK_NEW, ex32)
+        rolled = {k: v.roll(1, dims=0) for k, v in ex32.items()}
+        lf = forced_logits(eng32, prompt, ftoks, CROSS_CHECK_NEW, rolled)
+        diff32, fault32 = (lk - lp).abs().max().item(), (lf - lp).abs().max().item()
+        rep["f32_path"] = {"layers": cfg32.n_layers, "dec_layers": cfg32.dec_layers,
+                           "max_abs_logit_diff": diff32, "tol": PATH_TOL,
+                           "logit_std": lp.std().item(),
+                           "planted_fault": "each row's extras rolled to the next row",
+                           "planted_fault_max_abs_logit_diff": fault32}
+        check(bool(torch.isfinite(lk).all()) and diff32 <= PATH_TOL,
+              f"(c) {arch}: the f32 kernel path differs from plain by {diff32:.4g}")
+        check(fault32 > PATH_TOL, f"(c) {arch}: rolled extras moved the f32 logits by only "
+              f"{fault32:.4g} <= {PATH_TOL}: the check cannot see them")
+        del eng32, ex32, rolled, lk, lp, lf
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._took(rep, "c", t)
+
+        t = time.perf_counter()  # (h) the kernel at the config's shapes, the unaligned head
+        k, n = cfg.d_model, cfg.vocab
+        pl = matvec_plan(k, n, BATCH, 8, self.sms)
+        rep["kernel_vs_plain"], q = family_kernel_cases(
+            cfg, gen, extra=[(cfg.d_model, CROSS_SMALL_N)],
+            chunk_fault=pl.chunk_rows < pl.rows_per_cta)
+        x = torch.randn((BATCH, k), generator=gen, device=dev).to(torch.bfloat16)
+        ref = pim_matvec_plain(x, q.codes, q.scale, bits=8)
+        ok, tail_err = within_tol(pim_matvec(x, q.codes, q.scale, bits=8)[:, -CROSS_TAIL:],
+                                  ref[:, -CROSS_TAIL:])
+        check(ok, f"(h) {arch}: the head's last {CROSS_TAIL} columns differ from plain by "
+              f"{tail_err:.3g}")
+        faulty = ref.clone()
+        faulty[:, -CROSS_TAIL:] = 0
+        fault_ok, fault_err = within_tol(faulty[:, -CROSS_TAIL:], ref[:, -CROSS_TAIL:])
+        check(not fault_ok, f"(h) {arch}: the tail check passes the plain output with its last "
+              f"{CROSS_TAIL} columns zeroed")
+        rep["kernel_vs_plain"].update(tail={"columns": CROSS_TAIL, "max_abs_err": tail_err,
+                                            "planted_fault": "the plain output's last columns "
+                                                             "zeroed",
+                                            "planted_fault_max_abs_err": fault_err},
+                                      head_plan={"tile_n": pl.tile_n, "cluster": pl.cluster,
+                                                 "chunked": pl.chunk_rows < pl.rows_per_cta})
+        self._took(rep, "h", t)
+        check(rep["peak_bytes"] < torch.cuda.get_device_properties(0).total_memory,
+              f"{arch}: peak {rep['peak_bytes']} bytes")
+        print(f"phase 17 {arch}: " + json.dumps(rep), flush=True)
+        return rep
+
+    def run(self):
+        report = {"check": "phase 17: the vlm and encdec families at full width, int8 weights, "
+                           "per-request extras on both engines", "configs": {},
+                  "section_s": {}}
+        t0 = time.perf_counter()
+        for i, arch in enumerate(CROSS):
+            t = time.perf_counter()
+            rep = self.config(arch, SEED + 10 + i)
+            report["configs"][arch] = {
+                "layers": rep["layers"], "dec_layers": rep["dec_layers"],
+                "captured_equal_eager": all(r["tokens_equal"] and r["last_logits_equal"]
+                                            for r in rep["captured_vs_eager"]),
+                "pim_matvec_per_step": rep["launches"]["per_step"],
+                "pim_matvec": rep["launches"]["launches"]["pim_matvec"],
+                "overlay_max_abs_logit_diff": rep["overlay"]["max_abs_logit_diff"],
+                "overlay_planted_fault": rep["overlay"]["planted_fault_max_abs_logit_diff"],
+                "f32_path_max_abs_logit_diff": rep["f32_path"]["max_abs_logit_diff"],
+                "f32_path_planted_fault": rep["f32_path"]["planted_fault_max_abs_logit_diff"],
+                "serve_equal_eager": rep["serve"]["captured_vs_eager"]["tokens_equal"],
+                "serve_cached_tokens": rep["serve"]["captured_vs_eager"]["cached_tokens"],
+                "stale_extras_caught": rep["planted_stale_extras"]["last_logits_max_abs_diff"],
+                "next_slot_caught": rep["serve"]["planted_next_slot"]["requests_differing"],
+                "kernel_max_abs_err": rep["kernel_vs_plain"]["max_abs_err"],
+                "kernel_tail_err": rep["kernel_vs_plain"]["tail"]["max_abs_err"],
+                "step_ms": rep["step"]["captured_ms"],
+                "sampled_step_ms": rep["step"]["captured_sampled_ms"],
+                "floor_ms": rep["step"]["floor_ms"], "cross_kv_ms": rep["step"]["cross_kv_ms"],
+                "cross_kv_share": rep["step"]["cross_kv_share"],
+                "head_ms": rep["step"]["head_ms"], "head_floor_ms": rep["step"]["head_floor_ms"],
+                "pim_matvec_ms": rep["step"]["pim_matvec_ms"],
+                "sm_clock_mhz": [r["sm_clock_mhz"] for r in rep["step"]["rounds"]],
+                "peak_bytes": rep["peak_bytes"]}
+            report["section_s"][arch] = time.perf_counter() - t
+        report["phase_s"] = time.perf_counter() - t0
+        print(json.dumps(report), flush=True)
+        return self.launches
+
+
+def overlay_depths() -> int:
+    """``python3 chip_smoke.py --overlay-depths``: phase 17 (b) for the vlm
+    alone at 1, 4 and CROSS_VLM_GROUPS groups, on the generator, draws and
+    gates of the run's vlm (so its last reading is (b)'s), with each of
+    ``CrossPhase._faults``, bars not applied: how the distance between two
+    sound bf16 arithmetics grows with depth, and how far each fault stands
+    from it.  Prints one JSON line a depth."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev, arch = torch.device("cuda", 0), CROSS[1]
+    phase = CrossPhase(dev)
+    for groups in (1, 4, CROSS_VLM_GROUPS):
+        t0 = time.perf_counter()
+        cfg = phase._config(arch, groups)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 10 + CROSS.index(arch))
+        params = phase._weights(cfg, gen)
+        eng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+        prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
+        ex = phase._extras(cfg, params, gen, BATCH)
+        with torch.inference_mode():
+            toks = eng.generate(prompt, CROSS_CHECK_NEW, extras=ex)
+        rep, _ = phase.overlay(eng, prompt, toks, ex, math.inf,
+                               faults=tuple(phase._faults(cfg)))
+        print(json.dumps({"overlay_depth": arch, "groups": groups, "layers": cfg.n_layers,
+                          **rep, "s": time.perf_counter() - t0}), flush=True)
+        del eng, params, ex, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(overlay_depths() if sys.argv[1:] == ["--overlay-depths"] else main())

@@ -1,19 +1,35 @@
 """Model configuration (the port's copy of ``repro.configs.base.ModelConfig``).
 
-Only the fields the port's dense paths read are carried over; their names
-and defaults match the JAX package's, so a test can build both configs from
-the same keyword arguments.
+Only the fields the port's paths read are carried over; their names and
+defaults match the JAX package's, so a test can build both configs from the
+same keyword arguments.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    """Modality frontend STUB: input_specs provides precomputed embeddings."""
+
+    n_image_tokens: int = 1600
+    cross_attn_every: int = 5  # a cross-attn layer after every N self layers
+
+
+@dataclass(frozen=True)
+class AudioConfig:
+    """Audio frontend STUB: precomputed frame embeddings feed the encoder."""
+
+    n_frames: int = 1024
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str  # the port runs "dense" only
+    family: str  # the port runs "dense", "vlm" and "encdec"
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,6 +41,9 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    vision: Optional[VisionConfig] = None
+    audio: Optional[AudioConfig] = None
+    dec_layers: int = 0  # encdec only
     # PIM-mode (the paper's technique): weight bits for serving; 0 = off.
     pim_bits: int = 0
     param_dtype: str = "bfloat16"

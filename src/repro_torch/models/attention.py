@@ -1,6 +1,8 @@
-"""GQA attention for the dense slices: prefill and decode with a cache.
+"""GQA attention: prefill and decode with a cache, and cross-attention.
 
-Twin of the dense-cache parts of ``repro.models.attention``.  Prefill over
+Twin of ``repro.models.attention`` but for its training half.  ``attn_apply``
+is full-sequence attention with no cache (the encoder's, and every
+cross-attention over an encoder's output or image embeds).  Prefill over
 more than CHUNKED_THRESHOLD keys streams them through the online-softmax
 kernel ``flash_attention`` (``_chunked_attention``); shorter prompts attend
 directly, as in the JAX package.  The cache is
@@ -145,6 +147,34 @@ def _chunked_attention(q, k, v, causal: bool):
     on the card; on CPU tensors its plain version, the JAX package's
     ``_chunked_attention`` at its default chunk."""
     return flash_attention_gqa(q, k, v, causal=causal)
+
+
+def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
+               rope_theta: float = 0.0, causal: bool = True,
+               kv_input: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention of x (B, S, D) with no cache, forward only:
+    self-attention, or cross-attention over ``kv_input`` (B, Sk, D) (the
+    encoder's output, image embeds), causal or not, with rope at positions
+    0..S-1 (a cross-attention's keys at 0..Sk-1) when ``rope_theta`` is
+    non-zero.  Over more than CHUNKED_THRESHOLD keys
+    it is ``_chunked_attention``, else ``_direct_attention``, as in the JAX
+    package: a cross-attention over a short memory (1,600 image tokens)
+    stays direct whatever the query length.  The K/V linears see every
+    key's row, so past ``MATVEC_MAX_M`` rows they run ``x @ dq(w)``."""
+    b, s, _ = x.shape
+    kv_src = x if kv_input is None else kv_input
+    q = _split_heads(linear(x, p["wq"], p.get("bq")), n_heads, head_dim)
+    k = _split_heads(linear(kv_src, p["wk"], p.get("bk")), n_kv, head_dim)
+    v = _split_heads(linear(kv_src, p["wv"], p.get("bv")), n_kv, head_dim)
+    if rope_theta:
+        q = apply_rope(q, torch.arange(s, device=x.device), rope_theta)
+        k = apply_rope(k, torch.arange(k.shape[1], device=x.device), rope_theta)
+    qg = q.reshape(b, s, n_kv, n_heads // n_kv, head_dim)
+    if k.shape[1] > CHUNKED_THRESHOLD:
+        o = _chunked_attention(qg, k, v, causal)
+    else:
+        o = _direct_attention(qg, k, v, causal)
+    return linear(o.reshape(b, s, n_heads * head_dim), p["wo"])
 
 
 def kv_cache_init(batch: int, max_seq: int, n_kv: int, head_dim: int, dtype,

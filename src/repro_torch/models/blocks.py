@@ -1,11 +1,13 @@
-"""The dense decoder block (twin of the dense parts of ``repro.models.blocks``)."""
+"""The dense decoder block and the gated cross-attention block (twins of the
+dense and cross parts of ``repro.models.blocks``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 
-from .attention import attn_decode, attn_decode_paged, attn_init, attn_prefill, attn_verify
+from .attention import (attn_apply, attn_decode, attn_decode_paged, attn_init, attn_prefill,
+                        attn_verify)
 from .common import mlp_apply, mlp_init, rmsnorm
 
 
@@ -20,30 +22,46 @@ def dense_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
     }
 
 
-def _attn_kw(cfg: ModelConfig) -> dict:
+def attn_kw(cfg: ModelConfig) -> dict:
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
                 rope_theta=cfg.rope_theta)
+
+
+def dense_block_apply(p, x, cfg: ModelConfig, causal: bool = True):
+    """The block over a whole sequence with no cache (the encoder's layers
+    run it with ``causal=False``)."""
+    h = attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), causal=causal,
+                   **attn_kw(cfg))
+    x = x + h
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
 
 
 def dense_block_prefill(p, x, cache, cfg: ModelConfig, pages=None):
     """Single-pass prefill: full-seq attention that also fills the KV cache
     (dense, or a paged pool's pages when ``pages`` is given)."""
     h, cache = attn_prefill(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache,
-                            pages=pages, **_attn_kw(cfg))
+                            pages=pages, **attn_kw(cfg))
     x = x + h
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
+
+
+def self_attn_decode(p, xn, cache, pos: torch.Tensor, cfg: ModelConfig, block_tables=None,
+                     page_size=None):
+    """One decode step's self-attention of the normed xn (B, 1, D): at the
+    0-d ``pos`` into a dense cache, or, with ``block_tables``, at per-slot
+    positions (B,) into a paged pool."""
+    if block_tables is None:
+        return attn_decode(p, xn, cache, pos, **attn_kw(cfg))
+    return attn_decode_paged(p, xn, cache, block_tables, pos, page_size=page_size,
+                             **attn_kw(cfg))
 
 
 def dense_block_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
                        block_tables=None, page_size=None):
     """One decode step: at the 0-d ``pos`` into a dense cache, or, with
     ``block_tables``, at per-slot positions (B,) into a paged pool."""
-    xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if block_tables is None:
-        h, cache = attn_decode(p["attn"], xn, cache, pos, **_attn_kw(cfg))
-    else:
-        h, cache = attn_decode_paged(p["attn"], xn, cache, block_tables, pos,
-                                     page_size=page_size, **_attn_kw(cfg))
+    h, cache = self_attn_decode(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, pos,
+                                cfg, block_tables, page_size)
     x = x + h
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
 
@@ -55,6 +73,33 @@ def dense_block_verify(p, x, cache, block_tables, pos: torch.Tensor, cfg: ModelC
     ``tree=(fan, depth)`` verifies a candidate tree (``attention.attn_verify``)."""
     h, cache = attn_verify(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, pos,
                            block_tables=block_tables, page_size=page_size, tree=tree,
-                           **_attn_kw(cfg))
+                           **attn_kw(cfg))
     x = x + h
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
+
+
+# ------------------------------------------------------------ cross block ---
+def cross_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
+    """Gated cross-attention block (llama-vision style).  Both gates start
+    at zero, as in the JAX package, so a fresh block passes x through."""
+    return {
+        "ln1": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "xattn": attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           dtype, device, lead=lead),
+        "gate_attn": torch.zeros(lead, dtype=dtype, device=device),
+        "ln2": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device, lead=lead),
+        "gate_mlp": torch.zeros(lead, dtype=dtype, device=device),
+    }
+
+
+def cross_block_apply(p, x, kv, cfg: ModelConfig):
+    """x (B, S, D) attends, without rope or a mask, to ``kv`` (B, Sk, D),
+    then an MLP; each branch scaled by ``tanh`` of its 0-d gate, taken in
+    the parameter dtype as JAX computes it."""
+    h = attn_apply(p["xattn"], rmsnorm(x, p["ln1"], cfg.norm_eps), n_heads=cfg.n_heads,
+                   n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, rope_theta=0.0, causal=False,
+                   kv_input=kv)
+    x = x + torch.tanh(p["gate_attn"]) * h
+    h = mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x + torch.tanh(p["gate_mlp"]) * h

@@ -109,6 +109,12 @@ def weight_shape(w) -> tuple:
     return tuple(w.shape)
 
 
+# The most bytes of f32 products ``dq`` forms at once on its way to a
+# narrower dtype: llama-3.2-vision-90b's (8,192 x 128,256) head would
+# otherwise need 4.2 GB of them beside its 2.1 GB bf16 result.
+DQ_BLOCK_BYTES = 1 << 28
+
+
 def dq(w, dtype=None) -> torch.Tensor:
     """Densify a weight leaf (dequantize PIM codes) for matmul use.
 
@@ -118,7 +124,10 @@ def dq(w, dtype=None) -> torch.Tensor:
     packing is dropped after unpacking.  The JAX package splits this into
     ``dq`` and ``_dq_local``, which differ only by the tensor-parallel
     all-gather; they are one function here until the port's
-    tensor-parallel slice.
+    tensor-parallel slice.  Into another ``dtype`` than the scales' the
+    products are formed a block of columns at a time (at most
+    DQ_BLOCK_BYTES of them), each element rounded as a whole-leaf cast
+    rounds it.
     """
     if isinstance(w, dict) and "codes" in w:
         codes = w["codes"]
@@ -130,8 +139,15 @@ def dq(w, dtype=None) -> torch.Tensor:
             codes = stacked.reshape(codes.shape[:-2] + (2 * k2, codes.shape[-1]))
             if "nibbles_odd" in w:
                 codes = codes[..., :-1, :]
-        out = codes.to(w["scale"].dtype) * w["scale"]
-        return out.to(dtype) if dtype is not None else out
+        scale = w["scale"]
+        n = codes.shape[-1]
+        per = max(1, DQ_BLOCK_BYTES // (4 * max(1, codes[..., 0].numel())))
+        if dtype is None or dtype == scale.dtype:
+            return codes.to(scale.dtype) * scale
+        out = torch.empty(codes.shape, dtype=dtype, device=codes.device)
+        for c in range(0, n, per):
+            out[..., c:c + per] = codes[..., c:c + per].to(scale.dtype) * scale[..., c:c + per]
+        return out
     return w.to(dtype) if dtype is not None else w
 
 

@@ -1,26 +1,34 @@
-"""Model assembly for the dense family (twin of the dense branches of
-``repro.models.lm``).
+"""Model assembly for the dense, vlm and encdec families (twin of those
+branches of ``repro.models.lm``).
 
-Parameters keep the JAX package's layout: the layers are ONE stacked tree
-with a leading ``L`` dim, and a Python loop over it takes the place of
-``lax.scan``.  Slicing a layer out of the stack is a view, so the loop copies
-no weights; the cache is written in place (see ``models.attention``).
+Parameters keep the JAX package's layout: a family's layers are stacked
+trees with leading dims (the dense family's ``layers`` (L, ...); the vlm's
+``groups`` of ``self`` (G, every - 1, ...) dense blocks and one gated
+``cross`` block (G, ...) each; the encdec's ``encoder`` and ``decoder``),
+and a Python loop over them takes the place of ``lax.scan``.  Slicing a
+layer out of a stack is a view, so the loop copies no weights; the cache is
+written in place (see ``models.attention``).  The vlm and encdec families
+attend, without a cache, to a per-request memory passed as ``extras``
+(``image_embeds`` (B, N, D), or ``enc_out`` (B, F, D) = ``encode(frames)``),
+whose K/V every call computes anew, as the JAX package does.
 
 Public API:
   init_params(cfg, gen, device)            -> params dict
   init_cache(cfg, batch, max_seq, device)  -> cache dict
   init_paged_cache(cfg, batch, max_seq, num_pages, page_size, device)
                                            -> paged cache dict
-  prefill(params, cfg, tokens, cache[, length, pages, slot])
+  prefill(params, cfg, tokens, cache[, extras, length, pages, slot])
                                            -> (logits (B, S, V), cache)
+  prefill_hidden(...)                      -> (B, S, D) before the unembedding
   paged_insert(cfg, paged, dense, slot, pages) -> paged cache
-  decode_step(params, cfg, tokens, cache, pos[, page_size])
+  decode_step(params, cfg, tokens, cache, pos[, extras, page_size])
                                            -> (logits (B, 1, V), cache)
-  verify_step(params, cfg, tokens, cache, pos[, page_size, tree])
+  verify_step(params, cfg, tokens, cache, pos[, extras, page_size, tree])
                                            -> (logits (B, T, V), cache)
   stack_verify_caches(cfg, caches)         -> cache
   commit_verify(cfg, cache, sel)           -> cache
   tree_relocate(cfg, cache, pos, a, cf, fan=, depth=) -> cache
+  encode(params, cfg, frames)              -> (B, F, D) encoder output
 """
 from __future__ import annotations
 
@@ -31,20 +39,73 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import blocks as bk
-from .attention import kv_cache_init, paged_kv_insert
-from .common import dense_init, dtype_of, embed_lookup, resolve_device, rmsnorm, unembed
+from .attention import (attn_apply, attn_init, attn_prefill, attn_verify, kv_cache_init,
+                        paged_kv_insert)
+from .common import (dense_init, dtype_of, embed_lookup, mlp_apply, mlp_init, resolve_device,
+                     rmsnorm, unembed)
+
+_FAMILIES = ("dense", "vlm", "encdec")
 
 
 def _check_family(cfg: ModelConfig):
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; the port runs the "
+            f"{', '.join(_FAMILIES)} families (ROADMAP.md lists the others)")
+
+
+def _check_dense(cfg: ModelConfig, what: str):
+    """Speculation's cache steps run the dense family only."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port runs the dense "
-            "family (ROADMAP.md lists the others)")
+            f"{what} is not ported for family {cfg.family!r}: ROADMAP.md section 1, "
+            "item 5 (speculation on the vlm and encdec families)")
 
 
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def cache_stacks(cfg: ModelConfig) -> tuple:
+    """(cache key, leading stack dims) of each of the family's K/V stacks:
+    the dense family's ``layers``, the vlm's ``groups_self`` (groups, dense
+    blocks a group), the encdec's ``decoder``; each leaf's batch or page
+    axis comes right after those dims."""
+    _check_family(cfg)
+    if cfg.family == "vlm":
+        return (("groups_self", _groups(cfg)),)
+    if cfg.family == "encdec":
+        return (("decoder", (cfg.dec_layers,)),)
+    return (("layers", (cfg.n_layers,)),)
+
+
+def _page_size(cfg: ModelConfig, cache: dict, page_size) -> int:
+    """The paged pool's page size; ``page_size``, if given, must be it."""
+    key, lead = cache_stacks(cfg)[0]
+    ps = cache[key]["k"].shape[len(lead) + 2]
+    if page_size not in (None, ps):
+        raise ValueError(f"page_size {page_size} is not the pool's {ps}")
+    return ps
+
+
+def _groups(cfg: ModelConfig) -> tuple[int, int]:
+    """The vlm's (groups, dense blocks a group)."""
+    every = cfg.vision.cross_attn_every
+    return cfg.n_layers // every, every - 1
+
+
+def _encdec_dec_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
+    kw = dict(d=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+              dtype=dtype, device=device, lead=lead)
+    return {
+        "ln1": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "self": attn_init(gen, **kw),
+        "ln2": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "cross": attn_init(gen, **kw),
+        "ln3": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device, lead=lead),
+    }
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
@@ -59,15 +120,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, (cfg.vocab, cfg.d_model), dtype, device).T
-    p["layers"] = bk.dense_block_init(gen, cfg, dtype, device, lead=(cfg.n_layers,))
+    if cfg.family == "dense":
+        p["layers"] = bk.dense_block_init(gen, cfg, dtype, device, lead=(cfg.n_layers,))
+    elif cfg.family == "vlm":
+        g, e = _groups(cfg)
+        p["groups"] = {"self": bk.dense_block_init(gen, cfg, dtype, device, lead=(g, e)),
+                       "cross": bk.cross_block_init(gen, cfg, dtype, device, lead=(g,))}
+    else:
+        p["encoder"] = bk.dense_block_init(gen, cfg, dtype, device, lead=(cfg.n_layers,))
+        p["decoder"] = _encdec_dec_block_init(gen, cfg, dtype, device, lead=(cfg.dec_layers,))
     return p
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
-    _check_family(cfg)
-    return {"layers": kv_cache_init(
+    ((key, lead),) = cache_stacks(cfg)
+    return {key: kv_cache_init(
         batch, max_seq, cfg.n_kv_heads, cfg.head_dim, dtype_of(cfg.param_dtype),
-        resolve_device(device), bits=cfg.kv_cache_bits, lead=(cfg.n_layers,))}
+        resolve_device(device), bits=cfg.kv_cache_bits, lead=lead)}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_pages: int,
@@ -79,15 +148,14 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_pages: int,
     paged path whenever this key is present.  Page 0 is the trash page of
     inactive slots, so ``num_pages - 1`` pages circulate.  The pool is
     ``kv_cache_init``'s layout with pages for rows and a page's tokens for
-    positions: (L, P, KV, page_size, D)."""
-    _check_family(cfg)
+    positions: lead + (P, KV, page_size, D)."""
+    ((key, lead),) = cache_stacks(cfg)
     device = resolve_device(device)
     width = -(-max_seq // page_size)
     return {"block_tables": torch.zeros((batch, width), dtype=torch.int32, device=device),
-            "layers": kv_cache_init(
+            key: kv_cache_init(
                 num_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
-                dtype_of(cfg.param_dtype), device, bits=cfg.kv_cache_bits,
-                lead=(cfg.n_layers,))}
+                dtype_of(cfg.param_dtype), device, bits=cfg.kv_cache_bits, lead=lead)}
 
 
 def paged_insert(cfg: ModelConfig, paged: dict, dense: dict, slot, pages) -> dict:
@@ -95,101 +163,167 @@ def paged_insert(cfg: ModelConfig, paged: dict, dense: dict, slot, pages) -> dic
     pool pages ``pages`` (n,), in place.  Not on the serving path (the admit
     prefills straight into the pages, ``prefill(pages=)``): the reference the
     direct admit is held against.  ``slot`` addresses per-slot state, which
-    the dense family has none of."""
-    _check_family(cfg)
+    these families have none of."""
+    ((key, lead),) = cache_stacks(cfg)
     pages = torch.as_tensor(pages, dtype=torch.int64, device=paged["block_tables"].device)
-    paged_kv_insert(paged["layers"], dense["layers"], pages, lead=1)
+    paged_kv_insert(paged[key], dense[key], pages, lead=len(lead))
     return paged
 
 
+def _dec_block(lp, x, enc, cfg: ModelConfig, self_attn):
+    """The encdec decoder block: self-attention (``self_attn(p, xn)`` -> h,
+    the cache written in place), cross-attention over the encoder's output
+    ``enc`` with no rope and no mask, then the MLP."""
+    x = x + self_attn(lp["self"], rmsnorm(x, lp["ln1"], cfg.norm_eps))
+    x = x + attn_apply(lp["cross"], rmsnorm(x, lp["ln2"], cfg.norm_eps), n_heads=cfg.n_heads,
+                       n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, rope_theta=0.0,
+                       causal=False, kv_input=enc)
+    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln3"], cfg.norm_eps))
+
+
+def _stack(params, cfg: ModelConfig, x, cache: dict, extras, dense_body, self_attn):
+    """Run the family's layers over x with the cache: ``dense_body(lp, x,
+    c)`` -> x for a dense block, ``self_attn(p, xn, c)`` -> h for the
+    encdec decoder's self-attention; the vlm's cross blocks attend to
+    ``extras["image_embeds"]``, the encdec's to ``extras["enc_out"]``, each
+    cast to x's dtype."""
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            x = dense_body(_layer(params["layers"], i), x, _layer(cache["layers"], i))
+    elif cfg.family == "vlm":
+        img = extras["image_embeds"].to(x.dtype)
+        groups, (g, e) = params["groups"], _groups(cfg)
+        for j in range(g):
+            sp, sc = _layer(groups["self"], j), _layer(cache["groups_self"], j)
+            for i in range(e):
+                x = dense_body(_layer(sp, i), x, _layer(sc, i))
+            x = bk.cross_block_apply(_layer(groups["cross"], j), x, img, cfg)
+    else:
+        enc = extras["enc_out"].to(x.dtype)
+        for i in range(cfg.dec_layers):
+            c = _layer(cache["decoder"], i)
+            x = _dec_block(_layer(params["decoder"], i), x, enc, cfg,
+                           lambda p, xn: self_attn(p, xn, c))
+    return x
+
+
+def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+                   extras: Optional[dict] = None, length=None, pages=None,
+                   slot=None) -> torch.Tensor:
+    """``prefill`` up to the final norm: the prompt's hidden states (B, S,
+    D), the cache filled.  A caller that needs the logits of a few
+    positions only unembeds those."""
+    _check_family(cfg)
+    if pages is not None:
+        pages = torch.as_tensor(pages, dtype=torch.int64, device=tokens.device)
+    kw = bk.attn_kw(cfg)
+    x = embed_lookup(params["embed"], tokens)
+    x = _stack(params, cfg, x, cache, extras,
+               lambda lp, h, c: bk.dense_block_prefill(lp, h, c, cfg, pages=pages)[0],
+               lambda p, xn, c: attn_prefill(p, xn, c, pages=pages, **kw)[0])
+    return rmsnorm(x, params["ln_f"], cfg.norm_eps)
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
-            length=None, pages=None, slot=None):
+            extras: Optional[dict] = None, length=None, pages=None, slot=None):
     """Single-pass prefill over the whole prompt (B, S) that fills the decode
     cache for positions 0..S-1.  ``cache`` must be fresh from ``init_cache``.
-    Returns (logits (B, S, V), cache).
+    ``extras``: the vlm's ``image_embeds`` or the encdec's ``enc_out``, each
+    (B, N, D); the dense family ignores them.  Returns (logits (B, S, V),
+    cache).
 
     With ``pages`` (n,) ``cache`` is a paged tree (``init_paged_cache``) and
     ``tokens`` is batch-1 with ``S == n * page_size``: the prompt's K/V go
     straight into those pool pages (the continuous-batching admit).
     ``length`` (the true length of a right-padded prompt) and ``slot`` (the
     per-slot state row) matter to the families with sequential state only;
-    the dense family's causal attention needs neither."""
-    _check_family(cfg)
-    if pages is not None:
-        pages = torch.as_tensor(pages, dtype=torch.int64, device=tokens.device)
-    x = embed_lookup(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        x, _ = bk.dense_block_prefill(_layer(params["layers"], i), x,
-                                      _layer(cache["layers"], i), cfg, pages=pages)
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    these families' causal attention needs neither."""
+    x = prefill_hidden(params, cfg, tokens, cache, extras, length, pages, slot)
     return unembed(x, params.get("head", params["embed"])), cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
-                pos, page_size: Optional[int] = None):
+                pos, extras: Optional[dict] = None, page_size: Optional[int] = None):
     """One decode step of tokens (B, 1).  With a dense cache (``init_cache``)
     ``pos`` is shared by the batch: an int or a 0-d integer tensor on the
     tokens' device (the JAX package takes an int32 scalar).  With a paged
     cache (``init_paged_cache``, told by its ``block_tables`` key) ``pos``
     is a (B,) integer tensor, one position per slot, and ``page_size``, if
-    given, must be the pool's.  No value of the device is read on the host,
-    so a CUDA graph of the step replays at the positions its tensors hold.
-    Returns (logits (B, 1, V), cache)."""
+    given, must be the pool's.  ``extras`` as for ``prefill``, row b of
+    each the memory of batch row (or slot) b.  No value of the device is
+    read on the host, so a CUDA graph of the step replays at the positions
+    its tensors hold.  Returns (logits (B, 1, V), cache)."""
     _check_family(cfg)
     bt, ps = cache.get("block_tables"), None
     if bt is None:
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((), pos, dtype=torch.int64, device=tokens.device)
     else:
-        ps = cache["layers"]["k"].shape[3]
-        if page_size not in (None, ps):
-            raise ValueError(f"page_size {page_size} is not the pool's {ps}")
+        ps = _page_size(cfg, cache, page_size)
         bt = bt.to(torch.int64)
     pos = pos.to(torch.int64)
     x = embed_lookup(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        x, _ = bk.dense_block_decode(_layer(params["layers"], i), x,
-                                     _layer(cache["layers"], i), pos, cfg, bt, ps)
+    x = _stack(params, cfg, x, cache, extras,
+               lambda lp, h, c: bk.dense_block_decode(lp, h, c, pos, cfg, bt, ps)[0],
+               lambda p, xn, c: bk.self_attn_decode(p, xn, c, pos, cfg, bt, ps)[0])
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed(x, params.get("head", params["embed"])), cache
 
 
 def verify_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos,
-                  page_size: Optional[int] = None, tree: Optional[tuple] = None) -> torch.Tensor:
+                  extras: Optional[dict] = None, page_size: Optional[int] = None,
+                  tree: Optional[tuple] = None) -> torch.Tensor:
     """``verify_step`` up to the final norm: the window's hidden states
     (B, T, D), the cache written in place.  A caller that needs the logits
     of a few positions only unembeds those."""
     _check_family(cfg)
+    if tree is not None:
+        _check_dense(cfg, "a tree window")
     bt, ps = cache.get("block_tables"), None
     if bt is not None:
-        ps = cache["layers"]["k"].shape[3]
-        if page_size not in (None, ps):
-            raise ValueError(f"page_size {page_size} is not the pool's {ps}")
+        ps = _page_size(cfg, cache, page_size)
         bt = bt.to(torch.int64)
     pos = torch.as_tensor(pos, device=tokens.device).to(torch.int64)
+    kw = bk.attn_kw(cfg)
     x = embed_lookup(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        x, _ = bk.dense_block_verify(_layer(params["layers"], i), x,
-                                     _layer(cache["layers"], i), bt, pos, cfg, ps, tree)
+    x = _stack(params, cfg, x, cache, extras,
+               lambda lp, h, c: bk.dense_block_verify(lp, h, c, bt, pos, cfg, ps, tree)[0],
+               lambda p, xn, c: attn_verify(p, xn, c, pos, block_tables=bt, page_size=ps,
+                                            **kw)[0])
     return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
 
 def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos,
-                page_size: Optional[int] = None, tree: Optional[tuple] = None):
+                extras: Optional[dict] = None, page_size: Optional[int] = None,
+                tree: Optional[tuple] = None):
     """One forward pass over a window of T tokens (B, T) per row at positions
     ``pos .. pos+T-1``, ``pos`` (B,) integers (tokens already cached),
     against a dense cache (``init_cache``) or a paged one (told by its
     ``block_tables`` key; ``page_size``, if given, must be the pool's).
-    Every window position's K/V is written in place (the dense family needs
+    Every window position's K/V is written in place (these families need
     no commit step: positions past an accepted frontier are masked by later
     queries and written again by the next window), and each query attends
-    as ``decode_step`` at its position does.  ``tree=(fan, depth)``
+    as ``decode_step`` at its position does.  ``extras`` as for
+    ``decode_step``.  ``tree=(fan, depth)`` (the dense family only)
     verifies a fan-of-chains candidate tree of ``T == 1 + fan*depth``
     tokens in node order (``attention.tree_layout``): each chain scores as
     if verified alone, and ``tree_relocate`` moves the accepted chain's
     K/V into the linear columns.  Returns (logits (B, T, V), cache)."""
-    x = verify_hidden(params, cfg, tokens, cache, pos, page_size, tree)
+    x = verify_hidden(params, cfg, tokens, cache, pos, extras, page_size, tree)
     return unembed(x, params.get("head", params["embed"])), cache
+
+
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The encdec family's encoder pass over frame embeddings (B, F, D), cast
+    to the parameter dtype: non-causal dense blocks with rope, no cache and
+    no final norm.  Serving runs it once a request and passes the result as
+    ``extras["enc_out"]``."""
+    if cfg.family != "encdec":
+        raise ValueError(f"encode runs the encdec family, not {cfg.family!r}")
+    x = frames.to(dtype_of(cfg.param_dtype))
+    for i in range(cfg.n_layers):
+        x = bk.dense_block_apply(_layer(params["encoder"], i), x, cfg, causal=False)
+    return x
 
 
 def stack_verify_caches(cfg: ModelConfig, caches: list) -> dict:
@@ -200,7 +334,7 @@ def stack_verify_caches(cfg: ModelConfig, caches: list) -> dict:
     K/V in place, so the last cache already holds the whole chain's.  The
     families with per-step state, whose chains concatenate along the
     window's time axis, are not ported."""
-    _check_family(cfg)
+    _check_dense(cfg, "stack_verify_caches")
     return caches[-1]
 
 
@@ -210,7 +344,7 @@ def commit_verify(cfg: ModelConfig, cache: dict, sel: torch.Tensor) -> dict:
     written in place, and positions past the accepted frontier are masked
     and written again by the next window, so the cache is returned as it
     is.  The families with per-step state are not ported."""
-    _check_family(cfg)
+    _check_dense(cfg, "commit_verify")
     return cache
 
 
@@ -230,11 +364,9 @@ def tree_relocate(cfg: ModelConfig, cache: dict, pos: torch.Tensor, a: torch.Ten
     reads the trash page and such a step writes into it.  The store must
     reach ``fan*depth`` columns past a live row's frontier, or a gather
     reads the wrong rows.  Returns the cache."""
-    _check_family(cfg)
+    _check_dense(cfg, "tree_relocate")
     if "block_tables" in cache:
-        ps = cache["layers"]["k"].shape[3]
-        if page_size not in (None, ps):
-            raise ValueError(f"page_size {page_size} is not the pool's {ps}")
+        _page_size(cfg, cache, page_size)
     return move_columns(cache, *tree_columns(pos, a, cf, depth))
 
 

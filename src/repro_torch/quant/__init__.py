@@ -9,6 +9,7 @@ from .quantize import (
     to_bitplanes,
     unpack_int4,
 )
+from .pim import DENSE_KEYS, quantize_slices, should_quantize
 
-__all__ = ["QuantizedTensor", "quantize_symmetric", "dequantize", "pack_int4",
+__all__ = ["QuantizedTensor", "DENSE_KEYS", "should_quantize", "quantize_slices", "quantize_symmetric", "dequantize", "pack_int4",
            "unpack_int4", "to_bitplanes", "from_bitplanes"]

@@ -2,15 +2,16 @@
 continuous-batching engine over a paged KV cache.
 
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
-``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense
-family, with n-gram, tree and draft-model speculation, the prefix cache and
-the resilience tier, without a mesh).  ``quantize_tree``
+``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense,
+vlm and encdec families, the latter two with per-request extras; n-gram,
+tree and draft-model speculation for the dense family; the prefix cache and
+the resilience tier; no mesh).  ``quantize_tree``
 turns every large matmul weight into ``{"codes": int8, "scale": f32}``
 (int4: nibble-packed codes plus a marker leaf); at decode time each of
 those weights is streamed once per step by the ``pim_matvec`` kernel.
 
 ``ServingEngine.generate`` is the JAX package's one program
-(``_generate_body``) for the dense family: an eager prefill, then
+(``_generate_body``): an eager prefill, then
 ``n_new - 1`` runs of ONE step function, ``decode_and_emit`` (decode one
 token, sample the next, write it at the draw index, advance the position
 and the index).  The step works on static buffers (``DecodeState``), so on
@@ -57,11 +58,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.bridge import params_from_numpy
 from repro_torch.models import (common, decode_step, init_cache, init_paged_cache, prefill,
-                                 verify_hidden)
+                                 prefill_hidden, verify_hidden)
+from repro_torch.models.lm import cache_stacks
 from repro_torch.models.attention import CHUNKED_THRESHOLD, tree_tensors
 from repro_torch.models.common import dtype_of, resolve_device, unembed
-from repro_torch.quant import pack_int4, quantize_symmetric
+from repro_torch.quant import quantize_slices, should_quantize
 
 from .chaos import ChunkFault, EngineCrash
 from .prefix import PagePool, PrefixTrie, chunk_keys, extras_fingerprint
@@ -72,57 +75,18 @@ from .sampling import (TAG_TOKEN, TAG_WINDOW, draw_keys, fold_in, gumbel, prng_k
 from .speculative import (SpecConfig, SpecState, adaptive_k_host, as_spec, propose_first_host,
                           spec_chunk_step, spec_window)
 
-# Leaves that stay dense: norms/gains/biases/scalars, router (accuracy-
-# critical and tiny), conv kernels, SSM dynamics params.
-_DENSE_KEYS = {"ln", "ln1", "ln2", "ln3", "ln_f", "conv_w", "conv_b", "A_log",
-               "dt_bias", "D", "router", "gate_attn", "gate_mlp",
-               "bq", "bk", "bv", "scale"}
-
 # Metadata leaves — markers, not shipped storage: int4 packing flags and the
 # tensor-parallel shard tag.
 _MARKER_KEYS = ("nibbles", "nibbles_odd", "tp")
 
 
-def _should_quantize(name: str, leaf: torch.Tensor) -> bool:
-    if name in _DENSE_KEYS or leaf.dim() < 2:
-        return False
-    # embed tables are gathered, not matmul'd — keep dense (tied heads too).
-    if name == "embed":
-        return False
-    return leaf.shape[-1] >= 8 and leaf.shape[-2] >= 8
-
-
-def _quantize_slice(w: torch.Tensor, bits: int):
-    """One (K, N) weight's codes (int4: nibble-packed, a zero pad row first
-    where K is odd) and its (1, N) scales."""
-    q = quantize_symmetric(w.to(torch.float32), bits=bits, axis=-2)
-    codes = q.codes
-    if bits == 4:
-        if codes.shape[0] % 2:
-            codes = torch.cat([codes, torch.zeros_like(codes[:1])])
-        codes = pack_int4(codes)
-    return codes, q.scale
-
-
 def _quantize_leaf(leaf: torch.Tensor, bits: int):
     """Quantize a (..., K, N) leaf one (K, N) slice at a time along its
-    leading dims, into contiguous codes and scales made first: the scales
-    are per output column over K, so each slice is independent and the
-    result is the whole leaf's bit for bit, with one slice's f32 copy and
-    temporaries at a time (a layer of starcoder2-15b's ``gate`` is 0.6 GB
-    in f32, the stack 24 GB).  The leaf's strides do not matter: an untied
-    head is a transposed view."""
-    lead, (k, n) = leaf.shape[:-2], leaf.shape[-2:]
-    rows = k if bits != 4 else -(-k // 2)
-    codes = torch.empty(lead + (rows, n), dtype=torch.int8, device=leaf.device)
-    scale = torch.empty(lead + (1, n), dtype=torch.float32, device=leaf.device)
-    for idx in np.ndindex(*lead):
-        codes[idx], scale[idx] = _quantize_slice(leaf[idx], bits)
-    if bits != 4:
-        return {"codes": codes, "scale": scale}
-    marker = "nibbles_odd" if k % 2 else "nibbles"
-    return {"codes": codes, "scale": scale,
-            marker: torch.zeros(lead, dtype=torch.int8, device=leaf.device)}
+    leading dims (``quantize_slices``; a layer of starcoder2-15b's ``gate``
+    is 0.6 GB in f32, the stack 24 GB).  The leaf's strides do not matter:
+    an untied head is a transposed view."""
+    return quantize_slices(tuple(leaf.shape[:-2]), *leaf.shape[-2:], leaf.__getitem__, bits,
+                           leaf.device)
 
 
 def quantize_tree(params, bits: int = 8):
@@ -137,7 +101,7 @@ def quantize_tree(params, bits: int = 8):
     def conv(name, leaf):
         if isinstance(leaf, dict):
             return {k: conv(k, v) for k, v in leaf.items()}
-        if leaf is None or not _should_quantize(name, leaf):
+        if leaf is None or not should_quantize(name, leaf):
             return leaf
         return _quantize_leaf(leaf, bits)
 
@@ -193,13 +157,93 @@ def _tensors(tree):
             yield leaf
 
 
+def _tree_map(fn, tree):
+    """``fn`` of every leaf of a dict tree; None leaves stay None."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def extras_structure(extras):
+    """The tree structure of a request's extras (None, or nested keys): what
+    every request of one trace must share, as under ``jax.tree.structure``."""
+    if isinstance(extras, dict):
+        return tuple(sorted((k, extras_structure(v)) for k, v in extras.items()))
+    return None if extras is None else "leaf"
+
+
+def _extras_on(extras, device):
+    """Extras (a dict tree of tensors or numpy arrays) as tensors on
+    ``device``, in their own dtypes; None stays None."""
+    def conv(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        return params_from_numpy({"v": np.asarray(v)}, device)["v"]
+    return _tree_map(conv, extras)
+
+
+def _extras_key(extras) -> Optional[tuple]:
+    """What a captured step that reads static extras buffers is kept by: the
+    buffers' paths, shapes and dtypes (None without extras)."""
+    if extras is None:
+        return None
+    out = []
+
+    def walk(tree, path):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            elif v is not None:
+                out.append((path + (k,), tuple(v.shape), str(v.dtype)))
+    walk(extras, ())
+    return tuple(out)
+
+
+class ExtrasBuffers:
+    """Static extras buffers kept per ``_extras_key`` (a captured step reads
+    the memory it was captured on): ``get(extras)`` returns the buffers of
+    ``extras``' shapes and dtypes with ``lead`` dims first, made at first
+    use (zeros), or None for None."""
+
+    def __init__(self, device, lead=()):
+        self.device, self.lead = device, tuple(lead)
+        self._bufs: dict = {}
+
+    def get(self, extras) -> Optional[dict]:
+        if extras is None:
+            return None
+        meta = _extras_on(extras, "meta")  # shapes and torch dtypes, no data
+        key = _extras_key(meta)
+        if key not in self._bufs:
+            self._bufs[key] = _tree_map(
+                lambda v: torch.zeros(self.lead + tuple(v.shape), dtype=v.dtype,
+                                      device=self.device), meta)
+        return self._bufs[key]
+
+    def zero_(self) -> None:
+        for bufs in self._bufs.values():
+            for t in _tensors(bufs):
+                t.zero_()
+
+
+def _copy_tree(dst: dict, src: dict) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst``, in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_tree(dst[k], v)
+        elif v is not None:
+            dst[k].copy_(v)
+
+
 class DecodeState:
     """The static buffers of one batch's generation, in device memory that a
     captured step reads on every replay: the cache, the last token (B, 1)
     int32, the position and the draw index (0-d int64), each row's key of
     the token stream (B, 2), the temperature (0-d f32), the tokens emitted
-    so far (B, max_seq) int32 (column j holds draw j), and the last logits
-    (B, V)."""
+    so far (B, max_seq) int32 (column j holds draw j), the last logits
+    (B, V), and the batch's extras (``extras``: per shapes and dtypes, the
+    rows' image embeds or encoder output, which ``start`` copies in)."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_seq: int, device):
         def zeros(shape, dtype):
@@ -213,16 +257,21 @@ class DecodeState:
         self.temperature = zeros((), torch.float32)
         self.out = zeros((batch, max_seq), torch.int32)
         self.logits = zeros((batch, cfg.vocab), dtype_of(cfg.param_dtype))
+        self.extras = ExtrasBuffers(device)
 
     def start(self, params, cfg: ModelConfig, prompt: torch.Tensor, key, temperature,
-              *, greedy: bool, top_k: int) -> None:
-        """Zero the cache (a fresh ``init_cache``'s), prefill ``prompt``
-        (B, S) and emit draw 0 from its last logits; the position is then S
-        and the draw index 1.  ``key``: ``prng_key``'s argument, None for
-        ``PRNGKey(0)``'s key data."""
-        for leaf in self.cache["layers"].values():
+              *, greedy: bool, top_k: int, extras: Optional[dict] = None) -> None:
+        """Zero the cache (a fresh ``init_cache``'s), copy ``extras`` (each
+        leaf (B, ...)) into the static buffers of their shapes and dtypes,
+        prefill ``prompt`` (B, S) and emit draw 0 from its last logits; the
+        position is then S and the draw index 1.  ``key``: ``prng_key``'s
+        argument, None for ``PRNGKey(0)``'s key data."""
+        for leaf in _tensors(self.cache):
             leaf.zero_()
-        logits, _ = prefill(params, cfg, prompt, self.cache)
+        ex = self.extras.get(extras)
+        if ex is not None:
+            _copy_tree(ex, _extras_on(extras, prompt.device))
+        logits, _ = prefill(params, cfg, prompt, self.cache, ex)
         b, s = prompt.shape
         base = prng_key(0 if key is None else key, prompt.device)
         self.keys.copy_(row_keys(base, torch.arange(b, device=prompt.device), TAG_TOKEN))
@@ -246,12 +295,13 @@ def _emit(st: DecodeState, *, greedy: bool, top_k: int) -> None:
 
 
 def decode_and_emit(params, cfg: ModelConfig, st: DecodeState, *, greedy: bool,
-                    top_k: int) -> None:
+                    top_k: int, extras: Optional[dict] = None) -> None:
     """The step ``generate`` runs ``n_new - 1`` times: decode ``st.tok`` at
-    ``st.pos``, keep its logits, advance the position, then emit the next
-    draw.  It reads and writes only ``st``'s buffers and the parameters,
-    so a CUDA graph of it replays the whole step."""
-    logits, _ = decode_step(params, cfg, st.tok, st.cache, st.pos)
+    ``st.pos`` (with ``extras``, the batch's extras buffers of ``st``),
+    keep its logits, advance the position, then emit the next draw.  It
+    reads and writes only ``st``'s buffers and the parameters, so a CUDA
+    graph of it replays the whole step."""
+    logits, _ = decode_step(params, cfg, st.tok, st.cache, st.pos, extras)
     st.logits.copy_(logits[:, -1])
     st.pos += 1
     _emit(st, greedy=greedy, top_k=top_k)
@@ -260,7 +310,7 @@ def decode_and_emit(params, cfg: ModelConfig, st: DecodeState, *, greedy: bool,
 # Options of the JAX package's engines that the port does not run yet, and the
 # ROADMAP.md item (section 1) that brings each.
 _LATER = {"mesh": "item 7 (tensor-parallel decode)",
-          "extras": "item 5 (the vlm and encdec families)"}
+          "speculate": "item 5 (speculation on the vlm and encdec families)"}
 
 
 def _unported(**options) -> None:
@@ -272,8 +322,11 @@ def _unported(**options) -> None:
                 f"{name}= is not ported yet: ROADMAP.md section 1, {_LATER[name]}")
 
 
-def _spec_of(speculate) -> Optional[SpecConfig]:
-    """``speculate=`` as a SpecConfig (None: no speculation)."""
+def _spec_of(speculate, cfg: ModelConfig) -> Optional[SpecConfig]:
+    """``speculate=`` as a SpecConfig (None: no speculation); the port
+    speculates on the dense family only."""
+    if speculate is not None and cfg.family != "dense":
+        _unported(speculate=speculate)
     return None if speculate is None else as_spec(speculate)
 
 
@@ -396,8 +449,7 @@ class ServingEngine:
         self.graphs = CapturedSteps(self.device)
         self.spec_stats: Optional[dict] = None
 
-    def _check(self, prompt_tokens, n_new: int, extras):
-        _unported(extras=extras)
+    def _check(self, prompt_tokens, n_new: int):
         s = prompt_tokens.shape[1]
         if s + n_new > self.max_seq:
             raise ValueError(
@@ -412,21 +464,26 @@ class ServingEngine:
             self._states[batch] = DecodeState(self.cfg, batch, self.max_seq, self.device)
         return self._states[batch]
 
-    def step(self, batch: int, *, greedy: bool, top_k: int):
+    def step(self, batch: int, *, greedy: bool, top_k: int, extras: Optional[dict] = None):
         """The decode step of ``batch`` rows as a call with no arguments
         (``CapturedSteps.get``): ``decode_and_emit`` on the current
-        parameters, kept on the card per batch, sampling mode and dispatch
-        mode, one graph memory pool per batch's buffers.  Its warm-up writes
-        the buffers, which ``DecodeState.start`` resets."""
+        parameters and the batch's extras buffers of ``extras``' shapes and
+        dtypes, kept on the card per batch, sampling mode, extras shapes
+        and dtypes and dispatch mode, one graph memory pool per batch's
+        buffers.  Its warm-up writes the buffers, which
+        ``DecodeState.start`` resets."""
         top_k = 0 if greedy else int(top_k)
         st = self.state(batch)
+        ex = st.extras.get(extras)
         run = functools.partial(decode_and_emit, self.params, self.cfg, st,
-                                greedy=bool(greedy), top_k=top_k)
+                                greedy=bool(greedy), top_k=top_k,
+                                **({} if ex is None else {"extras": ex}))
 
         def reset():
             st.pos.zero_()
             st.idx.zero_()
-        return self.graphs.get(self._weights(), (batch, bool(greedy), top_k), batch, run, reset)
+        return self.graphs.get(self._weights(), (batch, bool(greedy), top_k, _extras_key(ex)),
+                               batch, run, reset)
 
     def _weights(self) -> dict:
         """Every parameter leaf a kept step may read, the draft's included:
@@ -520,8 +577,9 @@ class ServingEngine:
         decoding's; sampled ones are rejection-sampled (or typical-accepted)
         with ``draw_keys(key, row, window, TAG_WINDOW)``, as the JAX
         package draws them."""
-        prompt = self._check(prompt_tokens, n_new, extras)
-        spec = _spec_of(speculate)
+        prompt = self._check(prompt_tokens, n_new)
+        extras = _extras_on(extras, self.device)
+        spec = _spec_of(speculate, self.cfg)
         if spec is not None and spec.mode == "draft" and (
                 self.draft_params is None or self.draft_cfg is None):
             raise ValueError(_NO_DRAFT)
@@ -532,9 +590,10 @@ class ServingEngine:
         b = prompt.shape[0]
         if n_new == 0:
             return torch.zeros((b, 0), dtype=torch.int32, device=self.device)
-        step = self.step(b, greedy=greedy, top_k=top_k)
+        step = self.step(b, greedy=greedy, top_k=top_k, extras=extras)
         st = self.state(b)
-        st.start(self.params, self.cfg, prompt, key, temperature, greedy=greedy, top_k=top_k)
+        st.start(self.params, self.cfg, prompt, key, temperature, greedy=greedy, top_k=top_k,
+                 extras=extras)
         for _ in range(n_new - 1):
             step()
         return mask_after_stop(st.out[:, :n_new].clone(), stop_tokens, pad_id)
@@ -548,7 +607,8 @@ class ServingEngine:
         """The per-token loop: one eager ``decode_step`` per prompt AND per
         generated token, each sampled with ``draw_keys`` of the same
         ``(key, row, draw index)`` as ``generate`` — the parity oracle."""
-        prompt = self._check(prompt_tokens, n_new, extras)
+        prompt = self._check(prompt_tokens, n_new)
+        extras = _extras_on(extras, self.device)
         b, s = prompt.shape
         if n_new == 0:
             return torch.zeros((b, 0), dtype=torch.int32, device=self.device)
@@ -564,10 +624,10 @@ class ServingEngine:
         logits: Optional[torch.Tensor] = None
         for i in range(s):
             logits, cache = decode_step(self.params, self.cfg, prompt[:, i:i + 1],
-                                        cache, i)
+                                        cache, i, extras)
         out = [draw(logits, 0)]
         for j in range(n_new - 1):
-            logits, cache = decode_step(self.params, self.cfg, out[-1], cache, s + j)
+            logits, cache = decode_step(self.params, self.cfg, out[-1], cache, s + j, extras)
             out.append(draw(logits, j + 1))
         return mask_after_stop(torch.cat(out, dim=1), stop_tokens, pad_id)
 
@@ -579,8 +639,10 @@ class Request:
     ``rid`` keys the request's sampled draws (default: its index in the
     trace).  Under a ``ResiliencePolicy`` a request is not admitted before
     its ``arrival``, is shed from the queue past its ``deadline``, and the
-    lower its ``slo`` class the sooner it is shed; ``extras`` must be None
-    until the families that take them are ported."""
+    lower its ``slo`` class the sooner it is shed.  ``extras`` are the
+    request's own model inputs without a batch dim (the vlm's
+    ``image_embeds`` (N, D), the encdec's ``enc_out`` (F, D)); every request
+    of a trace shares one extras structure, or all pass None."""
 
     prompt: np.ndarray  # (len,) int32 token ids
     max_new: int  # emit at most this many tokens (>= 1)
@@ -593,26 +655,32 @@ class Request:
 
 
 def admit_prefill(params, cfg: ModelConfig, cache: dict, prompt: torch.Tensor,
-                  length, slot, pages: torch.Tensor, rid, key: torch.Tensor, temperature, *,
-                  greedy: bool, top_k: int) -> torch.Tensor:
+                  length, slot, pages: torch.Tensor, rid, key: torch.Tensor, temperature,
+                  extras: Optional[dict] = None, *, greedy: bool, top_k: int) -> torch.Tensor:
     """Admit one request (the JAX package's ``_admit_body``): a batch-1
     prefill of the page-padded ``prompt`` (1, S) straight into the slot's
-    pool pages, then draw 0 from the logits at the true prompt end with the
-    request's ``(rid, 0)`` key.  ``length`` and ``rid`` are ints or 0-d
-    int64 tensors on the prompt's device; with tensors nothing is read on
-    the host, so a CUDA graph of the admit replays for any of them.
-    Returns the token, a 0-d int32 tensor."""
-    logits, _ = prefill(params, cfg, prompt, cache, length=length, pages=pages, slot=slot)
+    pool pages, with the request's ``extras`` (each leaf (1, ...)), then
+    draw 0 from the logits at the true prompt end with the request's
+    ``(rid, 0)`` key; only that position is unembedded (an untied head as a
+    one-row linear), so no (S, vocab) logits or dequantized head are
+    formed.  ``length`` and ``rid`` are ints or 0-d int64 tensors on the
+    prompt's device; with tensors nothing is read on the host, so a CUDA
+    graph of the admit replays for any of them.  Returns the token, a 0-d
+    int32 tensor."""
+    x = prefill_hidden(params, cfg, prompt, cache, extras, length=length, pages=pages,
+                       slot=slot)
     at = torch.as_tensor(length, device=prompt.device).reshape(1) - 1
+    logits = unembed(x.index_select(1, at), params.get("head", params["embed"]))
     keys = None if greedy else draw_keys(
         key, torch.as_tensor(rid, device=prompt.device).reshape(1), 0, TAG_TOKEN)
-    return sample_rows(logits.index_select(1, at)[:, 0], keys, greedy=greedy,
-                       temperature=temperature, top_k=top_k)[0]
+    return sample_rows(logits[:, 0], keys, greedy=greedy, temperature=temperature,
+                       top_k=top_k)[0]
 
 
 def tail_verify(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
                 slot: torch.Tensor, rid: torch.Tensor, sample_at: torch.Tensor, key: torch.Tensor,
-                temperature, *, greedy: bool, top_k: int) -> torch.Tensor:
+                temperature, extras: Optional[dict] = None, *, greedy: bool,
+                top_k: int) -> torch.Tensor:
     """A cached admit's tail (the JAX package's ``_tail_verify_body``): ONE
     ``verify_step`` window over the unmatched tail of a prompt whose first
     pages the prefix cache aliased.  ``tokens`` (slots, T) is zero but for
@@ -621,29 +689,21 @@ def tail_verify(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, pos
     block-table row, so their window writes land in the trash page.  Draw 0
     comes from the logits at window position ``sample_at`` (the true
     prompt end) of row ``slot``, with the request's ``(rid, 0)`` key; only
-    that position is unembedded.  The index arguments are 0-d int64
-    tensors, read by device ops only.  Returns the token, a 0-d int32
-    tensor."""
-    x = verify_hidden(params, cfg, tokens, cache, pos)
+    that position is unembedded.  ``extras``: every slot's, each leaf
+    (slots, ...).  The index arguments are 0-d int64 tensors, read by
+    device ops only.  Returns the token, a 0-d int32 tensor."""
+    x = verify_hidden(params, cfg, tokens, cache, pos, extras)
     x = x.index_select(0, slot.reshape(1)).index_select(1, sample_at.reshape(1))  # (1, 1, D)
     logits = unembed(x, params.get("head", params["embed"]))[:, 0]
     keys = None if greedy else draw_keys(key, rid.reshape(1), 0, TAG_TOKEN)
     return sample_rows(logits, keys, greedy=greedy, temperature=temperature, top_k=top_k)[0]
 
 
-def _pool_leaf_paths(cfg: ModelConfig) -> tuple:
-    """(cache key, leading stack dims) of every page-pool subtree a
-    copy-on-write fork duplicates: the dense family's stacked layers, whose
-    leaves carry the page axis right after the layer axis (the engine runs
-    the dense family only)."""
-    return (("layers", 1),)
-
-
 def _copy_page(cache: dict, src: int, dst: int, keys) -> None:
     """Copy-on-write fork on the device: pool page ``src`` into ``dst``
-    across every paged leaf (``keys`` from ``_pool_leaf_paths``), in place."""
+    across every paged leaf (``keys`` from ``cache_stacks``), in place."""
     for name, lead in keys:
-        at = (slice(None),) * lead
+        at = (slice(None),) * len(lead)
         for leaf in cache[name].values():
             leaf[at + (dst,)] = leaf[at + (src,)]
 
@@ -652,14 +712,16 @@ class AdmitState:
     """The static buffers of one uncached admit of a prompt padded to
     ``spad`` positions: the prompt (1, spad) int32; its pages (spad /
     page_size,), the true length and the request id, int64 views of one
-    tensor ``ints`` the host fills with one copy; and the first token (0-d
-    int32), which the admit writes."""
+    tensor ``ints`` the host fills with one copy; the admitted slot (0-d
+    int64), whose row of the per-slot extras the prefill reads; and the
+    first token (0-d int32), which the admit writes."""
 
     def __init__(self, spad: int, page_size: int, device):
         n = spad // page_size
         self.prompt = torch.zeros((1, spad), dtype=torch.int32, device=device)
         self.ints = torch.zeros((n + 2,), dtype=torch.int64, device=device)
         self.pages, self.length, self.rid = self.ints[:n], self.ints[n], self.ints[n + 1]
+        self.slot = torch.zeros((), dtype=torch.int64, device=device)
         self.tok = torch.zeros((), dtype=torch.int32, device=device)
 
 
@@ -693,9 +755,11 @@ class ChunkState:
     reference drops), the window counter (B,) int64, the acceptance EMA
     (B,) f32 and the row key of its window stream (B, 2), and per window
     width k the round's emissions (chunk, B, k+1) int32 and counts (chunk,
-    B) int64.  With a draft model (``draft_cfg``), its pool ``dcache``: the
-    target pool's geometry, storage of its own, and the target's block
-    tables as the same tensor, so that one upload serves both pools."""
+    B) int64; the per-slot extras (``extras``: per shapes and dtypes, each
+    leaf (B, ...), a request's row written at its admit).  With a draft
+    model (``draft_cfg``), its pool ``dcache``: the target pool's geometry,
+    storage of its own, and the target's block tables as the same tensor,
+    so that one upload serves both pools."""
 
     def __init__(self, cfg: ModelConfig, slots: int, store_seq: int, num_pages: int,
                  page_size: int, chunk: int, device, draft_cfg: Optional[ModelConfig] = None):
@@ -703,6 +767,8 @@ class ChunkState:
             return torch.zeros(shape, dtype=dtype, device=device)
 
         self.cache = init_paged_cache(cfg, slots, store_seq, num_pages, page_size, device)
+        self.page_size = page_size
+        self.extras = ExtrasBuffers(device, lead=(slots,))
         self.draft_cfg = draft_cfg
         self.dcache = None
         if draft_cfg is not None:
@@ -737,8 +803,7 @@ class ChunkState:
 
     def admit(self, spad: int) -> AdmitState:
         if spad not in self._admits:
-            self._admits[spad] = AdmitState(spad, self.cache["layers"]["k"].shape[3],
-                                            self.tok.device)
+            self._admits[spad] = AdmitState(spad, self.page_size, self.tok.device)
         return self._admits[spad]
 
     def window(self, width: int) -> WindowState:
@@ -760,18 +825,19 @@ class ChunkState:
         """Every buffer as a fresh state holds it (the reference makes a fresh
         cache for every serve; a captured step must keep its memory)."""
         pools = (self.cache, self.dcache) if self.dcache is not None else (self.cache,)
-        for t in (*(t for c in pools for t in c["layers"].values()),
-                  self.cache["block_tables"], self.tok,
+        for t in (*(t for c in pools for t in _tensors(c)), self.tok,
                   self.pos, self.n_out, self.max_new, self.done, self.keys, self.base,
                   self.temperature, self.it, self.emits, self.lives, self.hist, self.wctr,
                   self.ema, self.wkeys, *(t for pair in self._spec.values() for t in pair)):
             t.zero_()
         for t in self._stops.values():
             t.fill_(-1)
+        self.extras.zero_()
 
 
 def decode_chunk_step(params, cfg: ModelConfig, st: ChunkState, stops: torch.Tensor, *,
-                      greedy: bool, top_k: int, pad_id: int) -> None:
+                      greedy: bool, top_k: int, pad_id: int,
+                      extras: Optional[dict] = None) -> None:
     """One iteration of the JAX package's decode chunk (``_decode_chunk_body``)
     on ``st``'s buffers: decode every slot's token at its own position
     (paged), draw the next with ``draw_keys(key, rid, n_out)``, write it
@@ -779,8 +845,9 @@ def decode_chunk_step(params, cfg: ModelConfig, st: ChunkState, stops: torch.Ten
     the round's emissions, advance the live slots' position and count, and
     mark done the slots that emitted a stop token (``stops``) or reached
     their budget.  Done and inactive slots keep stepping; their writes land
-    in their own pages or the trash page, and their emissions are masked."""
-    logits, _ = decode_step(params, cfg, st.tok, st.cache, st.pos)
+    in their own pages or the trash page, and their emissions are masked.
+    ``extras``: the per-slot extras buffers of ``st``."""
+    logits, _ = decode_step(params, cfg, st.tok, st.cache, st.pos, extras)
     keys = None if greedy else fold_in(st.keys, st.n_out)
     nxt = sample_rows(logits[:, -1], keys, greedy=greedy, temperature=st.temperature,
                       top_k=top_k)
@@ -798,32 +865,34 @@ def decode_chunk_step(params, cfg: ModelConfig, st: ChunkState, stops: torch.Ten
 
 
 def admit_miss(params, cfg: ModelConfig, st: ChunkState, a: AdmitState, *, greedy: bool,
-               top_k: int, draft_params=None) -> None:
+               top_k: int, draft_params=None, extras: Optional[dict] = None) -> None:
     """An uncached admit on static buffers: ``admit_prefill`` of ``a``'s
-    prompt into ``a``'s pages of ``st``'s pool, draw 0 with ``st``'s base
-    key and temperature, the token written to ``a.tok``.  With a draft
-    model (``draft_params``) the prompt is prefilled into the same page ids
-    of the draft pool too; the token always comes from the target."""
+    prompt into ``a``'s pages of ``st``'s pool, with row ``a.slot`` of the
+    per-slot ``extras`` (buffers of ``st``), draw 0 with ``st``'s base key
+    and temperature, the token written to ``a.tok``.  With a draft model
+    (``draft_params``) the prompt is prefilled into the same page ids of the
+    draft pool too; the token always comes from the target."""
+    ex = _tree_map(lambda t: t.index_select(0, a.slot.reshape(1)), extras)
     a.tok.copy_(admit_prefill(params, cfg, st.cache, a.prompt, a.length, None, a.pages, a.rid,
-                              st.base, st.temperature, greedy=greedy, top_k=top_k))
+                              st.base, st.temperature, ex, greedy=greedy, top_k=top_k))
     if draft_params is not None:
         prefill(draft_params, st.draft_cfg, a.prompt, st.dcache, length=a.length,
                 pages=a.pages)
 
 
 def admit_cached(params, cfg: ModelConfig, st: ChunkState, w: WindowState, *, greedy: bool,
-                 top_k: int) -> None:
+                 top_k: int, extras: Optional[dict] = None) -> None:
     """A cached admit on static buffers: ``tail_verify`` of ``w``'s window
     against ``st``'s pool through the block tables in ``st`` (every row but
-    the admitted slot's zeroed by the host), the token written to
-    ``w.tok``."""
+    the admitted slot's zeroed by the host), with the per-slot ``extras``,
+    the token written to ``w.tok``."""
     w.tok.copy_(tail_verify(params, cfg, st.cache, w.tokens, w.pos, w.slot, w.rid, w.sample_at,
-                            st.base, st.temperature, greedy=greedy, top_k=top_k))
+                            st.base, st.temperature, extras, greedy=greedy, top_k=top_k))
 
 
 # Families whose admit prefill and tail window compute the same function of
 # the prompt, so a prefix-cache hit is the answer a miss would give (the JAX
-# package's ``_PREFIX_FAMILIES``; the port runs the dense family).
+# package's ``_PREFIX_FAMILIES``).
 _PREFIX_FAMILIES = ("dense", "vlm", "encdec")
 # The most admit graphs (uncached admits per padded prompt length, cached
 # admits per tail window width) an engine keeps on the card; the least
@@ -834,8 +903,11 @@ MAX_ADMIT_GRAPHS = 64
 
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
-    package's, for the dense family, with n-gram, tree and draft-model
-    speculation, the prefix cache and the resilience tier, without a mesh).
+    package's, for the dense, vlm and encdec families, with n-gram, tree and
+    draft-model speculation for the dense one, the prefix cache and the
+    resilience tier, without a mesh).  A request's ``extras`` are written
+    into its slot's row of the per-slot buffers at its admit
+    (``_set_slot_extras``), which the chunk steps and admits read.
 
     ``slots`` is the decode batch width; ``num_pages`` bounds the cache
     (pages of ``page_size`` tokens, page 0 the trash page; default: every
@@ -899,7 +971,7 @@ class ContinuousBatchingEngine:
                  mesh=None, speculate=None, draft_cfg: Optional[ModelConfig] = None,
                  draft_params=None, draft_pim_bits: int = 0, clock=None,
                  prefix_cache: bool = False, device=None):
-        self.spec = _spec_of(speculate)
+        self.spec = _spec_of(speculate, cfg)
         self._draft_mode = self.spec is not None and self.spec.mode == "draft"
         if self._draft_mode and (draft_params is None or draft_cfg is None):
             raise ValueError(_NO_DRAFT)
@@ -935,6 +1007,8 @@ class ContinuousBatchingEngine:
         self._rng = (np.random.default_rng(page_alloc_seed)
                      if page_alloc_seed is not None else None)
         self._state: Optional[ChunkState] = None
+        self._slot_ex: Optional[dict] = None  # the serve's per-slot extras buffers
+        self._ex_key: Optional[tuple] = None  # their leaves' shapes and dtypes
         self.graphs = CapturedSteps(self.device, capacity=MAX_ADMIT_GRAPHS)
         # Only families whose tail window computes what their prefill does
         # share pages; for the others the cache stays off.
@@ -1016,8 +1090,10 @@ class ContinuousBatchingEngine:
         st = self._state
         top_k = 0 if greedy else int(top_k)
         run = functools.partial(decode_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
-                                greedy=bool(greedy), top_k=top_k, pad_id=self.pad_id)
-        return self._kept((self.slots, bool(greedy), top_k, n_stops), run, self._round_reset)
+                                greedy=bool(greedy), top_k=top_k, pad_id=self.pad_id,
+                                extras=self._slot_ex)
+        return self._kept((self.slots, bool(greedy), top_k, n_stops, self._ex_key), run,
+                          self._round_reset)
 
     def spec_chunk(self, k: int, n_stops: int, *, greedy: bool, top_k: int):
         """One iteration of a round of width-``k`` windows (tree windows of
@@ -1049,7 +1125,7 @@ class ContinuousBatchingEngine:
         a = st.admit(spad)
         top_k = 0 if greedy else int(top_k)
         run = functools.partial(admit_miss, self.params, self.cfg, st, a, greedy=bool(greedy),
-                                top_k=top_k,
+                                top_k=top_k, extras=self._slot_ex,
                                 draft_params=self.draft_params if self._draft_mode else None)
         if spad > CHUNKED_THRESHOLD:
             return run
@@ -1057,7 +1133,8 @@ class ContinuousBatchingEngine:
         def reset():
             a.ints.zero_()
             a.length.fill_(1)
-        return self._kept(("admit", spad, bool(greedy), top_k), run, reset, bounded=True)
+        return self._kept(("admit", spad, bool(greedy), top_k, self._ex_key), run, reset,
+                          bounded=True)
 
     def verify_window(self, width: int, *, greedy: bool, top_k: int):
         """The cached admit of a tail window ``width`` positions wide:
@@ -1068,7 +1145,7 @@ class ContinuousBatchingEngine:
         w = st.window(width)
         top_k = 0 if greedy else int(top_k)
         run = functools.partial(admit_cached, self.params, self.cfg, st, w, greedy=bool(greedy),
-                                top_k=top_k)
+                                top_k=top_k, extras=self._slot_ex)
         if width > CHUNKED_THRESHOLD:
             return run
 
@@ -1076,7 +1153,8 @@ class ContinuousBatchingEngine:
             w.ints.zero_()
             w.tokens.zero_()
             st.cache["block_tables"].zero_()
-        return self._kept(("window", width, bool(greedy), top_k), run, reset, bounded=True)
+        return self._kept(("window", width, bool(greedy), top_k, self._ex_key), run, reset,
+                          bounded=True)
 
     # ------------------------------------------------------------ lifecycle --
     @torch.inference_mode()
@@ -1088,6 +1166,10 @@ class ContinuousBatchingEngine:
                                      self.draft_cfg if self._draft_mode else None)
         else:
             self._state.zero_()
+        # the per-slot extras of the trace's structure, zeroed: a request's
+        # row is written at its admit (``_set_slot_extras``)
+        self._slot_ex = self._state.extras.get(requests[0].extras if len(requests) else None)
+        self._ex_key = _extras_key(self._slot_ex)
         # The trie's pages are valid against this serve's pool only, so both
         # start afresh: prefixes are shared within one serve's trace.
         self._trie = PrefixTrie() if self._prefix_on else None
@@ -1118,6 +1200,14 @@ class ContinuousBatchingEngine:
         self._seq = 0
         self._outputs = [[] for _ in requests]
         self._queue = deque(range(len(requests)))
+
+    def _set_slot_extras(self, slot: int, extras: Optional[dict]) -> None:
+        """Write a request's extras into its slot's row of the per-slot
+        buffers that the chunk steps and admits read (in place)."""
+        if extras is None:
+            return
+        _copy_tree(_tree_map(lambda t: t[slot], self._slot_ex),
+                   _extras_on(extras, self.device))
 
     def _prefix_probe(self, req, resume) -> tuple:
         """(chunk keys, extras fingerprint, matched trie pages) of a fresh
@@ -1153,16 +1243,17 @@ class ContinuousBatchingEngine:
         bt[slot] = self._bt[slot]
         return bt
 
-    def _admit_uncached(self, seq: np.ndarray, spad: int, pages: list[int], rid: int,
+    def _admit_uncached(self, slot: int, seq: np.ndarray, spad: int, pages: list[int], rid: int,
                         greedy: bool, top_k: int) -> int:
         """The miss: ``admit_step``'s replay (or run) on the prompt padded to
-        ``spad`` and its pages; returns draw 0."""
+        ``spad``, its pages and the slot's extras; returns draw 0."""
         step = self.admit_step(spad, greedy=greedy, top_k=top_k)
         a = self._state.admit(spad)
         prompt = np.zeros((1, spad), np.int32)
         prompt[0, :len(seq)] = seq
         a.prompt.copy_(torch.from_numpy(prompt))
         a.ints.copy_(torch.from_numpy(np.array([*pages, len(seq), rid], np.int64)))
+        a.slot.fill_(slot)
         step()
         return int(a.tok)
 
@@ -1221,6 +1312,7 @@ class ContinuousBatchingEngine:
         n = len(seq)  # length + m - 1 when resuming
         spad = self._spad(n)
         total = spad // ps
+        self._set_slot_extras(slot, req.extras)
         keys, fp, matched = self._prefix_probe(req, resume)
         cow = False
         if matched and len(matched) == total and n == total * ps:
@@ -1229,7 +1321,7 @@ class ContinuousBatchingEngine:
             for p in matched:
                 self._pool.acquire(p)
             fork = self._pool.alloc(1)[0]
-            _copy_page(self._state.cache, matched[-1], fork, _pool_leaf_paths(self.cfg))
+            _copy_page(self._state.cache, matched[-1], fork, cache_stacks(self.cfg))
             self._pool.release(matched[-1])
             pages = matched[:-1] + [fork]
             tail_start = n - 1
@@ -1250,7 +1342,7 @@ class ContinuousBatchingEngine:
             self.prefix_hits += 1
             self.prefix_hit_tokens += tail_start
         else:
-            tok0 = self._admit_uncached(seq, spad, pages, rid, greedy, top_k)
+            tok0 = self._admit_uncached(slot, seq, spad, pages, rid, greedy, top_k)
             if self._prefix_on and resume is None:
                 # a miss's full pages hold final positions (decode writes
                 # start at L) computed as any later miss would compute them
@@ -1489,10 +1581,10 @@ class ContinuousBatchingEngine:
         if chaos is not None and policy is None:
             policy = ResiliencePolicy()
         hardened = policy is not None
+        ex_struct = extras_structure(requests[0].extras) if len(requests) else None
         records = [RequestRecord() for _ in requests]
         rejected_upfront: set[int] = set()
         for i, r in enumerate(requests):
-            _unported(extras=r.extras)
             bad = None
             if len(r.prompt) < 1 or r.max_new < 1:
                 bad = "requests need len(prompt) >= 1, max_new >= 1"
@@ -1504,6 +1596,10 @@ class ContinuousBatchingEngine:
                     raise ValueError(bad)
                 records[i].status, records[i].reason = "rejected", bad
                 rejected_upfront.add(i)
+                continue
+            if extras_structure(r.extras) != ex_struct:
+                raise ValueError("all requests in a trace must share the same extras structure "
+                                 "(the chunk step is one captured program)")
         base = prng_key(0 if key is None else key, self.device)
         greedy, top_k = bool(greedy), 0 if greedy else int(top_k)
         n_stops = max((len(r.stop_tokens) for r in requests), default=0)
@@ -1889,12 +1985,13 @@ class ContinuousBatchingEngine:
                  stop_tokens: Sequence[int] = ()) -> torch.Tensor:
         """The fixed-batch API over the scheduler: each row of
         ``prompt_tokens`` (B, S) becomes a Request; rows that retire early
-        are padded with ``pad_id``.  Returns (B, n_new) int32 on the
-        engine's device."""
-        _unported(extras=extras)
+        are padded with ``pad_id``.  Row i of ``extras`` (each leaf (B, ...),
+        batched as ``ServingEngine.generate``'s) becomes request i's.
+        Returns (B, n_new) int32 on the engine's device."""
         prompts = np.asarray(torch.as_tensor(prompt_tokens).cpu(), np.int32)
-        reqs = [Request(prompt=row, max_new=int(n_new), stop_tokens=tuple(stop_tokens))
-                for row in prompts]
+        reqs = [Request(prompt=row, max_new=int(n_new), stop_tokens=tuple(stop_tokens),
+                        extras=_tree_map(lambda a: a[i], extras))
+                for i, row in enumerate(prompts)]
         outs = self.serve(reqs, greedy=greedy, temperature=temperature, top_k=top_k, key=key)
         full = np.full((len(reqs), int(n_new)), self.pad_id, np.int32)
         for i, o in enumerate(outs):

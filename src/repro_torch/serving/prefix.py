@@ -31,6 +31,7 @@ from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 
 def _leaves(tree):
@@ -52,14 +53,23 @@ def extras_fingerprint(extras) -> Optional[str]:
     """Digest of a request's per-slot conditioning (a plain dict of arrays),
     the root its chunk chains hang from; ``None`` extras share the ``None``
     root.  Each leaf's shape, dtype and bytes are hashed in the JAX
-    package's leaf order."""
+    package's leaf order; a tensor (on any device) as the numpy array of
+    its values, a bf16 one under the dtype name ``bfloat16``, as a JAX bf16
+    array hashes."""
     if extras is None:
         return None
     h = hashlib.sha1()
     for leaf in _leaves(extras):
-        a = np.asarray(leaf)
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach().cpu()
+            bf16 = t.dtype == torch.bfloat16
+            a = (t.view(torch.int16) if bf16 else t).numpy()
+            dtype = "bfloat16" if bf16 else str(a.dtype)
+        else:
+            a = np.asarray(leaf)
+            dtype = str(a.dtype)
         h.update(str(a.shape).encode())
-        h.update(str(a.dtype).encode())
+        h.update(dtype.encode())
         h.update(a.tobytes())
     return h.hexdigest()
 

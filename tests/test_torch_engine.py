@@ -83,10 +83,12 @@ def test_generate_guards():
         eng.generate(toks, n_new=5)
     with pytest.raises(ValueError, match="max_seq"):
         eng.generate_reference(toks, n_new=5)
-    with pytest.raises(NotImplementedError):
-        eng.generate(toks, n_new=2, extras={"image": None})
-    with pytest.raises(NotImplementedError):
-        eng.generate_reference(toks, n_new=2, extras={"image": None})
+    # the dense family ignores extras, as the JAX package's dense branches do
+    image = {"image": np.ones((2, 3), np.float32)}
+    assert torch.equal(eng.generate(toks[:, :4], n_new=2, extras=image),
+                       eng.generate(toks[:, :4], n_new=2))
+    assert torch.equal(eng.generate_reference(toks[:, :4], n_new=2, extras=image),
+                       eng.generate_reference(toks[:, :4], n_new=2))
     with pytest.raises(ValueError, match="draft_cfg/draft_params"):
         eng.generate(toks, n_new=2, speculate=SpecConfig(mode="draft"))
     tree = eng.generate(toks[:, :4], n_new=2, speculate=SpecConfig(tree_fan=2))

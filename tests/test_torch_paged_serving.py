@@ -295,10 +295,12 @@ def test_guards():
                    dict(draft_cfg=tcfg, draft_params=tparams,
                         speculate=SpecConfig(k=3, mode="draft"))):
         ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=16, device="cpu", **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.serve([Request(prompt=p, max_new=2, extras={"image": np.zeros(3)})])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate(torch.from_numpy(p)[None], 2, extras={"image": None})
+    # the dense family ignores extras, as the JAX package's dense branches do
+    plain = eng.serve([Request(prompt=p, max_new=2)])
+    with_image = eng.serve([Request(prompt=p, max_new=2, extras={"image": np.zeros(3)})])
+    assert all(np.array_equal(a, b) for a, b in zip(plain, with_image))
+    assert torch.equal(eng.generate(torch.from_numpy(p)[None], 2, extras={"image": None}),
+                       eng.generate(torch.from_numpy(p)[None], 2))
 
 
 def test_long_admit_goes_through_flash_attention(monkeypatch):

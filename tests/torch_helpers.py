@@ -60,6 +60,46 @@ def reduced_model(seed=0, arch=ARCH, **overrides):
     return jcfg, jparams, tcfg, params_from_numpy(to_numpy(jparams), CPU)
 
 
+VLM, ENCDEC = "llama-3.2-vision-90b", "seamless-m4t-medium"
+GATE = 0.5  # the vlm's planted gates: the reference's init (0) makes the image inert
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_cross_params(seed, jcfg, gate):
+    """The JAX package's params of a vlm or encdec config as numpy, the vlm's
+    cross-block gates set to ``gate`` (tanh(0) = 0 would make its cross
+    blocks pass x through whatever the image)."""
+    tree = jax.tree.map(np.array, jax_init_params(jcfg, jax.random.PRNGKey(seed)))
+    if jcfg.family == "vlm":
+        for name in ("gate_attn", "gate_mlp"):
+            tree["groups"]["cross"][name][...] = gate
+    return tree
+
+
+def cross_model(arch, seed=0, gate=GATE, **overrides):
+    """``reduced_model`` for the vlm and encdec configs: (jax cfg, jax params,
+    port cfg, port params on the CPU), the vlm's gates planted at ``gate``
+    in the numpy tree both packages take."""
+    jcfg, tcfg = reduced_pair(arch, **overrides)
+    tree = _jax_cross_params(seed, jcfg.replace(kv_cache_bits=16), gate)
+    return (jcfg, jax.tree.map(jax.numpy.asarray, tree), tcfg, params_from_numpy(tree, CPU))
+
+
+def cross_extras(jcfg, jparams, batch, seed=2):
+    """Seeded per-row extras of a reduced vlm or encdec config as numpy: the
+    vlm's image embeds (batch, n_image_tokens, d), or the encdec's encoder
+    output of seeded frames (batch, n_frames, d), encoded by the JAX
+    package."""
+    rng = np.random.default_rng(seed)
+    if jcfg.family == "vlm":
+        return {"image_embeds": rng.standard_normal(
+            (batch, jcfg.vision.n_image_tokens, jcfg.d_model)).astype(np.float32)}
+    from repro.models import encode as jax_encode
+
+    frames = rng.standard_normal((batch, jcfg.audio.n_frames, jcfg.d_model)).astype(np.float32)
+    return {"enc_out": np.array(jax_encode(jparams, jcfg, jax.numpy.asarray(frames)))}
+
+
 def prompt(batch, seq, vocab, seed=1):
     return np.random.default_rng(seed).integers(0, vocab, (batch, seq), dtype=np.int32)
 
@@ -119,15 +159,18 @@ def serve_events(report):
             for rec in report.records]
 
 
-def serve_deciding(params, cfg, prompts, got, mode, key):
+def serve_deciding(params, cfg, prompts, got, mode, key, extras=None):
     """deciding(r, j): the port's values whose argmax chose token j of request
-    r (rid r) after its prompt and first j tokens, from a dense prefill: the
-    logits, or under sampling (``mode``) the warped logits plus that draw's
-    gumbel noise from ``key``."""
+    r (rid r) after its prompt and first j tokens, from a dense prefill (with
+    ``extras[r]``, the request's numpy extras, where given): the logits, or
+    under sampling (``mode``) the warped logits plus that draw's gumbel noise
+    from ``key``."""
     def at(r, j):
         seq = np.concatenate([prompts[r], np.asarray(got[r][:j], np.int32)])[None]
+        ex = None if extras is None else {k: torch.from_numpy(v[None])
+                                          for k, v in extras[r].items()}
         logits, _ = prefill(params, cfg, torch.from_numpy(seq),
-                            init_cache(cfg, 1, seq.shape[1], CPU))
+                            init_cache(cfg, 1, seq.shape[1], CPU), ex)
         lg = logits[0, -1:].float()
         if mode.get("greedy", True):
             return lg[0].numpy()
