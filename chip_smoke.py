@@ -164,7 +164,8 @@ Phases:
    loop of the same step function (``decode_and_emit``) from the same
    prefill, tokens and last-step logits (``torch.equal``); sampled tokens
    must differ from greedy ones; (c) one torch.profiler session
-   (``repro_torch.tracing``) traces one replay of each captured step:
+   (``repro_torch.tracing``, which reads the session's events from the
+   profiler's results, no Chrome trace) traces one replay of each captured step:
    exactly 7 x 28 ``pim_matvec`` kernels, no ``flash_attention`` kernel
    and no host operator inside it; and the counted generations of phases 3
    and 7, whose tokens must equal those phases' (``check_counted``); (d) after a
@@ -176,8 +177,9 @@ Phases:
    with the SM clock after each round, and the device-busy share of a
    captured step (``tracing.busy_share``: the device busy time of its
    traced replay over the median host-clock step of those rounds).
-9. continuous batching (run after phase 7; its counted serves are windows
-   of phase 8's profiler session, read after it): (a) a staggered trace of
+9. continuous batching (run after phase 7; its counted long serve and two
+   traced steps are windows of phase 8's profiler session, read after
+   it): (a) a staggered trace of
    ten seeded requests (prompts of 17-300 tokens, no page multiple; 8-64
    new tokens; two stop at a token first emitted mid-chunk in their solo
    run) on 4 slots of 16-token pages, chunk 8, 512 positions, int8 weights,
@@ -190,14 +192,14 @@ Phases:
    wrote, ``torch.equal``); each request's tokens
    against its solo batch-1 ``ServingEngine.generate`` with a first
    divergence only where the dense top-2 logit gap is within PAGED_BAR, and
-   the traced ``pim_matvec`` kernels of the counted serve 196 x
-   ``decode_chunk_iters`` (the counters' capture x replays account equal to
-   them); (b) the same trace on a pool small enough that ``_top_up``
+   the counted serve's ``pim_matvec`` launches by the counters (capture x
+   replays) 196 x ``decode_chunk_iters``, its tokens (a)'s; (b) the same trace on a pool small enough that ``_top_up``
    preempts: preemptions, and tokens ``torch.equal`` to (a)'s; (c) sampled
    (SAMPLED): the same tokens at chunk 3 as at chunk 8, request 0 against
    the dense engine's sampled row 0 within PAGED_BAR over the temperature;
    (d) phase 7's long prompt beside a short one on 2 slots: exactly 28
-   ``flash_attention`` launches, all on a bf16 q, at the long admit, and
+   ``flash_attention`` launches, all on a bf16 q, at the long admit (the
+   counted serve traced, the counters' account equal to the trace), and
    tokens against phase 7's dense long path (margin-aware; that admit,
    past CHUNKED_THRESHOLD, runs eagerly); (e) in SERVE_ROUNDS alternating
    rounds of the captured and the eager serve: chunk step ms an iteration
@@ -211,8 +213,8 @@ Phases:
    must change (a)'s eager serve and fail the comparison with the dense
    runs at PAGED_BAR (the sound runs' largest gap and the fault's gaps are
    printed beside the bar).
-10. the shared-prefix serve (its counted serve a window of phase 8's
-   profiler session, like phase 9's): ``prefix_cache=True`` on 12 seeded
+10. the shared-prefix serve (its counted serve read by the counters, outside
+   phase 8's profiler session): ``prefix_cache=True`` on 12 seeded
    requests (PREFIX_TRACE: 8 share a 512-token system prompt, each with a
    tail of its own; 2 repeat one page-aligned 256-token prompt, so the
    second is a full hit and forks its last page copy-on-write; 2 unrelated)
@@ -237,14 +239,15 @@ Phases:
    bytes of another live slot's pages where the sound engine's never do;
    (f) in PREFIX_ROUNDS alternating rounds of the cached and the uncached
    captured serve: tokens/s, host ms a round outside the chunk steps, hit
-   and miss admit ms; (g) the counted serve's traced ``pim_matvec`` kernels
-   196 x (chunk iterations + full-hit windows), whose 4 rows go through it;
+   and miss admit ms; (g) the counted serve's ``pim_matvec`` launches by the
+   counters 196 x (chunk iterations + full-hit windows), whose 4 rows go
+   through it, its tokens (a)'s;
    (h) for three hits, the first token's logits through the tail window,
    through the request's own miss prefill and through a prefill with f32
    activations: their largest and RMS differences (the window's top 8
    within HIT_BAR of the f32 prefill's).
-11. the resilience tier on phase 9's engine and trace (its counted serve a
-   window of phase 8's profiler session): (a) a default ``ResiliencePolicy``
+11. the resilience tier on phase 9's engine and trace (its counted serve read
+   by the counters, outside phase 8's profiler session): (a) a default ``ResiliencePolicy``
    and no chaos gives the no-policy serve (tokens ``torch.equal``; events
    with their times and round counters equal under a ``VirtualClock``);
    (b) scripted chunk faults, stragglers and squeezes, greedy (CHAOS_SCRIPTED),
@@ -271,8 +274,8 @@ Phases:
    with no policy, with per-round snapshots in memory and to disk (fsync),
    and sampled undisturbed against combined chaos; the crash's recovery
    cost (resumed admits' ms, extra prefill tokens); the counted ladder
-   serve's traced ``pim_matvec`` kernels 196 x ``decode_chunk_iters``,
-   halved rounds included.
+   serve's ``pim_matvec`` launches by the counters 196 x
+   ``decode_chunk_iters``, halved rounds included, its tokens phase 9's.
 12. n-gram speculative decoding at k = SPEC_K (after phase 11; its launches
    come from the counters: each captured window's launches read around its
    capture, times its replays): (a) the fixed engine on phase 3's 4 x 128
@@ -421,8 +424,8 @@ Phases:
    at a time (``quantized_params``; the vlm at CROSS_VLM_GROUPS of its 20
    groups, its cross blocks' gates planted in CROSS_GATES), seeded extras
    (the vlm's image embeds, the encdec's frames through ``encode`` on the
-   card): (a) a captured ``generate`` on 4 x 128 prompts, 32 new, greedy
-   and sampled, ``torch.equal`` to the eager loop; (b) as phase 16 (b), over
+   card): (a) a captured ``generate`` on 4 x 128 prompts, 32 new,
+   greedy and sampled, ``torch.equal`` to the eager loop; (b) as phase 16 (b), over
    (a)'s first CROSS_CHECK_NEW greedy tokens, against the overlay path
    (the vlm's run eagerly: a captured overlay step would keep its
    dequantized head) within CROSS_OVERLAY_TOL, which a planted fault
@@ -435,8 +438,10 @@ Phases:
    a cross block's K and V and the encoder see a row per key, ``x @
    dq(w)``), and none in the encoder pass or the cross K/V, by the
    counters; (e) the continuous engine (``prefix_cache=True``) on
-   CROSS_TRACE over 2 slots: captured ``torch.equal`` to ``EagerEngine``,
-   each miss ``torch.equal`` to itself served alone on the same geometry,
+   CROSS_TRACE over 2 slots: captured ``torch.equal`` to ``EagerEngine``
+   on the trace's first CROSS_EAGER requests (the hit among them; the
+   counted serve too), each miss ``torch.equal`` to itself served alone on
+   the same geometry,
    each request against its solo ``generate`` margin-aware at the family's
    CROSS_SOLO_BARS (the encdec's PAGED_BAR, the hit HIT_BAR; the vlm's
    from its recorded sound divergences), one prefix hit under the same extras and
@@ -452,9 +457,42 @@ Phases:
    at the config's shapes, (d, CROSS_SMALL_N) and the head's (d, vocab),
    with the head's last CROSS_TAIL columns checked alone and a planted
    fault (those columns zeroed) caught, and where the head is chunked the
-   dropped-chunk fault.  Phase 13 (c)'s sampled, preempted and crashed
-   draft serves run the trace's first 4 requests to make room for it.
-   Every phase prints a ``wall:`` line, the run's seconds at its start.
+   dropped-chunk fault; then speculation on the same int8 tree, every
+   window at most 8 rows (``pim_matvec``): (i) the fixed engine at 1 x 128,
+   CROSS_SPEC_NEW new, n-gram k = 4 (5-row windows), greedy and sampled,
+   captured ``torch.equal`` to an eager loop of windows (over the first
+   CROSS_SPEC_EAGER_NEW tokens, as in (k)), greedy against
+   plain batch-1 decoding margin-aware at the family's CROSS_SPEC_BARS
+   (the encdec's HIT_BAR, the count beyond PAGED_BAR beside it; the vlm's
+   0.75), 529 / 109 ``pim_matvec`` a window by the counters (on the short
+   captured run); (j) the int8 tree as its own draft at k = 4,
+   window by window: every window accepts all it may, or each rejection
+   sits at a plain top-2 gap within the bar; (k + 2) x 529 / 109 launches
+   a window; (k) tree windows ``SpecConfig(k=3, tree_fan=2)`` (7 rows):
+   captured ``torch.equal`` to eager, against plain at the bar, fan 1 equal
+   to linear k = 3, 529 / 109 a window; (l) phase 14 (b)'s planted chains
+   (``PlantedChains``) at fan 2 x depth 3 on a dense store and a paged pool
+   of CROSS_PLANT_PS-token pages under a shuffled block table, every K/V
+   stack's lead dims (the vlm's ``groups_self`` two), the continuation and
+   the late relocation held at CROSS_PLANT_BARS; (m) the continuous engine
+   on (e)'s CROSS_SPEC_REQUESTS (one prompt: a miss, its prefix hit, and a
+   miss under other extras admitted into a freed slot) at
+   CROSS_SPEC_SERVE_NEW new, with
+   n-gram windows of k = 3 (2 x 4 rows), greedy and sampled, then tree
+   windows of fan 2 x depth 1 (2 x 3 rows), greedy: captured
+   ``torch.equal`` to ``EagerEngine``, greedy against each request's solo
+   run at CROSS_SOLO_BARS, the launches counted, and under n-gram windows
+   ``admits_into_next_slot`` and ``stale_extras`` caught;
+   (n) device ms of the batch-1 plain step and of the n-gram, self-draft and
+   tree windows (CUDA events, alternating rounds), and with the tokens a
+   window emitted in (i)-(k), batch-1 tokens/s over plain.  Phase 13 (c)'s sampled,
+   preempted and crashed draft serves run the trace's first 4 requests to
+   make room for it.  Every phase prints a ``wall:`` line, the run's
+   seconds at its start, and phase 8 the seconds of its sections, its
+   profiler session's stages among them.
+
+``python3 chip_smoke.py --overlay-depths`` runs phase 17 (b) for the vlm at
+1, 4 and 16 groups.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -749,8 +787,8 @@ def main() -> int:
 
     wall("phase 9")
     # ---- 9. continuous batching on the paged cache ---------------------------------
-    # Its counted serves are windows of phase 8's profiler session, the run's
-    # only one: ``ServingPhase.finish`` reads them after it.
+    # Its counted long serve and two steps are windows of phase 8's profiler
+    # session, the run's only one: ``ServingPhase.finish`` reads them after it.
     gen_serve = torch.Generator(device=dev).manual_seed(SEED + 6)
     serving = ServingPhase(cfg, eng8, long_eng, long_prompt, long_toks, gen_serve)
     serve_windows = serving.run()
@@ -758,12 +796,12 @@ def main() -> int:
     wall("phase 10")
     # ---- 10. the shared-prefix serve -----------------------------------------------
     prefix_phase = PrefixPhase(cfg, eng8.params, dev)
-    serve_windows += prefix_phase.run()
+    prefix_phase.run()
 
     wall("phase 11")
     # ---- 11. the resilience tier -----------------------------------------------------
     resilience = ResiliencePhase(cfg, serving, prefix_phase)
-    serve_windows += resilience.run()
+    resilience.run()
 
     wall("phase 12")
     # ---- 12. n-gram speculative decoding ---------------------------------------------
@@ -784,8 +822,7 @@ def main() -> int:
         cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls,
         {"int8": (graphs8, toks, N_NEW), "int4": (graphs4, toks4, N_NEW_INT4),
          "long": (graphs_long, long_toks, LONG_NEW)}, serve_windows)
-    served = {**serving.finish(traced), **prefix_phase.finish(traced),
-              **resilience.finish(traced)}
+    served = {**serving.finish(traced), **prefix_phase.finish(), **resilience.finish()}
     resumed_flash = resilience.long_resumed_flash
     # phase 16 (h)'s inputs: the int8 tree, phase 9's trace and its bf16-cache tokens
     kv_inputs = (eng8.params, serving.reqs, serving.out, prompt)
@@ -2187,7 +2224,6 @@ KERNEL_FNS = (pim_matvec, pim_matmul, bitplane_matmul, fold_reduce, flash_attent
 KERNEL_TAGS = {"pim_matvec": "pim_matvec_kernel", "pim_matmul": "pim_matmul_",
                "bitplane_matmul": "bitplane_matmul_", "fold_reduce": "fold_reduce_kernel",
                "flash_attention": "flash_attn_"}
-TRACE = Path(__file__).resolve().parent / "build" / "traces" / "segments.json"
 
 
 def launch_counts():
@@ -2282,6 +2318,17 @@ def counted_generation(graphs, generate, out):
     def run():
         out["tokens"], out["counters"], out["counters_as"] = counted_launches(graphs, generate)
     return run
+
+
+def check_counters(label, out, toks, want):
+    """``check_counted`` for a counted generation run outside the profiler
+    session: the counters' account must be ``want`` and the tokens
+    ``toks``."""
+    check(out["counters"] == want, f"{label}: the counters give {out['counters']}, expected "
+          f"{want} ({out['counters_as']})")
+    check(same_tokens(out["tokens"], toks), f"{label}: the counted generation's tokens differ "
+          "from the same generation's earlier ones")
+    return {"path": label, "launches": out["counters"], "launches_counted_as": out["counters_as"]}
 
 
 def same_tokens(a, b) -> bool:
@@ -2422,7 +2469,7 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, pa
     "int4" | "long": (the engine's counted captures, the tokens of its
     earlier generation, its n_new)}.  Returns ({path: its launches, traced,
     and their account}, the traced windows)."""
-    cases = []
+    cases, sections, t0 = [], {}, time.perf_counter()
     with torch.inference_mode():
         for eng, bits in ((eng8, 8), (eng4, 4)):
             greedy_toks = None
@@ -2440,6 +2487,8 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, pa
     for rep in cases:
         print(json.dumps({"check": "captured generate vs eager loop", **rep}))
     print(json.dumps(stale_graph_check(cfg, eng8, prompt)))
+    sections["captured_vs_eager_and_stale_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with torch.inference_mode():
         timed = {"int8": timing_pairs(eng8, prompt, N_NEW, f"int8, {BATCH} x {PROMPT}"),
                  "long": timing_pairs(long_eng, long_prompt, LONG_NEW, f"int8, 1 x {LONG_PROMPT}")}
@@ -2478,13 +2527,17 @@ def captured_phase(cfg, eng8, eng4, long_eng, prompt, long_prompt, one_calls, pa
             with attention_through(noting_dtype):
                 return long_eng.generate(long_prompt, LONG_NEW)
 
+        sections["timing_rounds_s"] = time.perf_counter() - t0
         counted = {label: {} for label in paths}
         for label, gen_fn in (("int8", lambda: eng8.generate(prompt, N_NEW)),
                               ("int4", lambda: eng4.generate(prompt, N_NEW_INT4)),
                               ("long", long_generation)):
             segments.append((f"{label} generate, counted", None,
                              counted_generation(paths[label][0], gen_fn, counted[label])))
-        traced = tracing.trace_windows(segments + list(extra), TRACE)
+        trace_s = {}
+        traced = tracing.trace_windows(segments + list(extra), times=trace_s)
+    sections["profiler_session"] = trace_s
+    print(json.dumps({"phase 8 sections": sections}), flush=True)
     one_call_check(traced, one_calls)
     per_step = len(LINEARS) * cfg.n_layers
     for label, (_, toks, n_new) in paths.items():
@@ -2945,9 +2998,10 @@ class ServingPhase:
         return self.windows()
 
     def windows(self):
-        """Phase 8's session traces: the counted serves of (a) and (d), one
-        paged chunk step at 4 slots, and the dense captured step at the same
-        4 rows over the same 512 positions."""
+        """The counted serve of (a), run here (its launches by the
+        counters); then phase 8's session traces: the counted serve of
+        (d), one paged chunk step at 4 slots, and the dense captured step
+        at the same 4 rows over the same 512 positions."""
         eng, n_stops = self.eng, max(len(r.stop_tokens) for r in self.reqs)
         self.counted = {"serve": {}, "long serve": {}}
         self.seen = []
@@ -2960,6 +3014,7 @@ class ServingPhase:
             out = eng.serve(self.reqs)
             self.counted["serve"]["iters"] = eng.decode_chunk_iters
             return out
+        counted_generation(self.graphs, serve_a, self.counted["serve"])()
 
         def serve_d():
             with attention_through(noting_dtype):
@@ -2979,15 +3034,14 @@ class ServingPhase:
             with torch.inference_mode():
                 self.solo.state(SERVE["slots"]).start(self.params, self.cfg, rows, None, 1.0,
                                                       greedy=True, top_k=0)
-        return [("serve, counted", None, counted_generation(self.graphs, serve_a,
-                                                            self.counted["serve"])),
-                ("long serve, counted", None, counted_generation(self.long_graphs, serve_d,
+        return [("long serve, counted", None, counted_generation(self.long_graphs, serve_d,
                                                                  self.counted["long serve"])),
                 ("paged chunk step", paged_setup, paged_step),
                 ("dense step, 4 rows", dense_setup, dense_step)]
 
     def finish(self, traced):
-        """Phase 9's launches from the trace, and its report."""
+        """Phase 9's launches, (a)'s from the counters and (d)'s from the
+        trace, and its report."""
         per_step = len(LINEARS) * self.cfg.n_layers
         launches = {}
         for label, toks, flash in (("serve", self.out, 0),
@@ -2996,8 +3050,11 @@ class ServingPhase:
             want = dict.fromkeys(KERNEL_TAGS, 0)
             want["pim_matvec"] = per_step * out["iters"]
             want["flash_attention"] = flash
-            launches[label] = check_counted(f"{label}, counted", traced[f"{label}, counted"],
-                                            out, toks, want)
+            if label == "serve":
+                launches[label] = check_counters(f"{label}, counted", out, toks, want)
+            else:
+                launches[label] = check_counted(f"{label}, counted",
+                                                traced[f"{label}, counted"], out, toks, want)
             launches[label]["decode_chunk_iters"] = out["iters"]
         check(self.seen == [torch.bfloat16] * self.cfg.n_layers, f"the long admit's attention "
               f"saw q dtypes {self.seen}, expected {self.cfg.n_layers} x bf16")
@@ -3014,7 +3071,8 @@ class ServingPhase:
                                          - steps["dense step, 4 rows"]["device_busy_us"])
         print(json.dumps({"check": "phase 9: launches and one traced step", "launches": launches,
                           "one_step_trace": steps}))
-        return {label: out["traced"] for label, out in self.counted.items()}
+        return {"serve": self.counted["serve"]["counters"],
+                "long serve": self.counted["long serve"]["traced"]}
 
 
 
@@ -3352,10 +3410,10 @@ class PrefixPhase:
         report["top_k_cut_decided"] = self.cuts
         print(json.dumps(report), flush=True)
         self.report = report
-        return self.windows()
+        self.counted_serve()
 
-    def windows(self):
-        """Phase 8's session traces the counted cached serve."""
+    def counted_serve(self):
+        """The cached serve once more, its launches counted."""
         self.counted = {}
 
         def serve():
@@ -3363,19 +3421,17 @@ class PrefixPhase:
             self.counted["iters"] = self.eng.decode_chunk_iters
             self.counted["full_hits"] = self.eng.last_report.cow_forks
             return out
-        return [("prefix serve, counted", None, counted_generation(self.graphs, serve,
-                                                                   self.counted))]
+        counted_generation(self.graphs, serve, self.counted)()
 
-    def finish(self, traced):
-        """Phase 10's launches from the trace, and its report."""
+    def finish(self):
+        """Phase 10's launches from the counters, and its report."""
         out = self.counted
         want = dict.fromkeys(KERNEL_TAGS, 0)
         want["pim_matvec"] = len(LINEARS) * self.cfg.n_layers * (out["iters"] + out["full_hits"])
-        launches = check_counted("prefix serve, counted", traced["prefix serve, counted"], out,
-                                 self.out, want)
+        launches = check_counters("prefix serve, counted", out, self.out, want)
         launches.update(decode_chunk_iters=out["iters"], full_hit_windows=out["full_hits"])
         print(json.dumps({"check": "phase 10: launches", **launches}))
-        return {"prefix serve": out["traced"]}
+        return {"prefix serve": out["counters"]}
 
 
 # ---- 11. the resilience tier ------------------------------------------------------------
@@ -3698,7 +3754,7 @@ class ResiliencePhase:
         report["phase_s"] = time.perf_counter() - t_phase
         print(json.dumps(report), flush=True)
         self.report = report
-        return self.windows()
+        self.counted_serve()
 
     @staticmethod
     def _halved_rounds(rep):
@@ -3749,8 +3805,8 @@ class ResiliencePhase:
             "resumed_prefill_tokens": sum(a["prefilled"] for a in rec["resumed"]),
             "extra_prefill_tokens": rec["prefill_tokens"] - self.base_prefill}}
 
-    def windows(self):
-        """Phase 8's session traces the ladder serve of (c), counted."""
+    def counted_serve(self):
+        """The ladder serve of (c) once more, its launches counted."""
         eng, self.counted = self.serving.eng, {}
 
         def serve():
@@ -3760,20 +3816,18 @@ class ResiliencePhase:
             self.counted["iters"] = eng.decode_chunk_iters
             self.counted["halved_rounds"] = len(self._halved_rounds(rep))
             return rep.outputs
-        return [("ladder serve, counted", None, counted_generation(self.serving.graphs, serve,
-                                                                   self.counted))]
+        counted_generation(self.serving.graphs, serve, self.counted)()
 
-    def finish(self, traced):
-        """Phase 11's launches from the trace, and its report."""
+    def finish(self):
+        """Phase 11's launches from the counters, and its report."""
         out = self.counted
         want = dict.fromkeys(KERNEL_TAGS, 0)
         want["pim_matvec"] = len(LINEARS) * self.cfg.n_layers * out["iters"]
-        launches = check_counted("ladder serve, counted", traced["ladder serve, counted"], out,
-                                 self.serving.out, want)
+        launches = check_counters("ladder serve, counted", out, self.serving.out, want)
         launches.update(decode_chunk_iters=out["iters"], halved_rounds=out["halved_rounds"],
                         resumed_long_admit_flash_attention=self.long_resumed_flash)
         print(json.dumps({"check": "phase 11: launches", **launches}))
-        return {"ladder serve": out["traced"]}
+        return {"ladder serve": out["counters"]}
 
 
 # ---- 12. n-gram speculative decoding ---------------------------------------------------
@@ -3818,6 +3872,33 @@ def first_requests(reqs, n=SERVE["slots"]):
                     stop_tokens=r.stop_tokens) for r in reqs[:n]]
 
 
+def plain_gap(eng, prompt, r, j, extras=None):
+    """The top-2 gap of the plain captured run's logits that chose token j
+    of row r (the same batch and extras, ``eng``'s decode step)."""
+    eng.generate(prompt, j + 1, extras=extras)
+    return top2_gap(eng.state(prompt.shape[0]).logits[r])
+
+
+def spec_vs_plain(name, label, eng, prompt, got, want, check_bar=True, bar=HIT_BAR, extras=None):
+    """Greedy speculation against plain greedy decoding of the same batch:
+    a first divergence only where the plain run's top-2 gap is within
+    ``bar``, the count beyond PAGED_BAR beside it."""
+    got_l, want_l = list(got.cpu().numpy()), list(want.cpu().numpy())
+    with torch.inference_mode():
+        div = divergences(got_l, want_l, [len(w) for w in want_l],
+                          lambda r, j: plain_gap(eng, prompt, r, j, extras))
+    rep = {"check": f"{label}: against plain greedy decoding", "rows": len(got_l),
+           "equal": torch.equal(got, want), "diverged": len(div),
+           "beyond_bar": sum(beyond(d, bar) for d in div),
+           "beyond_paged_bar": sum(beyond(d, PAGED_BAR) for d in div),
+           "divergences": div, "bar": bar}
+    print(f"{name} {label}: " + json.dumps(rep), flush=True)
+    if check_bar:
+        check(rep["beyond_bar"] == 0, f"{label}: diverges from plain greedy decoding beyond "
+                                      f"the bar {bar}: {rep}")
+    return rep
+
+
 class EagerServingEngine(ServingEngine):
     """The fixed engine with every step and window run eagerly (no graph),
     on buffers of its own: the reference a captured generation is held
@@ -3854,29 +3935,10 @@ class SpecPhase:
 
     # ---- (a) the fixed engine ----------------------------------------------------------
     def _plain_gap(self, eng, prompt, r, j):
-        """The top-2 gap of the plain captured run's logits that chose token j
-        of row r (the same batch, ``eng``'s decode step)."""
-        eng.generate(prompt, j + 1)
-        return top2_gap(eng.state(prompt.shape[0]).logits[r])
+        return plain_gap(eng, prompt, r, j)
 
     def _against_plain(self, label, eng, prompt, got, want, check_bar=True):
-        """Greedy speculation against plain greedy decoding of the same batch:
-        a first divergence only where the plain run's top-2 gap is within
-        HIT_BAR, the count beyond PAGED_BAR beside it."""
-        got_l, want_l = list(got.cpu().numpy()), list(want.cpu().numpy())
-        with torch.inference_mode():
-            div = divergences(got_l, want_l, [len(w) for w in want_l],
-                              lambda r, j: self._plain_gap(eng, prompt, r, j))
-        rep = {"check": f"{label}: against plain greedy decoding", "rows": len(got_l),
-               "equal": torch.equal(got, want), "diverged": len(div),
-               "beyond_bar": sum(beyond(d, HIT_BAR) for d in div),
-               "beyond_paged_bar": sum(beyond(d, PAGED_BAR) for d in div),
-               "divergences": div, "bar": HIT_BAR}
-        print(f"{self.NAME} {label}: " + json.dumps(rep), flush=True)
-        if check_bar:
-            check(rep["beyond_bar"] == 0, f"{label}: diverges from plain greedy decoding beyond "
-                                          f"the bar {HIT_BAR}: {rep}")
-        return rep
+        return spec_vs_plain(self.NAME, label, eng, prompt, got, want, check_bar)
 
     def fixed(self, report):
         cfg, dev, prompt = self.cfg, self.dev, self.prompt
@@ -3966,7 +4028,7 @@ class SpecPhase:
                 sp = SpecConfig(k=k)
                 runs[f"window k={k}, {b} x {k + 1} rows"] = (
                     eng.spec_step(b, sp, greedy=True, top_k=0), functools.partial(
-                        eng.spec_state(b).start, self.params, cfg, p, None, 1.0, N_NEW,
+                        eng.spec_state(b).start, self.params, p, None, 1.0, N_NEW,
                         greedy=True, top_k=0, ctrl_init=0.0), b * (k + 1), b)
 
         def ms(step, start):
@@ -4224,7 +4286,7 @@ class DraftPhase(SpecPhase):
         k = self.spec.k
         step = eng.spec_step(1, self.spec, greedy=True, top_k=0)
         st = eng.spec_state(1)
-        st.start(eng.params, self.cfg, prompt, None, 1.0, N_NEW, greedy=True, top_k=0,
+        st.start(eng.params, prompt, None, 1.0, N_NEW, greedy=True, top_k=0,
                  ctrl_init=0.0, draft_params=eng.draft_params, k=k)
         rows, n = [], 1
         while n < N_NEW:
@@ -4418,7 +4480,7 @@ class DraftPhase(SpecPhase):
         return eng.graphs.get(eng._weights(), ("draft step", b, k), b, run, st.reset)
 
     def _spec_start(self, eng, prompt, k):
-        return functools.partial(eng.spec_state(prompt.shape[0]).start, self.params, self.cfg,
+        return functools.partial(eng.spec_state(prompt.shape[0]).start, self.params,
                                  prompt, None, 1.0, N_NEW, greedy=True, top_k=0, ctrl_init=0.0,
                                  draft_params=eng.draft_params, k=k)
 
@@ -4541,7 +4603,7 @@ def late_sources(cfg, cache, pos, a, cf, *, fan, depth, page_size=None):
     """The planted fault of (b): the relocation gathers each kept step one
     column late."""
     src, dst, ok = lm.tree_columns(pos, a, cf, depth)
-    return lm.move_columns(cache, src + 1, dst, ok)
+    return lm.move_columns(cfg, cache, src + 1, dst, ok)
 
 
 def draw_margins(lg, keys, logdist, a, cf, depth, temperature, top_k):
@@ -4603,6 +4665,200 @@ def _bytes(t):
     return t.contiguous().view(torch.uint8)
 
 
+class PlantedChains:
+    """Phase 14 (b), and phase 17 (l) for the vlm and encdec families: a
+    window of ``fan`` chains of ``depth`` tokens after the batch-1
+    ``prompt`` (1, S), whose last chain holds plain greedy decoding's next
+    ``depth`` tokens (``plain`` (1, n), its first token the window's root),
+    on a dense store and on a paged pool of ``page_size``-token pages under a
+    shuffled block table (with ``extras``, each leaf (1, ...)).  ``steps``
+    decode steps continue from each relocated cache.  The chain
+    must be kept whole (or rejected only where the plain run's top-2 gap is
+    within ``reject_bar``); ``tree_relocate``'s linear columns byte-equal to the
+    tree columns they came from, across every K/V stack of
+    ``lm.cache_stacks`` and its lead dims, every other column unchanged;
+    the decode steps on from the relocated cache within ``bar``
+    of plain decoding (logits and tokens); and the relocation with late
+    sources (``late_sources``) flagged by both.  The eager plain steps the
+    continuation is held against must give plain greedy decoding's tokens:
+    exactly with ``tie_bar`` None, else with a first divergence only at a
+    top-2 gap within ``tie_bar`` (their store is another length, so
+    attention sums in another order; the vlm broke such a tie)."""
+
+    def __init__(self, cfg, params, prompt, plain, *, fan=TREE_PLANT[0], depth=TREE_PLANT[1],
+                 page_size=TREE_PLANT_PS, extras=None, bar=HIT_BAR, tie_bar=None,
+                 reject_bar=PAGED_BAR,
+                 steps=TREE_CONTINUE, name="phase 14", label="(b)"):
+        self.cfg, self.params, self.prompt, self.plain = cfg, params, prompt, plain
+        self.fan, self.depth, self.ps, self.extras, self.bar = fan, depth, page_size, extras, bar
+        self.tie_bar, self.reject_bar, self.steps = tie_bar, reject_bar, steps
+        self.name, self.label, self.dev = name, label, prompt.device
+        self.s = prompt.shape[1]
+
+    def _caches(self, store):
+        """A dense cache of ``store`` positions and a paged pool of
+        ``page_size``-token pages under a shuffled block table, each with the
+        prompt prefilled."""
+        cfg, dev, p1, ps = self.cfg, self.dev, self.prompt, self.ps
+        dense = init_cache(cfg, 1, store, dev)
+        prefill(self.params, cfg, p1, dense, self.extras)
+        width = -(-store // ps)
+        paged = init_paged_cache(cfg, 1, width * ps, width + 1, ps, dev)
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 14)
+        bt = (torch.randperm(width, generator=gen) + 1).to(dev)
+        paged["block_tables"].copy_(bt[None])
+        spad = -(-self.s // ps) * ps
+        tokens = torch.zeros((1, spad), dtype=p1.dtype, device=dev)
+        tokens[:, :self.s] = p1
+        prefill(self.params, cfg, tokens, paged, self.extras, length=self.s,
+                pages=bt[:spad // ps])
+        return {"dense": dense, "paged": paged}
+
+    def _leaves(self, cache):
+        """(stack key, leaf name, the leaf with its stack's lead dims
+        flattened into one: (LL, B | P, KV, S | ps, ...), a view)."""
+        for key, lead in lm.cache_stacks(self.cfg):
+            for name, leaf in cache[key].items():
+                yield key, name, leaf.view((-1,) + leaf.shape[len(lead):])
+
+    def _columns(self, cache, cols):
+        """Each leaf's columns ``cols`` of row 0 (dense) or through the block
+        table (paged), as bytes: {(key, name): (LL, n, KV, ...) uint8}."""
+        bt = cache.get("block_tables")
+        cols = torch.as_tensor(cols, device=self.dev)
+        out = {}
+        for key, name, leaf in self._leaves(cache):
+            if bt is None:
+                t = leaf[:, 0][:, :, cols].transpose(1, 2)
+            else:
+                ps = leaf.shape[3]
+                t = leaf[:, bt[0, cols // ps].long(), :, cols % ps]
+            out[key, name] = _bytes(t)
+        return out
+
+    def _snapshot(self, cache):
+        return {(key, name): leaf.clone() for key, name, leaf in self._leaves(cache)}
+
+    def _restore(self, cache, before):
+        for key, name, leaf in self._leaves(cache):
+            leaf.copy_(before[key, name])
+
+    def _unchanged_but(self, cache, before, cols):
+        """Whether every column of ``cache`` but ``cols`` holds the bytes of
+        the snapshot ``before`` (a paged pool's trash page aside)."""
+        bt = cache.get("block_tables")
+        cols = torch.as_tensor(cols, dtype=torch.int64, device=self.dev)
+        for key, name, leaf in self._leaves(cache):
+            want = before[key, name].clone()
+            if bt is None:
+                want[:, :, :, cols] = leaf[:, :, :, cols]
+            else:
+                ps = leaf.shape[3]
+                at = (bt[0, cols // ps].long(), cols % ps)
+                want[:, at[0], :, at[1]] = leaf[:, at[0], :, at[1]]
+                want, leaf = want[:, 1:], leaf[:, 1:]
+            if not torch.equal(_bytes(want), _bytes(leaf)):
+                return False
+        return True
+
+    def _continue(self, cache, toks, first):
+        """Decode ``toks`` (plain tokens) one at a time from position
+        ``first`` on: the logits after each, (n, V) f32."""
+        out = []
+        for i, t in enumerate(toks):
+            tok = torch.tensor([[int(t)]], dtype=torch.int32, device=self.dev)
+            pos = first + i
+            if "block_tables" in cache:
+                pos = torch.tensor([pos], device=self.dev)
+            lg, _ = decode_step(self.params, self.cfg, tok, cache, pos, self.extras)
+            out.append(lg[0, -1].float())
+        return torch.stack(out)
+
+    def run(self):
+        cfg, dev, fan, depth, bar, s = self.cfg, self.dev, self.fan, self.depth, self.bar, self.s
+        steps = self.steps
+        t = self.plain[0].tolist()
+        store = s + len(t) + fan * depth
+        rows = {}
+        with torch.inference_mode():
+            # the plain run's logits after t0 .. t_{depth + steps}, one
+            # eager decode step each
+            ref_cache = init_cache(cfg, 1, store, dev)
+            prefill(self.params, cfg, self.prompt, ref_cache, self.extras)
+            ref = self._continue(ref_cache, t[:depth + steps + 1], s)
+            del ref_cache
+            ref_toks = [int(x) for x in ref.argmax(-1)]
+            apart = next((j for j, (x, y) in enumerate(zip(ref_toks, t[1:])) if x != y), None)
+            rows["eager_plain_steps"] = {"first_divergence": apart, "top2_gap_there": (
+                None if apart is None else top2_gap(ref[apart])), "bar": self.tie_bar}
+            check(apart is None or self.tie_bar is not None
+                  and rows["eager_plain_steps"]["top2_gap_there"] <= self.tie_bar,
+                  f"{self.label} the eager plain steps' tokens leave plain greedy decoding's "
+                  f"beyond a near-tie: {rows['eager_plain_steps']}")
+            chains = torch.tensor([[[(t[1 + i] + 1 + f) % cfg.vocab for i in range(depth)]
+                                    for f in range(fan - 1)] + [t[1:1 + depth]]],
+                                  dtype=torch.int32, device=dev)
+            window = torch.cat([torch.tensor([[t[0]]], dtype=torch.int32, device=dev),
+                                chains.reshape(1, -1)], dim=1)
+            pos = torch.tensor([s], device=dev)
+            tree_cols = [s + 1 + (fan - 1) * depth + i for i in range(depth)]
+            lin_cols = [s + 1 + i for i in range(depth)]
+            for layout, cache in self._caches(store).items():
+                lg, _ = verify_step(self.params, cfg, window, cache, pos, self.extras,
+                                    tree=(fan, depth))
+                g, a, cf = speculative.greedy_tree_accept(chains, lg)
+                a, cf = int(a[0]), int(cf[0])
+                row = {"accepted": a, "kept_chain": cf, "emitted": g[0, :a + 1].tolist(),
+                       "plain": t[1:depth + 2]}
+                if a < depth:  # a rejection: only where the plain run's gap is a near-tie
+                    row["rejected_at_plain_top2_gap"] = top2_gap(ref[a])
+                check(a == depth and cf == fan - 1 or (
+                    row.get("rejected_at_plain_top2_gap", math.inf) <= self.reject_bar
+                    and (a == 0 or cf == fan - 1)),
+                    f"{self.label} {layout}: the planted chain {fan - 1} was not accepted: {row}")
+                before = self._snapshot(cache)
+                src = self._columns(cache, tree_cols[:a])
+                for fault in (False, True):
+                    if fault:  # back to the window's state, then the late relocation
+                        self._restore(cache, before)
+                        late_sources(cfg, cache, pos, torch.tensor([a], device=dev),
+                                     torch.tensor([cf], device=dev), fan=fan, depth=depth)
+                    else:
+                        tree_relocate(cfg, cache, pos, torch.tensor([a], device=dev),
+                                      torch.tensor([cf], device=dev), fan=fan, depth=depth)
+                    moved = self._columns(cache, lin_cols[:a])
+                    unchanged = self._unchanged_but(cache, before, lin_cols[:a])
+                    byte_equal = all(torch.equal(moved[n], src[n]) for n in src)
+                    cont = self._continue(cache, t[a + 1:a + 1 + steps], s + a + 1)
+                    want = ref[a + 1:a + 1 + steps]
+                    diff = (cont - want).abs().max().item()
+                    toks = [int(x) for x in cont.argmax(-1)]
+                    plain_next = t[a + 2:a + 2 + steps]
+                    div = next((j for j in range(steps) if toks[j] != plain_next[j]),
+                               None)
+                    gap = None if div is None else top2_gap(want[div])
+                    res = {"relocated_bytes_equal_tree_columns": byte_equal,
+                           "other_columns_unchanged": unchanged,
+                           "continued_max_abs_logit_diff": diff,
+                           "continued_tokens_equal_plain": div is None,
+                           "first_divergence": div, "plain_top2_gap_there": gap}
+                    res["within_bar"] = diff <= bar and (gap is None or gap <= bar)
+                    if fault:
+                        res["flagged_by_bytes"] = not byte_equal
+                        res["flagged_by_continuation"] = not res["within_bar"]
+                        check(res["flagged_by_bytes"] and res["flagged_by_continuation"],
+                              f"{self.label} {layout}: the late relocation passes: {res}")
+                        row["planted_fault"] = res
+                    else:
+                        check(byte_equal and unchanged and res["within_bar"],
+                              f"{self.label} {layout}: the relocation of chain {cf}: {res}")
+                        row["relocation"] = res
+                rows[layout] = row
+                print(f"{self.name} {self.label} {layout}: " + json.dumps(row), flush=True)
+        return {"fan": fan, "depth": depth, "page_size": self.ps, "bar": bar,
+                "tie_bar": self.tie_bar, "reject_bar": self.reject_bar, **rows}
+
+
 class TreePhase(SpecPhase):
     """Phase 14: tree drafts on both engines, (a) to (e) of the module's
     docstring."""
@@ -4646,144 +4902,9 @@ class TreePhase(SpecPhase):
         self.launches["tree, fixed engine, batch 1 windows"] = launches
 
     # ---- (b) planted chains ----------------------------------------------------------------
-    def _caches(self, store):
-        """A dense cache of ``store`` positions and a paged pool of
-        TREE_PLANT_PS-token pages under a shuffled block table, each with the
-        batch-1 prompt prefilled."""
-        cfg, dev, p1 = self.cfg, self.dev, self.prompt[:1]
-        dense = init_cache(cfg, 1, store, dev)
-        prefill(self.params, cfg, p1, dense)
-        ps = TREE_PLANT_PS
-        width = -(-store // ps)
-        paged = init_paged_cache(cfg, 1, width * ps, width + 1, ps, dev)
-        gen = torch.Generator(device="cpu").manual_seed(SEED + 14)
-        bt = (torch.randperm(width, generator=gen) + 1).to(dev)
-        paged["block_tables"].copy_(bt[None])
-        prefill(self.params, cfg, p1, paged, length=PROMPT, pages=bt[:PROMPT // ps])
-        return {"dense": dense, "paged": paged}
-
-    def _columns(self, cache, cols):
-        """Each leaf's columns ``cols`` of row 0 (dense) or through the block
-        table (paged), as bytes: {name: (L, n, KV, ...) uint8}."""
-        bt = cache.get("block_tables")
-        cols = torch.as_tensor(cols, device=self.dev)
-        out = {}
-        for name, leaf in cache["layers"].items():
-            if bt is None:
-                t = leaf[:, 0][:, :, cols].transpose(1, 2)
-            else:
-                ps = leaf.shape[3]
-                t = leaf[:, bt[0, cols // ps].long(), :, cols % ps]
-            out[name] = _bytes(t)
-        return out
-
-    def _unchanged_but(self, cache, before, cols):
-        """Whether every column of ``cache`` but ``cols`` holds the bytes of
-        the snapshot ``before`` (a paged pool's trash page aside)."""
-        bt = cache.get("block_tables")
-        cols = torch.as_tensor(cols, dtype=torch.int64, device=self.dev)
-        for name, leaf in cache["layers"].items():
-            want = before[name].clone()
-            if bt is None:
-                want[:, :, :, cols] = leaf[:, :, :, cols]
-            else:
-                ps = leaf.shape[3]
-                at = (bt[0, cols // ps].long(), cols % ps)
-                want[:, at[0], :, at[1]] = leaf[:, at[0], :, at[1]]
-                want, leaf = want[:, 1:], leaf[:, 1:]
-            if not torch.equal(_bytes(want), _bytes(leaf)):
-                return False
-        return True
-
-    def _continue(self, cache, toks, first):
-        """Decode ``toks`` (plain tokens) one at a time from position
-        ``first`` on: the logits after each, (n, V) f32."""
-        out = []
-        for i, t in enumerate(toks):
-            tok = torch.tensor([[int(t)]], dtype=torch.int32, device=self.dev)
-            pos = first + i
-            if "block_tables" in cache:
-                pos = torch.tensor([pos], device=self.dev)
-            lg, _ = decode_step(self.params, self.cfg, tok, cache, pos)
-            out.append(lg[0, -1].float())
-        return torch.stack(out)
-
     def planted(self, report):
-        cfg, dev = self.cfg, self.dev
-        fan, depth = TREE_PLANT
-        t = self.plain1[0].tolist()
-        store = PROMPT + N_NEW + fan * depth
-        rows = {}
-        with torch.inference_mode():
-            # the plain run's logits after t0 .. t_{depth + TREE_CONTINUE}, one
-            # eager decode step each
-            ref_cache = init_cache(cfg, 1, store, dev)
-            prefill(self.params, cfg, self.prompt[:1], ref_cache)
-            ref = self._continue(ref_cache, t[:depth + TREE_CONTINUE + 1], PROMPT)
-            check([int(x) for x in ref.argmax(-1)] == t[1:depth + TREE_CONTINUE + 2],
-                  "(b) the eager plain steps' tokens differ from plain greedy decoding")
-            chains = torch.tensor([[[(t[1 + i] + 1 + f) % cfg.vocab for i in range(depth)]
-                                    for f in range(fan - 1)] + [t[1:1 + depth]]],
-                                  dtype=torch.int32, device=dev)
-            window = torch.cat([torch.tensor([[t[0]]], dtype=torch.int32, device=dev),
-                                chains.reshape(1, -1)], dim=1)
-            pos = torch.tensor([PROMPT], device=dev)
-            tree_cols = [PROMPT + 1 + (fan - 1) * depth + i for i in range(depth)]
-            lin_cols = [PROMPT + 1 + i for i in range(depth)]
-            for layout, cache in self._caches(store).items():
-                lg, _ = verify_step(self.params, cfg, window, cache, pos, tree=(fan, depth))
-                g, a, cf = speculative.greedy_tree_accept(chains, lg)
-                a, cf = int(a[0]), int(cf[0])
-                row = {"accepted": a, "kept_chain": cf, "emitted": g[0, :a + 1].tolist(),
-                       "plain": t[1:depth + 2]}
-                if a < depth:  # a rejection: only where the plain run's gap is a near-tie
-                    row["rejected_at_plain_top2_gap"] = top2_gap(ref[a])
-                check(a == depth and cf == fan - 1 or (
-                    row.get("rejected_at_plain_top2_gap", 1.0) <= PAGED_BAR
-                    and (a == 0 or cf == fan - 1)),
-                    f"(b) {layout}: the planted chain {fan - 1} was not accepted: {row}")
-                before = {name: leaf.clone() for name, leaf in cache["layers"].items()}
-                src = self._columns(cache, tree_cols[:a])
-                for fault in (False, True):
-                    if fault:  # back to the window's state, then the late relocation
-                        for name, leaf in cache["layers"].items():
-                            leaf.copy_(before[name])
-                        late_sources(cfg, cache, pos, torch.tensor([a], device=dev),
-                                     torch.tensor([cf], device=dev), fan=fan, depth=depth)
-                    else:
-                        tree_relocate(cfg, cache, pos, torch.tensor([a], device=dev),
-                                      torch.tensor([cf], device=dev), fan=fan, depth=depth)
-                    moved = self._columns(cache, lin_cols[:a])
-                    unchanged = self._unchanged_but(cache, before, lin_cols[:a])
-                    byte_equal = all(torch.equal(moved[n], src[n]) for n in src)
-                    cont = self._continue(cache, t[a + 1:a + 1 + TREE_CONTINUE], PROMPT + a + 1)
-                    want = ref[a + 1:a + 1 + TREE_CONTINUE]
-                    diff = (cont - want).abs().max().item()
-                    toks = [int(x) for x in cont.argmax(-1)]
-                    plain_next = t[a + 2:a + 2 + TREE_CONTINUE]
-                    div = next((j for j in range(TREE_CONTINUE) if toks[j] != plain_next[j]),
-                               None)
-                    gap = None if div is None else top2_gap(want[div])
-                    res = {"relocated_bytes_equal_tree_columns": byte_equal,
-                           "other_columns_unchanged": unchanged,
-                           "continued_max_abs_logit_diff": diff,
-                           "continued_tokens_equal_plain": div is None,
-                           "first_divergence": div, "plain_top2_gap_there": gap}
-                    res["within_bar"] = diff <= HIT_BAR and (gap is None or gap <= HIT_BAR)
-                    if fault:
-                        res["flagged_by_bytes"] = not byte_equal
-                        res["flagged_by_continuation"] = not res["within_bar"]
-                        check(res["flagged_by_bytes"] and res["flagged_by_continuation"],
-                              f"(b) {layout}: the late relocation passes: {res}")
-                        row["planted_fault"] = res
-                    else:
-                        check(byte_equal and unchanged and res["within_bar"],
-                              f"(b) {layout}: the relocation of chain {cf}: {res}")
-                        row["relocation"] = res
-                rows[layout] = row
-                print(f"{self.NAME} (b) {layout}: " + json.dumps(row), flush=True)
-        report["planted_chains"] = {"fan": fan, "depth": depth, "page_size": TREE_PLANT_PS,
-                                    "bar": HIT_BAR, **rows}
+        report["planted_chains"] = PlantedChains(
+            self.cfg, self.params, self.prompt[:1], self.plain1, name=self.NAME).run()
 
     # ---- (c) the fixed engine at batch 4 ---------------------------------------------------
     def _eager_windows(self, spec, n_new, mode):
@@ -4793,7 +4914,7 @@ class TreePhase(SpecPhase):
         eng, b = self.eager, self.prompt.shape[0]
         step = eng.spec_step(b, spec, greedy=False, top_k=mode["top_k"])
         st = eng.spec_state(b)
-        st.start(self.params, self.cfg, self.prompt, mode["key"], mode["temperature"], n_new,
+        st.start(self.params, self.prompt, mode["key"], mode["temperature"], n_new,
                  greedy=False, top_k=mode["top_k"], ctrl_init=0.0, k=spec.k,
                  tree_fan=spec.tree_fan)
         log, windows = [], []
@@ -4925,7 +5046,7 @@ class TreePhase(SpecPhase):
                         else f"linear window k {spec.k}")
                 runs[f"{name}, {b} rows"] = (
                     eng.spec_step(b, spec, greedy=True, top_k=0), functools.partial(
-                        eng.spec_state(b).start, self.params, cfg, p, None, 1.0, N_NEW,
+                        eng.spec_state(b).start, self.params, p, None, 1.0, N_NEW,
                         greedy=True, top_k=0, ctrl_init=0.0, k=spec.k, tree_fan=spec.tree_fan),
                     b * (1 + max(1, spec.tree_fan) * spec.k))
 
@@ -5684,6 +5805,43 @@ CROSS_SOLO_BARS = {"encdec": {"miss": PAGED_BAR, "hit": HIT_BAR},
 CROSS_SERVE = dict(slots=2, page_size=16, chunk=8, max_seq=160, page_alloc_seed=SEED)
 CROSS_TRACE = ((100, 10), (128, 12), (37, 10), (128, 8), (64, 10), (128, 8))
 CROSS_HIT, CROSS_MISS, CROSS_STOPPED = 3, 5, 2
+# (e), (f): the counted serve, the eager twin and the next-slot fault serve
+# the trace's first 4 requests (request 2 admitted into a freed slot,
+# request 3 the hit); the whole trace before PR 29.
+CROSS_EAGER = 4
+# (i)-(n): speculation on these families.  Every window is at most 8 rows,
+# so each of its linears runs pim_matvec (a wider vlm window would
+# dequantize all 71.6 GB of codes through x @ dq(w)): at batch 1 an n-gram or
+# self-draft window of k = 4 (5 rows) and a tree of fan 2 x depth 3 (7 rows,
+# also (l)'s planted shape); on the continuous engine's 2 slots n-gram k = 3
+# (8 rows) and a tree of fan 2 x depth 1 (6 rows).
+CROSS_SPEC = dict(k=4)
+CROSS_TREE = dict(k=3, tree_fan=2)
+CROSS_SERVE_SPEC = {"n-gram": dict(k=3), "tree": dict(k=1, tree_fan=2)}
+CROSS_SPEC_NEW = 16  # (i)-(l): batch-1 tokens; the eager twins' CROSS_SPEC_EAGER_NEW
+CROSS_PLANT_PS = 4   # (l): the paged pool's pages: the window's columns 129..135 cross one
+# (m): the trace's three requests of one 128-token prompt, at most
+# CROSS_SPEC_SERVE_NEW new tokens each: request 1, its prefix hit (3) and the
+# same prompt under other extras (5, a miss admitted into a freed slot); one
+# padded length, so each engine captures one admit.  (i), (k): the eager
+# twins' tokens (an eager vlm window runs op by op, ~0.3 s).
+CROSS_SPEC_REQUESTS = (1, CROSS_HIT, CROSS_MISS)
+CROSS_SPEC_EAGER_NEW = 6
+CROSS_SPEC_SERVE_NEW = 4  # (m)'s budget a request
+# (i)-(l): the plain top-2 gap within which a greedy window's first
+# divergence from plain batch-1 decoding, a rejected self-draft proposal or
+# a relocated chain's continuation is sound.  The encdec keeps HIT_BAR (the
+# count beyond PAGED_BAR reported beside it); the vlm the 0.75 its (e) holds,
+# set from its recorded sound divergences between two bf16 arithmetics (PR
+# 28: 0.09-0.56 on the H100, PERF.md section 6).
+CROSS_SPEC_BARS = {"encdec": HIT_BAR, "vlm": 0.75}
+# (l): the bar of the continuation from a relocated planted chain, set from
+# the sound readings and the late relocation's in PR 29's first run on the
+# H100 (probe29a, PERF.md section 6): the encdec 0.016 / 0.023 against
+# 0.235 / 0.231, the vlm 0.42 / 0.66 against 7.2 / 7.0 (dense / paged).
+CROSS_PLANT_BARS = {"encdec": PAGED_BAR, "vlm": 1.5}
+CROSS_PLANT_STEPS = 4  # (l): decode steps on from a relocated cache (probe29a's ran 8)
+CROSS_SPEC_REPS, CROSS_SPEC_ROUNDS = 4, 2  # (n): replays a timed window, alternating rounds
 CROSS_TAIL = 14  # (h): the head's last columns, checked on their own (256,206 % 16)
 CROSS_SMALL_N = 1030  # (h): a small N with N % 16 != 0
 
@@ -5838,10 +5996,12 @@ class CrossPhase:
         rows = [{k: v[r] for k, v in ex.items()} for r in range(b)]
         rows[CROSS_HIT] = rows[1]
         solo = ServingEngine(cfg, params, max_seq=CROSS_SERVE["max_seq"], device=dev)
-        with torch.inference_mode():
-            dense = [solo.generate(torch.from_numpy(p)[None].to(dev), m,
-                                   extras={k: v[None] for k, v in e.items()})[0].cpu().numpy()
-                     for p, m, e in zip(prompts, budgets, rows)]
+        with torch.inference_mode():  # the hit's prompt and extras are request 1's
+            dense = [None if r == CROSS_HIT else solo.generate(
+                torch.from_numpy(p)[None].to(dev), m,
+                extras={k: v[None] for k, v in e.items()})[0].cpu().numpy()
+                for r, (p, m, e) in enumerate(zip(prompts, budgets, rows))]
+        dense[CROSS_HIT] = dense[1][:budgets[CROSS_HIT]]
         del solo
         lap("solo generates")
         d = dense[CROSS_STOPPED]  # the first new token nearest the middle of its solo run
@@ -5857,30 +6017,22 @@ class CrossPhase:
         eager = EagerEngine(cfg, params, prefix_cache=True, device=dev, **CROSS_SERVE)
         out = eng.serve(reqs)
         lap("captured serve")
-        out_e = eager.serve(reqs)
-        lap("eager serve")
         report = eng.last_report
         admits = {r: [e for e in rec.events if e["name"] == "admit"]
                   for r, rec in enumerate(report.records)}
-        same = {"tokens_equal": same_tokens(out, out_e),
-                "events_equal": events_of(report) == events_of(eager.last_report),
-                "peak_pages": [eng.peak_pages_in_use, eager.peak_pages_in_use],
-                "rounds": report.rounds, "decode_chunk_iters": eng.decode_chunk_iters,
-                "tokens": sum(len(o) for o in out), "prefix_hits": report.prefix_hits,
-                "cow_forks": report.cow_forks,
-                "cached_tokens": [a[0]["cached_tokens"] for a in admits.values()]}
-        check(same["tokens_equal"] and same["events_equal"]
-              and eng.peak_pages_in_use == eager.peak_pages_in_use,
-              f"(e) {cfg.arch_id}: the captured serve differs from the eager one: {same}")
-        check(report.prefix_hits == 1 and same["cached_tokens"][CROSS_HIT] > 0
-              and same["cached_tokens"][CROSS_MISS] == 0,
+        cached = [a[0]["cached_tokens"] for a in admits.values()]
+        check(report.prefix_hits == 1 and cached[CROSS_HIT] > 0 and cached[CROSS_MISS] == 0,
               f"(e) {cfg.arch_id}: the prefix cache did not hit only under the same extras: "
-              f"{same}")
-        del eager
-        _, launches, counted_as = counted_launches(graphs, lambda: eng.serve(reqs))
+              f"{cached}")
+        # The trace's first CROSS_EAGER requests (request 2 admitted into a
+        # freed slot, request 3 the hit) counted, then served eagerly: the
+        # captured serve must be the eager one bit for bit.
+        first = reqs[:CROSS_EAGER]
+        out_f, launches, counted_as = counted_launches(graphs, lambda: eng.serve(first))
+        rep_f = eng.last_report
         # a step's calls an iteration and a full hit's window; an uncached
         # admit unembeds its last position through the untied head
-        misses_n = sum(e["cached_tokens"] == 0 for rec in eng.last_report.records
+        misses_n = sum(e["cached_tokens"] == 0 for rec in rep_f.records
                        for e in rec.events if e["name"] == "admit")
         expect = dict.fromkeys(launches, 0)
         expect["pim_matvec"] = (matvec_calls_per_step(cfg) * (eng.decode_chunk_iters
@@ -5890,12 +6042,27 @@ class CrossPhase:
               f"{expect}")
         self.launches[f"phase 17 {cfg.arch_id} serve"] = launches
         lap("counted serve")
+        out_e = eager.serve(first)
+        lap("eager serve")
+        same = {"requests": len(first), "tokens_equal": same_tokens(out_f, out_e),
+                "events_equal": events_of(rep_f) == events_of(eager.last_report),
+                "peak_pages": [eng.peak_pages_in_use, eager.peak_pages_in_use],
+                "rounds": rep_f.rounds, "decode_chunk_iters": eng.decode_chunk_iters,
+                "tokens": sum(len(o) for o in out_f), "prefix_hits": rep_f.prefix_hits,
+                "cow_forks": rep_f.cow_forks, "whole_trace_cached_tokens": cached,
+                "whole_trace_rounds": report.rounds}
+        check(same["tokens_equal"] and same["events_equal"] and rep_f.prefix_hits == 1
+              and eng.peak_pages_in_use == eager.peak_pages_in_use
+              and same_tokens(out_f, out[:CROSS_EAGER]),
+              f"(e) {cfg.arch_id}: the captured serve differs from the eager one: {same}")
+        del eager
         # each miss served alone on the same engine (its graphs kept), then
         # the planted fault
-        out_a = [eng.serve([reqs[r]])[0] for r in range(b)]
-        lap("each request served alone")
+        misses = [r for r in range(b) if r != CROSS_HIT]
+        out_a = {r: eng.serve([reqs[r]])[0] for r in misses}
+        lap("each miss served alone")
         with admits_into_next_slot(eng):
-            out_w = eng.serve(reqs)
+            out_w = eng.serve(first)
         lap("planted next-slot serve")
         del eng, graphs
         gc.collect()
@@ -5912,7 +6079,6 @@ class CrossPhase:
         # served alone on the same geometry: its tokens may not depend on its
         # slot or its slot-mates.
         bars = CROSS_SOLO_BARS[cfg.family]
-        misses = [r for r in range(b) if r != CROSS_HIT]
         with torch.inference_mode():
             vs = paged_vs_dense(f"(e) {cfg.arch_id} misses", [out[r] for r in misses],
                                 [dense[r] for r in misses], [lengths[r] for r in misses],
@@ -5928,7 +6094,7 @@ class CrossPhase:
               "alone")
         # the sound and the faulty serve replay the same graphs on the same
         # inputs: any token apart is the fault's
-        caught = sum(not np.array_equal(a, w) for a, w in zip(out, out_w))
+        caught = sum(not np.array_equal(a, w) for a, w in zip(out_f, out_w))
         check(caught > 0, f"(f) {cfg.arch_id}: the admit writing into the next slot went "
               "unseen")
         rep["serve"] = {"captured_vs_eager": same, "vs_solo_misses": vs, "vs_solo_hit": hit,
@@ -5936,10 +6102,282 @@ class CrossPhase:
                         "launches": {"launches": launches, "counted_as": counted_as},
                         "stop": {"request": CROSS_STOPPED, "token": stops[CROSS_STOPPED][0],
                                  "emitted": len(out[CROSS_STOPPED])},
-                        "planted_next_slot": {"requests_differing": caught},
+                        "planted_next_slot": {"requests": len(first),
+                                              "requests_differing": caught},
                         "section_s": laps}
+        # what (m) serves again under speculation
+        self.trace = {"reqs": reqs, "dense": dense, "lengths": lengths, "gap_at": gap_at}
+
+    # ---- (i)-(n): speculation -------------------------------------------------------------
+    @torch.inference_mode()
+    def _spec_start(self, eng, spec, prompt, ex, n_new):
+        """``eng``'s batch-1 speculative buffers from ``prompt``'s prefill with
+        the extras ``ex`` copied into the batch's static buffers, greedy, as
+        ``generate`` starts them."""
+        exb = eng.state(1).extras.get(ex)
+        serving_engine._copy_tree(exb, ex)
+        eng.spec_state(1).start(eng.params, prompt, None, 1.0, n_new, greedy=True,
+                                top_k=0, ctrl_init=0.0, k=spec.k, tree_fan=spec.tree_fan,
+                                draft_params=eng.draft_params if spec.mode == "draft" else None,
+                                extras=exb)
+
+    def _vs_plain(self, label, eng, prompt, got, plain, ex, bar):
+        return spec_vs_plain(f"phase 17 {eng.cfg.arch_id}", label, eng, prompt, got, plain,
+                             bar=bar, extras=ex)
+
+    @torch.inference_mode()
+    def _windows(self, eng, spec, prompt, ex, n_new):
+        """(j): one batch-1 generation window by window: [(tokens before,
+        tokens emitted)] and the tokens."""
+        step = eng.spec_step(1, spec, greedy=True, top_k=0, extras=ex)
+        self._spec_start(eng, spec, prompt, ex, n_new)
+        st, rows, n = eng.spec_state(1), [], 1
+        while n < n_new:
+            step()
+            m = int(st.n_em[0]) - n
+            rows.append((n, m))
+            n += m
+        return rows, st.out[:, :n_new].clone()
+
+    def speculation(self, rep, cfg, params, prompt, ex):
+        """(i)-(l): the fixed engine at batch 1, and (n) its window times, on
+        the batch-1 ``prompt`` (1, S) with the extras ``ex`` (each leaf
+        (1, ...)); the target's int8 tree is its own draft."""
+        dev, arch, n = self.dev, cfg.arch_id, CROSS_SPEC_NEW
+        bar, per_step = CROSS_SPEC_BARS[cfg.family], matvec_calls_per_step(cfg)
+        kw = dict(max_seq=PROMPT + N_NEW, device=dev, draft_cfg=cfg, draft_params=params)
+        eng, eager = ServingEngine(cfg, params, **kw), EagerServingEngine(cfg, params, **kw)
+        graphs = count_captures(eng)
+        out = {"bar": bar, "n_new": n}
+        spec, tree = SpecConfig(**CROSS_SPEC), SpecConfig(**CROSS_TREE)
+        draft = SpecConfig(**CROSS_SPEC, mode="draft")
+
+        def eager_twin(label, sp, mode, got):
+            """The first CROSS_SPEC_EAGER_NEW tokens again, captured (their
+            launches counted: ``per_step`` a window) and eager:
+            ``torch.equal``, and the captured ones ``got``'s first."""
+            m = CROSS_SPEC_EAGER_NEW
+            short, launches, counted_as = counted_launches(
+                graphs, lambda: eng.generate(prompt, m, extras=ex, speculate=sp, **mode))
+            stats = dict(eng.spec_stats)
+            want = eager.generate(prompt, m, extras=ex, speculate=sp, **mode)
+            row = {"eager_new": m, "tokens_equal_eager": torch.equal(short, want),
+                   "windows_equal_eager": stats == eager.spec_stats,
+                   "launches": launches, "launches_counted_as": counted_as,
+                   "windows_counted": stats["verify_steps"]}
+            check(torch.equal(short, got[:, :m]), f"{label} {arch}: {m} tokens differ from the "
+                  f"first of {n}")
+            check(row["tokens_equal_eager"] and row["windows_equal_eager"],
+                  f"{label} {arch}: the captured windows differ from the eager ones: {row}")
+            check(launches == expect(launches, per_step * stats["verify_steps"]),
+                  f"{label} {arch}: launches {launches}, expected {per_step} pim_matvec x "
+                  f"{stats['verify_steps']} windows")
+            return row
+
+        def expect(launches, calls):
+            want = dict.fromkeys(launches, 0)
+            want["pim_matvec"] = calls
+            return want
+
+        t = time.perf_counter()  # (i) n-gram windows of k + 1 = 5 rows
+        plain = eng.generate(prompt, n, extras=ex)
+        rows = []
+        for label, mode in (("greedy", GREEDY), ("sampled", SAMPLED)):
+            got = eng.generate(prompt, n, extras=ex, speculate=spec, **mode)
+            row = {"case": f"n-gram k={spec.k}, {label}", "window_rows": spec.k + 1,
+                   "spec_stats": dict(eng.spec_stats)}
+            check(got.dtype == torch.int32 and bool(((got >= 0) & (got < cfg.vocab)).all()),
+                  f"(i) {arch} {label}: tokens {got.dtype} out of range")
+            row.update(eager_twin(f"(i) {label}", spec, mode, got))
+            if mode["greedy"]:
+                row["vs_plain_batch_1"] = self._vs_plain(f"(i) {label}", eng, prompt, got, plain,
+                                                         ex, bar)
+            rows.append(row)
+        self.launches[f"phase 17 {arch} n-gram windows, batch 1"] = rows[0]["launches"]
+        out["ngram"] = {"cases": rows, "pim_matvec_per_window": per_step}
+        self._took(rep, "i", t)
+
+        t = time.perf_counter()  # (j) the int8 tree as its own draft, window by window
+        with torch.inference_mode():  # captured before the count
+            eng.spec_step(1, draft, greedy=True, top_k=0, extras=ex)
+        (wins, toks), launches, counted_as = counted_launches(
+            graphs, lambda: self._windows(eng, draft, prompt, ex, n))
+        short = [(j, m) for j, m in wins if m < min(draft.k + 1, n - j)]
+        with torch.inference_mode():
+            rejected = [{"token": j + m - 1, "plain_top2_gap": plain_gap(
+                eng, prompt, 0, j + m - 1, ex)} for j, m in short]
+        acc = {"windows": len(wins), "full_windows": len(wins) - len(short),
+               "emitted_by_window": [m for _, m in wins], "rejections": rejected,
+               "rejections_beyond_bar": sum(r["plain_top2_gap"] > bar for r in rejected),
+               "rejections_beyond_paged_bar": sum(r["plain_top2_gap"] > PAGED_BAR
+                                                  for r in rejected)}
+        acc["vs_plain_batch_1"] = self._vs_plain("(j) self-draft", eng, prompt, toks, plain, ex,
+                                                 bar)
+        check(acc["rejections_beyond_bar"] == 0, f"(j) {arch}: the self-draft rejected a "
+              f"proposal where the plain run's top-2 gap exceeds {bar}: {acc}")
+        check(launches == expect(launches, per_step * (draft.k + 2) * len(wins)),
+              f"(j) {arch}: launches {launches}, expected {per_step} pim_matvec x {draft.k + 2} x "
+              f"{len(wins)} windows ({draft.k + 1} one-row draft steps and a {draft.k + 1}-row "
+              "verify)")
+        self.launches[f"phase 17 {arch} self-draft windows, batch 1"] = launches
+        out["self_draft"] = {**acc, "launches": launches, "launches_counted_as": counted_as}
+        self._took(rep, "j", t)
+
+        t = time.perf_counter()  # (k) tree windows of 1 + 2 x 3 = 7 rows
+        got = eng.generate(prompt, n, extras=ex, speculate=tree)
+        row = {"case": f"fan {tree.tree_fan} x depth {tree.k}", "window_rows": 1 + 2 * tree.k,
+               "spec_stats": dict(eng.spec_stats),
+               **eager_twin("(k)", tree, GREEDY, got)}
+        row["vs_plain_batch_1"] = self._vs_plain("(k) tree", eng, prompt, got, plain, ex, bar)
+        fan1 = eng.generate(prompt, n, extras=ex, speculate=SpecConfig(k=tree.k, tree_fan=1))
+        linear = eng.generate(prompt, n, extras=ex, speculate=SpecConfig(k=tree.k))
+        row["fan_1_equal_linear"] = torch.equal(fan1, linear)
+        check(row["fan_1_equal_linear"], f"(k) {arch}: tree_fan=1 differs from linear k={tree.k}")
+        self.launches[f"phase 17 {arch} tree windows, batch 1"] = row["launches"]
+        out["tree"] = row
+        del eager
+        self._took(rep, "k", t)
+
+        t = time.perf_counter()  # (l) planted chains on a dense store and a paged pool
+        out["planted_chains"] = PlantedChains(
+            cfg, params, prompt, plain, fan=tree.tree_fan, depth=tree.k,
+            page_size=CROSS_PLANT_PS, extras=ex, bar=CROSS_PLANT_BARS[cfg.family], tie_bar=bar,
+            reject_bar=bar, steps=CROSS_PLANT_STEPS, name=f"phase 17 {arch}", label="(l)").run()
+        self._took(rep, "l", t)
+
+        t = time.perf_counter()  # (n) window ms against the plain step, batch 1
+        out["window_ms"] = self.window_times(eng, prompt, ex, (spec, draft, tree), {
+            spec: rows[0]["spec_stats"], tree: out["tree"]["spec_stats"],
+            draft: {"emitted_per_step": (n - 1) / len(wins)}})
+        self._took(rep, "n", t)
+        del eng, graphs
+        rep["speculation"] = out
+
+    @torch.inference_mode()
+    def window_times(self, eng, prompt, ex, specs, stats):
+        """(n): device ms a replay of the batch-1 plain step and of each of
+        ``specs``' windows, CUDA events over CROSS_SPEC_REPS replays, in
+        CROSS_SPEC_ROUNDS alternating rounds, each run from its own prefill
+        once before the rounds (a window's work does not depend on what it
+        accepts; none passes the store); and with the tokens a window each
+        emitted in (i)-(k) (``stats``), batch-1 tokens/s over plain."""
+        cfg = eng.cfg
+        eng.state(1).start(eng.params, cfg, prompt, None, 1.0, greedy=True, top_k=0, extras=ex)
+        runs = {"plain step": (eng.step(1, greedy=True, top_k=0, extras=ex), 1, 1.0)}
+        for sp in specs:
+            name = (f"tree window fan {sp.tree_fan} x depth {sp.k}" if sp.tree_fan
+                    else f"{sp.mode} window k={sp.k}")
+            runs[name] = (eng.spec_step(1, sp, greedy=True, top_k=0, extras=ex),
+                          1 + sp.k * max(sp.tree_fan, 1), stats[sp]["emitted_per_step"])
+            if sp.mode == "draft" or sp.tree_fan:  # their own caches: a start each
+                self._spec_start(eng, sp, prompt, ex, N_NEW)
+        # the n-gram window shares the plain step's cache, which the starts
+        # above filled with the same prompt: its own start after them
+        self._spec_start(eng, specs[0], prompt, ex, N_NEW)
+
+        def ms(step):
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(CROSS_SPEC_REPS):
+                step()
+            z.record()
+            z.synchronize()
+            return a.elapsed_time(z) / CROSS_SPEC_REPS
+
+        rounds = []
+        for _ in range(CROSS_SPEC_ROUNDS):
+            rounds.append({name: ms(step) for name, (step, _, _) in runs.items()})
+            rounds[-1]["sm_clock_mhz"] = tracing.sm_clock_mhz()
+        med = {name: sorted(r[name] for r in rounds)[len(rounds) // 2] for name in runs}
+        return {"timing": f"device ms a replay at batch 1, CUDA events over {CROSS_SPEC_REPS} "
+                          f"replays, median of {CROSS_SPEC_ROUNDS} alternating rounds (a draft "
+                          "window holds its k + 1 one-row draft steps); tokens/s over plain: "
+                          "the tokens a window emitted in (i)-(k) over its ms, against one a "
+                          "plain step",
+                "rows": [{"run": name, "rows": r, "ms": med[name],
+                          "over_plain_step": med[name] / med["plain step"],
+                          "tokens_per_window": tok,
+                          "tokens_per_s_over_plain": tok * med["plain step"] / med[name]}
+                         for name, (_, r, tok) in runs.items()], "rounds": rounds}
+
+    def spec_serves(self, rep, cfg, params):
+        """(m): the continuous engine on (e)'s CROSS_SPEC_REQUESTS under
+        n-gram windows (2 slots x 4 = 8 rows), then tree windows (2 x 3 = 6
+        rows)."""
+        dev, arch, tr = self.dev, cfg.arch_id, self.trace
+        idx = CROSS_SPEC_REQUESTS
+        dense = [tr["dense"][i] for i in idx]
+        bars, per_step = CROSS_SOLO_BARS[cfg.family], matvec_calls_per_step(cfg)
+        first = [Request(prompt=r.prompt, max_new=min(r.max_new, CROSS_SPEC_SERVE_NEW),
+                         stop_tokens=r.stop_tokens, extras=r.extras)
+                 for r in (tr["reqs"][i] for i in idx)]
+        lengths = [expected_length(d, f.max_new, f.stop_tokens) for d, f in zip(dense, first)]
+        hit = idx.index(CROSS_HIT)
+        misses = [r for r in range(len(first)) if r != hit]
+
+        def gap_at(r, j):
+            return tr["gap_at"](idx[r], j)
+        out = {"bars": bars, "requests": list(idx), "max_new": CROSS_SPEC_SERVE_NEW}
+        for name, sp in CROSS_SERVE_SPEC.items():
+            spec = SpecConfig(**sp)
+            geo = dict(prefix_cache=True, speculate=spec, device=dev, **CROSS_SERVE)
+            eng, eager = TimedEngine(cfg, params, **geo), EagerEngine(cfg, params, **geo)
+            graphs = count_captures(eng)
+            row = {"window_rows": CROSS_SERVE["slots"] * (1 + spec.k * max(spec.tree_fan, 1))}
+            modes = (("greedy", GREEDY), ("sampled", SAMPLED)) if name == "n-gram" else (
+                ("greedy", GREEDY),)
+            for label, mode in modes:
+                got = eng.serve(first, **mode)
+                events, hits = events_of(eng.last_report), eng.last_report.prefix_hits
+                want = eager.serve(first, **mode)
+                same = {"tokens_equal": same_tokens(got, want),
+                        "events_equal": events == events_of(eager.last_report),
+                        "prefix_hits": hits, "windows": eng.spec_live_steps}
+                check(same["tokens_equal"] and same["events_equal"] and hits == 1,
+                      f"(m) {arch} {name} {label}: the captured serve differs from the eager "
+                      f"one, or hit other than once: {same}")
+                row[f"{label}_equal_eager"] = same
+                if label == "greedy":
+                    sound = got
+            with torch.inference_mode():  # against each request's solo run
+                row["vs_solo_misses"] = paged_vs_dense(
+                    f"(m) {arch} {name} misses", [sound[r] for r in misses],
+                    [dense[r] for r in misses], [lengths[r] for r in misses],
+                    lambda r, j: gap_at(misses[r], j), bars["miss"])
+                row["vs_solo_hit"] = paged_vs_dense(
+                    f"(m) {arch} {name} the hit", [sound[hit]], [dense[hit]], [lengths[hit]],
+                    lambda r, j: gap_at(hit, j), bars["hit"])
+            del eager
+            _, launches, counted_as = counted_launches(graphs, lambda: eng.serve(first))
+            misses_n = sum(e["cached_tokens"] == 0 for rec in eng.last_report.records
+                           for e in rec.events if e["name"] == "admit")
+            want = dict.fromkeys(launches, 0)
+            want["pim_matvec"] = (per_step * (eng.decode_chunk_iters + eng.cow_forks)
+                                  + (0 if cfg.tie_embeddings else misses_n))
+            check(launches == want, f"(m) {arch} {name}: launches {launches}, expected {want}")
+            self.launches[f"phase 17 {arch} {name} serve"] = launches
+            row["launches"] = {"launches": launches, "counted_as": counted_as,
+                               "iterations": eng.decode_chunk_iters}
+            if name == "n-gram":  # the planted faults, against the same graphs' sound output
+                faults = {}
+                with admits_into_next_slot(eng):
+                    faults["admits_into_next_slot"] = eng.serve(first)
+                with stale_extras():
+                    faults["stale_extras"] = eng.serve(first)
+                row["planted_faults"] = {
+                    f: sum(not np.array_equal(x, y) for x, y in zip(sound, o))
+                    for f, o in faults.items()}
+                for f, caught in row["planted_faults"].items():
+                    check(caught > 0, f"(m) {arch}: the planted fault {f} went unseen under "
+                                      "speculation")
+            out[name] = row
+            del eng, graphs
+            gc.collect()
+            torch.cuda.empty_cache()
+        rep["spec_serves"] = out
 
     def config(self, arch, seed):
+        """(a) to (n) for one config."""
         dev, cfg = self.dev, self._config(arch)
         gen = torch.Generator(device=dev).manual_seed(seed)
         gc.collect()
@@ -6054,6 +6492,7 @@ class CrossPhase:
                                  "step's pim_matvec calls and the head alone in CUDA graphs"}
         self._took(rep, "g", t)
 
+        ex1 = {k: v[:1].clone() for k, v in ex.items()}
         del eng, graphs, ex, ex2, kv_calls, mv, head
         gc.collect()
         torch.cuda.empty_cache()
@@ -6061,6 +6500,13 @@ class CrossPhase:
         t = time.perf_counter()  # (e) the continuous engine, and its planted fault
         self.serve(rep, cfg, params, gen)
         self._took(rep, "e", t)
+        self.speculation(rep, cfg, params, prompt[:1], ex1)  # (i)-(l), (n)
+        gc.collect()  # the counted captures hold each engine in a cycle
+        torch.cuda.empty_cache()
+        t = time.perf_counter()  # (m) the continuous engine under speculation
+        self.spec_serves(rep, cfg, params)
+        self._took(rep, "m", t)
+        self.trace = None  # its solo-gap closure holds the int8 tree
         rep["peak_bytes"] = torch.cuda.max_memory_allocated()
         del params
         gc.collect()
@@ -6122,7 +6568,7 @@ class CrossPhase:
 
     def run(self):
         report = {"check": "phase 17: the vlm and encdec families at full width, int8 weights, "
-                           "per-request extras on both engines", "configs": {},
+                           "per-request extras and speculation on both engines", "configs": {},
                   "section_s": {}}
         t0 = time.perf_counter()
         for i, arch in enumerate(CROSS):
@@ -6139,7 +6585,8 @@ class CrossPhase:
                 "f32_path_max_abs_logit_diff": rep["f32_path"]["max_abs_logit_diff"],
                 "f32_path_planted_fault": rep["f32_path"]["planted_fault_max_abs_logit_diff"],
                 "serve_equal_eager": rep["serve"]["captured_vs_eager"]["tokens_equal"],
-                "serve_cached_tokens": rep["serve"]["captured_vs_eager"]["cached_tokens"],
+                "serve_cached_tokens":
+                    rep["serve"]["captured_vs_eager"]["whole_trace_cached_tokens"],
                 "stale_extras_caught": rep["planted_stale_extras"]["last_logits_max_abs_diff"],
                 "next_slot_caught": rep["serve"]["planted_next_slot"]["requests_differing"],
                 "kernel_max_abs_err": rep["kernel_vs_plain"]["max_abs_err"],
@@ -6151,11 +6598,40 @@ class CrossPhase:
                 "head_ms": rep["step"]["head_ms"], "head_floor_ms": rep["step"]["head_floor_ms"],
                 "pim_matvec_ms": rep["step"]["pim_matvec_ms"],
                 "sm_clock_mhz": [r["sm_clock_mhz"] for r in rep["step"]["rounds"]],
-                "peak_bytes": rep["peak_bytes"]}
+                "peak_bytes": rep["peak_bytes"], "speculation": spec_summary(rep)}
             report["section_s"][arch] = time.perf_counter() - t
         report["phase_s"] = time.perf_counter() - t0
         print(json.dumps(report), flush=True)
         return self.launches
+
+
+def spec_summary(rep):
+    """Phase 17 (i)-(n)'s numbers of one config's report."""
+    sp, sv = rep["speculation"], rep["spec_serves"]
+    return {"bar": sp["bar"],
+            "ngram_equal_eager": all(r["tokens_equal_eager"] for r in sp["ngram"]["cases"]),
+            "ngram_vs_plain": sp["ngram"]["cases"][0]["vs_plain_batch_1"]["divergences"],
+            "ngram_windows": sp["ngram"]["cases"][0]["spec_stats"]["verify_steps"],
+            "ngram_pim_matvec": [sp["ngram"]["cases"][0]["launches"]["pim_matvec"],
+                                 sp["ngram"]["cases"][0]["windows_counted"]],
+            "self_draft_full_windows": [sp["self_draft"]["full_windows"],
+                                        sp["self_draft"]["windows"]],
+            "self_draft_rejections": sp["self_draft"]["rejections"],
+            "self_draft_pim_matvec": sp["self_draft"]["launches"]["pim_matvec"],
+            "tree_equal_eager": sp["tree"]["tokens_equal_eager"],
+            "tree_pim_matvec": [sp["tree"]["launches"]["pim_matvec"],
+                                sp["tree"]["windows_counted"]],
+            "planted": {layout: {"accepted": r["accepted"], "kept_chain": r["kept_chain"],
+                                 "sound": r["relocation"]["continued_max_abs_logit_diff"],
+                                 "late": r["planted_fault"]["continued_max_abs_logit_diff"]}
+                        for layout, r in sp["planted_chains"].items()
+                        if layout in ("dense", "paged")},
+            "window_ms": {r["run"]: r["ms"] for r in sp["window_ms"]["rows"]},
+            "tokens_per_s_over_plain": {r["run"]: r["tokens_per_s_over_plain"]
+                                        for r in sp["window_ms"]["rows"]},
+            "serves": {name: {"launches": sv[name]["launches"]["launches"]["pim_matvec"],
+                              "planted_faults": sv[name].get("planted_faults")}
+                       for name in CROSS_SERVE_SPEC}}
 
 
 def overlay_depths() -> int:

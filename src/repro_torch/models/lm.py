@@ -54,14 +54,6 @@ def _check_family(cfg: ModelConfig):
             f"{', '.join(_FAMILIES)} families (ROADMAP.md lists the others)")
 
 
-def _check_dense(cfg: ModelConfig, what: str):
-    """Speculation's cache steps run the dense family only."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{what} is not ported for family {cfg.family!r}: ROADMAP.md section 1, "
-            "item 5 (speculation on the vlm and encdec families)")
-
-
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -277,8 +269,6 @@ def verify_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: d
     (B, T, D), the cache written in place.  A caller that needs the logits
     of a few positions only unembeds those."""
     _check_family(cfg)
-    if tree is not None:
-        _check_dense(cfg, "a tree window")
     bt, ps = cache.get("block_tables"), None
     if bt is not None:
         ps = _page_size(cfg, cache, page_size)
@@ -289,7 +279,7 @@ def verify_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: d
     x = _stack(params, cfg, x, cache, extras,
                lambda lp, h, c: bk.dense_block_verify(lp, h, c, bt, pos, cfg, ps, tree)[0],
                lambda p, xn, c: attn_verify(p, xn, c, pos, block_tables=bt, page_size=ps,
-                                            **kw)[0])
+                                            tree=tree, **kw)[0])
     return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -304,11 +294,14 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     no commit step: positions past an accepted frontier are masked by later
     queries and written again by the next window), and each query attends
     as ``decode_step`` at its position does.  ``extras`` as for
-    ``decode_step``.  ``tree=(fan, depth)`` (the dense family only)
-    verifies a fan-of-chains candidate tree of ``T == 1 + fan*depth``
-    tokens in node order (``attention.tree_layout``): each chain scores as
-    if verified alone, and ``tree_relocate`` moves the accepted chain's
-    K/V into the linear columns.  Returns (logits (B, T, V), cache)."""
+    ``decode_step``.  ``tree=(fan, depth)`` verifies a fan-of-chains
+    candidate tree of ``T == 1 + fan*depth`` tokens in node order
+    (``attention.tree_layout``) in every self-attention (the vlm's dense
+    blocks, the encdec decoder's): each chain scores as if verified alone,
+    and ``tree_relocate`` moves the accepted chain's K/V into the linear
+    columns.  A cross block attends from every window row to the request's
+    memory, with no positions and no mask, as in a decode step.  Returns
+    (logits (B, T, V), cache)."""
     x = verify_hidden(params, cfg, tokens, cache, pos, extras, page_size, tree)
     return unembed(x, params.get("head", params["embed"])), cache
 
@@ -330,21 +323,22 @@ def stack_verify_caches(cfg: ModelConfig, caches: list) -> dict:
     """Merge a chain of ``verify_step`` caches (successive windows over
     consecutive positions, each committed into the next, as a draft model's
     single-token steps are) into one cache that ``commit_verify`` commits
-    once at any accepted length.  The dense family's windows write their
-    K/V in place, so the last cache already holds the whole chain's.  The
-    families with per-step state, whose chains concatenate along the
-    window's time axis, are not ported."""
-    _check_dense(cfg, "stack_verify_caches")
+    once at any accepted length.  The dense, vlm and encdec families' windows
+    write their K/V in place, so the last cache already holds the whole
+    chain's.  The families with per-step state, whose chains concatenate
+    along the window's time axis, are not ported."""
+    _check_family(cfg)
     return caches[-1]
 
 
 def commit_verify(cfg: ModelConfig, cache: dict, sel: torch.Tensor) -> dict:
     """Commit a ``verify_step`` cache at each row's accepted step ``sel``
-    (B,).  The dense family keeps nothing per step: its window's K/V are
-    written in place, and positions past the accepted frontier are masked
-    and written again by the next window, so the cache is returned as it
-    is.  The families with per-step state are not ported."""
-    _check_dense(cfg, "commit_verify")
+    (B,).  The dense, vlm and encdec families keep nothing per step: their
+    windows' K/V are written in place, and positions past the accepted
+    frontier are masked and written again by the next window, so the cache
+    is returned as it is.  The families with per-step state are not
+    ported."""
+    _check_family(cfg)
     return cache
 
 
@@ -353,7 +347,8 @@ def tree_relocate(cfg: ModelConfig, cache: dict, pos: torch.Tensor, a: torch.Ten
                   page_size: Optional[int] = None) -> dict:
     """After a tree window at ``pos`` (B,) accepted ``a`` (B,) proposals of
     chain ``cf`` (B,), copy that chain's K/V (codes and scales of an int8
-    cache) from its tree columns ``pos + 1 + cf*depth + i`` to the linear
+    cache), in every K/V stack of ``cache_stacks``, from its tree columns
+    ``pos + 1 + cf*depth + i`` to the linear
     columns ``pos + 1 + i``, i < a, where the next window's frontier mask
     expects them; in place, reading nothing on the host.  Every source is
     gathered before any write, so chain 0 is the identity.  On a dense
@@ -364,10 +359,10 @@ def tree_relocate(cfg: ModelConfig, cache: dict, pos: torch.Tensor, a: torch.Ten
     reads the trash page and such a step writes into it.  The store must
     reach ``fan*depth`` columns past a live row's frontier, or a gather
     reads the wrong rows.  Returns the cache."""
-    _check_dense(cfg, "tree_relocate")
+    _check_family(cfg)
     if "block_tables" in cache:
         _page_size(cfg, cache, page_size)
-    return move_columns(cache, *tree_columns(pos, a, cf, depth))
+    return move_columns(cfg, cache, *tree_columns(pos, a, cf, depth))
 
 
 def tree_columns(pos: torch.Tensor, a: torch.Tensor, cf: torch.Tensor, depth: int) -> tuple:
@@ -379,15 +374,19 @@ def tree_columns(pos: torch.Tensor, a: torch.Tensor, cf: torch.Tensor, depth: in
     return pos + 1 + cf * depth + steps, pos + 1 + steps, steps < a
 
 
-def move_columns(cache: dict, src: torch.Tensor, dst: torch.Tensor, ok: torch.Tensor) -> dict:
+def move_columns(cfg: ModelConfig, cache: dict, src: torch.Tensor, dst: torch.Tensor,
+                 ok: torch.Tensor) -> dict:
     """Copy each row's columns ``src`` to ``dst`` where ``ok`` (all (B, n))
-    in every leaf of a dense cache or, through its block tables, a paged
-    pool, gathering before writing (``tree_relocate``'s rules for the
-    steps that move nothing live)."""
-    layers = cache["layers"]
+    in every leaf of every K/V stack of ``cache_stacks(cfg)`` of a dense
+    cache or, through its block tables, a paged pool, gathering before
+    writing (``tree_relocate``'s rules for the steps that move nothing
+    live).  A stack's lead dims are flattened into one view, so every leaf
+    is moved as (lead, B | P, KV, S | ps, ...)."""
+    stacks = cache_stacks(cfg)
+    key, lead = stacks[0]
+    seq = cache[key]["k"].shape[len(lead) + 2]  # the store's columns, or the page size
     bt = cache.get("block_tables")
     if bt is None:
-        seq = layers["k"].shape[3]
         src = src.clamp(0, seq - 1)
         rows = torch.arange(src.shape[0], device=src.device)[:, None].expand_as(src)
         # a step that moves nothing live writes its source back: only a
@@ -396,7 +395,7 @@ def move_columns(cache: dict, src: torch.Tensor, dst: torch.Tensor, ok: torch.Te
         at_src = (rows, src)
         at_dst = (rows, torch.where(ok & (dst < seq), dst, src))
     else:
-        ps = layers["k"].shape[3]
+        ps = seq
         bt = bt.to(torch.int64)
         w = bt.shape[1]
 
@@ -405,7 +404,9 @@ def move_columns(cache: dict, src: torch.Tensor, dst: torch.Tensor, ok: torch.Te
             return torch.where(live, page, 0), col % ps  # outside: the trash page
         at_src = at(src, src < w * ps)
         at_dst = at(dst, ok & (dst < w * ps))
-    for leaf in layers.values():
-        # (L, B | P, KV, S | ps, ...): the two index tensors lead the result
-        leaf[:, at_dst[0], :, at_dst[1]] = leaf[:, at_src[0], :, at_src[1]]
+    for key, lead in stacks:
+        for leaf in cache[key].values():
+            flat = leaf.view((-1,) + leaf.shape[len(lead):])  # in place: a view, never a copy
+            # (lead, B | P, KV, S | ps, ...): the two index tensors lead the result
+            flat[:, at_dst[0], :, at_dst[1]] = flat[:, at_src[0], :, at_src[1]]
     return cache

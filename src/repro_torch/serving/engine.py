@@ -4,7 +4,7 @@ continuous-batching engine over a paged KV cache.
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
 ``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense,
 vlm and encdec families, the latter two with per-request extras; n-gram,
-tree and draft-model speculation for the dense family; the prefix cache and
+tree and draft-model speculation for all three; the prefix cache and
 the resilience tier; no mesh).  ``quantize_tree``
 turns every large matmul weight into ``{"codes": int8, "scale": f32}``
 (int4: nibble-packed codes plus a marker leaf); at decode time each of
@@ -309,8 +309,7 @@ def decode_and_emit(params, cfg: ModelConfig, st: DecodeState, *, greedy: bool,
 
 # Options of the JAX package's engines that the port does not run yet, and the
 # ROADMAP.md item (section 1) that brings each.
-_LATER = {"mesh": "item 7 (tensor-parallel decode)",
-          "speculate": "item 5 (speculation on the vlm and encdec families)"}
+_LATER = {"mesh": "item 7 (tensor-parallel decode)"}
 
 
 def _unported(**options) -> None:
@@ -320,14 +319,6 @@ def _unported(**options) -> None:
         if value is not None and value is not False and value != 0:
             raise NotImplementedError(
                 f"{name}= is not ported yet: ROADMAP.md section 1, {_LATER[name]}")
-
-
-def _spec_of(speculate, cfg: ModelConfig) -> Optional[SpecConfig]:
-    """``speculate=`` as a SpecConfig (None: no speculation); the port
-    speculates on the dense family only."""
-    if speculate is not None and cfg.family != "dense":
-        _unported(speculate=speculate)
-    return None if speculate is None else as_spec(speculate)
 
 
 _NO_DRAFT = "speculate mode='draft' needs the engine constructed with draft_cfg/draft_params"
@@ -494,47 +485,60 @@ class ServingEngine:
         """The speculative buffers of a batch of ``batch`` rows, on the cache
         of ``state(batch)`` (made at first use and kept)."""
         if batch not in self._spec_states:
-            self._spec_states[batch] = SpecState(batch, self.max_seq, self.state(batch).cache,
-                                                 self.device, self.draft_cfg)
+            self._spec_states[batch] = SpecState(self.cfg, batch, self.max_seq,
+                                                 self.state(batch).cache, self.device,
+                                                 self.draft_cfg)
         return self._spec_states[batch]
 
-    def spec_step(self, batch: int, spec: SpecConfig, *, greedy: bool, top_k: int):
+    def spec_step(self, batch: int, spec: SpecConfig, *, greedy: bool, top_k: int,
+                  extras: Optional[dict] = None):
         """One verify window of ``batch`` rows as a call with no arguments:
-        ``spec_window`` on the current parameters (the draft's too), kept
-        on the card per (batch, spec, greedy, top_k) and dispatch mode, in
-        the graph memory pool of the batch's decode step.  Its warm-up
-        writes the buffers, which ``SpecState.start`` resets; a draft
-        model's cache, or a tree window's cache and tables, are made before
-        it."""
+        ``spec_window`` on the current parameters (the draft's too) and the
+        batch's extras buffers of ``extras``' shapes and dtypes (those of
+        ``state(batch)``, which plain decode steps read), kept on the card
+        per (batch, spec, greedy, top_k, extras shapes and dtypes) and
+        dispatch mode, in the graph memory pool of the batch's decode step.
+        Its warm-up writes the buffers, which ``SpecState.start`` resets; a
+        draft model's cache, or a tree window's cache and tables, are made
+        before it."""
         top_k = 0 if greedy else int(top_k)
         st = self.spec_state(batch)
+        ex = self.state(batch).extras.get(extras)
         if spec.mode == "draft":
             st.draft_cache(spec.k)
         if spec.tree_fan:
             st.tree_cache(spec.tree_fan, spec.k)
             tree_tensors(spec.tree_fan, spec.k, self.device)
         run = functools.partial(spec_window, self.params, self.cfg, st, spec=spec,
-                                greedy=bool(greedy), top_k=top_k, draft_params=self.draft_params)
-        return self.graphs.get(self._weights(), ("spec", batch, spec, bool(greedy), top_k), batch,
+                                greedy=bool(greedy), top_k=top_k, draft_params=self.draft_params,
+                                extras=ex)
+        return self.graphs.get(self._weights(),
+                               ("spec", batch, spec, bool(greedy), top_k, _extras_key(ex)), batch,
                                run, st.reset)
 
     def _generate_speculative(self, prompt: torch.Tensor, n_new: int, spec: SpecConfig, *,
-                              greedy: bool, temperature: float, top_k: int, key) -> torch.Tensor:
+                              greedy: bool, temperature: float, top_k: int, key,
+                              extras: Optional[dict] = None) -> torch.Tensor:
         """The JAX package's ``_spec_generate_body``: prefill and draw 0, then
         verify windows until every row has ``n_new`` tokens.  Each row emits
         at most ``k + 1`` tokens a window, so the host reads the emitted
         counts, runs the windows the slowest row needs at least, and reads
-        again: no window runs past the reference's loop."""
+        again: no window runs past the reference's loop.  ``extras`` are
+        copied into the batch's static buffers before the prefill, and
+        every window reads them there."""
         b = prompt.shape[0]
         steps = live_steps = 0
         toks = torch.zeros((b, 0), dtype=torch.int32, device=self.device)
         if n_new:
-            step = self.spec_step(b, spec, greedy=greedy, top_k=top_k)
+            step = self.spec_step(b, spec, greedy=greedy, top_k=top_k, extras=extras)
             st = self.spec_state(b)
-            st.start(self.params, self.cfg, prompt, key, temperature, n_new, greedy=greedy,
+            ex = self.state(b).extras.get(extras)
+            if ex is not None:
+                _copy_tree(ex, extras)
+            st.start(self.params, prompt, key, temperature, n_new, greedy=greedy,
                      top_k=0 if greedy else int(top_k), ctrl_init=spec.ctrl_init,
                      draft_params=self.draft_params if spec.mode == "draft" else None,
-                     k=spec.k, tree_fan=spec.tree_fan)
+                     k=spec.k, tree_fan=spec.tree_fan, extras=ex)
             while True:
                 left = n_new - int(st.n_em.min())
                 if left <= 0:
@@ -579,13 +583,14 @@ class ServingEngine:
         package draws them."""
         prompt = self._check(prompt_tokens, n_new)
         extras = _extras_on(extras, self.device)
-        spec = _spec_of(speculate, self.cfg)
+        spec = as_spec(speculate)
         if spec is not None and spec.mode == "draft" and (
                 self.draft_params is None or self.draft_cfg is None):
             raise ValueError(_NO_DRAFT)
         if spec is not None:
             toks = self._generate_speculative(prompt, n_new, spec, greedy=bool(greedy),
-                                              temperature=temperature, top_k=top_k, key=key)
+                                              temperature=temperature, top_k=top_k, key=key,
+                                              extras=extras)
             return mask_after_stop(toks, stop_tokens, pad_id)
         b = prompt.shape[0]
         if n_new == 0:
@@ -871,12 +876,13 @@ def admit_miss(params, cfg: ModelConfig, st: ChunkState, a: AdmitState, *, greed
     per-slot ``extras`` (buffers of ``st``), draw 0 with ``st``'s base key
     and temperature, the token written to ``a.tok``.  With a draft model
     (``draft_params``) the prompt is prefilled into the same page ids of the
-    draft pool too; the token always comes from the target."""
+    draft pool too, with the same row of extras; the token always comes
+    from the target."""
     ex = _tree_map(lambda t: t.index_select(0, a.slot.reshape(1)), extras)
     a.tok.copy_(admit_prefill(params, cfg, st.cache, a.prompt, a.length, None, a.pages, a.rid,
                               st.base, st.temperature, ex, greedy=greedy, top_k=top_k))
     if draft_params is not None:
-        prefill(draft_params, st.draft_cfg, a.prompt, st.dcache, length=a.length,
+        prefill(draft_params, st.draft_cfg, a.prompt, st.dcache, ex, length=a.length,
                 pages=a.pages)
 
 
@@ -904,8 +910,8 @@ MAX_ADMIT_GRAPHS = 64
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
     package's, for the dense, vlm and encdec families, with n-gram, tree and
-    draft-model speculation for the dense one, the prefix cache and the
-    resilience tier, without a mesh).  A request's ``extras`` are written
+    draft-model speculation, the prefix cache and the resilience tier,
+    without a mesh).  A request's ``extras`` are written
     into its slot's row of the per-slot buffers at its admit
     (``_set_slot_extras``), which the chunk steps and admits read.
 
@@ -971,7 +977,7 @@ class ContinuousBatchingEngine:
                  mesh=None, speculate=None, draft_cfg: Optional[ModelConfig] = None,
                  draft_params=None, draft_pim_bits: int = 0, clock=None,
                  prefix_cache: bool = False, device=None):
-        self.spec = _spec_of(speculate, cfg)
+        self.spec = as_spec(speculate)
         self._draft_mode = self.spec is not None and self.spec.mode == "draft"
         if self._draft_mode and (draft_params is None or draft_cfg is None):
             raise ValueError(_NO_DRAFT)
@@ -1098,9 +1104,10 @@ class ContinuousBatchingEngine:
     def spec_chunk(self, k: int, n_stops: int, *, greedy: bool, top_k: int):
         """One iteration of a round of width-``k`` windows (tree windows of
         chains of depth ``k`` under ``tree_fan``): ``spec_chunk_step`` on
-        the current parameters, kept on the card per (slots, k, tree_fan,
-        greedy, top_k, n_stops) and dispatch mode.  Got before a round's
-        ``_load`` (``_round_reset``)."""
+        the current parameters and the per-slot extras buffers, kept on the
+        card per (slots, k, tree_fan, greedy, top_k, n_stops, extras shapes
+        and dtypes) and dispatch mode.  Got before a round's ``_load``
+        (``_round_reset``)."""
         st = self._state
         top_k = 0 if greedy else int(top_k)
         fan = self.spec.tree_fan
@@ -1110,9 +1117,10 @@ class ContinuousBatchingEngine:
         run = functools.partial(spec_chunk_step, self.params, self.cfg, st, st.stops(n_stops),
                                 emits, ms, k=k, spec=self.spec, greedy=bool(greedy),
                                 top_k=top_k, pad_id=self.pad_id,
-                                draft_params=self.draft_params if self._draft_mode else None)
-        return self._kept(("spec", self.slots, k, fan, bool(greedy), top_k, n_stops), run,
-                          self._round_reset)
+                                draft_params=self.draft_params if self._draft_mode else None,
+                                extras=self._slot_ex)
+        return self._kept(("spec", self.slots, k, fan, bool(greedy), top_k, n_stops,
+                           self._ex_key), run, self._round_reset)
 
     def admit_step(self, spad: int, *, greedy: bool, top_k: int):
         """The uncached admit of a prompt padded to ``spad`` positions:

@@ -35,6 +35,11 @@ window stays ``k`` wide), the continuous engine re-picks the round's width
 from the EMA on the host (``adaptive_k_host``) and runs its width-0 rounds
 as plain decode chunks, probing host-side (``propose_first_host``).
 
+The vlm and encdec families speculate too: every window, the draft
+model's steps included, reads the rows' (or slots') ``extras``, the static
+buffers their engine holds, and the caches are built, zeroed and relocated
+over every K/V stack of ``models.lm.cache_stacks``.
+
 Everything here runs on tensors of static shape: a window never reads a
 value of the device on the host, so on the card each window, the draft
 model's steps included, is one replay of a captured program.
@@ -55,6 +60,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (commit_verify, init_cache, prefill, stack_verify_caches,
                                  tree_relocate, verify_step)
 from repro_torch.models.attention import tree_tensors
+from repro_torch.models.lm import cache_stacks
 
 from .sampling import (TAG_TOKEN, TAG_WINDOW, categorical, fold_in, prng_key, rejection_sample,
                        row_keys, sample_rows, split, tree_reject_sample, typical_accept_sample,
@@ -113,9 +119,10 @@ class SpecConfig:
             raise ValueError(f"ctrl_cost must be > 0, got {self.ctrl_cost}")
 
 
-def as_spec(speculate) -> SpecConfig:
-    """An engine's ``speculate=``: a SpecConfig, or an int ``k``."""
-    if isinstance(speculate, SpecConfig):
+def as_spec(speculate) -> Optional[SpecConfig]:
+    """An engine's ``speculate=``: a SpecConfig, or an int ``k``; None, no
+    speculation."""
+    if speculate is None or isinstance(speculate, SpecConfig):
         return speculate
     return SpecConfig(k=int(speculate))
 
@@ -251,7 +258,7 @@ def propose_first_host(hist_row: np.ndarray, hlen: int, n: int) -> int:
 
 def draft_propose(draft_params, draft_cfg: ModelConfig, dcache: dict, tok: torch.Tensor,
                   pos: torch.Tensor, k: int, *, wkeys=None, greedy: bool = True, temperature=1.0,
-                  top_k: int = 0):
+                  top_k: int = 0, extras: Optional[dict] = None):
     """A draft model's proposals (the JAX package's ``_draft_propose``):
     ``k + 1`` single-token ``verify_step``s at ``pos + i`` on the draft's
     cache ``dcache`` consume the whole window ``[tok, d_1 .. d_k]`` (the
@@ -261,14 +268,16 @@ def draft_propose(draft_params, draft_cfg: ModelConfig, dcache: dict, tok: torch
     ``3 + i``, whose probabilities are returned.  ``dcache`` is dense (the
     fixed engine) or paged (the continuous engine, through its block
     tables at per-slot positions ``pos`` (B,)); ``k == 0`` still runs the
-    step that consumes ``tok``.  Reads nothing on the host.  Returns
+    step that consumes ``tok``.  The draft reads the target's ``extras``
+    (a vlm or encdec draft attends to the rows' memory; a dense one ignores
+    them).  Reads nothing on the host.  Returns
     (drafts (B, k) int32, q (B, k, V) f32 or None when greedy, the chain's
     cache for ``commit_verify``)."""
     b = tok.shape[0]
     zero = torch.zeros((b,), dtype=torch.int64, device=tok.device)
     dc, t, ds, qs, vcs = dcache, tok, [], [], []
     for i in range(k + 1):
-        lg, vc = verify_step(draft_params, draft_cfg, t, dc, pos + i)
+        lg, vc = verify_step(draft_params, draft_cfg, t, dc, pos + i, extras)
         vcs.append(vc)
         dc = commit_verify(draft_cfg, vc, zero)
         if i < k:
@@ -362,8 +371,9 @@ def _last_emitted(g: torch.Tensor, m: torch.Tensor, tok: torch.Tensor) -> torch.
 
 # ---------------------------------------------------------- the fixed engine --
 class SpecState:
-    """The static buffers of one batch's speculative generation: the dense
-    cache (shared with the batch's ``DecodeState``), the current token
+    """The static buffers of one batch's speculative generation of model
+    ``cfg``: the dense cache (shared with the batch's ``DecodeState``, whose
+    extras buffers the windows read too), the current token
     (B, 1) int32, the emitted count, window counter (B,) int64 and
     acceptance EMA (B,) f32, each row's window-stream key (B, 2), the
     temperature, the history and the output (B, max_seq + 1) int32 (column
@@ -377,11 +387,12 @@ class SpecState:
     fan*k`` positions, so that the relocation's gathers from the tree
     columns past the last token stay inside the store."""
 
-    def __init__(self, batch: int, max_seq: int, cache: dict, device,
+    def __init__(self, cfg: ModelConfig, batch: int, max_seq: int, cache: dict, device,
                  draft_cfg: Optional[ModelConfig] = None):
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
+        self.cfg = cfg
         self.max_seq = max_seq
         self.cache = cache
         self.draft_cfg = draft_cfg
@@ -415,10 +426,12 @@ class SpecState:
         if fan == 1:
             return self.cache
         if (fan, k) not in self._tcaches:
-            self._tcaches[fan, k] = {"layers": {
-                name: torch.zeros(leaf.shape[:3] + (self.max_seq + fan * k,) + leaf.shape[4:],
-                                  dtype=leaf.dtype, device=leaf.device)
-                for name, leaf in self.cache["layers"].items()}}
+            # every K/V stack, its sequence axis after the lead dims, batch and heads
+            self._tcaches[fan, k] = {key: {
+                name: torch.zeros(leaf.shape[:len(lead) + 2] + (self.max_seq + fan * k,)
+                                  + leaf.shape[len(lead) + 3:], dtype=leaf.dtype,
+                                  device=leaf.device)
+                for name, leaf in self.cache[key].items()} for key, lead in cache_stacks(self.cfg)}
         return self._tcaches[fan, k]
 
     def reset(self) -> None:
@@ -428,24 +441,24 @@ class SpecState:
         self.s.fill_(1)
         self.n_em.fill_(1)
 
-    def start(self, params, cfg: ModelConfig, prompt: torch.Tensor, key, temperature,
+    def start(self, params, prompt: torch.Tensor, key, temperature,
               n_new: int, *, greedy: bool, top_k: int, ctrl_init: float, draft_params=None,
-              k: int = 0, tree_fan: int = 0) -> None:
-        """Zero the cache, prefill ``prompt`` (B, S) and draw token 0 from its
-        last logits (``draw_keys(key, row, 0, TAG_TOKEN)``), as plain
-        ``generate`` does; then the history is the prompt and token 0.  With
-        ``draft_params``, zero the draft's cache for ``k`` proposals and
-        prefill the prompt into it too.  With ``tree_fan``, the cache is
-        ``tree_cache(tree_fan, k)``."""
+              k: int = 0, tree_fan: int = 0, extras: Optional[dict] = None) -> None:
+        """Zero the cache, prefill ``prompt`` (B, S) with the batch's
+        ``extras`` (the static buffers the windows read, already written)
+        and draw token 0 from its last logits (``draw_keys(key, row, 0,
+        TAG_TOKEN)``), as plain ``generate`` does; then the history is the
+        prompt and token 0.  With ``draft_params``, zero the draft's cache
+        for ``k`` proposals and prefill the prompt into it too, with the
+        same extras.  With ``tree_fan``, the cache is ``tree_cache(tree_fan,
+        k)``.  Every K/V stack of ``cache_stacks`` is zeroed."""
         cache = self.tree_cache(tree_fan, k) if tree_fan else self.cache
-        for leaf in cache["layers"].values():
-            leaf.zero_()
-        logits, _ = prefill(params, cfg, prompt, cache)
+        _zero_stacks(self.cfg, cache)
+        logits, _ = prefill(params, self.cfg, prompt, cache, extras)
         if draft_params is not None:
             dcache = self.draft_cache(k)
-            for leaf in dcache["layers"].values():
-                leaf.zero_()
-            prefill(draft_params, self.draft_cfg, prompt, dcache)
+            _zero_stacks(self.draft_cfg, dcache)
+            prefill(draft_params, self.draft_cfg, prompt, dcache, extras)
         b, s = prompt.shape
         base = prng_key(0 if key is None else key, prompt.device)
         rids = torch.arange(b, device=prompt.device)
@@ -466,8 +479,16 @@ class SpecState:
         self.ints.copy_(torch.tensor([s, n_new, 0, 0], device=prompt.device))
 
 
+def _zero_stacks(cfg: ModelConfig, cache: dict) -> None:
+    """Every leaf of every K/V stack of ``cache_stacks(cfg)`` zeroed, in
+    place (a fresh ``init_cache``'s)."""
+    for key, _ in cache_stacks(cfg):
+        for leaf in cache[key].values():
+            leaf.zero_()
+
+
 def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, greedy: bool,
-                top_k: int, draft_params=None) -> None:
+                top_k: int, draft_params=None, extras: Optional[dict] = None) -> None:
     """One window of the fixed engine (an iteration of the JAX package's
     ``_spec_generate_body`` loop) on ``st``'s buffers: propose ``k``
     tokens per row, from its history or, in draft mode, by the draft model
@@ -479,7 +500,9 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
     window's writes land at or past its last position, or are dropped past
     the store.  Under ``spec.tree_fan`` the window is a tree of chains of
     depth ``k`` on ``st.tree_cache(tree_fan, k)`` (``_spec_tree_generate_body``):
-    the kept chain is relocated to the linear columns before the commit."""
+    the kept chain is relocated to the linear columns before the commit.
+    ``extras``: the batch's extras buffers (each leaf (B, ...)), which the
+    target's window and the draft's steps read."""
     b, k, ms = st.tok.shape[0], spec.k, st.max_seq
     dev = st.tok.device
     live = st.n_em < st.n_new
@@ -490,7 +513,8 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
         cache = st.tree_cache(fan, k)
         chains = propose_ngram_tree(st.hist[:, :ms], st.s + st.n_em, fan, k, spec.ngram_n)
         g, a, cf = _tree_verify(params, cfg, cache, st.tok, chains, pos, greedy=greedy,
-                                temperature=st.temperature, top_k=top_k, wkeys=wkeys)
+                                temperature=st.temperature, top_k=top_k, wkeys=wkeys,
+                                extras=extras)
         m = torch.where(live, torch.minimum(a + 1, st.n_new - st.n_em), 0)
         _emit_window(st, g, m, live)
         _tree_commit(cfg, cache, pos, m, cf, fan, k)
@@ -498,11 +522,11 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
     if spec.mode == "draft":
         drafts, q, dstack = draft_propose(
             draft_params, st.draft_cfg, st.draft_cache(k), st.tok, pos, k, wkeys=wkeys,
-            greedy=greedy, temperature=st.temperature, top_k=top_k)
+            greedy=greedy, temperature=st.temperature, top_k=top_k, extras=extras)
     else:
         drafts, q = propose_ngram(st.hist[:, :ms], st.s + st.n_em, k, spec.ngram_n), None
     window = torch.cat([st.tok, drafts], dim=1)
-    lg, cache = verify_step(params, cfg, window, st.cache, pos)
+    lg, cache = verify_step(params, cfg, window, st.cache, pos, extras)
     if spec.adaptive:
         keff = _ctrl_k(st.ema, live, k, spec.ctrl_cost)
         kcap = keff.expand(b)
@@ -541,14 +565,15 @@ def _emit_window(st: SpecState, g: torch.Tensor, m: torch.Tensor, live: torch.Te
 
 
 def _tree_verify(params, cfg: ModelConfig, cache: dict, tok: torch.Tensor, chains: torch.Tensor,
-                 pos: torch.Tensor, *, greedy: bool, temperature, top_k: int, wkeys):
+                 pos: torch.Tensor, *, greedy: bool, temperature, top_k: int, wkeys,
+                 extras: Optional[dict] = None):
     """A tree window: the current token and the chains (B, F, D) in node
-    order, verified at ``pos`` (B,) against ``cache`` (dense or paged), then
-    accepted greedily or by ``tree_reject_sample``.  Returns (g (B, D+1), a,
-    cf)."""
+    order, verified at ``pos`` (B,) against ``cache`` (dense or paged) with
+    the rows' ``extras``, then accepted greedily or by
+    ``tree_reject_sample``.  Returns (g (B, D+1), a, cf)."""
     b, fan, depth = chains.shape
     window = torch.cat([tok, chains.reshape(b, fan * depth)], dim=1)
-    lg, _ = verify_step(params, cfg, window, cache, pos, tree=(fan, depth))
+    lg, _ = verify_step(params, cfg, window, cache, pos, extras, tree=(fan, depth))
     if greedy:
         return greedy_tree_accept(chains, lg)
     return tree_reject_sample(wkeys, chains, torch.softmax(warp_logits(lg, temperature, top_k),
@@ -568,7 +593,7 @@ def _tree_commit(cfg: ModelConfig, cache: dict, pos: torch.Tensor, m: torch.Tens
 # ----------------------------------------------------- the continuous engine --
 def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: torch.Tensor,
                     ms: torch.Tensor, *, k: int, spec: SpecConfig, greedy: bool, top_k: int,
-                    pad_id: int, draft_params=None) -> None:
+                    pad_id: int, draft_params=None, extras: Optional[dict] = None) -> None:
     """One iteration of the JAX package's speculative chunk
     (``_spec_chunk_body``) at the round's width ``k`` on ``ChunkState``
     ``st``: every slot proposes ``k`` tokens from its history or, in draft
@@ -582,7 +607,9 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
     own pages or the trash page.  Under ``spec.tree_fan`` the window is a
     tree of chains of depth ``k`` (``_spec_tree_chunk_body``): the kept
     chain's K/V are relocated through the block tables, whose pages must
-    reach ``tree_fan * k`` positions past each live slot's frontier."""
+    reach ``tree_fan * k`` positions past each live slot's frontier.
+    ``extras``: the per-slot extras buffers (each leaf (B, ...)), which the
+    target's window and the draft's steps read, each slot its own row."""
     b = st.tok.shape[0]
     dev = st.tok.device
     w = st.hist.shape[1] - 1  # column w takes the writes the reference drops
@@ -592,16 +619,17 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
     if fan:
         chains = propose_ngram_tree(st.hist[:, :w], st.pos + 1, fan, k, spec.ngram_n)
         g, a, cf = _tree_verify(params, cfg, st.cache, st.tok, chains, st.pos, greedy=greedy,
-                                temperature=st.temperature, top_k=top_k, wkeys=wkeys)
+                                temperature=st.temperature, top_k=top_k, wkeys=wkeys,
+                                extras=extras)
     else:
         if spec.mode == "draft":
             drafts, q, dstack = draft_propose(
                 draft_params, st.draft_cfg, st.dcache, st.tok, st.pos, k, wkeys=wkeys,
-                greedy=greedy, temperature=st.temperature, top_k=top_k)
+                greedy=greedy, temperature=st.temperature, top_k=top_k, extras=extras)
         else:
             drafts, q = propose_ngram(st.hist[:, :w], st.pos + 1, k, spec.ngram_n), None
         window = torch.cat([st.tok, drafts], dim=1)
-        lg, _ = verify_step(params, cfg, window, st.cache, st.pos)
+        lg, _ = verify_step(params, cfg, window, st.cache, st.pos, extras)
         g, a = _accept(window, drafts, lg, greedy=greedy, temperature=st.temperature,
                        top_k=top_k, wkeys=wkeys, q=q, **_verify_kw(spec))
     if spec.adaptive:

@@ -19,8 +19,9 @@ within the window measures the profiler's launch cost.
 """
 from __future__ import annotations
 
-import json
+import bisect
 import subprocess
+import time
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -98,21 +99,61 @@ def split_windows(events, labels) -> dict:
         raise ValueError(f"the trace holds {len(groups)} marked windows, expected "
                          f"{len(labels)}: the profiler recorded no device events?")
     ranges = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    # the host events sorted by start once, each window's a slice of them
+    host_events = sorted((e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")),
+                         key=lambda e: e["ts"])
+    starts = [e["ts"] for e in host_events]
     out = {}
     for label, device in zip(labels, groups):
         r = ranges[f"window {label}"]
-        host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")
-                and r["ts"] <= e["ts"] < r["ts"] + r["dur"]]
-        out[label] = Window(device, host, r["dur"])
+        lo = bisect.bisect_left(starts, r["ts"])
+        hi = bisect.bisect_left(starts, r["ts"] + r["dur"])
+        out[label] = Window(device, host_events[lo:hi], r["dur"])
     return out
 
 
-def trace_windows(windows, path) -> dict:
+def session_events(results) -> list:
+    """A profiler session's events (``prof.profiler.kineto_results``) as
+    Chrome-trace events ``{"ph": "X", "cat", "name", "ts", "dur"}`` (µs),
+    read without writing the trace (at a million kernels, writing and
+    loading the JSON took a minute on the chip's host).  The events carry no
+    category on every torch version, so it is told here: a user range by
+    its flag, a device event by its device (a copy's name starts with
+    "Memcpy", a set's with "Memset", the rest are kernels), a CUDA runtime
+    call by its name ("cuda..."), a driver call by its ("cu..." otherwise,
+    as ``cuLaunchKernel``), and the profiler's own overhead (no device
+    index) is left out; the rest are operators.  These are the categories
+    ``export_chrome_trace`` gives the same events."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in results.events():
+        name, on_device = e.name(), e.device_type() == cuda
+        if e.is_user_annotation():
+            cat = "gpu_user_annotation" if on_device else "user_annotation"
+        elif on_device:
+            cat = ("gpu_memcpy" if name.startswith("Memcpy") else
+                   "gpu_memset" if name.startswith("Memset") else "kernel")
+        elif e.device_index() < 0:
+            continue
+        else:
+            cat = ("cuda_runtime" if name.startswith("cuda") else
+                   "cuda_driver" if name.startswith("cu") else "cpu_op")
+        out.append({"ph": "X", "cat": cat, "name": name, "ts": e.start_ns() / 1e3,
+                    "dur": e.duration_ns() / 1e3})
+    return out
+
+
+def trace_windows(windows, path=None, times=None) -> dict:
     """One profiler session (CPU and CUDA activity) over ``windows``
     [(label, set-up or None, fn)], in order.  Each set-up runs first,
     outside the window; then ``fn`` runs in the window and is synchronised
-    inside it.  The Chrome trace is written to ``path``.  Returns
-    ``split_windows`` of it."""
+    inside it.  With ``path`` the Chrome trace is written there.  Returns
+    ``split_windows`` of the session's events.  ``times``, a dict, takes the
+    host seconds of each stage: the session (its windows and set-ups, and
+    the profiler's stop), the trace's export, reading the events and
+    splitting them."""
+    times = {} if times is None else times
+    t0 = time.perf_counter()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for label, setup, fn in windows:
@@ -124,8 +165,15 @@ def trace_windows(windows, path) -> dict:
                 fn()
                 torch.cuda.synchronize()
             torch.cuda._sleep(SPIN_CYCLES)
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    return split_windows(json.loads(path.read_text())["traceEvents"],
-                         [label for label, _, _ in windows])
+    t1 = time.perf_counter()
+    if path is not None:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+    t2 = time.perf_counter()
+    events = session_events(prof.profiler.kineto_results)
+    t3 = time.perf_counter()
+    out = split_windows(events, [label for label, _, _ in windows])
+    times.update(session_s=t1 - t0, export_s=t2 - t1, read_s=t3 - t2,
+                 split_s=time.perf_counter() - t3, events=len(events))
+    return out

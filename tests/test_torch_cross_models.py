@@ -289,24 +289,39 @@ def test_verify_step_matches_jax(arch, paged):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_speculation_cache_steps_refuse_these_families(arch):
-    """``stack_verify_caches``, ``commit_verify``, ``tree_relocate`` and a
-    tree window stay unported here (ROADMAP section 1, item 5)."""
-    _, _, tcfg, tparams = cross_model(arch)
-    cache = lm.init_cache(tcfg, 1, 8, CPU)
+    """These families' speculation steps no longer refuse (ROADMAP section
+    1, item 5): ``stack_verify_caches`` and ``commit_verify`` pass the
+    cache through, as JAX's do for them (the same leaves back);
+    ``tree_relocate`` with nothing accepted leaves the cache as it was; a
+    fan-1 tree window is the linear window bit for bit; and both engines
+    take ``speculate=`` (tests/test_torch_cross_spec.py and
+    tests/test_torch_cross_tree.py hold them against the JAX package)."""
+    jcfg, jparams, tcfg, tparams = cross_model(arch)
+    ((key, _),) = lm.cache_stacks(tcfg)
+    chain = [lm.init_cache(tcfg, 1, 8, CPU) for _ in range(3)]
+    jchain = [jax_lm.init_cache(jcfg, 1, 8) for _ in range(3)]
     one = torch.zeros(1, dtype=torch.int64)
-    for call in (lambda: lm.stack_verify_caches(tcfg, [cache]),
-                 lambda: lm.commit_verify(tcfg, cache, one),
-                 lambda: lm.tree_relocate(tcfg, cache, one, one, one, fan=2, depth=1),
-                 lambda: lm.verify_step(tparams, tcfg, torch.zeros((1, 3), dtype=torch.int32),
-                                        cache, one, None, tree=(2, 1))):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
-    for make in (lambda: ServingEngine(tcfg, tparams, max_seq=8, device="cpu").generate(
-                     torch.zeros((1, 2), dtype=torch.int32), 2, speculate=2),
-                 lambda: ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=8,
-                                                  device="cpu", speculate=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 5"):
-            make()
+    assert lm.stack_verify_caches(tcfg, chain) is chain[-1]
+    assert jax_lm.stack_verify_caches(jcfg, jchain)[key] is jchain[-1][key]
+    assert lm.commit_verify(tcfg, chain[0], one) is chain[0]
+    assert jax_lm.commit_verify(jcfg, jchain[0], jnp.zeros(1, jnp.int32))[key] is jchain[0][key]
+    ex = _t(cross_extras(jcfg, jparams, 1, seed=7))
+    toks = torch.from_numpy(prompt(1, 3, jcfg.vocab, seed=8))
+    lin, lc = lm.verify_step(tparams, tcfg, toks, lm.init_cache(tcfg, 1, 8, CPU), one, ex)
+    tree, tc = lm.verify_step(tparams, tcfg, toks, lm.init_cache(tcfg, 1, 8, CPU), one, ex,
+                              tree=(1, 2))
+    assert torch.equal(tree, lin)
+    before = {k: v.clone() for k, v in tc[key].items()}
+    assert lm.tree_relocate(tcfg, tc, one, one, one + 1, fan=2, depth=1) is tc
+    for name, leaf in tc[key].items():
+        assert torch.equal(leaf, before[name]) and torch.equal(leaf, lc[key][name]), name
+    prompt2 = torch.from_numpy(prompt(1, 4, jcfg.vocab, seed=9))
+    ex2 = {k: v for k, v in cross_extras(jcfg, jparams, 1, seed=10).items()}
+    eng = ServingEngine(tcfg, tparams, max_seq=12, device="cpu")
+    assert eng.generate(prompt2, 4, extras=ex2, speculate=2).shape == (1, 4)
+    cb = ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=12, device="cpu",
+                                  speculate=2)
+    assert cb.generate(prompt2, 4, extras=ex2).shape == (1, 4)
 
 
 # ---------------------------------------------------------------- weights ----

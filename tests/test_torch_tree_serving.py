@@ -253,7 +253,7 @@ def test_long_horizon_paged_relocation_and_cross_engine_keys():
 def _late_sources(cfg, cache, pos, a, cf, *, fan, depth, page_size=None):
     """The planted fault: the relocation's sources one column late."""
     src, dst, ok = lm.tree_columns(pos, a, cf, depth)
-    return lm.move_columns(cache, src + 1, dst, ok)
+    return lm.move_columns(cfg, cache, src + 1, dst, ok)
 
 
 def test_planted_late_relocation_is_flagged(monkeypatch):
