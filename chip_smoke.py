@@ -44,13 +44,15 @@ weights from a seeded generator on the card):
   program, on a dense store and through the block tables of a paged one.
 
 Then the rest of the dense family, llama3.2-3b, starcoder2-7b and
-starcoder2-15b, each at its full width and depth through the same
-decoding path, and the int8 KV cache on qwen2-1.5b's serving path; then
+starcoder2-15b, each at its full width (and depth, but starcoder2-15b at
+20 of its 40 layers) through the same decoding path, and the int8 KV cache on qwen2-1.5b's serving path; then
 the vlm and encdec families, seamless-m4t-medium (a non-causal encoder, a
 decoder that cross-attends to its output) at full width and depth and
 llama-3.2-vision-90b (groups of four dense blocks and a gated
-cross-attention block over image embeds) at full width and 16 of its 20
-groups, through both engines with per-request extras.
+cross-attention block over image embeds) at full width and 8 of its 20
+groups (16 before phase 18), through both engines with per-request
+extras; then the moe family, moonshot-v1-16b-a3b, at full width and
+depth.
 
 Besides, the paper's own machine runs at the paper's array sizes (no
 model): PiCaSO's bit-serial PE array (``repro_torch.core``), the Alveo
@@ -398,7 +400,8 @@ Phases:
    PAGED_BAR beside it), its launches counted (196 x chunk iterations), a
    4 x 128 int8-cache ``generate`` captured against eager, and the
    int8-cache step's ms beside the bf16 one's; then for each of FAMILY,
-   one at a time, its weights drawn on the card layer by layer
+   one at a time, at full width and FAMILY_LAYERS deep, its weights drawn
+   on the card layer by layer
    (``layerwise_params``) and quantized at int8, the bf16 tree dropped:
    (a) a captured ``generate`` on 4 x 128 prompts, 32 new, greedy and
    sampled, ``torch.equal`` to the eager loop of ``decode_and_emit``; (b)
@@ -491,8 +494,36 @@ Phases:
    seconds at its start, and phase 8 the seconds of its sections, its
    profiler session's stages among them.
 
+18. the moe family (after phase 17): MOE_ARCH, moonshot-v1-16b-a3b, at
+   full width and all 48 layers, drawn and quantized on the card one (K, N)
+   slice at a time (``quantized_params``, int8): (a) ``moe_apply`` against
+   ``moe_apply_onehot`` (the reference's one-hot einsums transcribed) on one
+   f32 MoE layer at full width, BATCH rows of one token (nothing dropped)
+   and BATCH rows of MOE_PLANT_S tokens with expert 0 planted in every
+   token's top 6 (capacity drops counted equal, at least the planted
+   number), ``pim_matvec`` against plain at its shapes (K 2,048 / 2,816 /
+   11,264, N 2,048 / 2,816 / 11,264 / 163,840) and ``flash_attention`` at
+   (KV 16, G 1, D 128); (b) a captured ``generate`` on 4 x 128 prompts, 32
+   new, greedy (its launches counted: 337 ``pim_matvec`` a step, the 47
+   MoE layers' routed experts ``x @ dq(w)``) and sampled, ``torch.equal`` to
+   the eager loop, the captured step's ms beside the weight-stream floor
+   and the floor of the experts a step can route to, and one MoE layer's
+   ``moe_apply`` alone, times 47, as its share; (e) the continuous engine
+   (``prefix_cache=True``) on MOE_TRACE over 2 slots: each request served
+   alone, then the trace counted (337 x chunk iterations + one head row an
+   admit), each request ``torch.equal`` to itself served alone, no prefix
+   hit, captured ``torch.equal`` to ``EagerEngine`` on the first
+   MOE_EAGER requests, each request against its solo ``generate`` at
+   PAGED_BAR; (f) ``kv_cache_bits=8``: the dense layer's K/V int8 and the
+   MoE layers' bf16 in the dense cache and a paged pool, one captured step
+   ``torch.equal`` to eager; (d) the bf16 kernel path against the overlay
+   path within MOE_OVERLAY_TOL, which a planted fault (the dense layer's
+   ``down`` losing its last K split) must exceed; (c) the f32 path at
+   MOE_F32_LAYERS layers against its plain twin within PATH_TOL, a shared
+   expert's ``down`` losing its last K split as the planted fault.
+
 ``python3 chip_smoke.py --overlay-depths`` runs phase 17 (b) for the vlm at
-1, 4 and 16 groups.
+1, 4 and 8 groups.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -529,7 +560,7 @@ from repro_torch.kernels.pim_matmul import plan as matmul_plan  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import plan as matvec_plan  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    attention, common, decode_step, encode, init_cache, init_paged_cache, init_params, lm,
+    attention, common, decode_step, encode, init_cache, init_paged_cache, init_params, lm, moe,
     prefill, tree_relocate, verify_hidden, verify_step)
 from repro_torch.models.common import unembed  # noqa: E402
 from repro_torch.models.draw import layerwise_params, quantized_params  # noqa: E402
@@ -852,6 +883,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 17: {torch.cuda.memory_allocated()} bytes allocated before it", flush=True)
     family.update(CrossPhase(dev).run())
+
+    wall("phase 18")
+    # ---- 18. the moe family ----------------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    family.update(MoePhase(dev).run())
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
@@ -1373,15 +1410,27 @@ CROSS_BLOCK_LINEARS = (("xattn", "wq"), ("xattn", "wo"), ("mlp", "gate"), ("mlp"
 DEC_BLOCK_LINEARS = (("self", "wq"), ("self", "wk"), ("self", "wv"), ("self", "wo"),
                      ("cross", "wq"), ("cross", "wo"), ("mlp", "gate"), ("mlp", "up"),
                      ("mlp", "down"))
+# A MoE block's shared experts (its routed experts' (E, K, N) stacks run
+# x @ dq(w), as in the JAX package).
+MOE_SHARED_LINEARS = (("moe", "shared", "gate"), ("moe", "shared", "up"),
+                      ("moe", "shared", "down"))
 
 
 def step_calls(cfg):
     """The weights of one decode step's ``pim_matvec`` calls in call order,
     as paths into the parameter tree (stack indices included): each dense
-    layer's seven linears; the vlm's groups of dense blocks and a cross
-    block; the encdec's decoder blocks; then an untied head."""
+    layer's seven linears; the moe family's dense layers, then each MoE
+    layer's four attention linears and its shared experts' three (the
+    routed experts' 3-D stacks run ``x @ dq(w)``); the vlm's groups of
+    dense blocks and a cross block; the encdec's decoder blocks; then an
+    untied head."""
     dense = [(group, name) for group, name, _ in LINEARS]
-    if cfg.family == "vlm":
+    if cfg.family == "moe":
+        nd = cfg.n_dense_layers
+        out = [("dense_layers", i, *w) for i in range(nd) for w in dense]
+        out += [("layers", i, *w) for i in range(cfg.n_layers - nd)
+                for w in dense[:4] + list(MOE_SHARED_LINEARS)]
+    elif cfg.family == "vlm":
         every = cfg.vision.cross_attn_every
         out = []
         for j in range(cfg.n_layers // every):
@@ -2356,17 +2405,20 @@ def check_counted(label, window, out, toks, want):
 
 
 def captured_vs_eager(eng, prompt, n_new, label, *, greedy, temperature=1.0, top_k=0, key=None,
-                      extras=None):
+                      extras=None, toks=None):
     """(a)/(b): ``eng.generate`` (each decode step one replay of the captured
     step) against an eager loop of the same step function,
     ``decode_and_emit``, from the same prefill on buffers of its own (the
     rows' ``extras`` copied into them too): the tokens and the last step's
-    logits must be equal (``torch.equal``)."""
+    logits must be equal (``torch.equal``).  ``toks``: the tokens of that
+    ``generate``, where the caller has just run it (its last logits still in
+    the engine's state)."""
     b = prompt.shape[0]
     kw = dict(greedy=greedy, top_k=top_k)
     with torch.inference_mode():
-        toks = eng.generate(prompt, n_new, temperature=temperature, key=key, extras=extras,
-                            **kw)
+        if toks is None:
+            toks = eng.generate(prompt, n_new, temperature=temperature, key=key,
+                                extras=extras, **kw)
         logits = eng.state(b).logits.clone()
         st = DecodeState(eng.cfg, b, eng.max_seq, prompt.device)
         st.start(eng.params, eng.cfg, prompt, key, temperature, extras=extras, **kw)
@@ -5346,6 +5398,10 @@ class PicasoPhase:
 # seeded random weights at pim_bits=8 (each on a generator of its own,
 # SEED + 7 + its index); then (h) the int8 KV cache on qwen2-1.5b.
 FAMILY = ("llama3.2-3b", "starcoder2-7b", "starcoder2-15b")
+# Every config at full width; starcoder2-15b at 20 of its 40 layers (40
+# before phase 18, whose time the cut pays for with phase 17's), the others
+# at full depth.
+FAMILY_LAYERS = {"starcoder2-15b": 20}
 # (c): the f32 path at full width but this many layers: the whole f32 model
 # (40.5 / 88.0 GB for starcoder2-7b / -15b) does not fit beside the rest.
 FAMILY_F32_LAYERS = 4
@@ -5625,8 +5681,9 @@ class FamilyPhase:
         print("phase 16 (h): " + json.dumps(report["int8_kv_cache"]), flush=True)
 
     def config(self, arch, seed):
-        """(a) to (g) for one config at full width and depth."""
+        """(a) to (g) for one config at full width, FAMILY_LAYERS deep."""
         dev, cfg = self.dev, get_config(arch)
+        cfg = cfg.replace(n_layers=FAMILY_LAYERS.get(arch, cfg.n_layers))
         gen = torch.Generator(device=dev).manual_seed(seed)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -5771,12 +5828,13 @@ class FamilyPhase:
 # ---- 17. the vlm and encdec families ---------------------------------------------------
 # seamless-m4t-medium at full width and depth; llama-3.2-vision-90b at full
 # width and CROSS_VLM_GROUPS of its 20 groups: all 20 are 88.7 GB at int8,
-# more than the card holds.  Each on a generator of its own (SEED + 10 + its
+# more than the card holds.  8 groups run every check of its path; they were
+# 16 before phase 18, whose time the cut pays for.  Each on a generator of its own (SEED + 10 + its
 # index), weights drawn and quantized one (K, N) slice at a time
 # (``quantized_params``), the vlm's gates planted (CROSS_GATES): its init's
 # zero gates would make every cross block pass x through, whatever the image.
 CROSS = ("seamless-m4t-medium", "llama-3.2-vision-90b")
-CROSS_VLM_GROUPS = 16
+CROSS_VLM_GROUPS = 8
 CROSS_GATES = (0.5, 1.0)  # each gate of each cross block uniform in this range, seeded
 # (c): the f32 path at full width, reduced depth: one vlm group, two encoder
 # and two decoder layers (the f32 vlm group alone is 17 GB).
@@ -5872,7 +5930,8 @@ def admits_into_next_slot(eng):
 def cross_stream_bytes(eng):
     """The bytes a decode step reads at least: every weight of the decoder
     stack (the vlm's groups, cross K/V included; the encdec's decoder, not
-    its encoder), the head and the final norm."""
+    its encoder; the moe family's dense and MoE layers, every expert), the
+    head and the final norm."""
     p = eng.params
     return pim_bytes({k: v for k, v in p.items() if k not in ("embed", "encoder")})
 
@@ -6632,6 +6691,312 @@ def spec_summary(rep):
             "serves": {name: {"launches": sv[name]["launches"]["launches"]["pim_matvec"],
                               "planted_faults": sv[name].get("planted_faults")}
                        for name in CROSS_SERVE_SPEC}}
+
+
+# ---- 18. the moe family -------------------------------------------------------------------
+# moonshot-v1-16b-a3b at full width and all 48 layers, drawn and quantized one
+# (K, N) slice at a time (``quantized_params``, int8: 27.5 GB of codes), on a
+# generator of its own (SEED + 12).  Its routed experts run x @ dq(w) over
+# every expert's whole stack, as in the JAX package; its attention and shared
+# experts, its dense first layer and its untied head pim_matvec.
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_F32_LAYERS = 4  # (c): the dense first layer and three MoE layers
+MOE_CHECK_NEW = 8  # (c), (d): the first tokens of (b)'s greedy generation, teacher-forced
+MOE_TIME_STEPS = 4  # (b): captured replays timed, greedy and sampled
+# (d): the bar of the bf16 kernel path's distance from the overlay path at
+# 48 layers, and the planted fault that must exceed it.  Phase 16's bar (the
+# distance (c)'s planted fault makes) does not hold here: on the H100 the
+# sound paths differed by 0.474 where (c)'s fault, a middle shared expert's
+# ``down`` losing its last K split (352 of 2,816 rows), moved them by 0.450;
+# the dense first layer's ``down`` losing its last K split (1,408 of 11,264
+# rows) moved them by 1.96, the head's last 256 / 512 K rows by 1.73 / 2.81
+# (PERF.md section 6).  So the bar is a constant, about twice the sound
+# distance, and the dense layer's fault must pass it.
+MOE_OVERLAY_TOL = 1.0
+# (a): added to the router's column 0 of the planted case, whose x has a
+# positive mean: every token takes expert 0, whose capacity at 128 tokens a
+# row is 15, so at least 113 pairs a row are dropped.
+MOE_PLANT, MOE_PLANT_S = 0.05, 128
+# (e): four requests over two slots, every prompt a whole number of pages (a
+# padded prompt routes its pad tokens within its group, so its capacity is
+# not that of a solo prefill of the prompt); request MOE_REPEAT repeats
+# request 0's prompt, which the prefix cache must not hit on this family.
+MOE_SERVE = dict(slots=2, page_size=16, chunk=4, max_seq=160, page_alloc_seed=SEED)
+MOE_TRACE = ((128, 5), (64, 4), (96, 5), (128, 4))
+MOE_REPEAT = 3
+MOE_EAGER, MOE_EAGER_NEW = 2, 4  # (e): the eager twin's requests and budget
+
+
+class MoePhase:
+    """Phase 18: (a) to (f) of the module's docstring for MOE_ARCH."""
+
+    def __init__(self, dev):
+        self.dev, self.launches = dev, {}
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def _took(self, rep, section, t0):
+        rep["section_s"][section] = time.perf_counter() - t0
+        print(f"phase 18 ({section}): {rep['section_s'][section]:.1f} s", flush=True)
+
+    def moe_layer(self, cfg, gen):
+        """(a): ``moe_apply`` (index dispatch) against ``moe_apply_onehot`` (the
+        JAX package's one-hot einsums transcribed) on one f32 MoE layer at
+        full width: BATCH rows of one token (nothing dropped), and BATCH rows
+        of MOE_PLANT_S tokens with expert 0 planted in every token's top k:
+        the kept pairs equal, the drops counted equal and past the planted
+        floor, y within KERNEL_TOL, the aux losses within it."""
+        dev, m = self.dev, cfg.moe
+        p = moe.moe_init(gen, cfg.d_model, m, torch.float32, dev)
+        planted = dict(p, router=p["router"].clone())
+        planted["router"][:, 0] += MOE_PLANT
+        cases = {
+            f"{BATCH} x 1": (p, torch.randn((BATCH, 1, cfg.d_model), generator=gen, device=dev)),
+            f"{BATCH} x {MOE_PLANT_S}, expert 0 planted": (planted, 0.5 + torch.randn(
+                (BATCH, MOE_PLANT_S, cfg.d_model), generator=gen, device=dev))}
+        out = {}
+        for name, (pp, x) in cases.items():
+            with torch.inference_mode():
+                y, aux = moe.moe_apply(pp, x, m)
+                yo, auxo, keep = moe.moe_apply_onehot(pp, x, m)
+                r = moe.route(pp, x, m)
+            torch.cuda.synchronize()
+            ok, err = within_tol(y, yo)
+            aux_err = max(abs(aux[k].item() - auxo[k].item()) for k in aux)
+            out[name] = {"capacity": r.cap, "drops": int((~r.keep).sum()),
+                         "onehot_drops": int((~keep).sum()), "max_abs_err": err,
+                         "aux_max_abs_err": aux_err, "tol": KERNEL_TOL}
+            check(ok and torch.equal(r.keep, keep) and aux_err <= KERNEL_TOL["atol"],
+                  f"(a) moe_apply {name}: against the one-hot form {out[name]}")
+        one, many = out.values()
+        floor = BATCH * (MOE_PLANT_S - many["capacity"])
+        check(one["drops"] == 0 and many["drops"] >= floor,
+              f"(a) moe_apply drops {one['drops']} / {many['drops']}, expected 0 / >= {floor}")
+        return out
+
+    def serve(self, rep, cfg, params, eng, gen):
+        """(e): MOE_TRACE on the continuous engine with ``prefix_cache=True``:
+        each request served alone first (its graphs captured), then the
+        trace counted; each request's tokens ``torch.equal`` to its own
+        served alone, no prefix hit, captured == ``EagerEngine`` on the first
+        MOE_EAGER requests at MOE_EAGER_NEW new, and each request against
+        its solo ``generate`` (``eng``, batch 1) at PAGED_BAR."""
+        dev, per_step = self.dev, matvec_calls_per_step(cfg)
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev).cpu().numpy()
+                   .astype(np.int32) for n, _ in MOE_TRACE]
+        prompts[MOE_REPEAT] = prompts[0]
+        budgets = [m for _, m in MOE_TRACE]
+        reqs = [Request(prompt=p, max_new=m) for p, m in zip(prompts, budgets)]
+        ce = ContinuousBatchingEngine(cfg, params, prefix_cache=True, device=dev, **MOE_SERVE)
+        graphs = count_captures(ce)
+        alone = [ce.serve([r])[0] for r in reqs]
+        out, launches, counted_as = counted_launches(graphs, lambda: ce.serve(reqs))
+        report, iters = ce.last_report, ce.decode_chunk_iters
+        cached = [e["cached_tokens"] for rec in report.records for e in rec.events
+                  if e["name"] == "admit"]
+        check(report.prefix_hits == 0 and not any(cached),
+              f"(e) {MOE_ARCH}: the prefix cache hit on moe: {cached}")
+        # a step's calls an iteration; an admit unembeds its last position
+        # through the untied head
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = per_step * iters + len(reqs)
+        check(launches == expect, f"(e) {MOE_ARCH} serve: launches {launches}, expected {expect}")
+        self.launches[f"phase 18 {MOE_ARCH} serve"] = launches
+        apart = [r for r in range(len(reqs)) if not np.array_equal(alone[r], out[r])]
+        check(not apart, f"(e) {MOE_ARCH}: requests {apart} differ from themselves served alone")
+        first = [Request(prompt=r.prompt, max_new=MOE_EAGER_NEW) for r in reqs[:MOE_EAGER]]
+        out_c = ce.serve(first)
+        events_c = events_of(ce.last_report)
+        eager = EagerEngine(cfg, params, prefix_cache=True, device=dev, **MOE_SERVE)
+        out_e = eager.serve(first)
+        check(same_tokens(out_c, out_e) and events_c == events_of(eager.last_report),
+              f"(e) {MOE_ARCH}: the captured serve differs from the eager one")
+        del eager, ce, graphs
+        with torch.inference_mode():
+            dense = [eng.generate(torch.from_numpy(p)[None].to(dev), m)[0].cpu().numpy()
+                     for p, m in zip(prompts, budgets)]
+
+        def gap_at(r, j):  # the solo run's top-2 gap before token j
+            seq = torch.from_numpy(np.concatenate([prompts[r], dense[r][:j]]))[None].to(dev)
+            logits, _ = prefill(params, cfg, seq, init_cache(cfg, 1, seq.shape[1], dev))
+            return top2_gap(logits[0, -1])
+        with torch.inference_mode():
+            vs = paged_vs_dense(f"(e) {MOE_ARCH}", out, dense, budgets, gap_at, PAGED_BAR)
+        rep["serve"] = {"requests": len(reqs), "rounds": report.rounds,
+                        "decode_chunk_iters": iters, "tokens": sum(len(o) for o in out), "cached_tokens": cached,
+                        "prefix_hits": report.prefix_hits, "equal_served_alone": len(reqs),
+                        "captured_equal_eager": {"requests": MOE_EAGER, "new": MOE_EAGER_NEW},
+                        "vs_solo": vs,
+                        "launches": {"launches": launches, "counted_as": counted_as}}
+
+    def int8_cache(self, rep, cfg, params, prompt):
+        """(f): ``kv_cache_bits=8``: the dense first layer's K/V int8 with f32
+        scales, the MoE layers' bf16 (the JAX package makes that stack
+        without bits), in the fixed engine's cache and a paged pool; one
+        captured step ``torch.equal`` to its eager twin."""
+        dev, cfg8 = self.dev, cfg.replace(kv_cache_bits=8)
+        eng8 = ServingEngine(cfg8, params, max_seq=PROMPT + N_NEW, device=dev)
+        kv, _ = captured_vs_eager(eng8, prompt, 2, f"{MOE_ARCH} int8 KV cache, one captured "
+                                  "step", **GREEDY)
+        pool = init_paged_cache(cfg8, MOE_SERVE["slots"], 32, 3, MOE_SERVE["page_size"], dev)
+        dtypes = {where: {key: {n: str(t.dtype).split(".")[-1] for n, t in c[key].items()}
+                          for key, _ in lm.cache_stacks(cfg8)}
+                  for where, c in (("dense", eng8.state(BATCH).cache), ("paged", pool))}
+        for where, d in dtypes.items():
+            check(d["dense_layers"] == {"k": "int8", "v": "int8", "k_scale": "float32",
+                                        "v_scale": "float32"}
+                  and d["layers"] == {"k": "bfloat16", "v": "bfloat16"},
+                  f"(f) {MOE_ARCH} int8 KV cache ({where}): {d}")
+        rep["int8_kv_cache"] = {"captured_vs_eager": kv, "dtypes": dtypes}
+
+    def run(self):
+        dev, cfg = self.dev, get_config(MOE_ARCH)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m, fs = cfg.moe, cfg.moe.n_shared * cfg.moe.d_ff_expert
+        rep = {"check": "phase 18: the moe family at full width and depth, int8 weights",
+               "arch": MOE_ARCH, "layers": cfg.n_layers, "dense_layers": cfg.n_dense_layers,
+               "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+               "experts": [m.n_experts, m.top_k, m.n_shared, m.d_ff_expert], "d_ff": cfg.d_ff,
+               "vocab": cfg.vocab, "section_s": {}}
+
+        t = time.perf_counter()  # (a) moe_apply, pim_matvec and flash_attention at its shapes
+        rep["moe_apply"] = self.moe_layer(cfg, gen)
+        pl = matvec_plan(cfg.d_model, cfg.vocab, BATCH, 8, self.sms)
+        rep["kernel_vs_plain"], _ = family_kernel_cases(
+            cfg, gen, extra=[(cfg.d_model, fs), (fs, cfg.d_model)],
+            chunk_fault=pl.chunk_rows < pl.rows_per_cta)
+        rep["attention"] = family_attention(cfg, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._took(rep, "a", t)
+
+        t = time.perf_counter()
+        params = quantized_params(cfg, gen, 8)
+        torch.cuda.synchronize()
+        rep.update(weights_s=time.perf_counter() - t, int8_bytes=pim_bytes(params),
+                   peak_bytes_drawing=torch.cuda.max_memory_allocated())
+        print(f"phase 18 (weights): {rep['weights_s']:.1f} s, {rep['int8_bytes']} bytes",
+              flush=True)
+        eng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+        prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
+        per_step = matvec_calls_per_step(cfg)
+        check(per_step == 7 * cfg.n_layers + 1, f"{MOE_ARCH}: {per_step} pim_matvec calls a step")
+        graphs = count_captures(eng)
+
+        t = time.perf_counter()  # (b) the fixed engine: counted, captured against eager
+        laps, lap_t = {}, [t]
+
+        def lap(part):
+            torch.cuda.synchronize()
+            laps[part], lap_t[0] = time.perf_counter() - lap_t[0], time.perf_counter()
+        with torch.inference_mode():
+            eng.generate(prompt, 2)  # warm-up: the greedy step's capture
+            lap("warm-up and capture")
+            toks, launches, counted_as = counted_launches(graphs,
+                                                          lambda: eng.generate(prompt, N_NEW))
+            lap("counted greedy generate")
+            greedy, _ = captured_vs_eager(eng, prompt, N_NEW, f"{MOE_ARCH} int8 greedy, "
+                                          f"{BATCH} x {PROMPT}", toks=toks, **GREEDY)
+            lap("eager greedy twin")
+            sampled, stoks = captured_vs_eager(eng, prompt, N_NEW, f"{MOE_ARCH} int8 sampled, "
+                                               f"{BATCH} x {PROMPT}", **SAMPLED)
+            lap("sampled generate and eager twin")
+        check(not torch.equal(stoks, toks), f"(b) {MOE_ARCH}: sampled tokens equal greedy ones")
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = per_step * (N_NEW - 1)
+        check(launches == expect, f"(b) {MOE_ARCH}: launches {launches}, expected {expect}")
+        check(all(g.launches["pim_matvec"] == per_step for g in graphs),
+              f"(b) {MOE_ARCH}: captured steps launch {[g.launches for g in graphs]}, expected "
+              f"{per_step} pim_matvec each")
+        self.launches[f"phase 18 {MOE_ARCH} generate"] = launches
+        rep["captured_vs_eager"] = [greedy, sampled]
+        rep["launches"] = {"launches": launches, "per_step": per_step, "counted_as": counted_as}
+        with torch.inference_mode():
+            med, rounds = step_ms({"captured_ms": (eng, GREEDY),
+                                   "captured_sampled_ms": (eng, SAMPLED)},
+                                  prompt, MOE_TIME_STEPS + 1, 1)
+            layer = lm._layer(params["layers"], 0)["moe"]
+            xm = torch.randn((BATCH, 1, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+            moe_ms = _time_ms([functools.partial(moe.moe_apply, layer, xm, m)], 20)
+        lap("timing")
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        experts = pim_bytes({n: params["layers"]["moe"][n] for n in ("gate", "up", "down")})
+        stream = cross_stream_bytes(eng)
+        routed = stream - experts * (1 - min(m.n_experts, BATCH * m.top_k) / m.n_experts)
+        rep["step"] = {**med, "stream_bytes": stream,
+                       "floor_ms": stream / HBM_BYTES_PER_S * 1e3,
+                       "routed_floor_ms": routed / HBM_BYTES_PER_S * 1e3,
+                       "moe_apply_ms_a_layer": moe_ms, "moe_apply_ms_a_step": moe_ms * n_moe,
+                       "moe_apply_share": moe_ms * n_moe / med["captured_ms"],
+                       "rounds": rounds,
+                       "timing": f"device ms a captured step at {BATCH} x {PROMPT}, CUDA events "
+                                 f"over {MOE_TIME_STEPS} replays; moe_apply of MoE layer 0 at "
+                                 f"{BATCH} x 1 alone in a CUDA graph, times {n_moe}; floor: every "
+                                 "code and scale at 3.35 TB/s; routed floor: only the "
+                                 f"{min(m.n_experts, BATCH * m.top_k)} experts a step can route "
+                                 "to, of each MoE layer"}
+        rep["step"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rep["section_b_s"] = laps
+        print("phase 18 (b): " + json.dumps({"launches": launches, "step": rep["step"],
+                                             "laps": laps}), flush=True)
+        self._took(rep, "b", t)
+
+        t = time.perf_counter()  # (e) the continuous engine
+        self.serve(rep, cfg, params, eng, gen)
+        self._took(rep, "e", t)
+        t = time.perf_counter()  # (f) the int8 KV cache
+        with torch.inference_mode():
+            self.int8_cache(rep, cfg, params, prompt)
+        self._took(rep, "f", t)
+
+        t = time.perf_counter()  # (d) the bf16 kernel path against the overlay path
+        ftoks = toks[:, :MOE_CHECK_NEW]
+        diff, _, lo = against_overlay(eng, prompt, ftoks, MOE_CHECK_NEW, f"{MOE_ARCH} int8",
+                                      tol=MOE_OVERLAY_TOL, capture=False)
+        pl = matvec_plan(cfg.d_model, cfg.vocab, BATCH, 8, self.sms)
+        pl = matvec_plan(cfg.d_ff, cfg.d_model, BATCH, 8, self.sms)
+        down = step_calls(cfg).index(("dense_layers", 0, "mlp", "down"))
+        down_rows = cfg.d_ff - (pl.cluster - 1) * pl.rows_per_cta  # its last K split
+        with decode_linears_through(dropped_call(per_step, down, down_rows)):
+            fault = (forced_logits(eng, prompt, ftoks, MOE_CHECK_NEW) - lo).abs().max().item()
+        check(fault > MOE_OVERLAY_TOL, f"(d) {MOE_ARCH}: the dense layer's down, its last "
+              f"{down_rows} K rows dropped, moved the logits by {fault:.4g}, within the bar "
+              f"{MOE_OVERLAY_TOL}")
+        self._took(rep, "d", t)
+
+        t = time.perf_counter()  # (c) the f32 path, MOE_F32_LAYERS deep, against plain
+        cfg32 = cfg.replace(n_layers=MOE_F32_LAYERS, param_dtype="float32")
+        eng32 = ServingEngine(cfg32, quantized_params(cfg32, gen, 8), max_seq=PROMPT + N_NEW,
+                              device=dev)
+        pl = matvec_plan(fs, cfg.d_model, BATCH, 8, self.sms)
+        rows = (fs - (pl.cluster - 1) * pl.rows_per_cta if pl.cluster > 1
+                else fs - (fs - 1) // pl.chunk_rows * pl.chunk_rows)  # shared down's last K split
+        rep["f32_path"] = plain_path_check(eng32, eng, prompt, ftoks, lo,
+                                           f"{MOE_ARCH} int8 f32 kernel path vs plain path, "
+                                           f"{MOE_F32_LAYERS} layers", rows)
+        del eng32, lo
+        rep["overlay"] = {"max_abs_logit_diff": diff, "bar": MOE_OVERLAY_TOL,
+                          "planted_fault": f"the dense layer's down: its last {down_rows} K "
+                                           "rows dropped",
+                          "planted_fault_max_abs_logit_diff": fault,
+                          "shared_down_fault_max_abs_logit_diff":
+                              rep["f32_path"]["planted_fault_bf16_diff_vs_overlay"],
+                          "logit_tol": LOGIT_TOL}
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._took(rep, "c", t)
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+        check(rep["peak_bytes"] < torch.cuda.get_device_properties(0).total_memory,
+              f"{MOE_ARCH}: peak {rep['peak_bytes']} bytes")
+        del eng, graphs, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep["phase_s"] = time.perf_counter() - t0
+        print(json.dumps(rep), flush=True)
+        return self.launches
 
 
 def overlay_depths() -> int:

@@ -12,6 +12,18 @@ from typing import Optional
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 64
+    n_shared: int = 2
+    top_k: int = 6
+    d_ff_expert: int = 1408
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    aux_loss: float = 1e-2
+    group_tokens: int = 4096  # dispatch-group size (perf knob)
+
+
+@dataclass(frozen=True)
 class VisionConfig:
     """Modality frontend STUB: input_specs provides precomputed embeddings."""
 
@@ -29,7 +41,7 @@ class AudioConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str  # the port runs "dense", "vlm" and "encdec"
+    family: str  # the port runs "dense", "moe" (GQA attention), "vlm" and "encdec"
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,9 +53,11 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     vision: Optional[VisionConfig] = None
     audio: Optional[AudioConfig] = None
     dec_layers: int = 0  # encdec only
+    n_dense_layers: int = 0  # leading non-MoE layers (moe only)
     # PIM-mode (the paper's technique): weight bits for serving; 0 = off.
     pim_bits: int = 0
     param_dtype: str = "bfloat16"

@@ -1,5 +1,14 @@
-"""The dense decoder block and the gated cross-attention block (twins of the
-dense and cross parts of ``repro.models.blocks``)."""
+"""The dense decoder block, the MoE block and the gated cross-attention block
+(twins of the dense, MoE (GQA attention) and cross parts of
+``repro.models.blocks``).
+
+A MoE block is a dense block whose MLP is ``moe_apply``'s experts: it has
+a ``moe`` leaf where a dense block has ``mlp``, and the dense block's
+cached functions (``dense_block_prefill``, ``dense_block_decode`` with a
+dense or a paged cache, ``dense_block_verify``) run either, through
+``_ffn``.  So the JAX package's ``moe_block_prefill``, ``moe_block_decode``
+and ``moe_block_decode_paged`` are the dense block's.  The MLA attention of
+the JAX package's MoE block is not ported (``cfg.mla`` raises)."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +18,16 @@ from repro_torch.configs.base import ModelConfig
 from .attention import (attn_apply, attn_decode, attn_decode_paged, attn_init, attn_prefill,
                         attn_verify)
 from .common import mlp_apply, mlp_init, rmsnorm
+from .moe import moe_apply, moe_init
+
+
+def _ffn(p, x, cfg: ModelConfig):
+    """The block's feed-forward over the normed x: a dense block's SwiGLU
+    MLP, or a MoE block's routed and shared experts (their aux losses
+    dropped, as the JAX package's cached MoE blocks drop them)."""
+    if "moe" in p:
+        return moe_apply(p["moe"], x, cfg.moe)[0]
+    return mlp_apply(p["mlp"], x)
 
 
 def dense_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
@@ -42,7 +61,7 @@ def dense_block_prefill(p, x, cache, cfg: ModelConfig, pages=None):
     h, cache = attn_prefill(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache,
                             pages=pages, **attn_kw(cfg))
     x = x + h
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
+    return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cache
 
 
 def self_attn_decode(p, xn, cache, pos: torch.Tensor, cfg: ModelConfig, block_tables=None,
@@ -63,7 +82,7 @@ def dense_block_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
     h, cache = self_attn_decode(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, pos,
                                 cfg, block_tables, page_size)
     x = x + h
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
+    return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cache
 
 
 def dense_block_verify(p, x, cache, block_tables, pos: torch.Tensor, cfg: ModelConfig,
@@ -75,7 +94,34 @@ def dense_block_verify(p, x, cache, block_tables, pos: torch.Tensor, cfg: ModelC
                            block_tables=block_tables, page_size=page_size, tree=tree,
                            **attn_kw(cfg))
     x = x + h
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), cache
+    return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cache
+
+
+# -------------------------------------------------------------- MoE block ---
+def _gqa_only(cfg: ModelConfig) -> None:
+    if getattr(cfg, "mla", None) is not None:
+        raise NotImplementedError(
+            "MLA attention is not ported yet: ROADMAP.md section 1, item 5 (its MLA bullet)")
+
+
+def moe_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
+    """A MoE block's parameters (GQA attention); ``lead`` prepends stack dims."""
+    _gqa_only(cfg)
+    return {
+        "ln1": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "attn": attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, dtype, device, bias=cfg.qkv_bias, lead=lead),
+        "ln2": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
+        "moe": moe_init(gen, cfg.d_model, cfg.moe, dtype, device, lead=lead),
+    }
+
+
+def moe_block_apply(p, x, cfg: ModelConfig):
+    """The block over a whole causal sequence with no cache: (x, aux)."""
+    _gqa_only(cfg)
+    x = x + attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), **attn_kw(cfg))
+    y, aux = moe_apply(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.moe)
+    return x + y, aux
 
 
 # ------------------------------------------------------------ cross block ---

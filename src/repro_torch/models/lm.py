@@ -1,8 +1,10 @@
-"""Model assembly for the dense, vlm and encdec families (twin of those
-branches of ``repro.models.lm``).
+"""Model assembly for the dense, moe, vlm and encdec families (twin of those
+branches of ``repro.models.lm``; the moe family with GQA attention).
 
 Parameters keep the JAX package's layout: a family's layers are stacked
-trees with leading dims (the dense family's ``layers`` (L, ...); the vlm's
+trees with leading dims (the dense family's ``layers`` (L, ...); the moe
+family's ``dense_layers`` (n_dense_layers, ...) and MoE ``layers`` (L -
+n_dense_layers, ...), each with a K/V stack of its own; the vlm's
 ``groups`` of ``self`` (G, every - 1, ...) dense blocks and one gated
 ``cross`` block (G, ...) each; the encdec's ``encoder`` and ``decoder``),
 and a Python loop over them takes the place of ``lax.scan``.  Slicing a
@@ -44,7 +46,8 @@ from .attention import (attn_apply, attn_init, attn_prefill, attn_verify, kv_cac
 from .common import (dense_init, dtype_of, embed_lookup, mlp_apply, mlp_init, resolve_device,
                      rmsnorm, unembed)
 
-_FAMILIES = ("dense", "vlm", "encdec")
+_FAMILIES = ("dense", "moe", "vlm", "encdec")
+_SPEC_FAMILIES = ("dense", "vlm", "encdec")
 
 
 def _check_family(cfg: ModelConfig):
@@ -54,6 +57,16 @@ def _check_family(cfg: ModelConfig):
             f"{', '.join(_FAMILIES)} families (ROADMAP.md lists the others)")
 
 
+def check_speculation(cfg: ModelConfig):
+    """Raise NotImplementedError where ``cfg``'s family has no verify window
+    yet (speculation on the moe family is the slice after it)."""
+    _check_family(cfg)
+    if cfg.family not in _SPEC_FAMILIES:
+        raise NotImplementedError(
+            f"speculation on the {cfg.family} family is not ported yet: ROADMAP.md "
+            "section 1, item 5 (speculation on moe, its next bullet)")
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -61,15 +74,28 @@ def _layer(tree, i: int):
 
 def cache_stacks(cfg: ModelConfig) -> tuple:
     """(cache key, leading stack dims) of each of the family's K/V stacks:
-    the dense family's ``layers``, the vlm's ``groups_self`` (groups, dense
-    blocks a group), the encdec's ``decoder``; each leaf's batch or page
-    axis comes right after those dims."""
+    the dense family's ``layers``, the moe family's ``layers`` (its MoE
+    blocks) and ``dense_layers`` (its leading dense blocks, where it has
+    any; the JAX package's ``_pool_leaf_paths`` order), the vlm's
+    ``groups_self`` (groups, dense blocks a group), the encdec's
+    ``decoder``; each leaf's batch or page axis comes right after those
+    dims."""
     _check_family(cfg)
     if cfg.family == "vlm":
         return (("groups_self", _groups(cfg)),)
     if cfg.family == "encdec":
         return (("decoder", (cfg.dec_layers,)),)
+    if cfg.family == "moe":
+        nd = cfg.n_dense_layers
+        return (("layers", (cfg.n_layers - nd,)),) + ((("dense_layers", (nd,)),) if nd else ())
     return (("layers", (cfg.n_layers,)),)
+
+
+def _kv_bits(cfg: ModelConfig, key: str) -> int:
+    """A K/V stack's cache bits: ``kv_cache_bits``, but the moe family's
+    MoE stack is always the parameter dtype (the JAX package makes it
+    without ``bits``; only ``dense_layers`` takes the int8 cache)."""
+    return 16 if (cfg.family, key) == ("moe", "layers") else cfg.kv_cache_bits
 
 
 def _page_size(cfg: ModelConfig, cache: dict, page_size) -> int:
@@ -114,6 +140,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
         p["head"] = dense_init(gen, (cfg.vocab, cfg.d_model), dtype, device).T
     if cfg.family == "dense":
         p["layers"] = bk.dense_block_init(gen, cfg, dtype, device, lead=(cfg.n_layers,))
+    elif cfg.family == "moe":
+        nd = cfg.n_dense_layers
+        if nd:
+            p["dense_layers"] = bk.dense_block_init(gen, cfg, dtype, device, lead=(nd,))
+        p["layers"] = bk.moe_block_init(gen, cfg, dtype, device, lead=(cfg.n_layers - nd,))
     elif cfg.family == "vlm":
         g, e = _groups(cfg)
         p["groups"] = {"self": bk.dense_block_init(gen, cfg, dtype, device, lead=(g, e)),
@@ -125,10 +156,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
-    ((key, lead),) = cache_stacks(cfg)
+    device = resolve_device(device)
     return {key: kv_cache_init(
-        batch, max_seq, cfg.n_kv_heads, cfg.head_dim, dtype_of(cfg.param_dtype),
-        resolve_device(device), bits=cfg.kv_cache_bits, lead=lead)}
+        batch, max_seq, cfg.n_kv_heads, cfg.head_dim, dtype_of(cfg.param_dtype), device,
+        bits=_kv_bits(cfg, key), lead=lead) for key, lead in cache_stacks(cfg)}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_pages: int,
@@ -140,14 +171,16 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_pages: int,
     paged path whenever this key is present.  Page 0 is the trash page of
     inactive slots, so ``num_pages - 1`` pages circulate.  The pool is
     ``kv_cache_init``'s layout with pages for rows and a page's tokens for
-    positions: lead + (P, KV, page_size, D)."""
-    ((key, lead),) = cache_stacks(cfg)
+    positions: lead + (P, KV, page_size, D), one pool a K/V stack of
+    ``cache_stacks``."""
     device = resolve_device(device)
     width = -(-max_seq // page_size)
-    return {"block_tables": torch.zeros((batch, width), dtype=torch.int32, device=device),
-            key: kv_cache_init(
-                num_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
-                dtype_of(cfg.param_dtype), device, bits=cfg.kv_cache_bits, lead=lead)}
+    out = {"block_tables": torch.zeros((batch, width), dtype=torch.int32, device=device)}
+    for key, lead in cache_stacks(cfg):
+        out[key] = kv_cache_init(num_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
+                                 dtype_of(cfg.param_dtype), device, bits=_kv_bits(cfg, key),
+                                 lead=lead)
+    return out
 
 
 def paged_insert(cfg: ModelConfig, paged: dict, dense: dict, slot, pages) -> dict:
@@ -156,9 +189,9 @@ def paged_insert(cfg: ModelConfig, paged: dict, dense: dict, slot, pages) -> dic
     prefills straight into the pages, ``prefill(pages=)``): the reference the
     direct admit is held against.  ``slot`` addresses per-slot state, which
     these families have none of."""
-    ((key, lead),) = cache_stacks(cfg)
     pages = torch.as_tensor(pages, dtype=torch.int64, device=paged["block_tables"].device)
-    paged_kv_insert(paged[key], dense[key], pages, lead=len(lead))
+    for key, lead in cache_stacks(cfg):
+        paged_kv_insert(paged[key], dense[key], pages, lead=len(lead))
     return paged
 
 
@@ -178,10 +211,12 @@ def _stack(params, cfg: ModelConfig, x, cache: dict, extras, dense_body, self_at
     c)`` -> x for a dense block, ``self_attn(p, xn, c)`` -> h for the
     encdec decoder's self-attention; the vlm's cross blocks attend to
     ``extras["image_embeds"]``, the encdec's to ``extras["enc_out"]``, each
-    cast to x's dtype."""
-    if cfg.family == "dense":
-        for i in range(cfg.n_layers):
-            x = dense_body(_layer(params["layers"], i), x, _layer(cache["layers"], i))
+    cast to x's dtype.  The moe family's leading dense blocks run first,
+    then its MoE blocks, each through ``dense_body`` (``blocks._ffn``)."""
+    if cfg.family in ("dense", "moe"):
+        for key, (n,) in reversed(cache_stacks(cfg)):
+            for i in range(n):
+                x = dense_body(_layer(params[key], i), x, _layer(cache[key], i))
     elif cfg.family == "vlm":
         img = extras["image_embeds"].to(x.dtype)
         groups, (g, e) = params["groups"], _groups(cfg)
@@ -267,8 +302,9 @@ def verify_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: d
                   tree: Optional[tuple] = None) -> torch.Tensor:
     """``verify_step`` up to the final norm: the window's hidden states
     (B, T, D), the cache written in place.  A caller that needs the logits
-    of a few positions only unembeds those."""
-    _check_family(cfg)
+    of a few positions only unembeds those.  The moe family's window is
+    not ported yet (``check_speculation``)."""
+    check_speculation(cfg)
     bt, ps = cache.get("block_tables"), None
     if bt is not None:
         ps = _page_size(cfg, cache, page_size)
@@ -326,8 +362,9 @@ def stack_verify_caches(cfg: ModelConfig, caches: list) -> dict:
     once at any accepted length.  The dense, vlm and encdec families' windows
     write their K/V in place, so the last cache already holds the whole
     chain's.  The families with per-step state, whose chains concatenate
-    along the window's time axis, are not ported."""
-    _check_family(cfg)
+    along the window's time axis, are not ported, nor is the moe family's
+    window."""
+    check_speculation(cfg)
     return caches[-1]
 
 
@@ -337,8 +374,8 @@ def commit_verify(cfg: ModelConfig, cache: dict, sel: torch.Tensor) -> dict:
     windows' K/V are written in place, and positions past the accepted
     frontier are masked and written again by the next window, so the cache
     is returned as it is.  The families with per-step state are not
-    ported."""
-    _check_family(cfg)
+    ported, nor is the moe family's window."""
+    check_speculation(cfg)
     return cache
 
 
@@ -358,8 +395,9 @@ def tree_relocate(cfg: ModelConfig, cache: dict, pos: torch.Tensor, a: torch.Ten
     the pool's) columns go through the block tables, a source past them
     reads the trash page and such a step writes into it.  The store must
     reach ``fan*depth`` columns past a live row's frontier, or a gather
-    reads the wrong rows.  Returns the cache."""
-    _check_family(cfg)
+    reads the wrong rows.  Returns the cache.  Not ported for the moe
+    family yet (``check_speculation``)."""
+    check_speculation(cfg)
     if "block_tables" in cache:
         _page_size(cfg, cache, page_size)
     return move_columns(cfg, cache, *tree_columns(pos, a, cf, depth))

@@ -3,9 +3,9 @@ continuous-batching engine over a paged KV cache.
 
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
 ``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense,
-vlm and encdec families, the latter two with per-request extras; n-gram,
-tree and draft-model speculation for all three; the prefix cache and
-the resilience tier; no mesh).  ``quantize_tree``
+moe, vlm and encdec families, the last two with per-request extras; n-gram,
+tree and draft-model speculation for all but moe; the prefix cache for all
+but moe, as in the JAX package; the resilience tier; no mesh).  ``quantize_tree``
 turns every large matmul weight into ``{"codes": int8, "scale": f32}``
 (int4: nibble-packed codes plus a marker leaf); at decode time each of
 those weights is streamed once per step by the ``pim_matvec`` kernel.
@@ -583,7 +583,7 @@ class ServingEngine:
         package draws them."""
         prompt = self._check(prompt_tokens, n_new)
         extras = _extras_on(extras, self.device)
-        spec = as_spec(speculate)
+        spec = as_spec(speculate, self.cfg)
         if spec is not None and spec.mode == "draft" and (
                 self.draft_params is None or self.draft_cfg is None):
             raise ValueError(_NO_DRAFT)
@@ -909,9 +909,9 @@ MAX_ADMIT_GRAPHS = 64
 
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
-    package's, for the dense, vlm and encdec families, with n-gram, tree and
-    draft-model speculation, the prefix cache and the resilience tier,
-    without a mesh).  A request's ``extras`` are written
+    package's, for the dense, moe, vlm and encdec families, with n-gram,
+    tree and draft-model speculation (not on moe yet), the prefix cache
+    (never hit on moe) and the resilience tier, without a mesh).  A request's ``extras`` are written
     into its slot's row of the per-slot buffers at its admit
     (``_set_slot_extras``), which the chunk steps and admits read.
 
@@ -977,7 +977,7 @@ class ContinuousBatchingEngine:
                  mesh=None, speculate=None, draft_cfg: Optional[ModelConfig] = None,
                  draft_params=None, draft_pim_bits: int = 0, clock=None,
                  prefix_cache: bool = False, device=None):
-        self.spec = as_spec(speculate)
+        self.spec = as_spec(speculate, cfg)
         self._draft_mode = self.spec is not None and self.spec.mode == "draft"
         if self._draft_mode and (draft_params is None or draft_cfg is None):
             raise ValueError(_NO_DRAFT)

@@ -60,7 +60,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (commit_verify, init_cache, prefill, stack_verify_caches,
                                  tree_relocate, verify_step)
 from repro_torch.models.attention import tree_tensors
-from repro_torch.models.lm import cache_stacks
+from repro_torch.models.lm import cache_stacks, check_speculation
 
 from .sampling import (TAG_TOKEN, TAG_WINDOW, categorical, fold_in, prng_key, rejection_sample,
                        row_keys, sample_rows, split, tree_reject_sample, typical_accept_sample,
@@ -119,12 +119,14 @@ class SpecConfig:
             raise ValueError(f"ctrl_cost must be > 0, got {self.ctrl_cost}")
 
 
-def as_spec(speculate) -> Optional[SpecConfig]:
+def as_spec(speculate, cfg: ModelConfig) -> Optional[SpecConfig]:
     """An engine's ``speculate=``: a SpecConfig, or an int ``k``; None, no
-    speculation."""
-    if speculate is None or isinstance(speculate, SpecConfig):
-        return speculate
-    return SpecConfig(k=int(speculate))
+    speculation.  Raises NotImplementedError where ``cfg``'s family has no
+    verify window yet (``models.lm.check_speculation``)."""
+    if speculate is None:
+        return None
+    check_speculation(cfg)
+    return speculate if isinstance(speculate, SpecConfig) else SpecConfig(k=int(speculate))
 
 
 # -------------------------------------------------------------- controller --

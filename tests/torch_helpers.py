@@ -4,6 +4,7 @@ Every input is made with numpy from a seed and handed to both packages; the
 JAX package builds the parameters (``repro.models.init_params``) and the
 bridge carries them to the port, so both run on the same weights.
 """
+import dataclasses
 import functools
 
 import jax
@@ -98,6 +99,21 @@ def cross_extras(jcfg, jparams, batch, seed=2):
 
     frames = rng.standard_normal((batch, jcfg.audio.n_frames, jcfg.d_model)).astype(np.float32)
     return {"enc_out": np.array(jax_encode(jparams, jcfg, jax.numpy.asarray(frames)))}
+
+
+MOE = "moonshot-v1-16b-a3b"
+
+
+def moe_model(seed=0, **moe_overrides):
+    """``reduced_model`` for reduced moonshot-v1-16b-a3b (one dense layer,
+    two MoE layers of 8 experts, top 2, one shared): (jax cfg, jax params,
+    port cfg, port params on the CPU), ``moe_overrides`` applied to both
+    configs' ``MoEConfig`` (the parameters do not depend on them)."""
+    jcfg, tcfg = reduced_pair(MOE)
+    jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, **moe_overrides))
+    tcfg = tcfg.replace(moe=dataclasses.replace(tcfg.moe, **moe_overrides))
+    jparams = _jax_params(seed, jax_reduced(MOE))
+    return jcfg, jparams, tcfg, params_from_numpy(to_numpy(jparams), CPU)
 
 
 def prompt(batch, seq, vocab, seed=1):
