@@ -49,10 +49,12 @@ starcoder2-15b, each at its full width (and depth, but starcoder2-15b at
 the vlm and encdec families, seamless-m4t-medium (a non-causal encoder, a
 decoder that cross-attends to its output) at full width and depth and
 llama-3.2-vision-90b (groups of four dense blocks and a gated
-cross-attention block over image embeds) at full width and 8 of its 20
-groups (16 before phase 18), through both engines with per-request
-extras; then the moe family, moonshot-v1-16b-a3b, at full width and
-depth.
+cross-attention block over image embeds) at full width and 4 of its 20
+groups (16 before phase 18, 8 before phase 19), through both engines with
+per-request extras; then the moe family: moonshot-v1-16b-a3b (GQA
+attention) at full width and 12 of its 48 layers, and deepseek-v2-lite-16b
+(MLA attention over a latent cache, absorbed decode and verify windows) at
+full width and all 27 layers, through both engines, speculation included.
 
 Besides, the paper's own machine runs at the paper's array sizes (no
 model): PiCaSO's bit-serial PE array (``repro_torch.core``), the Alveo
@@ -495,7 +497,8 @@ Phases:
    profiler session's stages among them.
 
 18. the moe family (after phase 17): MOE_ARCH, moonshot-v1-16b-a3b, at
-   full width and all 48 layers, drawn and quantized on the card one (K, N)
+   full width and MOE_LAYERS (12) of its 48 layers (all 48 before phase
+   19), drawn and quantized on the card one (K, N)
    slice at a time (``quantized_params``, int8): (a) ``moe_apply`` against
    ``moe_apply_onehot`` (the reference's one-hot einsums transcribed) on one
    f32 MoE layer at full width, BATCH rows of one token (nothing dropped)
@@ -504,26 +507,59 @@ Phases:
    number), ``pim_matvec`` against plain at its shapes (K 2,048 / 2,816 /
    11,264, N 2,048 / 2,816 / 11,264 / 163,840) and ``flash_attention`` at
    (KV 16, G 1, D 128); (b) a captured ``generate`` on 4 x 128 prompts, 32
-   new, greedy (its launches counted: 337 ``pim_matvec`` a step, the 47
-   MoE layers' routed experts ``x @ dq(w)``) and sampled, ``torch.equal`` to
-   the eager loop, the captured step's ms beside the weight-stream floor
-   and the floor of the experts a step can route to, and one MoE layer's
-   ``moe_apply`` alone, times 47, as its share; (e) the continuous engine
+   new, greedy (its launches counted: 7 x layers + 1 ``pim_matvec`` a step,
+   the MoE layers' routed experts ``x @ dq(w)``) and sampled (their eager
+   twins cut to pay for phase 19, which holds the family's), the captured
+   step's ms beside the weight-stream floor and the floor of the experts a
+   step can route to, and one MoE layer's ``moe_apply`` alone, times the
+   MoE layers, as its share; (e) the continuous engine
    (``prefix_cache=True``) on MOE_TRACE over 2 slots: each request served
-   alone, then the trace counted (337 x chunk iterations + one head row an
-   admit), each request ``torch.equal`` to itself served alone, no prefix
-   hit, captured ``torch.equal`` to ``EagerEngine`` on the first
-   MOE_EAGER requests, each request against its solo ``generate`` at
-   PAGED_BAR; (f) ``kv_cache_bits=8``: the dense layer's K/V int8 and the
-   MoE layers' bf16 in the dense cache and a paged pool, one captured step
-   ``torch.equal`` to eager; (d) the bf16 kernel path against the overlay
-   path within MOE_OVERLAY_TOL, which a planted fault (the dense layer's
-   ``down`` losing its last K split) must exceed; (c) the f32 path at
-   MOE_F32_LAYERS layers against its plain twin within PATH_TOL, a shared
-   expert's ``down`` losing its last K split as the planted fault.
+   alone, then the trace counted (a step's calls x chunk iterations + one
+   head row an admit), each request ``torch.equal`` to itself served
+   alone, no prefix hit, captured ``torch.equal`` to ``EagerEngine`` on
+   the first MOE_EAGER requests, each request against its solo
+   ``generate`` at PAGED_BAR, beside the logits of one request's decode
+   steps at batch 1 against batch 2; (f) ``kv_cache_bits=8``: the dense
+   layer's K/V int8 and the MoE layers' bf16 in the dense cache and a
+   paged pool, one captured step ``torch.equal`` to eager; (g) a batch-1
+   n-gram speculative ``generate`` (windows of k + 1 = 5 rows through
+   ``pim_matvec``), captured ``torch.equal`` to eager, launches counted,
+   against plain greedy decoding at HIT_BAR; (d) the bf16 kernel path
+   against the overlay path within MOE_OVERLAY_TOL, which a planted fault
+   (the dense layer's ``down`` losing its last K split) must exceed; (c)
+   the f32 path at MOE_F32_LAYERS layers against its plain twin within
+   PATH_TOL, a shared expert's ``down`` losing its last K split as the
+   planted fault.
+19. deepseek-v2-lite-16b (after phase 18), MLA attention, at full width and
+   all 27 layers, int8, through phase 18's (b) to (f) with (b)'s eager
+   twins and each bar of its own: (a) one f32 MLA layer at full width,
+   ``mla_decode`` and ``mla_verify`` (k = 4, and a tree of fan 2 x depth
+   2: the absorbed form) within MLA_FORMS_TOL of ``mla_prefill`` (the
+   expanded form) at the same positions, the paged pool under a permuted
+   block table bit for bit the dense store, and ``pim_matvec`` against
+   plain at its shapes (K 2,048 / 10,944 / 2,816 / 1,408, N 3,072 / 576 /
+   2,048 / 10,944 / 2,816 / 102,400); (b) 164 ``pim_matvec`` a step (7 +
+   26 x 6 + 1), the floors checked against the config's widths; (e) the
+   solo runs at MLA_SOLO_BAR, with the batch witness: one request's decode
+   steps at batch 1 and as row 0 of 2 from equal caches, at bf16 and at
+   f32 over the same codes (the f32 pair within PATH_TOL), each layer
+   part's row 0 at both batches, and which of a MoE layer's operations
+   change row 0's bits with the batch; (f) the latent pools bf16 beside the dense
+   layer's int8 K/V; (d) within MLA_OVERLAY_TOL; (g) speculation on the
+   moe family, each window at most 6 tokens a row (one dispatch group that
+   drops nothing a one-token step keeps): on the fixed engine at batch 1
+   (``WindowChecks``: n-gram windows of k = 4 greedy and sampled, the int8
+   tree as its own draft, a tree of fan 2 x depth 2, each captured
+   ``torch.equal`` to eager with its launches counted and against plain
+   greedy decoding at HIT_BAR; chains planted on a dense store and a paged
+   pool and relocated across the latent and K/V stacks; the windows' ms),
+   at BATCH rows (n-gram windows of 20 rows through ``x @ dq(w)``), and on
+   the continuous engine (n-gram, self-draft and tree windows over 2
+   slots: captured ``torch.equal`` to eager, launches counted, each
+   request against its solo run at HIT_BAR).
 
 ``python3 chip_smoke.py --overlay-depths`` runs phase 17 (b) for the vlm at
-1, 4 and 8 groups.
+1, 2 and 4 groups.
 
 Then the ``kernels`` JSON line, and last the device line.  Any failure exits
 non-zero; so does a host with no card, and a directory without the package.
@@ -560,8 +596,8 @@ from repro_torch.kernels.pim_matmul import plan as matmul_plan  # noqa: E402
 from repro_torch.kernels.pim_matvec import pim_matvec, pim_matvec_plain  # noqa: E402
 from repro_torch.kernels.pim_matvec import plan as matvec_plan  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    attention, common, decode_step, encode, init_cache, init_paged_cache, init_params, lm, moe,
-    prefill, tree_relocate, verify_hidden, verify_step)
+    attention, blocks, common, decode_step, encode, init_cache, init_paged_cache, init_params, lm, mla,
+    moe, prefill, tree_relocate, verify_hidden, verify_step)
 from repro_torch.models.common import unembed  # noqa: E402
 from repro_torch.models.draw import layerwise_params, quantized_params  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
@@ -889,6 +925,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     family.update(MoePhase(dev).run())
+
+    wall("phase 19")
+    # ---- 19. deepseek-v2-lite-16b: MLA, and speculation on the moe family ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    family.update(MlaPhase(dev).run())
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
@@ -1414,22 +1456,27 @@ DEC_BLOCK_LINEARS = (("self", "wq"), ("self", "wk"), ("self", "wv"), ("self", "w
 # x @ dq(w), as in the JAX package).
 MOE_SHARED_LINEARS = (("moe", "shared", "gate"), ("moe", "shared", "up"),
                       ("moe", "shared", "down"))
+# An MLA block's attention linears (its 3-D ``w_uk`` / ``w_uv`` run dq and an
+# einsum, as in the JAX package).
+MLA_LINEARS = (("attn", "wq"), ("attn", "w_dkv"), ("attn", "wo"))
 
 
 def step_calls(cfg):
     """The weights of one decode step's ``pim_matvec`` calls in call order,
     as paths into the parameter tree (stack indices included): each dense
     layer's seven linears; the moe family's dense layers, then each MoE
-    layer's four attention linears and its shared experts' three (the
-    routed experts' 3-D stacks run ``x @ dq(w)``); the vlm's groups of
+    layer's four attention linears (an MLA layer's three) and its shared
+    experts' three (the routed experts' 3-D stacks run ``x @ dq(w)``); the
+    vlm's groups of
     dense blocks and a cross block; the encdec's decoder blocks; then an
     untied head."""
     dense = [(group, name) for group, name, _ in LINEARS]
     if cfg.family == "moe":
         nd = cfg.n_dense_layers
+        attn = list(MLA_LINEARS) if cfg.mla else dense[:4]
         out = [("dense_layers", i, *w) for i in range(nd) for w in dense]
         out += [("layers", i, *w) for i in range(cfg.n_layers - nd)
-                for w in dense[:4] + list(MOE_SHARED_LINEARS)]
+                for w in attn + list(MOE_SHARED_LINEARS)]
     elif cfg.family == "vlm":
         every = cfg.vision.cross_attn_every
         out = []
@@ -1477,9 +1524,20 @@ def dropped_call(per_step, index, rows):
     return faulty
 
 
-def dropped_split(cfg, layer, index, rows=DROPPED_ROWS):
-    """``dropped_call`` at linear ``index`` (of LINEARS) of dense ``layer``."""
-    return dropped_call(matvec_calls_per_step(cfg), layer * len(LINEARS) + index, rows)
+def middle_down(cfg):
+    """The ``step_calls`` index of layer n/2's ``down``: a dense block's MLP's,
+    or a MoE block's shared experts'."""
+    i = cfg.n_layers // 2
+    if cfg.family == "moe" and i >= cfg.n_dense_layers:
+        path = ("layers", i - cfg.n_dense_layers, *MOE_SHARED_LINEARS[2])
+    else:
+        path = ("dense_layers" if cfg.family == "moe" else "layers", i, "mlp", "down")
+    return step_calls(cfg).index(path)
+
+
+def dropped_middle_down(cfg, rows):
+    """``dropped_call`` at layer n/2's ``down`` (``middle_down``)."""
+    return dropped_call(matvec_calls_per_step(cfg), middle_down(cfg), rows)
 
 
 def against_plain(eng8, gen, prompt, toks, lo8):
@@ -1503,10 +1561,9 @@ def plain_path_check(eng, eng8, prompt, toks, lo8, label, rows=DROPPED_ROWS):
     lk = forced_logits(eng, prompt, toks, n_new)
     with decode_linears_through(pim_matvec_plain):
         lp = forced_logits(eng, prompt, toks, n_new)
-    down = [name for _, name, _ in LINEARS].index("down")
-    with decode_linears_through(dropped_split(cfg, cfg.n_layers // 2, down, rows)):
+    with decode_linears_through(dropped_middle_down(cfg, rows)):
         lf = forced_logits(eng, prompt, toks, n_new)
-    with decode_linears_through(dropped_split(cfg8, cfg8.n_layers // 2, down, rows)):
+    with decode_linears_through(dropped_middle_down(cfg8, rows)):
         lf8 = forced_logits(eng8, prompt, toks, n_new)
     diff = (lk - lp).abs().max().item()
     fault = (lf - lp).abs().max().item()
@@ -4768,10 +4825,13 @@ class PlantedChains:
 
     def _leaves(self, cache):
         """(stack key, leaf name, the leaf with its stack's lead dims
-        flattened into one: (LL, B | P, KV, S | ps, ...), a view)."""
+        flattened into one: (LL, B | P, KV, S | ps, ...), a view; a latent
+        leaf (LL, B | P, S | ps, C) with a head axis of one)."""
         for key, lead in lm.cache_stacks(self.cfg):
+            latent = lm.stack_layout(self.cfg, key) == "latent"
             for name, leaf in cache[key].items():
-                yield key, name, leaf.view((-1,) + leaf.shape[len(lead):])
+                flat = leaf.view((-1,) + leaf.shape[len(lead):])
+                yield key, name, flat.unsqueeze(2) if latent else flat
 
     def _columns(self, cache, cols):
         """Each leaf's columns ``cols`` of row 0 (dense) or through the block
@@ -5828,13 +5888,14 @@ class FamilyPhase:
 # ---- 17. the vlm and encdec families ---------------------------------------------------
 # seamless-m4t-medium at full width and depth; llama-3.2-vision-90b at full
 # width and CROSS_VLM_GROUPS of its 20 groups: all 20 are 88.7 GB at int8,
-# more than the card holds.  8 groups run every check of its path; they were
-# 16 before phase 18, whose time the cut pays for.  Each on a generator of its own (SEED + 10 + its
+# more than the card holds.  4 groups run every check of its path; they were
+# 16 before phase 18 and 8 before phase 19, whose times the cuts pay for.
+# Each on a generator of its own (SEED + 10 + its
 # index), weights drawn and quantized one (K, N) slice at a time
 # (``quantized_params``), the vlm's gates planted (CROSS_GATES): its init's
 # zero gates would make every cross block pass x through, whatever the image.
 CROSS = ("seamless-m4t-medium", "llama-3.2-vision-90b")
-CROSS_VLM_GROUPS = 8
+CROSS_VLM_GROUPS = 4
 CROSS_GATES = (0.5, 1.0)  # each gate of each cross block uniform in this range, seeded
 # (c): the f32 path at full width, reduced depth: one vlm group, two encoder
 # and two decoder layers (the f32 vlm group alone is 17 GB).
@@ -5936,7 +5997,225 @@ def cross_stream_bytes(eng):
     return pim_bytes({k: v for k, v in p.items() if k not in ("embed", "encoder")})
 
 
-class CrossPhase:
+class WindowChecks:
+    """Speculation's windows on the fixed engine at batch 1, for phase 17
+    (i)-(l) and (n) and phase 19 (g): n-gram windows greedy and sampled and
+    the int8 tree as its own draft, tree windows, each captured against
+    eager with its launches counted and greedy against plain greedy
+    decoding; planted chains (``PlantedChains``); and the windows' device
+    ms.  A subclass sets the class attributes and ``_took``."""
+
+    PHASE = "phase 17"
+    SPEC, TREE = CROSS_SPEC, CROSS_TREE  # the linear windows' and the trees' SpecConfig
+    SPEC_NEW, EAGER_NEW = CROSS_SPEC_NEW, CROSS_SPEC_EAGER_NEW
+    PLANT_PS, PLANT_STEPS = CROSS_PLANT_PS, CROSS_PLANT_STEPS
+    REPS, ROUNDS = CROSS_SPEC_REPS, CROSS_SPEC_ROUNDS
+    SECTIONS = dict(ngram="i", draft="j", tree="k", plant="l", times="n")
+
+    def spec_bar(self, cfg):
+        return CROSS_SPEC_BARS[cfg.family]
+
+    def plant_bar(self, cfg):
+        return CROSS_PLANT_BARS[cfg.family]
+
+    @torch.inference_mode()
+    def _spec_start(self, eng, spec, prompt, ex, n_new):
+        """``eng``'s batch-1 speculative buffers from ``prompt``'s prefill with
+        the extras ``ex`` copied into the batch's static buffers, greedy, as
+        ``generate`` starts them."""
+        exb = eng.state(1).extras.get(ex)
+        if ex is not None:
+            serving_engine._copy_tree(exb, ex)
+        eng.spec_state(1).start(eng.params, prompt, None, 1.0, n_new, greedy=True,
+                                top_k=0, ctrl_init=0.0, k=spec.k, tree_fan=spec.tree_fan,
+                                draft_params=eng.draft_params if spec.mode == "draft" else None,
+                                extras=exb)
+
+    def _vs_plain(self, label, eng, prompt, got, plain, ex, bar):
+        return spec_vs_plain(f"{self.PHASE} {eng.cfg.arch_id}", label, eng, prompt, got, plain,
+                             bar=bar, extras=ex)
+
+    @torch.inference_mode()
+    def _windows(self, eng, spec, prompt, ex, n_new):
+        """One batch-1 generation window by window: [(tokens before, tokens
+        emitted)] and the tokens."""
+        step = eng.spec_step(1, spec, greedy=True, top_k=0, extras=ex)
+        self._spec_start(eng, spec, prompt, ex, n_new)
+        st, rows, n = eng.spec_state(1), [], 1
+        while n < n_new:
+            step()
+            m = int(st.n_em[0]) - n
+            rows.append((n, m))
+            n += m
+        return rows, st.out[:, :n_new].clone()
+
+    def speculation(self, rep, cfg, params, prompt, ex):
+        """The fixed engine at batch 1 (SECTIONS' n-gram, self-draft, tree and
+        planted windows), and the window times, on the batch-1 ``prompt``
+        (1, S) with the extras ``ex`` (each leaf (1, ...), or None); the
+        target's int8 tree is its own draft."""
+        dev, arch, n, sec = self.dev, cfg.arch_id, self.SPEC_NEW, self.SECTIONS
+        bar, per_step = self.spec_bar(cfg), matvec_calls_per_step(cfg)
+        kw = dict(max_seq=PROMPT + N_NEW, device=dev, draft_cfg=cfg, draft_params=params)
+        eng, eager = ServingEngine(cfg, params, **kw), EagerServingEngine(cfg, params, **kw)
+        graphs = count_captures(eng)
+        out = {"bar": bar, "n_new": n}
+        spec, tree = SpecConfig(**self.SPEC), SpecConfig(**self.TREE)
+        draft = SpecConfig(**self.SPEC, mode="draft")
+
+        def eager_twin(label, sp, mode, got):
+            """The first EAGER_NEW tokens again, captured (their launches
+            counted: ``per_step`` a window) and eager: ``torch.equal``, and
+            the captured ones ``got``'s first."""
+            m = self.EAGER_NEW
+            short, launches, counted_as = counted_launches(
+                graphs, lambda: eng.generate(prompt, m, extras=ex, speculate=sp, **mode))
+            stats = dict(eng.spec_stats)
+            want = eager.generate(prompt, m, extras=ex, speculate=sp, **mode)
+            row = {"eager_new": m, "tokens_equal_eager": torch.equal(short, want),
+                   "windows_equal_eager": stats == eager.spec_stats,
+                   "launches": launches, "launches_counted_as": counted_as,
+                   "windows_counted": stats["verify_steps"]}
+            check(torch.equal(short, got[:, :m]), f"{label} {arch}: {m} tokens differ from the "
+                  f"first of {n}")
+            check(row["tokens_equal_eager"] and row["windows_equal_eager"],
+                  f"{label} {arch}: the captured windows differ from the eager ones: {row}")
+            check(launches == expect(launches, per_step * stats["verify_steps"]),
+                  f"{label} {arch}: launches {launches}, expected {per_step} pim_matvec x "
+                  f"{stats['verify_steps']} windows")
+            return row
+
+        def expect(launches, calls):
+            want = dict.fromkeys(launches, 0)
+            want["pim_matvec"] = calls
+            return want
+
+        t = time.perf_counter()  # n-gram windows of k + 1 rows
+        plain = eng.generate(prompt, n, extras=ex)
+        rows = []
+        for label, mode in (("greedy", GREEDY), ("sampled", SAMPLED)):
+            got = eng.generate(prompt, n, extras=ex, speculate=spec, **mode)
+            row = {"case": f"n-gram k={spec.k}, {label}", "window_rows": spec.k + 1,
+                   "spec_stats": dict(eng.spec_stats)}
+            check(got.dtype == torch.int32 and bool(((got >= 0) & (got < cfg.vocab)).all()),
+                  f"({sec['ngram']}) {arch} {label}: tokens {got.dtype} out of range")
+            row.update(eager_twin(f"({sec['ngram']}) {label}", spec, mode, got))
+            if mode["greedy"]:
+                row["vs_plain_batch_1"] = self._vs_plain(f"({sec['ngram']}) {label}", eng,
+                                                         prompt, got, plain, ex, bar)
+            rows.append(row)
+        self.launches[f"{self.PHASE} {arch} n-gram windows, batch 1"] = rows[0]["launches"]
+        out["ngram"] = {"cases": rows, "pim_matvec_per_window": per_step}
+        self._took(rep, sec["ngram"], t)
+
+        t = time.perf_counter()  # the int8 tree as its own draft, window by window
+        with torch.inference_mode():  # captured before the count
+            eng.spec_step(1, draft, greedy=True, top_k=0, extras=ex)
+        (wins, toks), launches, counted_as = counted_launches(
+            graphs, lambda: self._windows(eng, draft, prompt, ex, n))
+        short = [(j, m) for j, m in wins if m < min(draft.k + 1, n - j)]
+        with torch.inference_mode():
+            rejected = [{"token": j + m - 1, "plain_top2_gap": plain_gap(
+                eng, prompt, 0, j + m - 1, ex)} for j, m in short]
+        acc = {"windows": len(wins), "full_windows": len(wins) - len(short),
+               "emitted_by_window": [m for _, m in wins], "rejections": rejected,
+               "rejections_beyond_bar": sum(r["plain_top2_gap"] > bar for r in rejected),
+               "rejections_beyond_paged_bar": sum(r["plain_top2_gap"] > PAGED_BAR
+                                                  for r in rejected)}
+        acc["vs_plain_batch_1"] = self._vs_plain(f"({sec['draft']}) self-draft", eng, prompt,
+                                                 toks, plain, ex, bar)
+        check(acc["rejections_beyond_bar"] == 0, f"({sec['draft']}) {arch}: the self-draft "
+              f"rejected a proposal where the plain run's top-2 gap exceeds {bar}: {acc}")
+        check(launches == expect(launches, per_step * (draft.k + 2) * len(wins)),
+              f"({sec['draft']}) {arch}: launches {launches}, expected {per_step} pim_matvec x "
+              f"{draft.k + 2} x {len(wins)} windows ({draft.k + 1} one-row draft steps and a "
+              f"{draft.k + 1}-row verify)")
+        self.launches[f"{self.PHASE} {arch} self-draft windows, batch 1"] = launches
+        out["self_draft"] = {**acc, "launches": launches, "launches_counted_as": counted_as}
+        self._took(rep, sec["draft"], t)
+
+        t = time.perf_counter()  # tree windows of 1 + fan x depth rows
+        got = eng.generate(prompt, n, extras=ex, speculate=tree)
+        row = {"case": f"fan {tree.tree_fan} x depth {tree.k}",
+               "window_rows": 1 + tree.tree_fan * tree.k, "spec_stats": dict(eng.spec_stats),
+               **eager_twin(f"({sec['tree']})", tree, GREEDY, got)}
+        row["vs_plain_batch_1"] = self._vs_plain(f"({sec['tree']}) tree", eng, prompt, got,
+                                                 plain, ex, bar)
+        fan1 = eng.generate(prompt, n, extras=ex, speculate=SpecConfig(k=tree.k, tree_fan=1))
+        linear = eng.generate(prompt, n, extras=ex, speculate=SpecConfig(k=tree.k))
+        row["fan_1_equal_linear"] = torch.equal(fan1, linear)
+        check(row["fan_1_equal_linear"], f"({sec['tree']}) {arch}: tree_fan=1 differs from "
+              f"linear k={tree.k}")
+        self.launches[f"{self.PHASE} {arch} tree windows, batch 1"] = row["launches"]
+        out["tree"] = row
+        del eager
+        self._took(rep, sec["tree"], t)
+
+        t = time.perf_counter()  # planted chains on a dense store and a paged pool
+        out["planted_chains"] = PlantedChains(
+            cfg, params, prompt, plain, fan=tree.tree_fan, depth=tree.k,
+            page_size=self.PLANT_PS, extras=ex, bar=self.plant_bar(cfg), tie_bar=bar,
+            reject_bar=bar, steps=self.PLANT_STEPS, name=f"{self.PHASE} {arch}",
+            label=f"({sec['plant']})").run()
+        self._took(rep, sec["plant"], t)
+
+        t = time.perf_counter()  # window ms against the plain step, batch 1
+        out["window_ms"] = self.window_times(eng, prompt, ex, (spec, draft, tree), {
+            spec: rows[0]["spec_stats"], tree: out["tree"]["spec_stats"],
+            draft: {"emitted_per_step": (n - 1) / len(wins)}})
+        self._took(rep, sec["times"], t)
+        del eng, graphs
+        rep["speculation"] = out
+
+    @torch.inference_mode()
+    def window_times(self, eng, prompt, ex, specs, stats):
+        """Device ms a replay of the batch-1 plain step and of each of
+        ``specs``' windows, CUDA events over REPS replays, in ROUNDS
+        alternating rounds, each run from its own prefill
+        once before the rounds (a window's work does not depend on what it
+        accepts; none passes the store); and with the tokens a window each
+        emitted in the n-gram, self-draft and tree sections (``stats``),
+        batch-1 tokens/s over plain."""
+        cfg = eng.cfg
+        eng.state(1).start(eng.params, cfg, prompt, None, 1.0, greedy=True, top_k=0, extras=ex)
+        runs = {"plain step": (eng.step(1, greedy=True, top_k=0, extras=ex), 1, 1.0)}
+        for sp in specs:
+            name = (f"tree window fan {sp.tree_fan} x depth {sp.k}" if sp.tree_fan
+                    else f"{sp.mode} window k={sp.k}")
+            runs[name] = (eng.spec_step(1, sp, greedy=True, top_k=0, extras=ex),
+                          1 + sp.k * max(sp.tree_fan, 1), stats[sp]["emitted_per_step"])
+            if sp.mode == "draft" or sp.tree_fan:  # their own caches: a start each
+                self._spec_start(eng, sp, prompt, ex, N_NEW)
+        # the n-gram window shares the plain step's cache, which the starts
+        # above filled with the same prompt: its own start after them
+        self._spec_start(eng, specs[0], prompt, ex, N_NEW)
+
+        def ms(step):
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(self.REPS):
+                step()
+            z.record()
+            z.synchronize()
+            return a.elapsed_time(z) / self.REPS
+
+        rounds = []
+        for _ in range(self.ROUNDS):
+            rounds.append({name: ms(step) for name, (step, _, _) in runs.items()})
+            rounds[-1]["sm_clock_mhz"] = tracing.sm_clock_mhz()
+        med = {name: sorted(r[name] for r in rounds)[len(rounds) // 2] for name in runs}
+        return {"timing": f"device ms a replay at batch 1, CUDA events over {self.REPS} "
+                          f"replays, median of {self.ROUNDS} alternating rounds (a draft "
+                          "window holds its k + 1 one-row draft steps); tokens/s over plain: "
+                          "the tokens a window emitted over its ms, against one a plain step",
+                "rows": [{"run": name, "rows": r, "ms": med[name],
+                          "over_plain_step": med[name] / med["plain step"],
+                          "tokens_per_window": tok,
+                          "tokens_per_s_over_plain": tok * med["plain step"] / med[name]}
+                         for name, (_, r, tok) in runs.items()], "rounds": rounds}
+
+
+class CrossPhase(WindowChecks):
     """Phase 17: for each of CROSS, (a) to (h) of the module's docstring."""
 
     def __init__(self, dev):
@@ -6167,198 +6446,7 @@ class CrossPhase:
         # what (m) serves again under speculation
         self.trace = {"reqs": reqs, "dense": dense, "lengths": lengths, "gap_at": gap_at}
 
-    # ---- (i)-(n): speculation -------------------------------------------------------------
-    @torch.inference_mode()
-    def _spec_start(self, eng, spec, prompt, ex, n_new):
-        """``eng``'s batch-1 speculative buffers from ``prompt``'s prefill with
-        the extras ``ex`` copied into the batch's static buffers, greedy, as
-        ``generate`` starts them."""
-        exb = eng.state(1).extras.get(ex)
-        serving_engine._copy_tree(exb, ex)
-        eng.spec_state(1).start(eng.params, prompt, None, 1.0, n_new, greedy=True,
-                                top_k=0, ctrl_init=0.0, k=spec.k, tree_fan=spec.tree_fan,
-                                draft_params=eng.draft_params if spec.mode == "draft" else None,
-                                extras=exb)
-
-    def _vs_plain(self, label, eng, prompt, got, plain, ex, bar):
-        return spec_vs_plain(f"phase 17 {eng.cfg.arch_id}", label, eng, prompt, got, plain,
-                             bar=bar, extras=ex)
-
-    @torch.inference_mode()
-    def _windows(self, eng, spec, prompt, ex, n_new):
-        """(j): one batch-1 generation window by window: [(tokens before,
-        tokens emitted)] and the tokens."""
-        step = eng.spec_step(1, spec, greedy=True, top_k=0, extras=ex)
-        self._spec_start(eng, spec, prompt, ex, n_new)
-        st, rows, n = eng.spec_state(1), [], 1
-        while n < n_new:
-            step()
-            m = int(st.n_em[0]) - n
-            rows.append((n, m))
-            n += m
-        return rows, st.out[:, :n_new].clone()
-
-    def speculation(self, rep, cfg, params, prompt, ex):
-        """(i)-(l): the fixed engine at batch 1, and (n) its window times, on
-        the batch-1 ``prompt`` (1, S) with the extras ``ex`` (each leaf
-        (1, ...)); the target's int8 tree is its own draft."""
-        dev, arch, n = self.dev, cfg.arch_id, CROSS_SPEC_NEW
-        bar, per_step = CROSS_SPEC_BARS[cfg.family], matvec_calls_per_step(cfg)
-        kw = dict(max_seq=PROMPT + N_NEW, device=dev, draft_cfg=cfg, draft_params=params)
-        eng, eager = ServingEngine(cfg, params, **kw), EagerServingEngine(cfg, params, **kw)
-        graphs = count_captures(eng)
-        out = {"bar": bar, "n_new": n}
-        spec, tree = SpecConfig(**CROSS_SPEC), SpecConfig(**CROSS_TREE)
-        draft = SpecConfig(**CROSS_SPEC, mode="draft")
-
-        def eager_twin(label, sp, mode, got):
-            """The first CROSS_SPEC_EAGER_NEW tokens again, captured (their
-            launches counted: ``per_step`` a window) and eager:
-            ``torch.equal``, and the captured ones ``got``'s first."""
-            m = CROSS_SPEC_EAGER_NEW
-            short, launches, counted_as = counted_launches(
-                graphs, lambda: eng.generate(prompt, m, extras=ex, speculate=sp, **mode))
-            stats = dict(eng.spec_stats)
-            want = eager.generate(prompt, m, extras=ex, speculate=sp, **mode)
-            row = {"eager_new": m, "tokens_equal_eager": torch.equal(short, want),
-                   "windows_equal_eager": stats == eager.spec_stats,
-                   "launches": launches, "launches_counted_as": counted_as,
-                   "windows_counted": stats["verify_steps"]}
-            check(torch.equal(short, got[:, :m]), f"{label} {arch}: {m} tokens differ from the "
-                  f"first of {n}")
-            check(row["tokens_equal_eager"] and row["windows_equal_eager"],
-                  f"{label} {arch}: the captured windows differ from the eager ones: {row}")
-            check(launches == expect(launches, per_step * stats["verify_steps"]),
-                  f"{label} {arch}: launches {launches}, expected {per_step} pim_matvec x "
-                  f"{stats['verify_steps']} windows")
-            return row
-
-        def expect(launches, calls):
-            want = dict.fromkeys(launches, 0)
-            want["pim_matvec"] = calls
-            return want
-
-        t = time.perf_counter()  # (i) n-gram windows of k + 1 = 5 rows
-        plain = eng.generate(prompt, n, extras=ex)
-        rows = []
-        for label, mode in (("greedy", GREEDY), ("sampled", SAMPLED)):
-            got = eng.generate(prompt, n, extras=ex, speculate=spec, **mode)
-            row = {"case": f"n-gram k={spec.k}, {label}", "window_rows": spec.k + 1,
-                   "spec_stats": dict(eng.spec_stats)}
-            check(got.dtype == torch.int32 and bool(((got >= 0) & (got < cfg.vocab)).all()),
-                  f"(i) {arch} {label}: tokens {got.dtype} out of range")
-            row.update(eager_twin(f"(i) {label}", spec, mode, got))
-            if mode["greedy"]:
-                row["vs_plain_batch_1"] = self._vs_plain(f"(i) {label}", eng, prompt, got, plain,
-                                                         ex, bar)
-            rows.append(row)
-        self.launches[f"phase 17 {arch} n-gram windows, batch 1"] = rows[0]["launches"]
-        out["ngram"] = {"cases": rows, "pim_matvec_per_window": per_step}
-        self._took(rep, "i", t)
-
-        t = time.perf_counter()  # (j) the int8 tree as its own draft, window by window
-        with torch.inference_mode():  # captured before the count
-            eng.spec_step(1, draft, greedy=True, top_k=0, extras=ex)
-        (wins, toks), launches, counted_as = counted_launches(
-            graphs, lambda: self._windows(eng, draft, prompt, ex, n))
-        short = [(j, m) for j, m in wins if m < min(draft.k + 1, n - j)]
-        with torch.inference_mode():
-            rejected = [{"token": j + m - 1, "plain_top2_gap": plain_gap(
-                eng, prompt, 0, j + m - 1, ex)} for j, m in short]
-        acc = {"windows": len(wins), "full_windows": len(wins) - len(short),
-               "emitted_by_window": [m for _, m in wins], "rejections": rejected,
-               "rejections_beyond_bar": sum(r["plain_top2_gap"] > bar for r in rejected),
-               "rejections_beyond_paged_bar": sum(r["plain_top2_gap"] > PAGED_BAR
-                                                  for r in rejected)}
-        acc["vs_plain_batch_1"] = self._vs_plain("(j) self-draft", eng, prompt, toks, plain, ex,
-                                                 bar)
-        check(acc["rejections_beyond_bar"] == 0, f"(j) {arch}: the self-draft rejected a "
-              f"proposal where the plain run's top-2 gap exceeds {bar}: {acc}")
-        check(launches == expect(launches, per_step * (draft.k + 2) * len(wins)),
-              f"(j) {arch}: launches {launches}, expected {per_step} pim_matvec x {draft.k + 2} x "
-              f"{len(wins)} windows ({draft.k + 1} one-row draft steps and a {draft.k + 1}-row "
-              "verify)")
-        self.launches[f"phase 17 {arch} self-draft windows, batch 1"] = launches
-        out["self_draft"] = {**acc, "launches": launches, "launches_counted_as": counted_as}
-        self._took(rep, "j", t)
-
-        t = time.perf_counter()  # (k) tree windows of 1 + 2 x 3 = 7 rows
-        got = eng.generate(prompt, n, extras=ex, speculate=tree)
-        row = {"case": f"fan {tree.tree_fan} x depth {tree.k}", "window_rows": 1 + 2 * tree.k,
-               "spec_stats": dict(eng.spec_stats),
-               **eager_twin("(k)", tree, GREEDY, got)}
-        row["vs_plain_batch_1"] = self._vs_plain("(k) tree", eng, prompt, got, plain, ex, bar)
-        fan1 = eng.generate(prompt, n, extras=ex, speculate=SpecConfig(k=tree.k, tree_fan=1))
-        linear = eng.generate(prompt, n, extras=ex, speculate=SpecConfig(k=tree.k))
-        row["fan_1_equal_linear"] = torch.equal(fan1, linear)
-        check(row["fan_1_equal_linear"], f"(k) {arch}: tree_fan=1 differs from linear k={tree.k}")
-        self.launches[f"phase 17 {arch} tree windows, batch 1"] = row["launches"]
-        out["tree"] = row
-        del eager
-        self._took(rep, "k", t)
-
-        t = time.perf_counter()  # (l) planted chains on a dense store and a paged pool
-        out["planted_chains"] = PlantedChains(
-            cfg, params, prompt, plain, fan=tree.tree_fan, depth=tree.k,
-            page_size=CROSS_PLANT_PS, extras=ex, bar=CROSS_PLANT_BARS[cfg.family], tie_bar=bar,
-            reject_bar=bar, steps=CROSS_PLANT_STEPS, name=f"phase 17 {arch}", label="(l)").run()
-        self._took(rep, "l", t)
-
-        t = time.perf_counter()  # (n) window ms against the plain step, batch 1
-        out["window_ms"] = self.window_times(eng, prompt, ex, (spec, draft, tree), {
-            spec: rows[0]["spec_stats"], tree: out["tree"]["spec_stats"],
-            draft: {"emitted_per_step": (n - 1) / len(wins)}})
-        self._took(rep, "n", t)
-        del eng, graphs
-        rep["speculation"] = out
-
-    @torch.inference_mode()
-    def window_times(self, eng, prompt, ex, specs, stats):
-        """(n): device ms a replay of the batch-1 plain step and of each of
-        ``specs``' windows, CUDA events over CROSS_SPEC_REPS replays, in
-        CROSS_SPEC_ROUNDS alternating rounds, each run from its own prefill
-        once before the rounds (a window's work does not depend on what it
-        accepts; none passes the store); and with the tokens a window each
-        emitted in (i)-(k) (``stats``), batch-1 tokens/s over plain."""
-        cfg = eng.cfg
-        eng.state(1).start(eng.params, cfg, prompt, None, 1.0, greedy=True, top_k=0, extras=ex)
-        runs = {"plain step": (eng.step(1, greedy=True, top_k=0, extras=ex), 1, 1.0)}
-        for sp in specs:
-            name = (f"tree window fan {sp.tree_fan} x depth {sp.k}" if sp.tree_fan
-                    else f"{sp.mode} window k={sp.k}")
-            runs[name] = (eng.spec_step(1, sp, greedy=True, top_k=0, extras=ex),
-                          1 + sp.k * max(sp.tree_fan, 1), stats[sp]["emitted_per_step"])
-            if sp.mode == "draft" or sp.tree_fan:  # their own caches: a start each
-                self._spec_start(eng, sp, prompt, ex, N_NEW)
-        # the n-gram window shares the plain step's cache, which the starts
-        # above filled with the same prompt: its own start after them
-        self._spec_start(eng, specs[0], prompt, ex, N_NEW)
-
-        def ms(step):
-            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(CROSS_SPEC_REPS):
-                step()
-            z.record()
-            z.synchronize()
-            return a.elapsed_time(z) / CROSS_SPEC_REPS
-
-        rounds = []
-        for _ in range(CROSS_SPEC_ROUNDS):
-            rounds.append({name: ms(step) for name, (step, _, _) in runs.items()})
-            rounds[-1]["sm_clock_mhz"] = tracing.sm_clock_mhz()
-        med = {name: sorted(r[name] for r in rounds)[len(rounds) // 2] for name in runs}
-        return {"timing": f"device ms a replay at batch 1, CUDA events over {CROSS_SPEC_REPS} "
-                          f"replays, median of {CROSS_SPEC_ROUNDS} alternating rounds (a draft "
-                          "window holds its k + 1 one-row draft steps); tokens/s over plain: "
-                          "the tokens a window emitted in (i)-(k) over its ms, against one a "
-                          "plain step",
-                "rows": [{"run": name, "rows": r, "ms": med[name],
-                          "over_plain_step": med[name] / med["plain step"],
-                          "tokens_per_window": tok,
-                          "tokens_per_s_over_plain": tok * med["plain step"] / med[name]}
-                         for name, (_, r, tok) in runs.items()], "rounds": rounds}
-
+    # ---- (m): speculation on the continuous engine (WindowChecks: (i)-(l), (n)) ----------
     def spec_serves(self, rep, cfg, params):
         """(m): the continuous engine on (e)'s CROSS_SPEC_REQUESTS under
         n-gram windows (2 slots x 4 = 8 rows), then tree windows (2 x 3 = 6
@@ -6694,18 +6782,19 @@ def spec_summary(rep):
 
 
 # ---- 18. the moe family -------------------------------------------------------------------
-# moonshot-v1-16b-a3b at full width and all 48 layers, drawn and quantized one
-# (K, N) slice at a time (``quantized_params``, int8: 27.5 GB of codes), on a
+# moonshot-v1-16b-a3b at full width and MOE_LAYERS of its 48 layers, drawn and
+# quantized one (K, N) slice at a time (``quantized_params``, int8), on a
 # generator of its own (SEED + 12).  Its routed experts run x @ dq(w) over
 # every expert's whole stack, as in the JAX package; its attention and shared
 # experts, its dense first layer and its untied head pim_matvec.
 MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 12  # of its 48: all 48 before phase 19, whose time the cut pays for
 MOE_F32_LAYERS = 4  # (c): the dense first layer and three MoE layers
 MOE_CHECK_NEW = 8  # (c), (d): the first tokens of (b)'s greedy generation, teacher-forced
 MOE_TIME_STEPS = 4  # (b): captured replays timed, greedy and sampled
-# (d): the bar of the bf16 kernel path's distance from the overlay path at
-# 48 layers, and the planted fault that must exceed it.  Phase 16's bar (the
-# distance (c)'s planted fault makes) does not hold here: on the H100 the
+# (d): the bar of the bf16 kernel path's distance from the overlay path, and
+# the planted fault that must exceed it.  Phase 16's bar (the distance (c)'s
+# planted fault makes) does not hold here: on the H100 at all 48 layers the
 # sound paths differed by 0.474 where (c)'s fault, a middle shared expert's
 # ``down`` losing its last K split (352 of 2,816 rows), moved them by 0.450;
 # the dense first layer's ``down`` losing its last K split (1,408 of 11,264
@@ -6725,10 +6814,23 @@ MOE_SERVE = dict(slots=2, page_size=16, chunk=4, max_seq=160, page_alloc_seed=SE
 MOE_TRACE = ((128, 5), (64, 4), (96, 5), (128, 4))
 MOE_REPEAT = 3
 MOE_EAGER, MOE_EAGER_NEW = 2, 4  # (e): the eager twin's requests and budget
+# (g): a batch-1 n-gram speculative generate of MOE_SPEC_NEW tokens, windows
+# of k + 1 = 5 rows (one dispatch group of capacity 6: nothing a one-token
+# step keeps is dropped), captured against eager on its first
+# MOE_SPEC_EAGER_NEW tokens.
+MOE_SPEC = dict(k=4)
+MOE_SPEC_NEW, MOE_SPEC_EAGER_NEW = 16, 6
 
 
 class MoePhase:
-    """Phase 18: (a) to (f) of the module's docstring for MOE_ARCH."""
+    """Phase 18: (a) to (g) of the module's docstring for MOE_ARCH at
+    MOE_LAYERS layers.  ``MlaPhase`` runs the same sections for phase 19.
+    ``EAGER_TWINS``: (b)'s generations held against their eager loops
+    (phase 18's were cut to pay for phase 19, which holds the moe family's
+    there); ``SOLO_BAR``: (e)'s bar against the solo runs."""
+
+    NAME, ARCH, LAYERS, SEED_OFFSET = "phase 18", MOE_ARCH, MOE_LAYERS, 12
+    OVERLAY_TOL, EAGER_TWINS, SOLO_BAR = MOE_OVERLAY_TOL, False, PAGED_BAR
 
     def __init__(self, dev):
         self.dev, self.launches = dev, {}
@@ -6736,7 +6838,7 @@ class MoePhase:
 
     def _took(self, rep, section, t0):
         rep["section_s"][section] = time.perf_counter() - t0
-        print(f"phase 18 ({section}): {rep['section_s'][section]:.1f} s", flush=True)
+        print(f"{self.NAME} ({section}): {rep['section_s'][section]:.1f} s", flush=True)
 
     def moe_layer(self, cfg, gen):
         """(a): ``moe_apply`` (index dispatch) against ``moe_apply_onehot`` (the
@@ -6773,14 +6875,28 @@ class MoePhase:
               f"(a) moe_apply drops {one['drops']} / {many['drops']}, expected 0 / >= {floor}")
         return out
 
+    def layer_checks(self, rep, cfg, gen):
+        """(a): ``moe_apply`` (``moe_layer``), ``pim_matvec`` and
+        ``flash_attention`` at the config's shapes."""
+        fs = cfg.moe.n_shared * cfg.moe.d_ff_expert
+        rep["moe_apply"] = self.moe_layer(cfg, gen)
+        pl = matvec_plan(cfg.d_model, cfg.vocab, BATCH, 8, self.sms)
+        rep["kernel_vs_plain"], _ = family_kernel_cases(
+            cfg, gen, extra=[(cfg.d_model, fs), (fs, cfg.d_model)],
+            chunk_fault=pl.chunk_rows < pl.rows_per_cta)
+        rep["attention"] = family_attention(cfg, gen)
+
     def serve(self, rep, cfg, params, eng, gen):
         """(e): MOE_TRACE on the continuous engine with ``prefix_cache=True``:
         each request served alone first (its graphs captured), then the
         trace counted; each request's tokens ``torch.equal`` to its own
         served alone, no prefix hit, captured == ``EagerEngine`` on the first
         MOE_EAGER requests at MOE_EAGER_NEW new, and each request against
-        its solo ``generate`` (``eng``, batch 1) at PAGED_BAR."""
-        dev, per_step = self.dev, matvec_calls_per_step(cfg)
+        its solo ``generate`` (``eng``, batch 1) at SOLO_BAR, beside the
+        logits of request 0's decode steps at batch 1 against batch 2.
+        Keeps the trace, the solo runs and their gaps in ``self.trace``
+        for (g)."""
+        dev, per_step, arch = self.dev, matvec_calls_per_step(cfg), cfg.arch_id
         prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev).cpu().numpy()
                    .astype(np.int32) for n, _ in MOE_TRACE]
         prompts[MOE_REPEAT] = prompts[0]
@@ -6794,22 +6910,22 @@ class MoePhase:
         cached = [e["cached_tokens"] for rec in report.records for e in rec.events
                   if e["name"] == "admit"]
         check(report.prefix_hits == 0 and not any(cached),
-              f"(e) {MOE_ARCH}: the prefix cache hit on moe: {cached}")
+              f"(e) {arch}: the prefix cache hit on moe: {cached}")
         # a step's calls an iteration; an admit unembeds its last position
         # through the untied head
         expect = dict.fromkeys(launches, 0)
         expect["pim_matvec"] = per_step * iters + len(reqs)
-        check(launches == expect, f"(e) {MOE_ARCH} serve: launches {launches}, expected {expect}")
-        self.launches[f"phase 18 {MOE_ARCH} serve"] = launches
+        check(launches == expect, f"(e) {arch} serve: launches {launches}, expected {expect}")
+        self.launches[f"{self.NAME} {arch} serve"] = launches
         apart = [r for r in range(len(reqs)) if not np.array_equal(alone[r], out[r])]
-        check(not apart, f"(e) {MOE_ARCH}: requests {apart} differ from themselves served alone")
+        check(not apart, f"(e) {arch}: requests {apart} differ from themselves served alone")
         first = [Request(prompt=r.prompt, max_new=MOE_EAGER_NEW) for r in reqs[:MOE_EAGER]]
         out_c = ce.serve(first)
         events_c = events_of(ce.last_report)
         eager = EagerEngine(cfg, params, prefix_cache=True, device=dev, **MOE_SERVE)
         out_e = eager.serve(first)
         check(same_tokens(out_c, out_e) and events_c == events_of(eager.last_report),
-              f"(e) {MOE_ARCH}: the captured serve differs from the eager one")
+              f"(e) {arch}: the captured serve differs from the eager one")
         del eager, ce, graphs
         with torch.inference_mode():
             dense = [eng.generate(torch.from_numpy(p)[None].to(dev), m)[0].cpu().numpy()
@@ -6820,9 +6936,18 @@ class MoePhase:
             logits, _ = prefill(params, cfg, seq, init_cache(cfg, 1, seq.shape[1], dev))
             return top2_gap(logits[0, -1])
         with torch.inference_mode():
-            vs = paged_vs_dense(f"(e) {MOE_ARCH}", out, dense, budgets, gap_at, PAGED_BAR)
+            vs = paged_vs_dense(f"(e) {arch}", out, dense, budgets, gap_at, self.SOLO_BAR)
+            # the same decode steps at batch 1 and as row 0 of a batch of 2, the
+            # arithmetic the serve's 2 slots and the solo run differ by
+            p0, t0 = (torch.from_numpy(a)[None].to(dev) for a in (prompts[0], dense[0]))
+            vs["batch_1_vs_2_max_abs_logit_diff"] = (
+                forced_logits(eng, p0, t0, budgets[0])
+                - forced_logits(eng, p0.repeat(2, 1), t0.repeat(2, 1), budgets[0])[:1]
+            ).abs().max().item()
+        self.trace = {"reqs": reqs, "dense": dense, "gap_at": gap_at}
         rep["serve"] = {"requests": len(reqs), "rounds": report.rounds,
-                        "decode_chunk_iters": iters, "tokens": sum(len(o) for o in out), "cached_tokens": cached,
+                        "decode_chunk_iters": iters, "tokens": sum(len(o) for o in out),
+                        "cached_tokens": cached,
                         "prefix_hits": report.prefix_hits, "equal_served_alone": len(reqs),
                         "captured_equal_eager": {"requests": MOE_EAGER, "new": MOE_EAGER_NEW},
                         "vs_solo": vs,
@@ -6830,45 +6955,79 @@ class MoePhase:
 
     def int8_cache(self, rep, cfg, params, prompt):
         """(f): ``kv_cache_bits=8``: the dense first layer's K/V int8 with f32
-        scales, the MoE layers' bf16 (the JAX package makes that stack
-        without bits), in the fixed engine's cache and a paged pool; one
-        captured step ``torch.equal`` to its eager twin."""
-        dev, cfg8 = self.dev, cfg.replace(kv_cache_bits=8)
+        scales, the MoE layers' stack in the parameter dtype, bf16 (the JAX
+        package makes it without bits: GQA K/V, or MLA latents), in the
+        fixed engine's cache and a paged pool; one captured step
+        ``torch.equal`` to its eager twin."""
+        dev, cfg8, arch = self.dev, cfg.replace(kv_cache_bits=8), cfg.arch_id
         eng8 = ServingEngine(cfg8, params, max_seq=PROMPT + N_NEW, device=dev)
-        kv, _ = captured_vs_eager(eng8, prompt, 2, f"{MOE_ARCH} int8 KV cache, one captured "
+        kv, _ = captured_vs_eager(eng8, prompt, 2, f"{arch} int8 KV cache, one captured "
                                   "step", **GREEDY)
         pool = init_paged_cache(cfg8, MOE_SERVE["slots"], 32, 3, MOE_SERVE["page_size"], dev)
         dtypes = {where: {key: {n: str(t.dtype).split(".")[-1] for n, t in c[key].items()}
                           for key, _ in lm.cache_stacks(cfg8)}
                   for where, c in (("dense", eng8.state(BATCH).cache), ("paged", pool))}
+        moe_leaves = ("c", "kr") if lm.stack_layout(cfg8, "layers") == "latent" else ("k", "v")
         for where, d in dtypes.items():
             check(d["dense_layers"] == {"k": "int8", "v": "int8", "k_scale": "float32",
                                         "v_scale": "float32"}
-                  and d["layers"] == {"k": "bfloat16", "v": "bfloat16"},
-                  f"(f) {MOE_ARCH} int8 KV cache ({where}): {d}")
+                  and d["layers"] == dict.fromkeys(moe_leaves, "bfloat16"),
+                  f"(f) {arch} int8 KV cache ({where}): {d}")
         rep["int8_kv_cache"] = {"captured_vs_eager": kv, "dtypes": dtypes}
 
+    def speculation_checks(self, rep, cfg, params, prompt):
+        """(g): one batch-1 n-gram speculative ``generate`` (MOE_SPEC), its
+        first MOE_SPEC_EAGER_NEW tokens captured (launches counted: a
+        step's ``pim_matvec`` calls a window) and ``torch.equal`` to
+        ``EagerServingEngine``'s; greedy against plain greedy decoding at
+        HIT_BAR."""
+        dev, arch, per_step = self.dev, cfg.arch_id, matvec_calls_per_step(cfg)
+        p1, spec = prompt[:1], SpecConfig(**MOE_SPEC)
+        eng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+        graphs = count_captures(eng)
+        with torch.inference_mode():
+            plain = eng.generate(p1, MOE_SPEC_NEW)
+            got = eng.generate(p1, MOE_SPEC_NEW, speculate=spec)
+            short, launches, counted_as = counted_launches(
+                graphs, lambda: eng.generate(p1, MOE_SPEC_EAGER_NEW, speculate=spec))
+            windows = eng.spec_stats["verify_steps"]
+            eager = EagerServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+            want = eager.generate(p1, MOE_SPEC_EAGER_NEW, speculate=spec)
+        row = {"case": f"n-gram k={spec.k}, batch 1, greedy", "window_rows": spec.k + 1,
+               "spec_stats": dict(eng.spec_stats), "eager_new": MOE_SPEC_EAGER_NEW,
+               "tokens_equal_eager": torch.equal(short, want),
+               "windows_equal_eager": eng.spec_stats == eager.spec_stats,
+               "launches": launches, "launches_counted_as": counted_as,
+               "windows_counted": windows}
+        check(torch.equal(short, got[:, :MOE_SPEC_EAGER_NEW]) and row["tokens_equal_eager"]
+              and row["windows_equal_eager"], f"(g) {arch}: the captured windows differ from "
+              f"the eager ones, or from the first of the longer run: {row}")
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = per_step * windows
+        check(launches == expect, f"(g) {arch}: launches {launches}, expected {expect}")
+        self.launches[f"{self.NAME} {arch} n-gram windows, batch 1"] = launches
+        row["vs_plain_batch_1"] = spec_vs_plain(f"{self.NAME} {arch}", "(g) n-gram", eng, p1,
+                                                got, plain)
+        rep["speculation"] = row
+
     def run(self):
-        dev, cfg = self.dev, get_config(MOE_ARCH)
-        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        dev, cfg = self.dev, get_config(self.ARCH).replace(n_layers=self.LAYERS)
+        gen = torch.Generator(device=dev).manual_seed(SEED + self.SEED_OFFSET)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        m, fs = cfg.moe, cfg.moe.n_shared * cfg.moe.d_ff_expert
-        rep = {"check": "phase 18: the moe family at full width and depth, int8 weights",
-               "arch": MOE_ARCH, "layers": cfg.n_layers, "dense_layers": cfg.n_dense_layers,
+        m, fs, arch = cfg.moe, cfg.moe.n_shared * cfg.moe.d_ff_expert, cfg.arch_id
+        rep = {"check": f"{self.NAME}: {arch} at full width, {cfg.n_layers} of "
+                        f"{get_config(arch).n_layers} layers, int8 weights",
+               "arch": arch, "layers": cfg.n_layers, "dense_layers": cfg.n_dense_layers,
                "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+               "attention_kind": "MLA" if cfg.mla else "GQA",
                "experts": [m.n_experts, m.top_k, m.n_shared, m.d_ff_expert], "d_ff": cfg.d_ff,
                "vocab": cfg.vocab, "section_s": {}}
 
-        t = time.perf_counter()  # (a) moe_apply, pim_matvec and flash_attention at its shapes
-        rep["moe_apply"] = self.moe_layer(cfg, gen)
-        pl = matvec_plan(cfg.d_model, cfg.vocab, BATCH, 8, self.sms)
-        rep["kernel_vs_plain"], _ = family_kernel_cases(
-            cfg, gen, extra=[(cfg.d_model, fs), (fs, cfg.d_model)],
-            chunk_fault=pl.chunk_rows < pl.rows_per_cta)
-        rep["attention"] = family_attention(cfg, gen)
+        t = time.perf_counter()  # (a) the layer and the kernel at the config's shapes
+        self.layer_checks(rep, cfg, gen)
         gc.collect()
         torch.cuda.empty_cache()
         self._took(rep, "a", t)
@@ -6878,12 +7037,16 @@ class MoePhase:
         torch.cuda.synchronize()
         rep.update(weights_s=time.perf_counter() - t, int8_bytes=pim_bytes(params),
                    peak_bytes_drawing=torch.cuda.max_memory_allocated())
-        print(f"phase 18 (weights): {rep['weights_s']:.1f} s, {rep['int8_bytes']} bytes",
+        print(f"{self.NAME} (weights): {rep['weights_s']:.1f} s, {rep['int8_bytes']} bytes",
               flush=True)
         eng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
         prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
         per_step = matvec_calls_per_step(cfg)
-        check(per_step == 7 * cfg.n_layers + 1, f"{MOE_ARCH}: {per_step} pim_matvec calls a step")
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        attn_calls = len(MLA_LINEARS) if cfg.mla else 4
+        want_calls = 7 * cfg.n_dense_layers + (attn_calls + len(MOE_SHARED_LINEARS)) * n_moe + 1
+        check(per_step == want_calls, f"{arch}: {per_step} pim_matvec calls a step, "
+              f"the code makes {want_calls}")
         graphs = count_captures(eng)
 
         t = time.perf_counter()  # (b) the fixed engine: counted, captured against eager
@@ -6898,21 +7061,26 @@ class MoePhase:
             toks, launches, counted_as = counted_launches(graphs,
                                                           lambda: eng.generate(prompt, N_NEW))
             lap("counted greedy generate")
-            greedy, _ = captured_vs_eager(eng, prompt, N_NEW, f"{MOE_ARCH} int8 greedy, "
-                                          f"{BATCH} x {PROMPT}", toks=toks, **GREEDY)
-            lap("eager greedy twin")
-            sampled, stoks = captured_vs_eager(eng, prompt, N_NEW, f"{MOE_ARCH} int8 sampled, "
-                                               f"{BATCH} x {PROMPT}", **SAMPLED)
-            lap("sampled generate and eager twin")
-        check(not torch.equal(stoks, toks), f"(b) {MOE_ARCH}: sampled tokens equal greedy ones")
+            if self.EAGER_TWINS:
+                rep["captured_vs_eager"] = [captured_vs_eager(
+                    eng, prompt, N_NEW, f"{arch} int8 greedy, {BATCH} x {PROMPT}", toks=toks,
+                    **GREEDY)[0]]
+                lap("eager greedy twin")
+                sampled, stoks = captured_vs_eager(eng, prompt, N_NEW, f"{arch} int8 sampled, "
+                                                   f"{BATCH} x {PROMPT}", **SAMPLED)
+                rep["captured_vs_eager"].append(sampled)
+                lap("sampled generate and eager twin")
+            else:
+                stoks = eng.generate(prompt, N_NEW, **SAMPLED)
+                lap("sampled generate")
+        check(not torch.equal(stoks, toks), f"(b) {arch}: sampled tokens equal greedy ones")
         expect = dict.fromkeys(launches, 0)
         expect["pim_matvec"] = per_step * (N_NEW - 1)
-        check(launches == expect, f"(b) {MOE_ARCH}: launches {launches}, expected {expect}")
+        check(launches == expect, f"(b) {arch}: launches {launches}, expected {expect}")
         check(all(g.launches["pim_matvec"] == per_step for g in graphs),
-              f"(b) {MOE_ARCH}: captured steps launch {[g.launches for g in graphs]}, expected "
+              f"(b) {arch}: captured steps launch {[g.launches for g in graphs]}, expected "
               f"{per_step} pim_matvec each")
-        self.launches[f"phase 18 {MOE_ARCH} generate"] = launches
-        rep["captured_vs_eager"] = [greedy, sampled]
+        self.launches[f"{self.NAME} {arch} generate"] = launches
         rep["launches"] = {"launches": launches, "per_step": per_step, "counted_as": counted_as}
         with torch.inference_mode():
             med, rounds = step_ms({"captured_ms": (eng, GREEDY),
@@ -6922,10 +7090,10 @@ class MoePhase:
             xm = torch.randn((BATCH, 1, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
             moe_ms = _time_ms([functools.partial(moe.moe_apply, layer, xm, m)], 20)
         lap("timing")
-        n_moe = cfg.n_layers - cfg.n_dense_layers
         experts = pim_bytes({n: params["layers"]["moe"][n] for n in ("gate", "up", "down")})
         stream = cross_stream_bytes(eng)
-        routed = stream - experts * (1 - min(m.n_experts, BATCH * m.top_k) / m.n_experts)
+        routed_experts = min(m.n_experts, BATCH * m.top_k)
+        routed = stream - experts * (1 - routed_experts / m.n_experts)
         rep["step"] = {**med, "stream_bytes": stream,
                        "floor_ms": stream / HBM_BYTES_PER_S * 1e3,
                        "routed_floor_ms": routed / HBM_BYTES_PER_S * 1e3,
@@ -6936,12 +7104,13 @@ class MoePhase:
                                  f"over {MOE_TIME_STEPS} replays; moe_apply of MoE layer 0 at "
                                  f"{BATCH} x 1 alone in a CUDA graph, times {n_moe}; floor: every "
                                  "code and scale at 3.35 TB/s; routed floor: only the "
-                                 f"{min(m.n_experts, BATCH * m.top_k)} experts a step can route "
-                                 "to, of each MoE layer"}
+                                 f"{routed_experts} experts a step can route to, of each MoE "
+                                 "layer"}
+        rep["step"].update(self.floors_reckoned(cfg, rep["step"]))
         rep["step"]["peak_bytes"] = torch.cuda.max_memory_allocated()
         rep["section_b_s"] = laps
-        print("phase 18 (b): " + json.dumps({"launches": launches, "step": rep["step"],
-                                             "laps": laps}), flush=True)
+        print(f"{self.NAME} (b): " + json.dumps({"launches": launches, "step": rep["step"],
+                                                 "laps": laps}), flush=True)
         self._took(rep, "b", t)
 
         t = time.perf_counter()  # (e) the continuous engine
@@ -6951,20 +7120,26 @@ class MoePhase:
         with torch.inference_mode():
             self.int8_cache(rep, cfg, params, prompt)
         self._took(rep, "f", t)
+        gc.collect()  # the counted captures hold each engine in a cycle
+        torch.cuda.empty_cache()
+        t = time.perf_counter()  # (g) speculation
+        self.speculation_checks(rep, cfg, params, prompt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._took(rep, "g", t)
 
         t = time.perf_counter()  # (d) the bf16 kernel path against the overlay path
         ftoks = toks[:, :MOE_CHECK_NEW]
-        diff, _, lo = against_overlay(eng, prompt, ftoks, MOE_CHECK_NEW, f"{MOE_ARCH} int8",
-                                      tol=MOE_OVERLAY_TOL, capture=False)
-        pl = matvec_plan(cfg.d_model, cfg.vocab, BATCH, 8, self.sms)
+        diff, _, lo = against_overlay(eng, prompt, ftoks, MOE_CHECK_NEW, f"{arch} int8",
+                                      tol=self.OVERLAY_TOL, capture=False)
         pl = matvec_plan(cfg.d_ff, cfg.d_model, BATCH, 8, self.sms)
         down = step_calls(cfg).index(("dense_layers", 0, "mlp", "down"))
         down_rows = cfg.d_ff - (pl.cluster - 1) * pl.rows_per_cta  # its last K split
         with decode_linears_through(dropped_call(per_step, down, down_rows)):
             fault = (forced_logits(eng, prompt, ftoks, MOE_CHECK_NEW) - lo).abs().max().item()
-        check(fault > MOE_OVERLAY_TOL, f"(d) {MOE_ARCH}: the dense layer's down, its last "
+        check(fault > self.OVERLAY_TOL, f"(d) {arch}: the dense layer's down, its last "
               f"{down_rows} K rows dropped, moved the logits by {fault:.4g}, within the bar "
-              f"{MOE_OVERLAY_TOL}")
+              f"{self.OVERLAY_TOL}")
         self._took(rep, "d", t)
 
         t = time.perf_counter()  # (c) the f32 path, MOE_F32_LAYERS deep, against plain
@@ -6975,10 +7150,10 @@ class MoePhase:
         rows = (fs - (pl.cluster - 1) * pl.rows_per_cta if pl.cluster > 1
                 else fs - (fs - 1) // pl.chunk_rows * pl.chunk_rows)  # shared down's last K split
         rep["f32_path"] = plain_path_check(eng32, eng, prompt, ftoks, lo,
-                                           f"{MOE_ARCH} int8 f32 kernel path vs plain path, "
+                                           f"{arch} int8 f32 kernel path vs plain path, "
                                            f"{MOE_F32_LAYERS} layers", rows)
         del eng32, lo
-        rep["overlay"] = {"max_abs_logit_diff": diff, "bar": MOE_OVERLAY_TOL,
+        rep["overlay"] = {"max_abs_logit_diff": diff, "bar": self.OVERLAY_TOL,
                           "planted_fault": f"the dense layer's down: its last {down_rows} K "
                                            "rows dropped",
                           "planted_fault_max_abs_logit_diff": fault,
@@ -6990,7 +7165,8 @@ class MoePhase:
         self._took(rep, "c", t)
         rep["peak_bytes"] = torch.cuda.max_memory_allocated()
         check(rep["peak_bytes"] < torch.cuda.get_device_properties(0).total_memory,
-              f"{MOE_ARCH}: peak {rep['peak_bytes']} bytes")
+              f"{arch}: peak {rep['peak_bytes']} bytes")
+        self.trace = None  # its solo-gap closure holds the int8 tree
         del eng, graphs, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -6998,10 +7174,469 @@ class MoePhase:
         print(json.dumps(rep), flush=True)
         return self.launches
 
+    def floors_reckoned(self, cfg, step):
+        """Nothing to add for phase 18 (``MlaPhase`` checks its floors)."""
+        return {}
+
+
+# ---- 19. deepseek-v2-lite-16b: MLA, and speculation on the moe family ------------------------
+# deepseek-v2-lite-16b at full width and all 27 layers, int8, on a generator
+# of its own (SEED + 13), through MoePhase's (b) to (f) and its own (a) and
+# (g).  Its MoE layers attend through MLA: their cache is a latent pool
+# (kv_lora 512 + rope 64 a token, bf16 also under kv_cache_bits=8), their
+# decode and verify windows the absorbed form.
+MLA_ARCH = "deepseek-v2-lite-16b"
+# (a): one f32 MLA layer at full width over BATCH rows: MLA_PREFIX positions
+# prefilled into a store of MLA_STORE (MLA_PS-token pages in the pool), then
+# a decode step, a linear window of k + 1 = 5 and a tree of fan 2 x depth 2 at
+# MLA_PREFIX, each against the expanded prefill's outputs at the same
+# positions.  The two forms sum the same products in another order: on the
+# CPU at this width they differ by 1.2e-7 at outputs up to 1.5.
+MLA_PREFIX, MLA_STORE, MLA_PS = 120, 128, 16
+MLA_FORMS_TOL = 1e-5
+# (a): the shapes pim_matvec sees on this config beyond the dense linears':
+# MLA's wq (2,048 x 3,072) and w_dkv (2,048 x 576), the shared experts
+# (2,048 x 2,816 and back), and a routed expert's down (1,408 x 2,048).
+MLA_KERNEL_EXTRA = ((2048, 3072), (2048, 576), (2048, 2816), (2816, 2048), (1408, 2048))
+# (d): the bf16 kernel path against the overlay path, set as phase 18 sets
+# its bar.  On the H100 (PERF.md section 6) the sound paths differed by
+# 0.967 at 27 layers, each about 0.65-0.69 from the same int8 model at f32
+# ((e)'s batch witness), so two sound bf16 paths may differ by up to ~1.4;
+# the dense layer's ``down`` losing its last K split moved them by 4.03.
+# A shared expert's ``down`` fault (1.04) lies inside that drift here, and
+# (c) catches it at f32.
+MLA_OVERLAY_TOL = 2.0
+# (e): the bar of a paged request's first divergence from its solo run.  On
+# the H100 (PERF.md section 6) every request of the trace first diverged
+# at a solo top-2 gap of 0.078-0.22, beyond PAGED_BAR.  The batch witness
+# shows why: of a MoE layer's step only the absorbed form's f32 einsums
+# change row 0 with the batch (by ~1e-6), a bf16 cast before ``wo`` makes
+# that one ulp in a later layer, and 25 layers grow it to 0.18 in the
+# logits, so a sound divergence may sit at a gap up to twice that; at f32
+# the two batches agree within 4e-6.  Two bf16 arithmetics are held at
+# HIT_BAR, as in phase 10.
+MLA_SOLO_BAR = HIT_BAR
+# (g): speculation.  Every window is at most 6 tokens a row, one dispatch
+# group of capacity 6, which drops no (token, expert) pair a one-token step
+# keeps; wider windows are held against the JAX package on the CPU.  The
+# fixed engine at batch 1 (WindowChecks): n-gram and self-draft windows of
+# k = 4, a tree of fan 2 x depth 2; at BATCH rows, n-gram windows of k = 4
+# (20 rows: x @ dq(w)); the continuous engine (MOE_SERVE's 2 slots) on
+# MOE_TRACE's first MLA_SERVE_REQUESTS under each of MLA_SERVE_SPEC.
+MLA_SPEC, MLA_TREE = dict(k=4), dict(k=2, tree_fan=2)
+MLA_SPEC_NEW, MLA_SPEC_EAGER_NEW = 10, 6
+MLA_PLANT_PS, MLA_PLANT_STEPS = 4, 4
+# The bar of the decode steps on from a relocated planted chain against
+# plain decoding's: on the H100 (PERF.md section 6) the sound relocation's
+# continuation differed by 0.19-0.41, the late relocation's (the planted
+# fault) by 1.88-1.91.  A window's rows and a plain step reach the same
+# f32 einsums at other widths, as two batches do ((e)'s batch witness), and
+# each bf16 run stays ~0.7 from f32, so sound runs differ by well under
+# 1.4 and the fault lies beyond that.
+MLA_PLANT_BAR = 1.0
+MLA_SPEC_REPS, MLA_SPEC_ROUNDS = 2, 1  # window times: a window is one step of ~150 ms
+MLA_SERVE_SPEC = {"n-gram": dict(k=4), "self-draft": dict(k=2, mode="draft"),
+                  "tree": dict(k=2, tree_fan=2)}
+MLA_SERVE_REQUESTS = 2
+
+
+def widened(tree) -> dict:
+    """``tree`` with every bf16 leaf in f32 and every other leaf (int8 codes,
+    f32 scales, the f32 router) as it is: the same int8 model at f32."""
+    return {k: widened(v) if isinstance(v, dict) else (
+        v.float() if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16 else v)
+        for k, v in tree.items()}
+
+
+def repeated(cfg, cache, b: int) -> dict:
+    """A batch-1 dense cache's row repeated to ``b`` rows (the cache itself
+    at 1)."""
+    return cache if b == 1 else {key: {name: torch.cat([leaf] * b, dim=len(lead))
+                                       for name, leaf in cache[key].items()}
+                                 for key, lead in lm.cache_stacks(cfg)}
+
+
+@contextlib.contextmanager
+def recorded(module, names, sink):
+    """Within the block, each call of ``module``'s functions ``names`` appends
+    (name, row 0 of its output (of its first output, for a tuple) in f32)
+    to ``sink``."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            sink.append((name, (out[0] if isinstance(out, tuple) else out)[:1].float()))
+            return out
+        return call
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+class MlaPhase(WindowChecks, MoePhase):
+    """Phase 19: MoePhase's (b) to (f) for MLA_ARCH at all its layers, with
+    (a) the MLA layer's checks and (g) speculation on both engines."""
+
+    NAME, ARCH, LAYERS, SEED_OFFSET = "phase 19", MLA_ARCH, 27, 13
+    OVERLAY_TOL, EAGER_TWINS, SOLO_BAR = MLA_OVERLAY_TOL, True, MLA_SOLO_BAR
+    PHASE = "phase 19"
+    SPEC, TREE, SPEC_NEW, EAGER_NEW = MLA_SPEC, MLA_TREE, MLA_SPEC_NEW, MLA_SPEC_EAGER_NEW
+    PLANT_PS, PLANT_STEPS = MLA_PLANT_PS, MLA_PLANT_STEPS
+    REPS, ROUNDS = MLA_SPEC_REPS, MLA_SPEC_ROUNDS
+    SECTIONS = dict(ngram="g n-gram", draft="g self-draft", tree="g tree",
+                    plant="g planted", times="g times")
+
+    def spec_bar(self, cfg):
+        return HIT_BAR
+
+    def plant_bar(self, cfg):
+        return MLA_PLANT_BAR
+
+    def serve(self, rep, cfg, params, eng, gen):
+        """(e): ``MoePhase.serve``, then ``batch_witness``."""
+        super().serve(rep, cfg, params, eng, gen)
+        with torch.inference_mode():
+            rep["serve"]["batch_witness"] = self.batch_witness(cfg, params, eng)
+
+    def batch_witness(self, cfg, params, eng):
+        """(e): why a request's decode steps at batch 1 and as row 0 of a batch
+        of 2 part, the arithmetic by which (e)'s 2 slots and its solo runs
+        differ (both prefill at batch 1).  Request 0's teacher-forced decode
+        steps after its batch-1 prefill (``forced_rows``) at both batches,
+        at bf16 and at f32 over the same int8 codes: the f32 pair within
+        PATH_TOL (the program computes each row alone), each bf16 run's
+        distance from f32 and the overlay path's beside them; the prefill
+        and one decode step, each layer part's row 0 at both batches
+        (``first_part``); and which operations of a MoE layer's step change
+        row 0's bits with the batch on equal inputs (``op_rows``)."""
+        dev, arch, tr = self.dev, cfg.arch_id, self.trace
+        p0 = torch.from_numpy(tr["reqs"][0].prompt)[None].to(dev)
+        t0 = torch.from_numpy(tr["dense"][0])[None].to(dev)
+        eng32 = ServingEngine(cfg.replace(param_dtype="float32"), widened(params),
+                              max_seq=eng.max_seq, device=dev)
+        runs = {(name, b): self.forced_rows(e, p0, t0, b)
+                for name, e in (("bf16", eng), ("f32", eng32)) for b in (1, 2)}
+        prev = common.set_matvec_dispatch("off")
+        try:
+            overlay = self.forced_rows(eng, p0, t0, 1)
+        finally:
+            common.set_matvec_dispatch(prev)
+
+        def dist(a, b):
+            return (a - b).abs().max().item()
+        out = {"steps": t0.shape[1] - 1,
+               "bf16_batch_1_vs_2": dist(runs["bf16", 1], runs["bf16", 2]),
+               "f32_batch_1_vs_2": dist(runs["f32", 1], runs["f32", 2]),
+               "bf16_batch_1_vs_f32": dist(runs["bf16", 1], runs["f32", 1]),
+               "bf16_batch_2_vs_f32": dist(runs["bf16", 2], runs["f32", 2]),
+               "overlay_batch_1_vs_f32": dist(overlay, runs["f32", 1]),
+               "f32_logit_std": runs["f32", 1].std().item()}
+        check(out["f32_batch_1_vs_2"] <= PATH_TOL, f"(e) {arch}: at f32 a request's steps at "
+              f"batch 1 and as row 0 of 2 differ by {out['f32_batch_1_vs_2']:.4g} > {PATH_TOL}")
+        out["first_part"] = {name: self.first_part(e, p0, t0[:, :1])
+                             for name, e in (("bf16", eng), ("f32", eng32))}
+        del eng32, runs
+        out["op_rows"] = rows = self.op_rows(cfg, params)
+        moving = [n for n, r in rows.items() if "pim_matvec" in n and not r["row_0_equal"]]
+        check(not moving, f"(e) {arch}: pim_matvec's row 0 changes with the batch in {moving}")
+        print(f"{self.NAME} (e) batch witness: {json.dumps(out)}", flush=True)
+        return out
+
+    def forced_rows(self, eng, p0, t0, b):
+        """Row 0's logits (n - 1, V) f32 of the teacher-forced decode steps of
+        ``t0`` (1, n) after ``p0``'s batch-1 prefill, its cache repeated to
+        ``b`` rows."""
+        cfg, s = eng.cfg, p0.shape[1]
+        cache = init_cache(cfg, 1, eng.max_seq, self.dev)
+        prefill(eng.params, cfg, p0, cache)
+        cache = repeated(cfg, cache, b)
+        out = []
+        for i in range(t0.shape[1] - 1):
+            logits, _ = decode_step(eng.params, cfg, t0[:, i:i + 1].repeat(b, 1), cache, s + i)
+            out.append(logits[0, -1].float())
+        return torch.stack(out)
+
+    def first_part(self, eng, p0, tok):
+        """``p0``'s prefill, then one decode step of ``tok`` from equal caches
+        (row 0's prefill, repeated), each at batch 1 and as row 0 of 2: the
+        first layer part (attention or feed-forward, layer 0 the dense one)
+        whose row 0 differs, how many parts differ, and the last part's and
+        the logits' distance."""
+        cfg, s = eng.cfg, p0.shape[1]
+        cache = init_cache(cfg, 1, eng.max_seq, self.dev)
+        caches = {1: cache, 2: init_cache(cfg, 2, eng.max_seq, self.dev)}
+
+        def parted(run, names):
+            sinks, logits = {1: [], 2: []}, {}
+            for b in (1, 2):
+                with recorded(blocks, names, sinks[b]):
+                    logits[b] = run(b)[0][:1, -1].float()
+            parts = [(i // 2, "attention" if name.startswith("self_attn") else "feed-forward",
+                      (x - y).abs().max().item())
+                     for i, ((name, x), (_, y)) in enumerate(zip(sinks[1], sinks[2]))]
+            apart = [p for p in parts if p[2] > 0]
+            return {"parts": len(parts), "parts_differing": len(apart),
+                    "first_differing": (dict(zip(("layer", "part", "max_abs"), apart[0]))
+                                        if apart else None),
+                    "last_part_max_abs": parts[-1][2],
+                    "logits_max_abs": (logits[1] - logits[2]).abs().max().item()}
+        out = {"prefill": parted(lambda b: prefill(eng.params, cfg, p0.repeat(b, 1), caches[b]),
+                                 ("self_attn_prefill", "_ffn"))}
+        caches[2] = repeated(cfg, cache, 2)
+        out["decode"] = parted(lambda b: decode_step(eng.params, cfg, tok.repeat(b, 1), caches[b],
+                                                     s), ("self_attn_decode", "_ffn"))
+        return out
+
+    def op_rows(self, cfg, params):
+        """The operations of the first MoE layer's decode step and the head,
+        each on a random batch of 2 in the dtype the step gives it (drawn
+        from a generator of its own), row 0 against the same operation on
+        row 0 alone: bit for bit or not, and by how much."""
+        bf, f32 = torch.bfloat16, torch.float32
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        lay = lm._layer(params["layers"], 0)
+        a, mo, m = lay["attn"], lay["moe"], cfg.mla
+        h, e, d = cfg.n_heads, cfg.moe.n_experts, cfg.d_model
+        cap = moe._capacity(1, cfg.moe)  # a one-token row's dispatch group
+
+        def rnd(*shape, dt=bf):
+            return torch.randn(shape, generator=gen, device=self.dev).to(dt)
+
+        def experts(x):  # x (B, E, cap, D): each row's buffers, as moe_apply lays them
+            b = x.shape[0]
+            y = moe._experts(mo, x.transpose(0, 1).reshape(e, b * cap, d))
+            return y.reshape(e, b, cap, d).transpose(0, 1)
+        ops = {
+            "wq pim_matvec": (lambda x: common.linear(x, a["wq"]), rnd(2, 1, d)),
+            "w_dkv pim_matvec": (lambda x: common.linear(x, a["w_dkv"]), rnd(2, 1, d)),
+            "W_uk into q, bf16 einsum": (
+                lambda q: torch.einsum("bqhd,hcd->bqhc", q, common.dq(a["w_uk"], bf)),
+                rnd(2, 1, h, m.qk_nope_dim)),
+            "W_uv out of o_lat, f32 einsum": (
+                lambda o: torch.einsum("bqhc,hcd->bqhd", o, common.dq(a["w_uv"], f32)),
+                rnd(2, 1, h, m.kv_lora_rank, dt=f32)),
+            "wo pim_matvec": (lambda x: common.linear(x, a["wo"]), rnd(2, 1, h * m.v_head_dim)),
+            "routed experts, bf16 bmm": (experts, rnd(2, e, cap, d)),
+            "shared experts pim_matvec": (lambda x: common.mlp_apply(mo["shared"], x),
+                                          rnd(2, 1, d)),
+            "moe_apply": (lambda x: moe.moe_apply(mo, x, cfg.moe)[0], rnd(2, 1, d)),
+            "head pim_matvec": (lambda x: common.linear(x, params["head"]), rnd(2, 1, d))}
+        out = {}
+        for name, (fn, x) in ops.items():
+            y1, y2 = fn(x[:1]).float(), fn(x)[:1].float()
+            out[name] = {"row_0_equal": torch.equal(y1, y2),
+                         "max_abs": (y1 - y2).abs().max().item(),
+                         "max_abs_output": y1.abs().max().item()}
+        return out
+
+    def mla_layer(self, cfg, gen):
+        """(a): the absorbed decode and verify windows against the expanded
+        prefill on one f32 MLA layer at full width, within MLA_FORMS_TOL; the
+        paged pool under a permuted block table against the dense store,
+        outputs and latents bit for bit."""
+        dev, m, b, s0 = self.dev, cfg.mla, BATCH, MLA_PREFIX
+        kw = dict(n_heads=cfg.n_heads, m=m, rope_theta=cfg.rope_theta)
+        f32 = torch.float32
+        p = mla.mla_init(gen, cfg.d_model, cfg.n_heads, m, f32, dev)
+        fan, depth = MLA_TREE["tree_fan"], MLA_TREE["k"]
+        k = MLA_SPEC["k"]
+        x = torch.randn((b, s0 + k + 1, cfg.d_model), generator=gen, device=dev)
+        other = torch.randn((b, depth, cfg.d_model), generator=gen, device=dev)
+        out = {"rows": b, "prefix": s0, "store": MLA_STORE, "tol": MLA_FORMS_TOL}
+        with torch.inference_mode():
+            def expanded(seq):
+                return mla.mla_prefill(p, seq, mla.mla_cache_init(b, seq.shape[1], m, f32, dev),
+                                       **kw)[0]
+            y = expanded(x)
+            y1 = expanded(torch.cat([x[:, :s0 + 1], other], dim=1))  # chain 1's path
+            pos, posv = torch.tensor(s0, device=dev), torch.full((b,), s0, device=dev)
+            window = torch.cat([x[:, s0:s0 + 1 + depth], other], dim=1)  # root, chain 0, chain 1
+            want = {"decode": y[:, s0:s0 + 1], "verify": y[:, s0:],
+                    "tree": torch.cat([y[:, s0:s0 + 1 + depth], y1[:, s0 + 1:]], dim=1)}
+            width = MLA_STORE // MLA_PS
+            bt = (torch.randperm(b * width, generator=torch.Generator().manual_seed(SEED + 19))
+                  + 1).reshape(b, width).to(dev)
+            got, stores = {}, {}
+            for layout in ("dense", "paged"):
+                for case in want:
+                    dense = mla.mla_cache_init(b, MLA_STORE, m, f32, dev)
+                    mla.mla_prefill(p, x[:, :s0], dense, **kw)
+                    if layout == "dense":
+                        cache = dense
+                    else:
+                        cache = mla.mla_cache_init(b * width + 1, MLA_PS, m, f32, dev)
+                        for r in range(b):
+                            mla.mla_paged_insert(cache, {n: v[r:r + 1] for n, v in dense.items()},
+                                                 bt[r])
+                    paged = dict(block_tables=bt, page_size=MLA_PS) if layout == "paged" else {}
+                    if case == "decode" and layout == "dense":
+                        o, _ = mla.mla_decode(p, x[:, s0:s0 + 1], cache, pos, **kw)
+                    elif case == "decode":
+                        o, _ = mla.mla_decode_paged(p, x[:, s0:s0 + 1], cache, bt, posv,
+                                                    page_size=MLA_PS, **kw)
+                    elif case == "verify":
+                        o, _ = mla.mla_verify(p, x[:, s0:], cache, posv, **paged, **kw)
+                    else:
+                        o, _ = mla.mla_verify(p, window, cache, posv, tree=(fan, depth),
+                                              **paged, **kw)
+                    got[layout, case] = o
+                    stores[layout, case] = {n: (v if layout == "dense" else v[bt].reshape(
+                        b, MLA_STORE, -1)) for n, v in cache.items()}
+            torch.cuda.synchronize()
+        for case, ref in want.items():
+            err = (got["dense", case] - ref).abs().max().item()
+            ok = bool(torch.isfinite(got["dense", case]).all()) and err <= MLA_FORMS_TOL
+            same = (torch.equal(got["dense", case], got["paged", case])
+                    and all(torch.equal(stores["dense", case][n], stores["paged", case][n])
+                            for n in ("c", "kr")))
+            out[case] = {"absorbed_vs_expanded_max_abs_err": err, "paged_equal_dense": same}
+            check(ok and same, f"(a) {MLA_ARCH} MLA {case}: {out[case]}")
+        out["max_abs_output"] = y.abs().max().item()
+        return out
+
+    def layer_checks(self, rep, cfg, gen):
+        """(a): the MLA layer (``mla_layer``), and ``pim_matvec`` at the
+        config's shapes (MLA_KERNEL_EXTRA beside the dense layer's)."""
+        rep["mla_layer"] = self.mla_layer(cfg, gen)
+        pl = matvec_plan(cfg.d_model, cfg.vocab, BATCH, 8, self.sms)
+        rep["kernel_vs_plain"], _ = family_kernel_cases(
+            cfg, gen, extra=MLA_KERNEL_EXTRA, chunk_fault=pl.chunk_rows < pl.rows_per_cta)
+
+    def floors_reckoned(self, cfg, step):
+        """(b): the step's floors reckoned from the config's widths (every
+        int8 code, no scales, at 3.35 TB/s), which the measured stream's
+        must match within 2% (scales, norms and the f32 router add under
+        1%); and the step no faster than its floor."""
+        m, d = cfg.mla, cfg.d_model
+        e, n_moe = cfg.moe, cfg.n_layers - cfg.n_dense_layers
+        qh = m.qk_nope_dim + m.qk_rope_dim
+        mla_codes = (d * cfg.n_heads * qh + d * (m.kv_lora_rank + m.qk_rope_dim)
+                     + cfg.n_heads * m.kv_lora_rank * (m.qk_nope_dim + m.v_head_dim)
+                     + cfg.n_heads * m.v_head_dim * d)
+        expert = 3 * d * e.d_ff_expert
+        dense = 4 * d * cfg.q_dim + 3 * d * cfg.d_ff
+        codes = (cfg.n_dense_layers * dense + n_moe * (mla_codes + (e.n_experts + e.n_shared)
+                                                       * expert) + d * cfg.vocab)
+        routed = codes - n_moe * expert * (e.n_experts - min(e.n_experts, BATCH * e.top_k))
+        out = {"codes_reckoned": codes, "floor_reckoned_ms": codes / HBM_BYTES_PER_S * 1e3,
+               "routed_floor_reckoned_ms": routed / HBM_BYTES_PER_S * 1e3}
+        check(abs(step["floor_ms"] / out["floor_reckoned_ms"] - 1) < 0.02
+              and abs(step["routed_floor_ms"] / out["routed_floor_reckoned_ms"] - 1) < 0.02,
+              f"(b) {cfg.arch_id}: floors {step['floor_ms']:.4g} / {step['routed_floor_ms']:.4g} "
+              f"ms, reckoned {out}")
+        check(step["captured_ms"] > step["floor_ms"], f"(b) {cfg.arch_id}: a step of "
+              f"{step['captured_ms']:.4g} ms beats its floor of {step['floor_ms']:.4g} ms")
+        return out
+
+    def speculation_checks(self, rep, cfg, params, prompt):
+        """(g): ``WindowChecks.speculation`` at batch 1; n-gram windows at
+        BATCH rows (``batch_windows``); the continuous engine
+        (``spec_serves``)."""
+        self.speculation(rep, cfg, params, prompt[:1], None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        self.batch_windows(rep, cfg, params, prompt)
+        self._took(rep, "g batch", t)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        self.spec_serves(rep, cfg, params)
+        self._took(rep, "g serves", t)
+
+    @torch.inference_mode()
+    def batch_windows(self, rep, cfg, params, prompt):
+        """(g): n-gram windows of k = 4 at BATCH rows (20-row windows through
+        ``x @ dq(w)``, each row one dispatch group), greedy, the first
+        MLA_SPEC_EAGER_NEW tokens captured (no ``pim_matvec`` launch) and
+        ``torch.equal`` to eager; against plain greedy decoding at
+        HIT_BAR.  (Sampled windows run at batch 1.)"""
+        dev, arch, n = self.dev, cfg.arch_id, MLA_SPEC_NEW
+        spec = SpecConfig(**MLA_SPEC)
+        eng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+        eager = EagerServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+        graphs = count_captures(eng)
+        plain = eng.generate(prompt, n)
+        out = {"rows": BATCH, "window_rows": BATCH * (spec.k + 1), "cases": []}
+        for label, mode in (("greedy", GREEDY),):
+            got = eng.generate(prompt, n, speculate=spec, **mode)
+            row = {"case": f"n-gram k={spec.k}, {label}", "spec_stats": dict(eng.spec_stats)}
+            m = MLA_SPEC_EAGER_NEW
+            short, launches, counted_as = counted_launches(
+                graphs, lambda: eng.generate(prompt, m, speculate=spec, **mode))
+            want = eager.generate(prompt, m, speculate=spec, **mode)
+            row.update(tokens_equal_eager=torch.equal(short, want), launches=launches,
+                       launches_counted_as=counted_as)
+            check(torch.equal(short, got[:, :m]) and row["tokens_equal_eager"],
+                  f"(g batch) {arch} {label}: the captured windows differ from the eager ones "
+                  f"or from the first of the longer run")
+            check(launches == dict.fromkeys(launches, 0), f"(g batch) {arch} {label}: "
+                  f"{BATCH * (spec.k + 1)}-row windows launched {launches}")
+            if mode["greedy"]:
+                row["vs_plain"] = spec_vs_plain(f"{self.NAME} {arch}", "(g batch) n-gram", eng,
+                                                prompt, got, plain)
+            out["cases"].append(row)
+        rep["batch_windows"] = out
+
+    def spec_serves(self, rep, cfg, params):
+        """(g): the continuous engine (MOE_SERVE: 2 slots; n-gram and tree
+        windows of 2 x 5 rows through ``x @ dq(w)``, the self-draft's 2 x 3
+        and its steps of 2 rows through ``pim_matvec``) on (e)'s first
+        MLA_SERVE_REQUESTS requests under each of MLA_SERVE_SPEC, greedy:
+        captured ``torch.equal`` to ``EagerEngine``, the launches counted,
+        each request against its solo run (``self.trace``) at HIT_BAR."""
+        dev, arch, tr = self.dev, cfg.arch_id, self.trace
+        per_step = matvec_calls_per_step(cfg)
+        reqs = tr["reqs"][:MLA_SERVE_REQUESTS]
+        out = {"requests": len(reqs), "bar": HIT_BAR}
+        for name, sp in MLA_SERVE_SPEC.items():
+            spec = SpecConfig(**sp)
+            geo = dict(speculate=spec, device=dev, draft_cfg=cfg, draft_params=params,
+                       **MOE_SERVE)
+            eng = ContinuousBatchingEngine(cfg, params, **geo)
+            graphs = count_captures(eng)
+            eng.serve(reqs)  # captures its admits and window
+            got, launches, counted_as = counted_launches(graphs, lambda: eng.serve(reqs))
+            iters, events = eng.decode_chunk_iters, events_of(eng.last_report)
+            eager = EagerEngine(cfg, params, **geo)
+            want = eager.serve(reqs)
+            row = {"window_rows": MOE_SERVE["slots"] * (1 + spec.k * max(spec.tree_fan, 1)),
+                   "iterations": iters, "emitted": eng.spec_emitted,
+                   "live_windows": eng.spec_live_steps,
+                   "tokens_equal_eager": same_tokens(got, want),
+                   "events_equal_eager": events == events_of(eager.last_report),
+                   "launches": launches, "launches_counted_as": counted_as}
+            check(row["tokens_equal_eager"] and row["events_equal_eager"],
+                  f"(g serves) {arch} {name}: the captured serve differs from the eager one")
+            # each admit unembeds its last position through the untied head; an
+            # iteration makes a step's calls for each of a draft's k + 1 steps of
+            # 2 rows, and for the window where it is at most 8 rows
+            calls = (spec.k + 1 if spec.mode == "draft" else 0) + (
+                row["window_rows"] <= common.MATVEC_MAX_M)
+            expect = dict.fromkeys(launches, 0)
+            expect["pim_matvec"] = per_step * calls * iters + len(reqs)
+            check(launches == expect, f"(g serves) {arch} {name}: launches {launches}, "
+                  f"expected {expect}")
+            self.launches[f"{self.NAME} {arch} {name} serve"] = launches
+            with torch.inference_mode():
+                row["vs_solo"] = paged_vs_dense(
+                    f"(g serves) {arch} {name}", got, tr["dense"][:len(reqs)],
+                    [r.max_new for r in reqs], tr["gap_at"], HIT_BAR)
+            out[name] = row
+            del eng, eager, graphs
+            gc.collect()
+            torch.cuda.empty_cache()
+        rep["spec_serves"] = out
+
 
 def overlay_depths() -> int:
     """``python3 chip_smoke.py --overlay-depths``: phase 17 (b) for the vlm
-    alone at 1, 4 and CROSS_VLM_GROUPS groups, on the generator, draws and
+    alone at 1, 2 and CROSS_VLM_GROUPS groups, on the generator, draws and
     gates of the run's vlm (so its last reading is (b)'s), with each of
     ``CrossPhase._faults``, bars not applied: how the distance between two
     sound bf16 arithmetics grows with depth, and how far each fault stands
@@ -7013,7 +7648,7 @@ def overlay_depths() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev, arch = torch.device("cuda", 0), CROSS[1]
     phase = CrossPhase(dev)
-    for groups in (1, 4, CROSS_VLM_GROUPS):
+    for groups in (1, 2, CROSS_VLM_GROUPS):
         t0 = time.perf_counter()
         cfg = phase._config(arch, groups)
         gen = torch.Generator(device=dev).manual_seed(SEED + 10 + CROSS.index(arch))

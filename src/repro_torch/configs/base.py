@@ -24,6 +24,16 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention."""
+
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class VisionConfig:
     """Modality frontend STUB: input_specs provides precomputed embeddings."""
 
@@ -41,7 +51,7 @@ class AudioConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str  # the port runs "dense", "moe" (GQA attention), "vlm" and "encdec"
+    family: str  # the port runs "dense", "moe" (GQA or MLA attention), "vlm" and "encdec"
     n_layers: int
     d_model: int
     n_heads: int
@@ -54,6 +64,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     vision: Optional[VisionConfig] = None
     audio: Optional[AudioConfig] = None
     dec_layers: int = 0  # encdec only

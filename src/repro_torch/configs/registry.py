@@ -1,13 +1,14 @@
 """--arch registry: id -> (full config, reduced smoke config).
 
-Holds the architectures the port runs: the dense family, the mixture of
-experts moonshot-v1-16b-a3b, the encoder-decoder seamless-m4t-medium and the
+Holds the architectures the port runs: the dense family, the mixtures of
+experts deepseek-v2-lite-16b (MLA attention) and moonshot-v1-16b-a3b (GQA
+attention), the encoder-decoder seamless-m4t-medium and the
 vision-language llama-3.2-vision-90b, in the JAX package's order.  The
 other families wait for their slices (ROADMAP.md), and ``get_config`` of
 their ids raises ``KeyError``."""
 from __future__ import annotations
 
-from . import (llama3_2_3b, llama3_2_vision_90b, moonshot_16b_a3b, qwen2_1_5b,
+from . import (deepseek_v2_lite, llama3_2_3b, llama3_2_vision_90b, moonshot_16b_a3b, qwen2_1_5b,
                seamless_m4t_medium, starcoder2_7b, starcoder2_15b)
 from .base import ModelConfig
 
@@ -16,6 +17,7 @@ _MODULES = {
     "starcoder2-7b": starcoder2_7b,
     "llama3.2-3b": llama3_2_3b,
     "starcoder2-15b": starcoder2_15b,
+    "deepseek-v2-lite-16b": deepseek_v2_lite,
     "moonshot-v1-16b-a3b": moonshot_16b_a3b,
     "seamless-m4t-medium": seamless_m4t_medium,
     "llama-3.2-vision-90b": llama3_2_vision_90b,

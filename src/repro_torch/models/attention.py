@@ -413,6 +413,25 @@ def attn_decode_paged(p: dict, x: torch.Tensor, cache: dict, block_tables: torch
                         head_dim=head_dim, rope_theta=rope_theta)
 
 
+def write_window(leaf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 posm: torch.Tensor) -> None:
+    """Write a verify window's rows ``new`` (B, T, ...) into a dense store
+    ``leaf`` (B, S, ...) (a view of the cache) at the columns ``posm`` =
+    ``pos`` (B,) + 0..T-1, in place, with static shapes.  A write past the
+    store is dropped: it goes to the store's last column with the value that
+    column takes anyway, the window's own write there, or, for a row whose
+    window starts past the store, the column's old value."""
+    b, t = posm.shape
+    seq = leaf.shape[1]
+    ar = torch.arange(b, device=leaf.device)
+    new = new.to(leaf.dtype)
+    tail = (1,) * (new.dim() - 2)
+    last = (seq - 1 - pos).clamp(0, t - 1)
+    fill = torch.where((pos < seq).reshape((b,) + tail), new[ar, last], leaf[ar, seq - 1])
+    leaf[ar[:, None].expand(b, t), posm.clamp_max(seq - 1)] = torch.where(
+        (posm < seq).reshape((b, t) + tail), new, fill[:, None])
+
+
 def attn_verify(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, n_heads: int,
                 n_kv: int, head_dim: int, rope_theta: float = 0.0,
                 block_tables: Optional[torch.Tensor] = None, page_size: Optional[int] = None,
@@ -456,21 +475,8 @@ def attn_verify(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor, *, n_h
     else:
         rows = {"k": k, "v": v}
     if block_tables is None:
-        # A write past the store goes to its last column with the value that
-        # column takes anyway: the window's own write there, or, for a row
-        # whose window starts past the store, the column's old value.
-        seq = cache["k"].shape[2]
-        keep = posm < seq
-        ar = torch.arange(b, device=x.device)
-        last = (seq - 1 - pos.reshape(b)).clamp(0, t - 1)
-        inside = pos.reshape(b) < seq
-        slot, col = ar[:, None].expand(b, t), posm.clamp_max(seq - 1)
-        for name, new in rows.items():
-            leaf = cache[name]
-            new = new.to(leaf.dtype)
-            tail = (1,) * (new.dim() - 2)
-            fill = torch.where(inside.reshape((b,) + tail), new[ar, last], leaf[ar, :, seq - 1])
-            leaf[slot, :, col] = torch.where(keep.reshape((b, t) + tail), new, fill[:, None])
+        for name, new in rows.items():  # (B, KV, S, ...) viewed as (B, S, KV, ...)
+            write_window(cache[name].transpose(1, 2), new, pos.reshape(b), posm)
 
         def read(name):
             return cache[name]

@@ -1,14 +1,18 @@
 """The dense decoder block, the MoE block and the gated cross-attention block
-(twins of the dense, MoE (GQA attention) and cross parts of
-``repro.models.blocks``).
+(twins of the dense, MoE and cross parts of ``repro.models.blocks``).
 
 A MoE block is a dense block whose MLP is ``moe_apply``'s experts: it has
 a ``moe`` leaf where a dense block has ``mlp``, and the dense block's
 cached functions (``dense_block_prefill``, ``dense_block_decode`` with a
 dense or a paged cache, ``dense_block_verify``) run either, through
-``_ffn``.  So the JAX package's ``moe_block_prefill``, ``moe_block_decode``
-and ``moe_block_decode_paged`` are the dense block's.  The MLA attention of
-the JAX package's MoE block is not ported (``cfg.mla`` raises)."""
+``_ffn``.  Its attention is GQA or, under ``cfg.mla``, MLA
+(``models.mla``); the cached functions take ``latent=True`` for an MLA
+block, whose cache stack is a latent one (``models.lm.stack_layout``
+decides), so an MLA config's leading dense blocks stay GQA, as in the JAX
+package.  So the JAX
+package's ``moe_block_prefill``, ``moe_block_decode``,
+``moe_block_decode_paged`` and ``moe_block_verify`` are the dense
+block's."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from .attention import (attn_apply, attn_decode, attn_decode_paged, attn_init, attn_prefill,
                         attn_verify)
 from .common import mlp_apply, mlp_init, rmsnorm
+from .mla import mla_apply, mla_decode, mla_decode_paged, mla_init, mla_prefill, mla_verify
 from .moe import moe_apply, moe_init
 
 
@@ -46,6 +51,10 @@ def attn_kw(cfg: ModelConfig) -> dict:
                 rope_theta=cfg.rope_theta)
 
 
+def mla_kw(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, m=cfg.mla, rope_theta=cfg.rope_theta)
+
+
 def dense_block_apply(p, x, cfg: ModelConfig, causal: bool = True):
     """The block over a whole sequence with no cache (the encoder's layers
     run it with ``causal=False``)."""
@@ -55,62 +64,85 @@ def dense_block_apply(p, x, cfg: ModelConfig, causal: bool = True):
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
 
 
-def dense_block_prefill(p, x, cache, cfg: ModelConfig, pages=None):
-    """Single-pass prefill: full-seq attention that also fills the KV cache
-    (dense, or a paged pool's pages when ``pages`` is given)."""
-    h, cache = attn_prefill(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache,
-                            pages=pages, **attn_kw(cfg))
-    x = x + h
-    return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cache
+def self_attn_prefill(p, xn, cache, cfg: ModelConfig, pages=None, latent=False):
+    """The prompt's self-attention of the normed xn (B, S, D), filling the
+    cache (dense, or a paged pool's ``pages``): GQA's K/V or, ``latent``,
+    MLA's latents."""
+    if latent:
+        return mla_prefill(p, xn, cache, pages=pages, **mla_kw(cfg))
+    return attn_prefill(p, xn, cache, pages=pages, **attn_kw(cfg))
 
 
 def self_attn_decode(p, xn, cache, pos: torch.Tensor, cfg: ModelConfig, block_tables=None,
-                     page_size=None):
+                     page_size=None, latent=False):
     """One decode step's self-attention of the normed xn (B, 1, D): at the
     0-d ``pos`` into a dense cache, or, with ``block_tables``, at per-slot
-    positions (B,) into a paged pool."""
+    positions (B,) into a paged pool; MLA's absorbed form where ``latent``."""
+    if latent:
+        if block_tables is None:
+            return mla_decode(p, xn, cache, pos, **mla_kw(cfg))
+        return mla_decode_paged(p, xn, cache, block_tables, pos, page_size=page_size,
+                                **mla_kw(cfg))
     if block_tables is None:
         return attn_decode(p, xn, cache, pos, **attn_kw(cfg))
     return attn_decode_paged(p, xn, cache, block_tables, pos, page_size=page_size,
                              **attn_kw(cfg))
 
 
+def self_attn_verify(p, xn, cache, pos: torch.Tensor, cfg: ModelConfig, block_tables=None,
+                     page_size=None, tree=None, latent=False):
+    """A verify window's self-attention of the normed xn (B, T, D) at per-row
+    positions ``pos`` (B,) (``attention.attn_verify``, or ``mla.mla_verify``
+    where ``latent``)."""
+    kw = dict(block_tables=block_tables, page_size=page_size, tree=tree)
+    if latent:
+        return mla_verify(p, xn, cache, pos, **kw, **mla_kw(cfg))
+    return attn_verify(p, xn, cache, pos, **kw, **attn_kw(cfg))
+
+
+def dense_block_prefill(p, x, cache, cfg: ModelConfig, pages=None, latent=False):
+    """Single-pass prefill: full-seq attention that also fills the cache
+    (dense, or a paged pool's pages when ``pages`` is given; MLA's latents
+    where ``latent``)."""
+    h, cache = self_attn_prefill(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, cfg,
+                                 pages, latent)
+    x = x + h
+    return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cache
+
+
 def dense_block_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
-                       block_tables=None, page_size=None):
+                       block_tables=None, page_size=None, latent=False):
     """One decode step: at the 0-d ``pos`` into a dense cache, or, with
     ``block_tables``, at per-slot positions (B,) into a paged pool."""
     h, cache = self_attn_decode(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, pos,
-                                cfg, block_tables, page_size)
+                                cfg, block_tables, page_size, latent)
     x = x + h
     return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cache
 
 
 def dense_block_verify(p, x, cache, block_tables, pos: torch.Tensor, cfg: ModelConfig,
-                       page_size=None, tree=None):
+                       page_size=None, tree=None, latent=False):
     """A window of T tokens x (B, T, D) at per-row positions ``pos`` (B,): a
     dense cache when ``block_tables`` is None, the paged pool otherwise;
-    ``tree=(fan, depth)`` verifies a candidate tree (``attention.attn_verify``)."""
-    h, cache = attn_verify(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, pos,
-                           block_tables=block_tables, page_size=page_size, tree=tree,
-                           **attn_kw(cfg))
+    ``tree=(fan, depth)`` verifies a candidate tree.  A MoE block's experts
+    act per position, so nothing in them needs rolling back."""
+    h, cache = self_attn_verify(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cache, pos,
+                                cfg, block_tables, page_size, tree, latent)
     x = x + h
     return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cache
 
 
 # -------------------------------------------------------------- MoE block ---
-def _gqa_only(cfg: ModelConfig) -> None:
-    if getattr(cfg, "mla", None) is not None:
-        raise NotImplementedError(
-            "MLA attention is not ported yet: ROADMAP.md section 1, item 5 (its MLA bullet)")
-
-
 def moe_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
-    """A MoE block's parameters (GQA attention); ``lead`` prepends stack dims."""
-    _gqa_only(cfg)
+    """A MoE block's parameters, its attention MLA's under ``cfg.mla`` and
+    GQA's otherwise; ``lead`` prepends stack dims."""
+    attn = (mla_init(gen, cfg.d_model, cfg.n_heads, cfg.mla, dtype, device, lead=lead)
+            if cfg.mla else
+            attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype,
+                      device, bias=cfg.qkv_bias, lead=lead))
     return {
         "ln1": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
-        "attn": attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim, dtype, device, bias=cfg.qkv_bias, lead=lead),
+        "attn": attn,
         "ln2": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
         "moe": moe_init(gen, cfg.d_model, cfg.moe, dtype, device, lead=lead),
     }
@@ -118,8 +150,9 @@ def moe_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
 
 def moe_block_apply(p, x, cfg: ModelConfig):
     """The block over a whole causal sequence with no cache: (x, aux)."""
-    _gqa_only(cfg)
-    x = x + attn_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), **attn_kw(cfg))
+    xn = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + (mla_apply(p["attn"], xn, **mla_kw(cfg)) if cfg.mla
+             else attn_apply(p["attn"], xn, **attn_kw(cfg)))
     y, aux = moe_apply(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.moe)
     return x + y, aux
 

@@ -1,10 +1,11 @@
 """Model assembly for the dense, moe, vlm and encdec families (twin of those
-branches of ``repro.models.lm``; the moe family with GQA attention).
+branches of ``repro.models.lm``; the moe family with GQA or MLA attention).
 
 Parameters keep the JAX package's layout: a family's layers are stacked
 trees with leading dims (the dense family's ``layers`` (L, ...); the moe
 family's ``dense_layers`` (n_dense_layers, ...) and MoE ``layers`` (L -
-n_dense_layers, ...), each with a K/V stack of its own; the vlm's
+n_dense_layers, ...), each with a cache stack of its own: K/V for GQA
+blocks, latents for MLA ones (``stack_layout``); the vlm's
 ``groups`` of ``self`` (G, every - 1, ...) dense blocks and one gated
 ``cross`` block (G, ...) each; the encdec's ``encoder`` and ``decoder``),
 and a Python loop over them takes the place of ``lax.scan``.  Slicing a
@@ -41,30 +42,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import blocks as bk
-from .attention import (attn_apply, attn_init, attn_prefill, attn_verify, kv_cache_init,
-                        paged_kv_insert)
+from .attention import attn_apply, attn_init, kv_cache_init, paged_kv_insert
 from .common import (dense_init, dtype_of, embed_lookup, mlp_apply, mlp_init, resolve_device,
                      rmsnorm, unembed)
+from .mla import mla_cache_init, mla_paged_insert
 
 _FAMILIES = ("dense", "moe", "vlm", "encdec")
-_SPEC_FAMILIES = ("dense", "vlm", "encdec")
 
 
-def _check_family(cfg: ModelConfig):
+def check_family(cfg: ModelConfig):
+    """Raise NotImplementedError where ``cfg``'s family is not ported; every
+    ported family also has its verify window, so speculation's gate (a
+    target's config, and a draft's at ``speculate=``) is this one."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port runs the "
             f"{', '.join(_FAMILIES)} families (ROADMAP.md lists the others)")
-
-
-def check_speculation(cfg: ModelConfig):
-    """Raise NotImplementedError where ``cfg``'s family has no verify window
-    yet (speculation on the moe family is the slice after it)."""
-    _check_family(cfg)
-    if cfg.family not in _SPEC_FAMILIES:
-        raise NotImplementedError(
-            f"speculation on the {cfg.family} family is not ported yet: ROADMAP.md "
-            "section 1, item 5 (speculation on moe, its next bullet)")
 
 
 def _layer(tree, i: int):
@@ -73,14 +66,14 @@ def _layer(tree, i: int):
 
 
 def cache_stacks(cfg: ModelConfig) -> tuple:
-    """(cache key, leading stack dims) of each of the family's K/V stacks:
+    """(cache key, leading stack dims) of each of the family's cache stacks:
     the dense family's ``layers``, the moe family's ``layers`` (its MoE
     blocks) and ``dense_layers`` (its leading dense blocks, where it has
     any; the JAX package's ``_pool_leaf_paths`` order), the vlm's
     ``groups_self`` (groups, dense blocks a group), the encdec's
     ``decoder``; each leaf's batch or page axis comes right after those
-    dims."""
-    _check_family(cfg)
+    dims, and ``stack_layout`` says where its sequence axis is."""
+    check_family(cfg)
     if cfg.family == "vlm":
         return (("groups_self", _groups(cfg)),)
     if cfg.family == "encdec":
@@ -89,6 +82,20 @@ def cache_stacks(cfg: ModelConfig) -> tuple:
         nd = cfg.n_dense_layers
         return (("layers", (cfg.n_layers - nd,)),) + ((("dense_layers", (nd,)),) if nd else ())
     return (("layers", (cfg.n_layers,)),)
+
+
+def stack_layout(cfg: ModelConfig, key: str) -> str:
+    """A cache stack's layout: "latent" for the MLA blocks' stack (the moe
+    family's ``layers`` under ``cfg.mla``), whose leaves ``c`` and ``kr``
+    are (B | P, S | ps, C | R); "kv" for every other (GQA K/V (B | P, KV,
+    S | ps, D), int8 scales (B | P, KV, S | ps))."""
+    return "latent" if (cfg.family, key) == ("moe", "layers") and cfg.mla else "kv"
+
+
+def seq_axis(cfg: ModelConfig, key: str) -> int:
+    """The sequence (or page offset) axis of every leaf of stack ``key``,
+    counted after its lead dims (``stack_layout``)."""
+    return 1 if stack_layout(cfg, key) == "latent" else 2
 
 
 def _kv_bits(cfg: ModelConfig, key: str) -> int:
@@ -101,7 +108,7 @@ def _kv_bits(cfg: ModelConfig, key: str) -> int:
 def _page_size(cfg: ModelConfig, cache: dict, page_size) -> int:
     """The paged pool's page size; ``page_size``, if given, must be it."""
     key, lead = cache_stacks(cfg)[0]
-    ps = cache[key]["k"].shape[len(lead) + 2]
+    ps = next(iter(cache[key].values())).shape[len(lead) + seq_axis(cfg, key)]
     if page_size not in (None, ps):
         raise ValueError(f"page_size {page_size} is not the pool's {ps}")
     return ps
@@ -129,7 +136,7 @@ def _encdec_dec_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dic
 def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     """Random parameters drawn from ``gen``, which must live on ``device``
     (None: the card)."""
-    _check_family(cfg)
+    check_family(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     p: dict[str, Any] = {
@@ -155,11 +162,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     return p
 
 
+def _stack_init(cfg: ModelConfig, key: str, lead: tuple, rows: int, seq: int, device) -> dict:
+    """One cache stack of ``rows`` batch rows (or pool pages) of ``seq``
+    positions (or a page's): latents (``mla_cache_init``) or K/V
+    (``kv_cache_init``) by its layout."""
+    dtype = dtype_of(cfg.param_dtype)
+    if stack_layout(cfg, key) == "latent":
+        return mla_cache_init(rows, seq, cfg.mla, dtype, device, lead=lead)
+    return kv_cache_init(rows, seq, cfg.n_kv_heads, cfg.head_dim, dtype, device,
+                         bits=_kv_bits(cfg, key), lead=lead)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
+    """The dense decode cache: every stack of ``cache_stacks`` with ``batch``
+    rows of ``max_seq`` positions."""
     device = resolve_device(device)
-    return {key: kv_cache_init(
-        batch, max_seq, cfg.n_kv_heads, cfg.head_dim, dtype_of(cfg.param_dtype), device,
-        bits=_kv_bits(cfg, key), lead=lead) for key, lead in cache_stacks(cfg)}
+    return {key: _stack_init(cfg, key, lead, batch, max_seq, device)
+            for key, lead in cache_stacks(cfg)}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_pages: int,
@@ -169,17 +188,15 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_pages: int,
     ``block_tables`` (batch, ceil(max_seq / page_size)) int32 mapping each
     slot's logical page i to a pool page id.  ``decode_step`` takes the
     paged path whenever this key is present.  Page 0 is the trash page of
-    inactive slots, so ``num_pages - 1`` pages circulate.  The pool is
-    ``kv_cache_init``'s layout with pages for rows and a page's tokens for
-    positions: lead + (P, KV, page_size, D), one pool a K/V stack of
-    ``cache_stacks``."""
+    inactive slots, so ``num_pages - 1`` pages circulate.  A pool is its
+    stack's dense layout with pages for rows and a page's tokens for
+    positions: lead + (P, KV, page_size, D) for K/V, lead + (P, page_size,
+    C | R) for latents, one pool a stack of ``cache_stacks``."""
     device = resolve_device(device)
     width = -(-max_seq // page_size)
     out = {"block_tables": torch.zeros((batch, width), dtype=torch.int32, device=device)}
     for key, lead in cache_stacks(cfg):
-        out[key] = kv_cache_init(num_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
-                                 dtype_of(cfg.param_dtype), device, bits=_kv_bits(cfg, key),
-                                 lead=lead)
+        out[key] = _stack_init(cfg, key, lead, num_pages, page_size, device)
     return out
 
 
@@ -191,7 +208,8 @@ def paged_insert(cfg: ModelConfig, paged: dict, dense: dict, slot, pages) -> dic
     these families have none of."""
     pages = torch.as_tensor(pages, dtype=torch.int64, device=paged["block_tables"].device)
     for key, lead in cache_stacks(cfg):
-        paged_kv_insert(paged[key], dense[key], pages, lead=len(lead))
+        insert = mla_paged_insert if stack_layout(cfg, key) == "latent" else paged_kv_insert
+        insert(paged[key], dense[key], pages, lead=len(lead))
     return paged
 
 
@@ -208,22 +226,24 @@ def _dec_block(lp, x, enc, cfg: ModelConfig, self_attn):
 
 def _stack(params, cfg: ModelConfig, x, cache: dict, extras, dense_body, self_attn):
     """Run the family's layers over x with the cache: ``dense_body(lp, x,
-    c)`` -> x for a dense block, ``self_attn(p, xn, c)`` -> h for the
+    c, latent)`` -> x for a dense block, ``latent`` whether its stack is
+    MLA's (``stack_layout``), ``self_attn(p, xn, c)`` -> h for the
     encdec decoder's self-attention; the vlm's cross blocks attend to
     ``extras["image_embeds"]``, the encdec's to ``extras["enc_out"]``, each
     cast to x's dtype.  The moe family's leading dense blocks run first,
     then its MoE blocks, each through ``dense_body`` (``blocks._ffn``)."""
     if cfg.family in ("dense", "moe"):
         for key, (n,) in reversed(cache_stacks(cfg)):
+            latent = stack_layout(cfg, key) == "latent"
             for i in range(n):
-                x = dense_body(_layer(params[key], i), x, _layer(cache[key], i))
+                x = dense_body(_layer(params[key], i), x, _layer(cache[key], i), latent)
     elif cfg.family == "vlm":
         img = extras["image_embeds"].to(x.dtype)
         groups, (g, e) = params["groups"], _groups(cfg)
         for j in range(g):
             sp, sc = _layer(groups["self"], j), _layer(cache["groups_self"], j)
             for i in range(e):
-                x = dense_body(_layer(sp, i), x, _layer(sc, i))
+                x = dense_body(_layer(sp, i), x, _layer(sc, i), False)
             x = bk.cross_block_apply(_layer(groups["cross"], j), x, img, cfg)
     else:
         enc = extras["enc_out"].to(x.dtype)
@@ -240,14 +260,13 @@ def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: 
     """``prefill`` up to the final norm: the prompt's hidden states (B, S,
     D), the cache filled.  A caller that needs the logits of a few
     positions only unembeds those."""
-    _check_family(cfg)
+    check_family(cfg)
     if pages is not None:
         pages = torch.as_tensor(pages, dtype=torch.int64, device=tokens.device)
-    kw = bk.attn_kw(cfg)
     x = embed_lookup(params["embed"], tokens)
     x = _stack(params, cfg, x, cache, extras,
-               lambda lp, h, c: bk.dense_block_prefill(lp, h, c, cfg, pages=pages)[0],
-               lambda p, xn, c: attn_prefill(p, xn, c, pages=pages, **kw)[0])
+               lambda lp, h, c, lat: bk.dense_block_prefill(lp, h, c, cfg, pages, lat)[0],
+               lambda p, xn, c: bk.self_attn_prefill(p, xn, c, cfg, pages)[0])
     return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -280,7 +299,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     each the memory of batch row (or slot) b.  No value of the device is
     read on the host, so a CUDA graph of the step replays at the positions
     its tensors hold.  Returns (logits (B, 1, V), cache)."""
-    _check_family(cfg)
+    check_family(cfg)
     bt, ps = cache.get("block_tables"), None
     if bt is None:
         if not isinstance(pos, torch.Tensor):
@@ -291,7 +310,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     pos = pos.to(torch.int64)
     x = embed_lookup(params["embed"], tokens)
     x = _stack(params, cfg, x, cache, extras,
-               lambda lp, h, c: bk.dense_block_decode(lp, h, c, pos, cfg, bt, ps)[0],
+               lambda lp, h, c, lat: bk.dense_block_decode(lp, h, c, pos, cfg, bt, ps, lat)[0],
                lambda p, xn, c: bk.self_attn_decode(p, xn, c, pos, cfg, bt, ps)[0])
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed(x, params.get("head", params["embed"])), cache
@@ -302,20 +321,18 @@ def verify_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: d
                   tree: Optional[tuple] = None) -> torch.Tensor:
     """``verify_step`` up to the final norm: the window's hidden states
     (B, T, D), the cache written in place.  A caller that needs the logits
-    of a few positions only unembeds those.  The moe family's window is
-    not ported yet (``check_speculation``)."""
-    check_speculation(cfg)
+    of a few positions only unembeds those."""
+    check_family(cfg)
     bt, ps = cache.get("block_tables"), None
     if bt is not None:
         ps = _page_size(cfg, cache, page_size)
         bt = bt.to(torch.int64)
     pos = torch.as_tensor(pos, device=tokens.device).to(torch.int64)
-    kw = bk.attn_kw(cfg)
     x = embed_lookup(params["embed"], tokens)
     x = _stack(params, cfg, x, cache, extras,
-               lambda lp, h, c: bk.dense_block_verify(lp, h, c, bt, pos, cfg, ps, tree)[0],
-               lambda p, xn, c: attn_verify(p, xn, c, pos, block_tables=bt, page_size=ps,
-                                            tree=tree, **kw)[0])
+               lambda lp, h, c, lat: bk.dense_block_verify(lp, h, c, bt, pos, cfg, ps, tree,
+                                                             lat)[0],
+               lambda p, xn, c: bk.self_attn_verify(p, xn, c, pos, cfg, bt, ps, tree)[0])
     return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -326,18 +343,18 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     ``pos .. pos+T-1``, ``pos`` (B,) integers (tokens already cached),
     against a dense cache (``init_cache``) or a paged one (told by its
     ``block_tables`` key; ``page_size``, if given, must be the pool's).
-    Every window position's K/V is written in place (these families need
-    no commit step: positions past an accepted frontier are masked by later
-    queries and written again by the next window), and each query attends
-    as ``decode_step`` at its position does.  ``extras`` as for
+    Every window position's K/V (or MLA latents) is written in place (these
+    families need no commit step: positions past an accepted frontier are
+    masked by later queries and written again by the next window; a MoE
+    block's experts act per position), and each query attends as
+    ``decode_step`` at its position does.  ``extras`` as for
     ``decode_step``.  ``tree=(fan, depth)`` verifies a fan-of-chains
     candidate tree of ``T == 1 + fan*depth`` tokens in node order
-    (``attention.tree_layout``) in every self-attention (the vlm's dense
-    blocks, the encdec decoder's): each chain scores as if verified alone,
-    and ``tree_relocate`` moves the accepted chain's K/V into the linear
-    columns.  A cross block attends from every window row to the request's
-    memory, with no positions and no mask, as in a decode step.  Returns
-    (logits (B, T, V), cache)."""
+    (``attention.tree_layout``) in every self-attention: each chain scores
+    as if verified alone, and ``tree_relocate`` moves the accepted chain's
+    K/V or latents into the linear columns.  A cross block attends from
+    every window row to the request's memory, with no positions and no
+    mask, as in a decode step.  Returns (logits (B, T, V), cache)."""
     x = verify_hidden(params, cfg, tokens, cache, pos, extras, page_size, tree)
     return unembed(x, params.get("head", params["embed"])), cache
 
@@ -359,23 +376,21 @@ def stack_verify_caches(cfg: ModelConfig, caches: list) -> dict:
     """Merge a chain of ``verify_step`` caches (successive windows over
     consecutive positions, each committed into the next, as a draft model's
     single-token steps are) into one cache that ``commit_verify`` commits
-    once at any accepted length.  The dense, vlm and encdec families' windows
-    write their K/V in place, so the last cache already holds the whole
+    once at any accepted length.  Every ported family's windows write their
+    K/V or latents in place, so the last cache already holds the whole
     chain's.  The families with per-step state, whose chains concatenate
-    along the window's time axis, are not ported, nor is the moe family's
-    window."""
-    check_speculation(cfg)
+    along the window's time axis, are not ported."""
+    check_family(cfg)
     return caches[-1]
 
 
 def commit_verify(cfg: ModelConfig, cache: dict, sel: torch.Tensor) -> dict:
     """Commit a ``verify_step`` cache at each row's accepted step ``sel``
-    (B,).  The dense, vlm and encdec families keep nothing per step: their
-    windows' K/V are written in place, and positions past the accepted
-    frontier are masked and written again by the next window, so the cache
-    is returned as it is.  The families with per-step state are not
-    ported, nor is the moe family's window."""
-    check_speculation(cfg)
+    (B,).  Every ported family keeps nothing per step: its windows' K/V or
+    latents are written in place, and positions past the accepted frontier
+    are masked and written again by the next window, so the cache is
+    returned as it is.  The families with per-step state are not ported."""
+    check_family(cfg)
     return cache
 
 
@@ -384,8 +399,8 @@ def tree_relocate(cfg: ModelConfig, cache: dict, pos: torch.Tensor, a: torch.Ten
                   page_size: Optional[int] = None) -> dict:
     """After a tree window at ``pos`` (B,) accepted ``a`` (B,) proposals of
     chain ``cf`` (B,), copy that chain's K/V (codes and scales of an int8
-    cache), in every K/V stack of ``cache_stacks``, from its tree columns
-    ``pos + 1 + cf*depth + i`` to the linear
+    cache) or latents, in every stack of ``cache_stacks``, from its tree
+    columns ``pos + 1 + cf*depth + i`` to the linear
     columns ``pos + 1 + i``, i < a, where the next window's frontier mask
     expects them; in place, reading nothing on the host.  Every source is
     gathered before any write, so chain 0 is the identity.  On a dense
@@ -395,9 +410,8 @@ def tree_relocate(cfg: ModelConfig, cache: dict, pos: torch.Tensor, a: torch.Ten
     the pool's) columns go through the block tables, a source past them
     reads the trash page and such a step writes into it.  The store must
     reach ``fan*depth`` columns past a live row's frontier, or a gather
-    reads the wrong rows.  Returns the cache.  Not ported for the moe
-    family yet (``check_speculation``)."""
-    check_speculation(cfg)
+    reads the wrong rows.  Returns the cache."""
+    check_family(cfg)
     if "block_tables" in cache:
         _page_size(cfg, cache, page_size)
     return move_columns(cfg, cache, *tree_columns(pos, a, cf, depth))
@@ -415,14 +429,16 @@ def tree_columns(pos: torch.Tensor, a: torch.Tensor, cf: torch.Tensor, depth: in
 def move_columns(cfg: ModelConfig, cache: dict, src: torch.Tensor, dst: torch.Tensor,
                  ok: torch.Tensor) -> dict:
     """Copy each row's columns ``src`` to ``dst`` where ``ok`` (all (B, n))
-    in every leaf of every K/V stack of ``cache_stacks(cfg)`` of a dense
-    cache or, through its block tables, a paged pool, gathering before
-    writing (``tree_relocate``'s rules for the steps that move nothing
-    live).  A stack's lead dims are flattened into one view, so every leaf
-    is moved as (lead, B | P, KV, S | ps, ...)."""
+    in every leaf of every stack of ``cache_stacks(cfg)`` of a dense cache
+    or, through its block tables, a paged pool, gathering before writing
+    (``tree_relocate``'s rules for the steps that move nothing live).  A
+    stack's lead dims are flattened into one view, so every leaf is moved
+    as (lead, B | P, KV, S | ps, ...), a latent one (lead, B | P, S | ps,
+    C) viewed with one head (``stack_layout``)."""
     stacks = cache_stacks(cfg)
     key, lead = stacks[0]
-    seq = cache[key]["k"].shape[len(lead) + 2]  # the store's columns, or the page size
+    # the store's columns, or the page size
+    seq = next(iter(cache[key].values())).shape[len(lead) + seq_axis(cfg, key)]
     bt = cache.get("block_tables")
     if bt is None:
         src = src.clamp(0, seq - 1)
@@ -443,8 +459,11 @@ def move_columns(cfg: ModelConfig, cache: dict, src: torch.Tensor, dst: torch.Te
         at_src = at(src, src < w * ps)
         at_dst = at(dst, ok & (dst < w * ps))
     for key, lead in stacks:
+        latent = stack_layout(cfg, key) == "latent"
         for leaf in cache[key].values():
             flat = leaf.view((-1,) + leaf.shape[len(lead):])  # in place: a view, never a copy
+            if latent:  # (lead, B | P, 1, S | ps, C)
+                flat = flat.unsqueeze(2)
             # (lead, B | P, KV, S | ps, ...): the two index tensors lead the result
             flat[:, at_dst[0], :, at_dst[1]] = flat[:, at_src[0], :, at_src[1]]
     return cache

@@ -583,7 +583,7 @@ class ServingEngine:
         package draws them."""
         prompt = self._check(prompt_tokens, n_new)
         extras = _extras_on(extras, self.device)
-        spec = as_spec(speculate, self.cfg)
+        spec = as_spec(speculate, self.cfg, self.draft_cfg)
         if spec is not None and spec.mode == "draft" and (
                 self.draft_params is None or self.draft_cfg is None):
             raise ValueError(_NO_DRAFT)
@@ -706,7 +706,8 @@ def tail_verify(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, pos
 
 def _copy_page(cache: dict, src: int, dst: int, keys) -> None:
     """Copy-on-write fork on the device: pool page ``src`` into ``dst``
-    across every paged leaf (``keys`` from ``cache_stacks``), in place."""
+    across every paged leaf (``keys`` from ``cache_stacks``; K/V or latent,
+    the page axis right after the lead dims), in place."""
     for name, lead in keys:
         at = (slice(None),) * len(lead)
         for leaf in cache[name].values():
@@ -910,8 +911,8 @@ MAX_ADMIT_GRAPHS = 64
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
     package's, for the dense, moe, vlm and encdec families, with n-gram,
-    tree and draft-model speculation (not on moe yet), the prefix cache
-    (never hit on moe) and the resilience tier, without a mesh).  A request's ``extras`` are written
+    tree and draft-model speculation, the prefix cache (never hit on moe,
+    MLA included) and the resilience tier, without a mesh).  A request's ``extras`` are written
     into its slot's row of the per-slot buffers at its admit
     (``_set_slot_extras``), which the chunk steps and admits read.
 
@@ -977,7 +978,7 @@ class ContinuousBatchingEngine:
                  mesh=None, speculate=None, draft_cfg: Optional[ModelConfig] = None,
                  draft_params=None, draft_pim_bits: int = 0, clock=None,
                  prefix_cache: bool = False, device=None):
-        self.spec = as_spec(speculate, cfg)
+        self.spec = as_spec(speculate, cfg, draft_cfg)
         self._draft_mode = self.spec is not None and self.spec.mode == "draft"
         if self._draft_mode and (draft_params is None or draft_cfg is None):
             raise ValueError(_NO_DRAFT)
@@ -1020,7 +1021,7 @@ class ContinuousBatchingEngine:
         # share pages; for the others the cache stays off.
         self.prefix_cache = bool(prefix_cache)
         self._prefix_on = (self.prefix_cache and cfg.family in _PREFIX_FAMILIES
-                           and not getattr(cfg, "mla", None) and not self._draft_mode)
+                           and not self._draft_mode)
         # The strict pending sweep of a serve under a policy: None defers to
         # the REPRO_STRICT_SERVE environment variable; a bool decides.
         self.strict_pending: Optional[bool] = None

@@ -35,10 +35,11 @@ window stays ``k`` wide), the continuous engine re-picks the round's width
 from the EMA on the host (``adaptive_k_host``) and runs its width-0 rounds
 as plain decode chunks, probing host-side (``propose_first_host``).
 
-The vlm and encdec families speculate too: every window, the draft
-model's steps included, reads the rows' (or slots') ``extras``, the static
-buffers their engine holds, and the caches are built, zeroed and relocated
-over every K/V stack of ``models.lm.cache_stacks``.
+Every ported family speculates: a vlm or encdec window, the draft model's
+steps included, reads the rows' (or slots') ``extras``, the static buffers
+their engine holds; a moe window routes each row's tokens as one dispatch
+group.  The caches are built, zeroed and relocated over every stack of
+``models.lm.cache_stacks``, K/V or MLA latents (``models.lm.stack_layout``).
 
 Everything here runs on tensors of static shape: a window never reads a
 value of the device on the host, so on the card each window, the draft
@@ -60,7 +61,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (commit_verify, init_cache, prefill, stack_verify_caches,
                                  tree_relocate, verify_step)
 from repro_torch.models.attention import tree_tensors
-from repro_torch.models.lm import cache_stacks, check_speculation
+from repro_torch.models.lm import cache_stacks, check_family, seq_axis
 
 from .sampling import (TAG_TOKEN, TAG_WINDOW, categorical, fold_in, prng_key, rejection_sample,
                        row_keys, sample_rows, split, tree_reject_sample, typical_accept_sample,
@@ -119,14 +120,19 @@ class SpecConfig:
             raise ValueError(f"ctrl_cost must be > 0, got {self.ctrl_cost}")
 
 
-def as_spec(speculate, cfg: ModelConfig) -> Optional[SpecConfig]:
+def as_spec(speculate, cfg: ModelConfig,
+            draft_cfg: Optional[ModelConfig] = None) -> Optional[SpecConfig]:
     """An engine's ``speculate=``: a SpecConfig, or an int ``k``; None, no
-    speculation.  Raises NotImplementedError where ``cfg``'s family has no
-    verify window yet (``models.lm.check_speculation``)."""
+    speculation.  Raises NotImplementedError where ``cfg``'s family, or,
+    when the windows take a draft model, ``draft_cfg``'s, has no verify
+    window: every ported family has one (``models.lm.check_family``)."""
     if speculate is None:
         return None
-    check_speculation(cfg)
-    return speculate if isinstance(speculate, SpecConfig) else SpecConfig(k=int(speculate))
+    spec = speculate if isinstance(speculate, SpecConfig) else SpecConfig(k=int(speculate))
+    check_family(cfg)
+    if spec.mode == "draft" and draft_cfg is not None:
+        check_family(draft_cfg)
+    return spec
 
 
 # -------------------------------------------------------------- controller --
@@ -428,12 +434,15 @@ class SpecState:
         if fan == 1:
             return self.cache
         if (fan, k) not in self._tcaches:
-            # every K/V stack, its sequence axis after the lead dims, batch and heads
-            self._tcaches[fan, k] = {key: {
-                name: torch.zeros(leaf.shape[:len(lead) + 2] + (self.max_seq + fan * k,)
-                                  + leaf.shape[len(lead) + 3:], dtype=leaf.dtype,
-                                  device=leaf.device)
-                for name, leaf in self.cache[key].items()} for key, lead in cache_stacks(self.cfg)}
+            # every stack, its leaves' sequence axis (``seq_axis`` after the lead
+            # dims) widened
+            self._tcaches[fan, k] = {}
+            for key, lead in cache_stacks(self.cfg):
+                ax = len(lead) + seq_axis(self.cfg, key)
+                self._tcaches[fan, k][key] = {
+                    name: torch.zeros(leaf.shape[:ax] + (self.max_seq + fan * k,)
+                                      + leaf.shape[ax + 1:], dtype=leaf.dtype, device=leaf.device)
+                    for name, leaf in self.cache[key].items()}
         return self._tcaches[fan, k]
 
     def reset(self) -> None:
@@ -453,7 +462,7 @@ class SpecState:
         prompt and token 0.  With ``draft_params``, zero the draft's cache
         for ``k`` proposals and prefill the prompt into it too, with the
         same extras.  With ``tree_fan``, the cache is ``tree_cache(tree_fan,
-        k)``.  Every K/V stack of ``cache_stacks`` is zeroed."""
+        k)``.  Every stack of ``cache_stacks`` is zeroed."""
         cache = self.tree_cache(tree_fan, k) if tree_fan else self.cache
         _zero_stacks(self.cfg, cache)
         logits, _ = prefill(params, self.cfg, prompt, cache, extras)
@@ -482,7 +491,7 @@ class SpecState:
 
 
 def _zero_stacks(cfg: ModelConfig, cache: dict) -> None:
-    """Every leaf of every K/V stack of ``cache_stacks(cfg)`` zeroed, in
+    """Every leaf of every stack of ``cache_stacks(cfg)`` zeroed, in
     place (a fresh ``init_cache``'s)."""
     for key, _ in cache_stacks(cfg):
         for leaf in cache[key].values():

@@ -29,6 +29,7 @@ def _imported_roots(path: Path):
 def test_port_sources_import_no_jax_and_no_reference_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / name for name in SCRIPTS]
     assert len(files) >= 12 and all(f.is_file() for f in files)
+    assert {PKG / "models" / "mla.py", PKG / "configs" / "deepseek_v2_lite.py"} <= set(files)
     bad = {(str(f.relative_to(ROOT)), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad
@@ -100,12 +101,14 @@ def test_import_without_cuda_pulls_in_no_jax():
                                     "repro_torch.configs.llama3_2_vision_90b",
                                     "repro_torch.configs.seamless_m4t_medium",
                                     "repro_torch.configs.moonshot_16b_a3b",
+                                    "repro_torch.configs.deepseek_v2_lite",
                                     "repro_torch.models.moe",
+                                    "repro_torch.models.mla",
                                     "repro_torch.models.draw"])
 def test_kernel_module_imports_alone_without_card_or_build(module):
     """A kernel module, a module of the paged serving path, its resilience
     tier or its speculation, of the PiCaSO machine, a config, the MoE
-    layer, or the slice-by-slice weight draw,
+    layer, MLA attention, or the slice-by-slice weight draw,
     imported on its own, with no card and no CUDA toolkit, pulls in
     neither jax nor the JAX package and builds nothing."""
     assert (PKG / Path(*module.split(".")[1:])).with_suffix(".py").is_file()
@@ -131,8 +134,8 @@ def test_entry_points_default_to_the_card():
     from repro_torch.serving import ContinuousBatchingEngine, ServingEngine, SpecConfig
 
     cfg = get_reduced("qwen2-1.5b")
-    for arch in ("llama3.2-3b", "starcoder2-7b", "starcoder2-15b", "moonshot-v1-16b-a3b",
-                 "seamless-m4t-medium", "llama-3.2-vision-90b"):
+    for arch in ("llama3.2-3b", "starcoder2-7b", "starcoder2-15b", "deepseek-v2-lite-16b",
+                 "moonshot-v1-16b-a3b", "seamless-m4t-medium", "llama-3.2-vision-90b"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_params(get_reduced(arch), torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):

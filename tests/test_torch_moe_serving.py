@@ -7,8 +7,8 @@ version, the JAX package's ``x @ dq(w)``), sampled ones exactly: the draws
 are keyed per (row or request, draw index) as the JAX package keys them.
 A request's routing is a function of its own row (each row a dispatch
 group), so each request's tokens are also those of its solo run.  The moe
-family takes no prefix hit, as in the JAX package, and has no verify
-window yet: ``speculate=`` and ``verify_step`` raise.
+family takes no prefix hit, as in the JAX package.  Its speculation is held
+in ``tests/test_torch_moe_spec.py``.
 """
 import functools
 
@@ -23,10 +23,10 @@ import numpy as np  # noqa: E402
 from repro.serving import ContinuousBatchingEngine as JaxBatchingEngine  # noqa: E402
 from repro.serving import Request as JaxRequest  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
-from repro_torch.models import init_cache, lm, prefill  # noqa: E402
+from repro_torch.models import init_cache, prefill  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ChaosConfig, ContinuousBatchingEngine, FaultInjector, Request, ResiliencePolicy,
-    ServingEngine, ServingSupervisor, SpecConfig)
+    ServingEngine, ServingSupervisor)
 
 from torch_helpers import (  # noqa: E402,F401
     CPU, assert_greedy_match, assert_serve_match, moe_model, one_thread, prompt,
@@ -178,28 +178,3 @@ def test_the_prefix_cache_takes_no_hit():
     plain = ContinuousBatchingEngine(tcfg, tparams, device="cpu", **geo).serve(
         _requests(Request, prompts, budgets))
     assert all(np.array_equal(a, b) for a, b in zip(rep.outputs, plain))
-
-
-def test_speculation_raises_until_its_slice():
-    """No verify window runs on the moe family yet: ``verify_step``, the
-    speculative cache steps and both engines' ``speculate=`` raise
-    ``NotImplementedError`` naming the next slice, before any window."""
-    _, _, tcfg, tparams = moe_model()
-    cache = lm.init_cache(tcfg, 1, 8, CPU)
-    toks, one = torch.zeros((1, 2), dtype=torch.int32), torch.zeros(1, dtype=torch.int64)
-    calls = [lambda: lm.verify_step(tparams, tcfg, toks, cache, one),
-             lambda: lm.stack_verify_caches(tcfg, [cache]),
-             lambda: lm.commit_verify(tcfg, cache, one),
-             lambda: lm.tree_relocate(tcfg, cache, one, one, one, fan=2, depth=1),
-             lambda: ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=8, device="cpu",
-                                              speculate=2),
-             lambda: ContinuousBatchingEngine(tcfg, tparams, slots=1, max_seq=8, device="cpu",
-                                              speculate=SpecConfig(mode="draft"),
-                                              draft_cfg=tcfg, draft_params=tparams)]
-    eng = ServingEngine(tcfg, tparams, max_seq=12, device="cpu")
-    calls += [lambda: eng.generate(toks, 3, speculate=2),
-              lambda: eng.generate(toks, 3, speculate=SpecConfig(k=2, tree_fan=2))]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="speculation on moe"):
-            call()
-    assert eng.generate(toks, 3).shape == (1, 3)  # plain decoding serves it
