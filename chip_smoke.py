@@ -52,9 +52,13 @@ llama-3.2-vision-90b (groups of four dense blocks and a gated
 cross-attention block over image embeds) at full width and 4 of its 20
 groups (16 before phase 18, 8 before phase 19), through both engines with
 per-request extras; then the moe family: moonshot-v1-16b-a3b (GQA
-attention) at full width and 12 of its 48 layers, and deepseek-v2-lite-16b
+attention) at full width and 8 of its 48 layers, and deepseek-v2-lite-16b
 (MLA attention over a latent cache, absorbed decode and verify windows) at
-full width and all 27 layers, through both engines, speculation included.
+full width and 10 of its 27 layers (all 27 before phase 20), through both
+engines, speculation included;
+then the ssm family: falcon-mamba-7b (Mamba1 blocks with per-row recurrent
+state, no attention) at full width and all 64 layers, through both engines,
+speculation included.
 
 Besides, the paper's own machine runs at the paper's array sizes (no
 model): PiCaSO's bit-serial PE array (``repro_torch.core``), the Alveo
@@ -497,8 +501,8 @@ Phases:
    profiler session's stages among them.
 
 18. the moe family (after phase 17): MOE_ARCH, moonshot-v1-16b-a3b, at
-   full width and MOE_LAYERS (12) of its 48 layers (all 48 before phase
-   19), drawn and quantized on the card one (K, N)
+   full width and MOE_LAYERS (8) of its 48 layers (all 48 before phase
+   19, 12 before phase 20), drawn and quantized on the card one (K, N)
    slice at a time (``quantized_params``, int8): (a) ``moe_apply`` against
    ``moe_apply_onehot`` (the reference's one-hot einsums transcribed) on one
    f32 MoE layer at full width, BATCH rows of one token (nothing dropped)
@@ -531,8 +535,8 @@ Phases:
    PATH_TOL, a shared expert's ``down`` losing its last K split as the
    planted fault.
 19. deepseek-v2-lite-16b (after phase 18), MLA attention, at full width and
-   all 27 layers, int8, through phase 18's (b) to (f) with (b)'s eager
-   twins and each bar of its own: (a) one f32 MLA layer at full width,
+   10 of its 27 layers (all 27, and (b)'s eager twins, before phase 20),
+   int8, through phase 18's (b) to (f) with each bar of its own: (a) one f32 MLA layer at full width,
    ``mla_decode`` and ``mla_verify`` (k = 4, and a tree of fan 2 x depth
    2: the absorbed form) within MLA_FORMS_TOL of ``mla_prefill`` (the
    expanded form) at the same positions, the paged pool under a permuted
@@ -557,6 +561,37 @@ Phases:
    the continuous engine (n-gram, self-draft and tree windows over 2
    slots: captured ``torch.equal`` to eager, launches counted, each
    request against its solo run at HIT_BAR).
+20. falcon-mamba-7b (after phase 19), the ssm family: Mamba1 blocks with
+   per-row recurrent state and no attention, at full width and all 64
+   layers, int8 (``SsmPhase``): (a) one f32 Mamba1 layer at full width,
+   the chunked prefill (4 x 128, and 293 real tokens padded to 300 under
+   ``length``) against as many ``mamba1_decode`` steps within KERNEL_TOL,
+   ``mamba1_verify``'s per-step states (k = 4, and a tree of fan 2 x
+   depth 3 run as chains) against decode steps along each path (bit for
+   bit, or the largest difference, within KERNEL_TOL), and ``pim_matvec``
+   against plain at its shapes (K 256 / 4,096 / 8,192, N 288 / 4,096 /
+   8,192 / 16,384 / 65,024); (b) the captured generate greedy and sampled
+   ``torch.equal`` to eager, 257 ``pim_matvec`` a step (4 x 64 + the
+   head), the step's ms beside its weight-stream floor (checked against
+   the config's widths) and each call's plan; (e) the continuous engine
+   with ``prefix_cache=True`` on 2 slots, five requests of prompts that
+   are no whole number of pages (each admit masks its pads out of its
+   state row): each request ``torch.equal`` to itself served alone, no
+   prefix hit, captured ``torch.equal`` to eager, launches counted, each
+   against its solo run at SSM_SOLO_BAR; (f) speculation in windows of at
+   most 8 rows: at batch 1 n-gram windows of k = 4 (greedy, sampled), the
+   int4 tree as the int8 tree's draft, a tree of fan 2 x depth 3, and at
+   4 rows n-gram windows of k = 1, each captured ``torch.equal`` to
+   eager with its launches counted and greedy against plain greedy
+   decoding at HIT_BAR; planted windows of plain's tokens committed at
+   the accepted step against decoding those tokens (and one step late,
+   which must fail), at bf16 over 64 layers and at f32 over 4; the
+   windows' ms; the continuous engine under n-gram, int4 self-draft and
+   tree windows (captured == eager, launches counted, against the solo
+   runs at HIT_BAR); (d) the bf16 kernel path against the overlay path
+   within SSM_OVERLAY_TOL, which layer 0's ``out_proj`` losing its last K
+   split must exceed; (c) the f32 path at 4 layers against its plain twin
+   within PATH_TOL.
 
 ``python3 chip_smoke.py --overlay-depths`` runs phase 17 (b) for the vlm at
 1, 2 and 4 groups.
@@ -598,6 +633,7 @@ from repro_torch.kernels.pim_matvec import plan as matvec_plan  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     attention, blocks, common, decode_step, encode, init_cache, init_paged_cache, init_params, lm, mla,
     moe, prefill, tree_relocate, verify_hidden, verify_step)
+from repro_torch.models import mamba  # noqa: E402
 from repro_torch.models.common import unembed  # noqa: E402
 from repro_torch.models.draw import layerwise_params, quantized_params  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
@@ -931,6 +967,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     family.update(MlaPhase(dev).run())
+
+    wall("phase 20")
+    # ---- 20. falcon-mamba-7b: the ssm family, and speculation on it ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    family.update(SsmPhase(dev).run())
     print(json.dumps({"kernels": [{
         "name": "pim_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pim_matvec.cu",
@@ -1459,6 +1501,9 @@ MOE_SHARED_LINEARS = (("moe", "shared", "gate"), ("moe", "shared", "up"),
 # An MLA block's attention linears (its 3-D ``w_uk`` / ``w_uv`` run dq and an
 # einsum, as in the JAX package).
 MLA_LINEARS = (("attn", "wq"), ("attn", "w_dkv"), ("attn", "wo"))
+# An SSM block's Mamba1 linears, in call order (its conv, dt_bias, A_log
+# and D stay dense).
+SSM_LINEARS = (("ssm", "in_proj"), ("ssm", "x_proj"), ("ssm", "dt_proj"), ("ssm", "out_proj"))
 
 
 def step_calls(cfg):
@@ -1468,8 +1513,8 @@ def step_calls(cfg):
     layer's four attention linears (an MLA layer's three) and its shared
     experts' three (the routed experts' 3-D stacks run ``x @ dq(w)``); the
     vlm's groups of
-    dense blocks and a cross block; the encdec's decoder blocks; then an
-    untied head."""
+    dense blocks and a cross block; the encdec's decoder blocks; the ssm
+    family's four Mamba1 linears a layer; then an untied head."""
     dense = [(group, name) for group, name, _ in LINEARS]
     if cfg.family == "moe":
         nd = cfg.n_dense_layers
@@ -1485,6 +1530,8 @@ def step_calls(cfg):
             out += [("groups", "cross", j, *w) for w in CROSS_BLOCK_LINEARS]
     elif cfg.family == "encdec":
         out = [("decoder", i, *w) for i in range(cfg.dec_layers) for w in DEC_BLOCK_LINEARS]
+    elif cfg.family == "ssm":
+        out = [("layers", i, *w) for i in range(cfg.n_layers) for w in SSM_LINEARS]
     else:
         out = [("layers", i, *w) for i in range(cfg.n_layers) for w in dense]
     return out + ([] if cfg.tie_embeddings else [("head",)])
@@ -1526,8 +1573,10 @@ def dropped_call(per_step, index, rows):
 
 def middle_down(cfg):
     """The ``step_calls`` index of layer n/2's ``down``: a dense block's MLP's,
-    or a MoE block's shared experts'."""
+    a MoE block's shared experts', or an SSM block's ``out_proj``."""
     i = cfg.n_layers // 2
+    if cfg.family == "ssm":
+        return step_calls(cfg).index(("layers", i, *SSM_LINEARS[3]))
     if cfg.family == "moe" and i >= cfg.n_dense_layers:
         path = ("layers", i - cfg.n_dense_layers, *MOE_SHARED_LINEARS[2])
     else:
@@ -5528,7 +5577,8 @@ def last_chunks(k, n, m, bits, sms):
 
 def family_kernel_cases(cfg, gen, extra=(), chunk_fault=True):
     """(f): ``pim_matvec`` against ``pim_matvec_plain`` on each of the
-    config's weight shapes (the seven linears, the (K, N) of ``extra``, and
+    config's weight shapes (the seven linears where it has attention, the
+    (K, N) of ``extra``, and
     its (d, vocab) unembedding, the tied table's as a quantized weight
     too), random weights at bits 8 and 4, M in FAMILY_M, f32 and bf16 x
     (``kernel_vs_plain``).  Then, with ``chunk_fault``, the planted fault:
@@ -5538,7 +5588,7 @@ def family_kernel_cases(cfg, gen, extra=(), chunk_fault=True):
     weight at int8."""
     dev, sms = gen.device, torch.cuda.get_device_properties(0).multi_processor_count
     shapes = []
-    for group, name, _ in LINEARS:
+    for group, name, _ in LINEARS if cfg.n_heads else ():
         k, n = {"wq": (cfg.d_model, cfg.q_dim), "wk": (cfg.d_model, cfg.kv_dim),
                 "wv": (cfg.d_model, cfg.kv_dim), "wo": (cfg.q_dim, cfg.d_model),
                 "gate": (cfg.d_model, cfg.d_ff), "up": (cfg.d_model, cfg.d_ff),
@@ -6018,6 +6068,11 @@ class WindowChecks:
     def plant_bar(self, cfg):
         return CROSS_PLANT_BARS[cfg.family]
 
+    @staticmethod
+    def window_rows(sp):
+        """A batch-1 window's rows under ``sp``: its tokens (a tree's nodes)."""
+        return 1 + sp.k * max(sp.tree_fan, 1)
+
     @torch.inference_mode()
     def _spec_start(self, eng, spec, prompt, ex, n_new):
         """``eng``'s batch-1 speculative buffers from ``prompt``'s prefill with
@@ -6183,7 +6238,7 @@ class WindowChecks:
             name = (f"tree window fan {sp.tree_fan} x depth {sp.k}" if sp.tree_fan
                     else f"{sp.mode} window k={sp.k}")
             runs[name] = (eng.spec_step(1, sp, greedy=True, top_k=0, extras=ex),
-                          1 + sp.k * max(sp.tree_fan, 1), stats[sp]["emitted_per_step"])
+                          self.window_rows(sp), stats[sp]["emitted_per_step"])
             if sp.mode == "draft" or sp.tree_fan:  # their own caches: a start each
                 self._spec_start(eng, sp, prompt, ex, N_NEW)
         # the n-gram window shares the plain step's cache, which the starts
@@ -6788,7 +6843,7 @@ def spec_summary(rep):
 # every expert's whole stack, as in the JAX package; its attention and shared
 # experts, its dense first layer and its untied head pim_matvec.
 MOE_ARCH = "moonshot-v1-16b-a3b"
-MOE_LAYERS = 12  # of its 48: all 48 before phase 19, whose time the cut pays for
+MOE_LAYERS = 8  # of its 48: all 48 before phase 19, 12 before phase 20 (the cuts pay for them)
 MOE_F32_LAYERS = 4  # (c): the dense first layer and three MoE layers
 MOE_CHECK_NEW = 8  # (c), (d): the first tokens of (b)'s greedy generation, teacher-forced
 MOE_TIME_STEPS = 4  # (b): captured replays timed, greedy and sampled
@@ -7180,12 +7235,16 @@ class MoePhase:
 
 
 # ---- 19. deepseek-v2-lite-16b: MLA, and speculation on the moe family ------------------------
-# deepseek-v2-lite-16b at full width and all 27 layers, int8, on a generator
+# deepseek-v2-lite-16b at full width and MLA_LAYERS of its 27 layers, int8, on a generator
 # of its own (SEED + 13), through MoePhase's (b) to (f) and its own (a) and
 # (g).  Its MoE layers attend through MLA: their cache is a latent pool
 # (kv_lora 512 + rope 64 a token, bf16 also under kv_cache_bits=8), their
 # decode and verify windows the absorbed form.
 MLA_ARCH = "deepseek-v2-lite-16b"
+# Of its 27 layers (one dense, then MoE): all 27 before phase 20, whose time
+# this cut and (b) without its eager twins pay for ((g) holds captured
+# against eager on the same model).
+MLA_LAYERS = 10
 # (a): one f32 MLA layer at full width over BATCH rows: MLA_PREFIX positions
 # prefilled into a store of MLA_STORE (MLA_PS-token pages in the pool), then
 # a decode step, a linear window of k + 1 = 5 and a tree of fan 2 x depth 2 at
@@ -7279,11 +7338,11 @@ def recorded(module, names, sink):
 
 
 class MlaPhase(WindowChecks, MoePhase):
-    """Phase 19: MoePhase's (b) to (f) for MLA_ARCH at all its layers, with
+    """Phase 19: MoePhase's (b) to (f) for MLA_ARCH at MLA_LAYERS layers, with
     (a) the MLA layer's checks and (g) speculation on both engines."""
 
-    NAME, ARCH, LAYERS, SEED_OFFSET = "phase 19", MLA_ARCH, 27, 13
-    OVERLAY_TOL, EAGER_TWINS, SOLO_BAR = MLA_OVERLAY_TOL, True, MLA_SOLO_BAR
+    NAME, ARCH, LAYERS, SEED_OFFSET = "phase 19", MLA_ARCH, MLA_LAYERS, 13
+    OVERLAY_TOL, EAGER_TWINS, SOLO_BAR = MLA_OVERLAY_TOL, False, MLA_SOLO_BAR
     PHASE = "phase 19"
     SPEC, TREE, SPEC_NEW, EAGER_NEW = MLA_SPEC, MLA_TREE, MLA_SPEC_NEW, MLA_SPEC_EAGER_NEW
     PLANT_PS, PLANT_STEPS = MLA_PLANT_PS, MLA_PLANT_STEPS
@@ -7632,6 +7691,632 @@ class MlaPhase(WindowChecks, MoePhase):
             gc.collect()
             torch.cuda.empty_cache()
         rep["spec_serves"] = out
+
+
+# ---- 20. falcon-mamba-7b: the ssm family, and speculation on it ------------------------------
+# falcon-mamba-7b at full width and all 64 layers (d 4,096, d_in 8,192, state
+# 16, conv 4, dt_rank 256, vocab 65,024, untied head, no attention), int8,
+# drawn and quantized one (K, N) slice at a time from a generator of its own
+# (SEED + 14; the int4 self-draft is the same draw at int4), its inputs from
+# another (SEED + 15).  A layer's decode state is per row: h (d_in, N) and the
+# conv tail (K - 1, d_in), both f32.
+SSM_ARCH = "falcon-mamba-7b"
+# (a): one f32 Mamba1 layer at full width over BATCH rows: a prefill of PROMPT
+# tokens, and a right-padded prompt of SSM_PRIME (prime) real tokens in
+# SSM_PADDED positions (two chunks of 256, the second padded), each against as
+# many ``mamba1_decode`` steps over the same tokens from a zero state.  The
+# prefill runs the recurrence in decode's association, so only the
+# projections' f32 sums (a matmul of PROMPT x BATCH rows against one of
+# BATCH) differ: within KERNEL_TOL.
+SSM_PRIME, SSM_PADDED = 293, 300
+# (a): pim_matvec's shapes on this config beside the head: in_proj, x_proj,
+# dt_proj (K = dt_rank 256, the smallest K on a main path yet) and out_proj.
+SSM_KERNEL_EXTRA = ((4096, 16384), (8192, 288), (256, 8192), (8192, 4096))
+SSM_F32_LAYERS = 4  # (c)
+SSM_CHECK_NEW = 8  # (c), (d): the first tokens of (b)'s greedy generation, teacher-forced
+SSM_TIME_STEPS = 8  # (b): captured replays timed, greedy and sampled
+# (d): the bar of the bf16 kernel path's distance from the overlay path, set
+# as phases 18 and 19 set theirs.  On the H100 (PERF.md section 6) the sound
+# paths differed by 0.479 at 64 layers, LOGIT_TOL's reach doubled; layer 0's
+# out_proj losing its last K split (1,024 of 8,192 rows) moved them by 7.23,
+# layer 32's by 0.672.  The witness (``SsmPhase.witness``) shows each bf16
+# run drifting from the same int8 model at f32, so two sound bf16 paths may
+# differ by about the sum of the two drifts: the bar is a constant, about
+# twice the sound distance, which layer 0's fault must pass.  Layer 32's
+# fault lies inside the drift, and (c) catches it at f32.
+SSM_OVERLAY_TOL = 1.0
+# (e): five requests over two slots of 16-token pages, no prompt a whole
+# number of pages, so every admit masks pads out of its state row; request
+# SSM_REPEAT repeats request 0's prompt, which the prefix cache must not hit
+# on this family.  Its eager twin runs the first SSM_EAGER requests (more
+# than the slots: an admit into a freed slot) at SSM_EAGER_NEW new.
+SSM_SERVE = dict(slots=2, page_size=16, chunk=4, max_seq=160, page_alloc_seed=SEED)
+SSM_TRACE = ((100, 6), (37, 5), (121, 4), (61, 5), (100, 4))
+SSM_REPEAT = 4
+SSM_EAGER, SSM_EAGER_NEW = 3, 4
+# (e): the bar of a paged request's first divergence from its solo run.  On
+# the H100 (PERF.md section 6) the 100-token prompt (requests 0 and 4)
+# first diverged at token 0, at a solo top-2 gap of 0.094: its admit
+# prefills 112 positions, the solo run 100, and the witness shows the two
+# prefills' first-token logits apart at bf16 and within PATH_TOL at f32
+# over the same codes (the pads masked out of the state exactly), so two
+# bf16 arithmetics are held at HIT_BAR, as in phases 10 and 19.
+SSM_SOLO_BAR = HIT_BAR
+# (f): speculation, every window at most 8 rows (pim_matvec, as the plain
+# step): at batch 1 n-gram windows of k = 4 (5 rows), the int4 tree as the
+# int8 tree's draft (k = 4: five one-row draft steps and a 5-row window), a
+# tree of fan 2 x depth 3 (two chains of 4, 8 rows); at BATCH rows n-gram
+# windows of k = 1 (8 rows); on the continuous engine's 2 slots each of
+# SSM_SERVE_SPEC (8, 6 and 8 rows) over (e)'s first SSM_SERVE_REQUESTS.
+SSM_SPEC, SSM_DRAFT, SSM_TREE = dict(k=4), dict(k=4, mode="draft"), dict(k=3, tree_fan=2)
+SSM_BATCH_SPEC = dict(k=1)
+SSM_SERVE_SPEC = {"n-gram": dict(k=3), "int4 self-draft": dict(k=2, mode="draft"),
+                  "tree": dict(k=1, tree_fan=2)}
+SSM_SERVE_REQUESTS = 2
+SSM_SPEC_NEW, SSM_SPEC_EAGER_NEW = 16, 6
+SSM_SPEC_REPS, SSM_SPEC_ROUNDS = 4, 1  # window times
+# (f): planted windows whose accepted tokens are plain greedy decoding's: the
+# state ``commit_verify`` writes against the state of decoding the accepted
+# tokens, relative to the state's largest value, at bf16 over all the
+# layers and at f32 over (c)'s SSM_F32_LAYERS; a commit one step late must
+# be farther than SSM_COMMIT_TOL.
+SSM_COMMIT_TOL = 1e-4
+
+
+def rel_dist(a: dict, b: dict) -> float:
+    """The largest |a - b| over every leaf, each over its largest |b|."""
+    return max(((a[k].float() - b[k].float()).abs().max()
+                / b[k].float().abs().max().clamp_min(1e-30)).item() for k in b)
+
+
+class SsmPhase(WindowChecks):
+    """Phase 20: falcon-mamba-7b at full width and depth, (a) to (f) of the
+    module's docstring."""
+
+    NAME = PHASE = "phase 20"
+    REPS, ROUNDS = SSM_SPEC_REPS, SSM_SPEC_ROUNDS
+
+    def __init__(self, dev):
+        self.dev, self.launches = dev, {}
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def _took(self, rep, section, t0):
+        rep["section_s"][section] = time.perf_counter() - t0
+        print(f"{self.NAME} ({section}): {rep['section_s'][section]:.1f} s", flush=True)
+
+    @staticmethod
+    def window_rows(sp):
+        """A batch-1 window's rows: a tree's chains each run as a window of
+        1 + depth rows from a copy of the row's state."""
+        return sp.tree_fan * (1 + sp.k) if sp.tree_fan else 1 + sp.k
+
+    # ------------------------------------------------------------------ (a) --
+    @torch.inference_mode()
+    def ssm_layer(self, cfg, gen):
+        """(a): one f32 Mamba1 layer at full width: the chunked prefill against
+        the step-by-step decode over the same tokens (PROMPT tokens, and
+        SSM_PRIME real tokens padded to SSM_PADDED under ``length``), outputs
+        and state within KERNEL_TOL; ``mamba1_verify``'s per-step states, a
+        linear window of k + 1 and a tree of fan 2 x depth 3 run as chains
+        (``lm._tree_to_chains``, node order back), against as many decode
+        steps along each path: bit for bit, or the largest difference,
+        within KERNEL_TOL."""
+        dev, s, b, d = self.dev, cfg.ssm, BATCH, cfg.d_model
+        d_in, f32 = s.expand * d, torch.float32
+        p = mamba.mamba1_init(gen, d, s, f32, dev)
+
+        def zero(n=b):
+            return mamba.mamba1_cache_init(n, d_in, s, dev)
+
+        def decoded(x, state, keep=False):
+            """x (B, n, D) through n decode steps from a copy of ``state``:
+            outputs (B, n, D), and the final state (every step's, stacked
+            on axis 1, with ``keep``)."""
+            st, ys, steps = {k: v.clone() for k, v in state.items()}, [], []
+            for j in range(x.shape[1]):
+                y, _ = mamba.mamba1_decode(p, x[:, j:j + 1], st, s)
+                ys.append(y)
+                if keep:
+                    steps.append({k: v.clone() for k, v in st.items()})
+            if keep:
+                st = {k: torch.stack([t[k] for t in steps], dim=1) for k in st}
+            return torch.cat(ys, dim=1), st
+
+        def compare(label, got_y, got, want_y, want):
+            errs = {"y": within_tol(got_y, want_y), **{k: within_tol(got[k], want[k])
+                                                       for k in want}}
+            row = {"bit_equal": torch.equal(got_y, want_y)
+                   and all(torch.equal(got[k], want[k]) for k in want),
+                   "max_abs_err": {k: e for k, (_, e) in errs.items()},
+                   "max_abs_state": {k: want[k].abs().max().item() for k in want}}
+            check(all(ok for ok, _ in errs.values()), f"(a) {SSM_ARCH} {label}: {row}")
+            return row
+
+        out = {"rows": b, "tol": KERNEL_TOL}
+        x = torch.randn((b, SSM_PADDED, d), generator=gen, device=dev)
+        y, st = mamba.mamba1_prefill(p, x[:, :PROMPT], zero(), s)
+        out[f"prefill {b} x {PROMPT}"] = compare("prefill", y, st, *decoded(x[:, :PROMPT], zero()))
+        base = {k: v.clone() for k, v in st.items()}
+        y, st = mamba.mamba1_prefill(p, x, zero(), s, length=torch.tensor(SSM_PRIME, device=dev))
+        yd, sd = decoded(x[:, :SSM_PRIME], zero())
+        out[f"prefill {b} x {SSM_PADDED}, length {SSM_PRIME}"] = compare(
+            "prefill under length", y[:, :SSM_PRIME], st, yd, sd)
+        k = SSM_SPEC["k"]
+        win = x[:, PROMPT:PROMPT + k + 1]
+        before = {n: v.clone() for n, v in base.items()}
+        y, steps = mamba.mamba1_verify(p, win, base, s)
+        check(all(torch.equal(base[n], before[n]) for n in base), "(a) the window wrote the state")
+        out[f"verify k={k}"] = compare("verify", y, steps, *decoded(win, base, keep=True))
+        fan, depth = SSM_TREE["tree_fan"], SSM_TREE["k"]
+        other = torch.randn((b, depth, d), generator=gen, device=dev)
+        tree = torch.cat([x[:, PROMPT:PROMPT + 1 + depth], other], dim=1)  # root, chain 0, chain 1
+        tiled = {n: v.repeat_interleave(fan, dim=0) for n, v in base.items()}
+        yc, sc = mamba.mamba1_verify(p, lm._tree_to_chains(tree, fan, depth), tiled, s)
+        y, steps = (lm._chains_to_tree(yc, fan, depth),
+                    {n: lm._chains_to_tree(v, fan, depth) for n, v in sc.items()})
+        y0, s0 = decoded(tree[:, :1 + depth], base, keep=True)
+        y1, s1 = decoded(torch.cat([tree[:, :1], other], dim=1), base, keep=True)
+        out[f"tree fan {fan} x depth {depth}"] = compare(
+            "tree", y, steps, torch.cat([y0, y1[:, 1:]], dim=1),
+            {n: torch.cat([s0[n], s1[n][:, 1:]], dim=1) for n in s0})
+        torch.cuda.synchronize()
+        print(f"{self.NAME} (a) layer: {json.dumps(out)}", flush=True)
+        return out
+
+    # ------------------------------------------------------------------ (b) --
+    def floors_reckoned(self, cfg, step, rows):
+        """(b): the weight stream reckoned from the config's widths (every int8
+        code), which the measured stream must match within 2% (scales,
+        norms, the conv and the dynamics add under 1%); the per-row state,
+        read and written once a step; and the step no faster than its
+        floor."""
+        s, d, n_l = cfg.ssm, cfg.d_model, cfg.n_layers
+        d_in, dt_rank = s.expand * d, s.dt_rank or d // 16
+        codes = n_l * (d * 2 * d_in + d_in * (dt_rank + 2 * s.state_dim) + dt_rank * d_in
+                       + d_in * d) + d * cfg.vocab
+        state = n_l * rows * (d_in * s.state_dim + (s.conv_dim - 1) * d_in) * 4
+        out = {"codes_reckoned": codes, "floor_reckoned_ms": codes / HBM_BYTES_PER_S * 1e3,
+               "state_bytes": state, "state_ms": 2 * state / HBM_BYTES_PER_S * 1e3}
+        check(abs(step["floor_ms"] / out["floor_reckoned_ms"] - 1) < 0.02,
+              f"(b) {cfg.arch_id}: floor {step['floor_ms']:.4g} ms, reckoned {out}")
+        check(step["captured_ms"] > step["floor_ms"], f"(b) {cfg.arch_id}: a step of "
+              f"{step['captured_ms']:.4g} ms beats its floor of {step['floor_ms']:.4g} ms")
+        return out
+
+    @torch.inference_mode()
+    def witness(self, cfg, params, eng, prompt, ftoks, lo):
+        """(d), (e): why two sound bf16 paths part.  The same int8 codes with
+        every bf16 leaf in f32 (``widened``): (d)'s teacher-forced logits of
+        the kernel path and of the overlay path (``lo``) each against the
+        f32 model's; and (e)'s request 0, its admit (the prompt padded to
+        whole pages, ``length`` masking the pads) against a prefill of the
+        prompt alone, the first token's logits and the state, at bf16 and
+        at f32, the f32 pair within PATH_TOL."""
+        dev, arch = self.dev, cfg.arch_id
+        cfg32, p32 = cfg.replace(param_dtype="float32"), widened(params)
+        eng32 = ServingEngine(cfg32, p32, max_seq=eng.max_seq, device=dev)
+        lk = forced_logits(eng, prompt, ftoks, SSM_CHECK_NEW)
+        lf = forced_logits(eng32, prompt, ftoks, SSM_CHECK_NEW)
+        del eng32
+
+        def dist(a, b):
+            return (a - b).abs().max().item()
+        out = {"kernel_vs_f32": dist(lk, lf), "overlay_vs_f32": dist(lo, lf),
+               "kernel_vs_overlay": dist(lk, lo)}
+        p0 = self.trace["reqs"][0].prompt
+        n, ps = len(p0), SSM_SERVE["page_size"]
+        spad = -(-n // ps) * ps
+        padded = torch.zeros((1, spad), dtype=torch.int32, device=dev)
+        padded[0, :n] = torch.from_numpy(p0).to(dev)
+        for name, (c, p) in (("bf16", (cfg, params)), ("f32", (cfg32, p32))):
+            ca, cb = init_cache(c, 1, spad, dev), init_cache(c, 1, spad, dev)
+            la, _ = prefill(p, c, padded, ca, length=n)
+            lb, _ = prefill(p, c, padded[:, :n], cb)
+            out[f"admit_vs_unpadded_{name}"] = {
+                "positions": [spad, n],
+                "first_token_logits_max_abs": dist(la[0, n - 1].float(), lb[0, -1].float()),
+                "state_rel_dist": rel_dist(ca["layers"], cb["layers"])}
+        f32 = out["admit_vs_unpadded_f32"]["first_token_logits_max_abs"]
+        check(f32 <= PATH_TOL, f"(e) {arch}: at f32 the padded admit's first logits are "
+              f"{f32:.4g} from the unpadded prefill's, > {PATH_TOL}")
+        print(f"{self.NAME} witness: {json.dumps(out)}", flush=True)
+        return out
+
+    def plans(self, eng, prompt, toks):
+        """(b): each distinct ``pim_matvec`` call of a decode step and the
+        kernel's plan for it (``step_routes``)."""
+        with torch.inference_mode():
+            routes = step_routes(eng, prompt, toks, self.sms)
+        seen = {}
+        for r in routes:
+            seen.setdefault((r["rows"], r["N"], r["M"], r["x"]), {**r, "calls": 0})["calls"] += 1
+        return list(seen.values())
+
+    # ------------------------------------------------------------------ (e) --
+    def serve(self, rep, cfg, params, eng, gen):
+        """(e): SSM_TRACE on the continuous engine with ``prefix_cache=True``:
+        each request served alone first (its graphs captured), then the
+        trace counted (a step's calls an iteration and each admit's one-row
+        head); each request's tokens ``torch.equal`` to its own served
+        alone; no prefix hit; captured == ``EagerEngine`` on the first
+        SSM_EAGER requests (admits, chunk steps and an admit into a freed
+        slot); each request against its solo ``generate`` at SSM_SOLO_BAR.
+        Keeps the trace, the solo runs and their gaps for (f)."""
+        dev, per_step, arch = self.dev, matvec_calls_per_step(cfg), cfg.arch_id
+        ps = SSM_SERVE["page_size"]
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen, device=dev).cpu().numpy()
+                   .astype(np.int32) for n, _ in SSM_TRACE]
+        prompts[SSM_REPEAT] = prompts[0]
+        check(all(len(p) % ps for p in prompts), f"(e) a prompt of {ps}-token pages")
+        budgets = [m for _, m in SSM_TRACE]
+        reqs = [Request(prompt=p, max_new=m) for p, m in zip(prompts, budgets)]
+        ce = ContinuousBatchingEngine(cfg, params, prefix_cache=True, device=dev, **SSM_SERVE)
+        graphs = count_captures(ce)
+        alone = [ce.serve([r])[0] for r in reqs]
+        out, launches, counted_as = counted_launches(graphs, lambda: ce.serve(reqs))
+        report, iters = ce.last_report, ce.decode_chunk_iters
+        cached = [e["cached_tokens"] for rec in report.records for e in rec.events
+                  if e["name"] == "admit"]
+        check(report.prefix_hits == 0 and not any(cached),
+              f"(e) {arch}: the prefix cache hit on ssm: {cached}")
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = per_step * iters + len(reqs)
+        check(launches == expect, f"(e) {arch} serve: launches {launches}, expected {expect}")
+        self.launches[f"{self.NAME} {arch} serve"] = launches
+        apart = [r for r in range(len(reqs)) if not np.array_equal(alone[r], out[r])]
+        check(not apart, f"(e) {arch}: requests {apart} differ from themselves served alone")
+        first = [Request(prompt=r.prompt, max_new=SSM_EAGER_NEW) for r in reqs[:SSM_EAGER]]
+        out_c = ce.serve(first)
+        events_c = events_of(ce.last_report)
+        eager = EagerEngine(cfg, params, prefix_cache=True, device=dev, **SSM_SERVE)
+        out_e = eager.serve(first)
+        check(same_tokens(out_c, out_e) and events_c == events_of(eager.last_report),
+              f"(e) {arch}: the captured serve differs from the eager one")
+        graphs_kept = capture_report(ce, graphs)
+        del eager, ce, graphs
+        with torch.inference_mode():
+            dense = [eng.generate(torch.from_numpy(p)[None].to(dev), m)[0].cpu().numpy()
+                     for p, m in zip(prompts, budgets)]
+
+        def gap_at(r, j):  # the solo run's top-2 gap before token j
+            seq = torch.from_numpy(np.concatenate([prompts[r], dense[r][:j]]))[None].to(dev)
+            logits, _ = prefill(params, cfg, seq, init_cache(cfg, 1, seq.shape[1], dev))
+            return top2_gap(logits[0, -1])
+        with torch.inference_mode():
+            vs = paged_vs_dense(f"(e) {arch}", out, dense, budgets, gap_at, SSM_SOLO_BAR)
+        self.trace = {"reqs": reqs, "dense": dense, "gap_at": gap_at}
+        rep["serve"] = {"requests": len(reqs), "prompt_lengths": [len(p) for p in prompts],
+                        "rounds": report.rounds, "decode_chunk_iters": iters,
+                        "tokens": sum(len(o) for o in out), "cached_tokens": cached,
+                        "prefix_hits": report.prefix_hits, "equal_served_alone": len(reqs),
+                        "captured_equal_eager": {"requests": SSM_EAGER, "new": SSM_EAGER_NEW},
+                        "graphs": graphs_kept, "vs_solo": vs,
+                        "launches": {"launches": launches, "counted_as": counted_as}}
+
+    # ------------------------------------------------------------------ (f) --
+    def windows(self, rep, cfg, params, params4, prompt):
+        """(f): the fixed engine.  At batch 1 n-gram windows (greedy and
+        sampled), the int4 self-draft and tree windows (greedy); at BATCH rows
+        n-gram windows of SSM_BATCH_SPEC: each generation's first
+        SSM_SPEC_EAGER_NEW tokens captured (launches counted: a step's
+        calls a window, the draft's k + 1 one-row steps besides) and
+        ``torch.equal`` to ``EagerServingEngine``'s, with its window
+        counts; greedy against plain greedy decoding at HIT_BAR; a tree of
+        fan 1 equal to the linear window of its depth.  Then the windows'
+        device ms.  Returns the plain batch-1 tokens."""
+        dev, arch, n = self.dev, cfg.arch_id, SSM_SPEC_NEW
+        per_step = matvec_calls_per_step(cfg)
+        kw = dict(max_seq=PROMPT + N_NEW, device=dev, draft_cfg=cfg, draft_params=params4)
+        eng, eager = ServingEngine(cfg, params, **kw), EagerServingEngine(cfg, params, **kw)
+        graphs = count_captures(eng)
+        p1 = prompt[:1]
+        spec, draft, tree = (SpecConfig(**c) for c in (SSM_SPEC, SSM_DRAFT, SSM_TREE))
+        cases = (("n-gram k=4, greedy", spec, GREEDY, p1), ("n-gram k=4, sampled", spec, SAMPLED, p1),
+                 ("int4 self-draft k=4, greedy", draft, GREEDY, p1),
+                 (f"tree fan {tree.tree_fan} x depth {tree.k}, greedy", tree, GREEDY, p1),
+                 (f"n-gram k={SSM_BATCH_SPEC['k']}, {BATCH} rows, greedy",
+                  SpecConfig(**SSM_BATCH_SPEC), GREEDY, prompt))
+        out, plain, stats = {"bar": HIT_BAR, "n_new": n, "cases": []}, {}, {}
+        with torch.inference_mode():
+            for label, sp, mode, pr in cases:
+                b = pr.shape[0]
+                if b not in plain:
+                    plain[b] = eng.generate(pr, n)
+                got = eng.generate(pr, n, speculate=sp, **mode)
+                if b == 1:  # the window times' tokens a window: the greedy run's
+                    stats.setdefault(sp, dict(eng.spec_stats))
+                m = SSM_SPEC_EAGER_NEW
+                short, launches, counted_as = counted_launches(
+                    graphs, lambda: eng.generate(pr, m, speculate=sp, **mode))
+                windows = eng.spec_stats["verify_steps"]
+                row = {"case": label, "window_rows": b * self.window_rows(sp),
+                       "spec_stats": dict(eng.spec_stats), "eager_new": m,
+                       "tokens_equal_eager": torch.equal(
+                           short, eager.generate(pr, m, speculate=sp, **mode)),
+                       "windows_equal_eager": eng.spec_stats == eager.spec_stats,
+                       "launches": launches, "launches_counted_as": counted_as,
+                       "windows_counted": windows}
+                check(torch.equal(short, got[:, :m]) and row["tokens_equal_eager"]
+                      and row["windows_equal_eager"], f"(f) {arch} {label}: the captured "
+                      f"windows differ from the eager ones, or from the longer run's: {row}")
+                calls = (sp.k + 1 if sp.mode == "draft" else 0) + (
+                    row["window_rows"] <= common.MATVEC_MAX_M)
+                expect = dict.fromkeys(launches, 0)
+                expect["pim_matvec"] = per_step * calls * windows
+                check(launches == expect, f"(f) {arch} {label}: launches {launches}, "
+                      f"expected {expect}")
+                self.launches[f"{self.NAME} {arch} {label}"] = launches
+                if mode["greedy"]:
+                    row["vs_plain"] = spec_vs_plain(f"{self.NAME} {arch}", f"(f) {label}", eng,
+                                                    pr, got, plain[b])
+                out["cases"].append(row)
+            fan1 = eng.generate(p1, n, speculate=SpecConfig(k=tree.k, tree_fan=1))
+            linear = eng.generate(p1, n, speculate=SpecConfig(k=tree.k))
+            out["fan_1_equal_linear"] = torch.equal(fan1, linear)
+            check(out["fan_1_equal_linear"], f"(f) {arch}: tree_fan=1 differs from linear")
+        del eager
+        out["window_ms"] = self.window_times(eng, p1, None, (spec, draft, tree), stats)
+        del eng, graphs
+        rep["speculation"] = out
+        return plain[1]
+
+    @torch.inference_mode()
+    def planted(self, cfg, params, prompt, plain, label):
+        """(f): windows planted with plain greedy decoding's tokens: a linear
+        window of k = 4 whose first two proposals are plain's and the rest
+        wrong, and a tree of fan 2 x depth 3 whose chain 1 holds plain's
+        next two and a wrong third (chain 0 wrong): verified (``verify_step``
+        on a batch-1 cache after the prompt), accepted greedily, committed
+        at the accepted step (``commit_verify``); the state against
+        ``decode_step``s of the accepted tokens from the same cache, within
+        SSM_COMMIT_TOL of its largest value; a commit one step (one node)
+        late must be farther."""
+        dev, s0, v = self.dev, prompt.shape[1], cfg.vocab
+        g = plain[0].to(torch.int64)
+        wrong = lambda t: (t + 1) % v  # noqa: E731
+        base = init_cache(cfg, 1, PROMPT + N_NEW, dev)
+        prefill(params, cfg, prompt[:1], base)
+        kept = {n: t.clone() for n, t in base["layers"].items()}
+        pos = torch.full((1,), s0, dtype=torch.int64, device=dev)
+        k, (fan, depth) = SSM_SPEC["k"], (SSM_TREE["tree_fan"], SSM_TREE["k"])
+        lin = torch.stack([g[0], g[1], g[2], wrong(g[3]), wrong(g[4])])[None]
+        chain0 = torch.stack([wrong(g[1]), g[2], g[3]])
+        chain1 = torch.stack([g[1], g[2], wrong(g[3])])
+        tree = torch.cat([g[:1], chain0, chain1])[None]
+        out = {"tol": SSM_COMMIT_TOL, "layers": cfg.n_layers}
+
+        def restore():
+            for n, t in base["layers"].items():
+                t.copy_(kept[n])
+
+        def decoded(toks):
+            c = init_cache(cfg, 1, PROMPT + N_NEW, dev)
+            for n, t in c["layers"].items():
+                t.copy_(kept[n])
+            for j in range(toks.shape[1]):
+                decode_step(params, cfg, toks[:, j:j + 1].to(torch.int32), c, s0 + j)
+            return c["layers"]
+
+        for name, window, tree_arg in (("linear", lin, None), ("tree", tree, (fan, depth))):
+            dists = {}
+            for late in (False, True):
+                restore()
+                lg, vc = verify_step(params, cfg, window.to(torch.int32), base, pos, tree=tree_arg)
+                if tree_arg is None:
+                    _, a = speculative.greedy_accept(window.to(torch.int32), lg)
+                    node, cf = a, torch.zeros_like(a)
+                else:
+                    _, a, cf = speculative.greedy_tree_accept(
+                        window[:, 1:].reshape(1, fan, depth).to(torch.int32), lg)
+                    node = torch.where(a > 0, cf * depth + a, 0)
+                at = int(node) + int(late)
+                check(at < window.shape[1], f"(f) {label} {name}: no step after node {int(node)}")
+                lm.commit_verify(cfg, vc, torch.tensor([at], device=dev))
+                path = (window[:, :int(a) + 1] if tree_arg is None or int(a) == 0 else
+                        torch.cat([window[:, :1],
+                                   window[:, 1 + int(cf) * depth:1 + int(cf) * depth + int(a)]],
+                                  dim=1))
+                dists["late" if late else "sound"] = rel_dist(base["layers"], decoded(path))
+            restore()
+            out[name] = {"accepted": int(a), "kept_chain": int(cf), "committed_node": int(node),
+                         "sound_rel_dist": dists["sound"], "late_rel_dist": dists["late"]}
+            check(dists["sound"] <= SSM_COMMIT_TOL < dists["late"],
+                  f"(f) {label} {name}: the committed state against decoding the accepted "
+                  f"tokens: {out[name]}")
+        print(f"{self.NAME} (f) planted {label}: {json.dumps(out)}", flush=True)
+        return out
+
+    def spec_serves(self, rep, cfg, params, params4):
+        """(f): the continuous engine (SSM_SERVE's 2 slots) on (e)'s first
+        SSM_SERVE_REQUESTS requests under each of SSM_SERVE_SPEC, greedy,
+        the int4 tree as the draft: captured ``torch.equal`` to
+        ``EagerEngine``, the launches counted, each request against its
+        solo run (``self.trace``) at HIT_BAR."""
+        dev, arch, tr = self.dev, cfg.arch_id, self.trace
+        per_step = matvec_calls_per_step(cfg)
+        reqs = tr["reqs"][:SSM_SERVE_REQUESTS]
+        out = {"requests": len(reqs), "bar": HIT_BAR}
+        for name, sp in SSM_SERVE_SPEC.items():
+            spec = SpecConfig(**sp)
+            geo = dict(speculate=spec, device=dev, draft_cfg=cfg, draft_params=params4,
+                       **SSM_SERVE)
+            eng = ContinuousBatchingEngine(cfg, params, **geo)
+            graphs = count_captures(eng)
+            eng.serve(reqs)  # captures its admits and windows
+            got, launches, counted_as = counted_launches(graphs, lambda: eng.serve(reqs))
+            iters, events = eng.decode_chunk_iters, events_of(eng.last_report)
+            eager = EagerEngine(cfg, params, **geo)
+            want = eager.serve(reqs)
+            row = {"window_rows": SSM_SERVE["slots"] * self.window_rows(spec),
+                   "iterations": iters, "emitted": eng.spec_emitted,
+                   "live_windows": eng.spec_live_steps,
+                   "tokens_equal_eager": same_tokens(got, want),
+                   "events_equal_eager": events == events_of(eager.last_report),
+                   "launches": launches, "launches_counted_as": counted_as}
+            check(row["tokens_equal_eager"] and row["events_equal_eager"],
+                  f"(f serves) {arch} {name}: the captured serve differs from the eager one")
+            calls = (spec.k + 1 if spec.mode == "draft" else 0) + (
+                row["window_rows"] <= common.MATVEC_MAX_M)
+            expect = dict.fromkeys(launches, 0)
+            expect["pim_matvec"] = per_step * calls * iters + len(reqs)
+            check(launches == expect, f"(f serves) {arch} {name}: launches {launches}, "
+                  f"expected {expect}")
+            self.launches[f"{self.NAME} {arch} {name} serve"] = launches
+            with torch.inference_mode():
+                row["vs_solo"] = paged_vs_dense(
+                    f"(f serves) {arch} {name}", got, tr["dense"][:len(reqs)],
+                    [r.max_new for r in reqs], tr["gap_at"], HIT_BAR)
+            out[name] = row
+            del eng, eager, graphs
+            gc.collect()
+            torch.cuda.empty_cache()
+        rep["spec_serves"] = out
+
+    # --------------------------------------------------------------- the run --
+    def run(self):
+        dev, cfg = self.dev, get_config(SSM_ARCH)
+        arch, d, d_in = cfg.arch_id, cfg.d_model, cfg.ssm.expand * cfg.d_model
+        gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = {"check": f"{self.NAME}: {arch} at full width and all {cfg.n_layers} layers, "
+                        "int8 weights",
+               "arch": arch, "layers": cfg.n_layers, "d_model": d, "d_inner": d_in,
+               "state_dim": cfg.ssm.state_dim, "conv_dim": cfg.ssm.conv_dim,
+               "dt_rank": cfg.ssm.dt_rank or d // 16, "vocab": cfg.vocab, "section_s": {}}
+
+        t = time.perf_counter()  # (a) the layer and the kernel at the config's shapes
+        rep["ssm_layer"] = self.ssm_layer(cfg, gen)
+        pl = matvec_plan(d, cfg.vocab, BATCH, 8, self.sms)
+        rep["kernel_vs_plain"], _ = family_kernel_cases(
+            cfg, gen, extra=SSM_KERNEL_EXTRA, chunk_fault=pl.chunk_rows < pl.rows_per_cta)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._took(rep, "a", t)
+
+        t = time.perf_counter()
+        params = quantized_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 14), 8)
+        torch.cuda.synchronize()
+        rep.update(weights_s=time.perf_counter() - t, int8_bytes=pim_bytes(params),
+                   peak_bytes_drawing=torch.cuda.max_memory_allocated())
+        print(f"{self.NAME} (weights): {rep['weights_s']:.1f} s, {rep['int8_bytes']} bytes",
+              flush=True)
+        eng = ServingEngine(cfg, params, max_seq=PROMPT + N_NEW, device=dev)
+        prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
+        per_step = matvec_calls_per_step(cfg)
+        check(per_step == len(SSM_LINEARS) * cfg.n_layers + 1,
+              f"{arch}: {per_step} pim_matvec calls a step")
+        graphs = count_captures(eng)
+
+        t = time.perf_counter()  # (b) the fixed engine: counted, captured against eager
+        with torch.inference_mode():
+            eng.generate(prompt, 2)  # warm-up: the greedy step's capture
+            toks, launches, counted_as = counted_launches(graphs,
+                                                          lambda: eng.generate(prompt, N_NEW))
+            rep["captured_vs_eager"] = [captured_vs_eager(
+                eng, prompt, N_NEW, f"{arch} int8 greedy, {BATCH} x {PROMPT}", toks=toks,
+                **GREEDY)[0]]
+            sampled, stoks = captured_vs_eager(eng, prompt, N_NEW, f"{arch} int8 sampled, "
+                                               f"{BATCH} x {PROMPT}", **SAMPLED)
+            rep["captured_vs_eager"].append(sampled)
+        check(not torch.equal(stoks, toks), f"(b) {arch}: sampled tokens equal greedy ones")
+        expect = dict.fromkeys(launches, 0)
+        expect["pim_matvec"] = per_step * (N_NEW - 1)
+        check(launches == expect, f"(b) {arch}: launches {launches}, expected {expect}")
+        check(all(g.launches["pim_matvec"] == per_step for g in graphs),
+              f"(b) {arch}: captured steps launch {[g.launches for g in graphs]}, expected "
+              f"{per_step} pim_matvec each")
+        self.launches[f"{self.NAME} {arch} generate"] = launches
+        rep["launches"] = {"launches": launches, "per_step": per_step, "counted_as": counted_as}
+        with torch.inference_mode():
+            med, rounds = step_ms({"captured_ms": (eng, GREEDY),
+                                   "captured_sampled_ms": (eng, SAMPLED)},
+                                  prompt, SSM_TIME_STEPS + 1, 1)
+            kernels_ms = _time_ms([functools.partial(
+                pim_matvec, torch.randn((BATCH, w["codes"].shape[0]), generator=gen,
+                                        device=dev).to(torch.bfloat16), w["codes"], w["scale"],
+                bits=8) for w in (weight_at(params, path) for path in step_calls(cfg))], 3)
+        stream = cross_stream_bytes(eng)
+        rep["step"] = {**med, "stream_bytes": stream, "floor_ms": stream / HBM_BYTES_PER_S * 1e3,
+                       "pim_matvec_ms_a_step": kernels_ms * per_step, "rounds": rounds,
+                       "timing": f"device ms a captured step at {BATCH} x {PROMPT}, CUDA events "
+                                 f"over {SSM_TIME_STEPS} replays; pim_matvec: the step's "
+                                 f"{per_step} calls on its own codes back to back in a CUDA "
+                                 "graph; floor: every code and scale at 3.35 TB/s"}
+        rep["step"].update(self.floors_reckoned(cfg, rep["step"], BATCH))
+        rep["step"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rep["plans"] = self.plans(eng, prompt, toks)
+        print(f"{self.NAME} (b): " + json.dumps({"launches": launches, "step": rep["step"],
+                                                 "plans": rep["plans"]}), flush=True)
+        self._took(rep, "b", t)
+
+        t = time.perf_counter()  # (e) the continuous engine
+        self.serve(rep, cfg, params, eng, gen)
+        gc.collect()  # the counted captures hold each engine in a cycle
+        torch.cuda.empty_cache()
+        self._took(rep, "e", t)
+
+        t = time.perf_counter()  # (f) speculation
+        params4 = quantized_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 14), 4)
+        plain = self.windows(rep, cfg, params, params4, prompt)
+        rep["planted"] = {"bf16": self.planted(cfg, params, prompt, plain,
+                                               f"bf16, {cfg.n_layers} layers")}
+        self._took(rep, "f windows", t)
+        t = time.perf_counter()
+        self.spec_serves(rep, cfg, params, params4)
+        del params4
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._took(rep, "f serves", t)
+
+        t = time.perf_counter()  # (d) the bf16 kernel path against the overlay path
+        ftoks = toks[:, :SSM_CHECK_NEW]
+        diff, _, lo = against_overlay(eng, prompt, ftoks, SSM_CHECK_NEW, f"{arch} int8",
+                                      tol=SSM_OVERLAY_TOL, capture=False)
+        pl = matvec_plan(d_in, d, BATCH, 8, self.sms)
+        rows = (d_in - (pl.cluster - 1) * pl.rows_per_cta if pl.cluster > 1
+                else d_in - (d_in - 1) // pl.chunk_rows * pl.chunk_rows)  # out_proj's last K split
+        out0 = step_calls(cfg).index(("layers", 0, *SSM_LINEARS[3]))
+        with decode_linears_through(dropped_call(per_step, out0, rows)):
+            fault = (forced_logits(eng, prompt, ftoks, SSM_CHECK_NEW) - lo).abs().max().item()
+        check(fault > SSM_OVERLAY_TOL, f"(d) {arch}: layer 0's out_proj, its last {rows} K "
+              f"rows dropped, moved the logits by {fault:.4g}, within the bar {SSM_OVERLAY_TOL}")
+        rep["witness"] = self.witness(cfg, params, eng, prompt, ftoks, lo)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._took(rep, "d", t)
+
+        t = time.perf_counter()  # (c) the f32 path, SSM_F32_LAYERS deep, against plain
+        cfg32 = cfg.replace(n_layers=SSM_F32_LAYERS, param_dtype="float32")
+        params32 = quantized_params(cfg32, gen, 8)
+        eng32 = ServingEngine(cfg32, params32, max_seq=PROMPT + N_NEW, device=dev)
+        rep["f32_path"] = plain_path_check(eng32, eng, prompt, ftoks, lo,
+                                           f"{arch} int8 f32 kernel path vs plain path, "
+                                           f"{SSM_F32_LAYERS} layers", rows)
+        with torch.inference_mode():
+            plain32 = eng32.generate(prompt[:1], SSM_SPEC["k"] + 1)
+        rep["planted"]["f32"] = self.planted(cfg32, params32, prompt, plain32,
+                                             f"f32, {SSM_F32_LAYERS} layers")
+        del eng32, params32, lo
+        rep["overlay"] = {"max_abs_logit_diff": diff, "bar": SSM_OVERLAY_TOL,
+                          "planted_fault": f"layer 0's out_proj: its last {rows} K rows dropped",
+                          "planted_fault_max_abs_logit_diff": fault,
+                          "middle_out_proj_fault_max_abs_logit_diff":
+                              rep["f32_path"]["planted_fault_bf16_diff_vs_overlay"],
+                          "logit_tol": LOGIT_TOL}
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._took(rep, "c", t)
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+        self.trace = None  # its solo-gap closure holds the int8 tree
+        del eng, graphs, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep["phase_s"] = time.perf_counter() - t0
+        print(json.dumps(rep), flush=True)
+        return self.launches
 
 
 def overlay_depths() -> int:

@@ -34,6 +34,17 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 16
+    conv_dim: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> d_model // 16 (mamba1 only)
+    head_dim: int = 64  # mamba2 only
+    chunk: int = 256
+    version: int = 1  # 1 = Mamba1 selective scan, 2 = Mamba2 SSD
+
+
+@dataclass(frozen=True)
 class VisionConfig:
     """Modality frontend STUB: input_specs provides precomputed embeddings."""
 
@@ -51,7 +62,7 @@ class AudioConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str  # the port runs "dense", "moe" (GQA or MLA attention), "vlm" and "encdec"
+    family: str  # the port runs "dense", "moe" (GQA or MLA attention), "ssm", "vlm", "encdec"
     n_layers: int
     d_model: int
     n_heads: int
@@ -65,6 +76,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
     vision: Optional[VisionConfig] = None
     audio: Optional[AudioConfig] = None
     dec_layers: int = 0  # encdec only

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense, moe, vlm and encdec families, as plain
+"""Model zoo of the port: the dense, moe, ssm, vlm and encdec families, as plain
 functions on tensors."""
 from .lm import (commit_verify, decode_step, encode, init_cache, init_paged_cache, init_params,
                  paged_insert, prefill, prefill_hidden, stack_verify_caches, tree_relocate,

@@ -1,5 +1,6 @@
-"""The dense decoder block, the MoE block and the gated cross-attention block
-(twins of the dense, MoE and cross parts of ``repro.models.blocks``).
+"""The dense decoder block, the MoE block, the SSM block and the gated
+cross-attention block (twins of the dense, MoE, SSM and cross parts of
+``repro.models.blocks``).
 
 A MoE block is a dense block whose MLP is ``moe_apply``'s experts: it has
 a ``moe`` leaf where a dense block has ``mlp``, and the dense block's
@@ -12,13 +13,21 @@ decides), so an MLA config's leading dense blocks stay GQA, as in the JAX
 package.  So the JAX
 package's ``moe_block_prefill``, ``moe_block_decode``,
 ``moe_block_decode_paged`` and ``moe_block_verify`` are the dense
-block's."""
+block's.
+
+An SSM block is a Mamba1 layer (``models.mamba``) behind a norm, with a
+per-row state of its own (``ssm_cache_init``): a stack of them is a "state"
+stack (``models.lm.stack_layout``), with no sequence axis and no pages.
+Its prefill writes the state in place (with ``slot``, into one row of the
+continuous engine's per-slot state), its decode advances it in place, and
+its verify window returns every step's state for the commit."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 
+from . import mamba as mb
 from .attention import (attn_apply, attn_decode, attn_decode_paged, attn_init, attn_prefill,
                         attn_verify)
 from .common import mlp_apply, mlp_init, rmsnorm
@@ -155,6 +164,67 @@ def moe_block_apply(p, x, cfg: ModelConfig):
              else attn_apply(p["attn"], xn, **attn_kw(cfg)))
     y, aux = moe_apply(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.moe)
     return x + y, aux
+
+
+# -------------------------------------------------------------- SSM block ---
+def _mamba(cfg: ModelConfig):
+    """The SSM layer's version: the port runs Mamba1; Mamba2 comes with the
+    hybrid family."""
+    if cfg.ssm.version != 1:
+        raise NotImplementedError(f"Mamba{cfg.ssm.version} is not ported yet; the port "
+                                  "runs Mamba1 (ROADMAP.md lists the hybrid family)")
+    return cfg.ssm
+
+
+def ssm_block_init(gen, cfg: ModelConfig, dtype, device, lead=()) -> dict:
+    """An SSM block's parameters; ``lead`` prepends stack dims."""
+    return {"ln": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device),
+            "ssm": mb.mamba1_init(gen, cfg.d_model, _mamba(cfg), dtype, device, lead=lead)}
+
+
+def ssm_cache_init(cfg: ModelConfig, batch: int, device, lead=()) -> dict:
+    """An SSM block's zero state of ``batch`` rows (or slots)."""
+    return mb.mamba1_cache_init(batch, cfg.ssm.expand * cfg.d_model, _mamba(cfg), device,
+                                lead=lead)
+
+
+def ssm_block_apply(p, x, cfg: ModelConfig):
+    """The block over a whole sequence from a zero state, with no cache."""
+    return x + mb.mamba1_apply(p["ssm"], rmsnorm(x, p["ln"], cfg.norm_eps), _mamba(cfg))
+
+
+def ssm_block_prefill(p, x, cache, cfg: ModelConfig, length=None, slot=None):
+    """The prompt x (B, S, D) from the state ``cache``, whose rows the final
+    state overwrites in place; ``length`` masks right padding
+    (``mamba.mamba1_prefill``).  With ``slot`` (a 0-d integer tensor or an
+    int), ``cache`` is the continuous engine's per-slot state: the batch-1
+    prompt runs from a zero state, which lands in row ``slot`` (a device
+    index, ``index_copy_``), and no other row changes."""
+    xin = rmsnorm(x, p["ln"], cfg.norm_eps)
+    start = cache if slot is None else {k: torch.zeros_like(v[:1]) for k, v in cache.items()}
+    y, new = mb.mamba1_prefill(p["ssm"], xin, start, _mamba(cfg), length=length)
+    for k, leaf in cache.items():
+        if slot is None:
+            leaf.copy_(new[k])
+        else:
+            at = torch.as_tensor(slot, device=leaf.device).to(torch.int64).reshape(1)
+            leaf.index_copy_(0, at, new[k].to(leaf.dtype))
+    return x + y, cache
+
+
+def ssm_block_decode(p, x, cache, cfg: ModelConfig):
+    """One token x (B, 1, D), the state advanced in place."""
+    y, cache = mb.mamba1_decode(p["ssm"], rmsnorm(x, p["ln"], cfg.norm_eps), cache,
+                                _mamba(cfg))
+    return x + y, cache
+
+
+def ssm_block_verify(p, x, cache, cfg: ModelConfig):
+    """A window x (B, T, D) from the state ``cache``, left as it is: returns
+    (x', every step's state, leaves (B, T, ...), step j after token j)."""
+    y, steps = mb.mamba1_verify(p["ssm"], rmsnorm(x, p["ln"], cfg.norm_eps), cache,
+                                _mamba(cfg))
+    return x + y, steps
 
 
 # ------------------------------------------------------------ cross block ---

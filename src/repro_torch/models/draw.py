@@ -9,7 +9,8 @@ as it is drawn, so the bf16 tree never exists whole (llama-3.2-vision-90b's
 as N(0, 0.02) from ``gen`` (on the device the tree is made on), in the
 order of ``init_params``' tree, norms one, biases and gates zero, and an
 untied head as ``init_params`` lays it out, the transpose of a (vocab, d)
-draw; the two give equal values from equal generators:
+draw; an SSM block's dynamics as ``init_params`` sets them (``A_log`` =
+log(1..N), ``D`` = 1, ``dt_bias`` = -4.6, its conv drawn at scale 0.5); the two give equal values from equal generators:
 ``quantized_params(cfg, gen, bits)`` is ``quantize_tree(layerwise_params(
 cfg, gen), bits)`` bit for bit.
 """
@@ -23,12 +24,13 @@ from repro_torch.quant import quantize_slices, should_quantize
 
 from .lm import init_params
 
-_ONES = ("ln1", "ln2", "ln3", "ln_f")
-_ZEROS = ("bq", "bk", "bv", "gate_attn", "gate_mlp")
+_ONES = ("ln", "ln1", "ln2", "ln3", "ln_f", "D")
+_ZEROS = ("bq", "bk", "bv", "gate_attn", "gate_mlp", "conv_b")
+_SCALES = {"conv_w": 0.5}  # every other weight: 0.02
 
 
-def _draw(gen, shape, dtype):
-    return torch.randn(shape, generator=gen, device=gen.device).mul_(0.02).to(dtype)
+def _draw(gen, shape, dtype, scale=0.02):
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(dtype)
 
 
 def _walk(cfg: ModelConfig, gen, weight):
@@ -44,11 +46,18 @@ def _walk(cfg: ModelConfig, gen, weight):
             return torch.ones(meta.shape, dtype=meta.dtype, device=dev)
         if name in _ZEROS:
             return torch.zeros(meta.shape, dtype=meta.dtype, device=dev)
+        if name == "dt_bias":
+            return torch.full(meta.shape, -4.6, dtype=meta.dtype, device=dev)
+        if name == "A_log":
+            n = meta.shape[-1]
+            a_log = torch.log(torch.arange(1, n + 1, dtype=meta.dtype, device=dev))
+            return a_log.expand(meta.shape).contiguous()
         if name == "embed":
             return _draw(gen, meta.shape, meta.dtype)
         if name == "head":
             return weight(name, meta, lambda idx: _draw(gen, meta.shape[::-1], meta.dtype).T)
-        return weight(name, meta, lambda idx: _draw(gen, meta.shape[-2:], meta.dtype))
+        scale = _SCALES.get(name, 0.02)
+        return weight(name, meta, lambda idx: _draw(gen, meta.shape[-2:], meta.dtype, scale))
 
     def walk(tree):
         return {k: walk(v) if isinstance(v, dict) else fill(k, v) for k, v in tree.items()}

@@ -3,9 +3,9 @@ continuous-batching engine over a paged KV cache.
 
 Twin of ``repro.serving.engine``'s ``quantize_tree``, ``sample_logits``,
 ``ServingEngine``, ``Request`` and ``ContinuousBatchingEngine`` (the dense,
-moe, vlm and encdec families, the last two with per-request extras; n-gram,
-tree and draft-model speculation for all but moe; the prefix cache for all
-but moe, as in the JAX package; the resilience tier; no mesh).  ``quantize_tree``
+moe, ssm, vlm and encdec families, the last two with per-request extras;
+n-gram, tree and draft-model speculation for all; the prefix cache for all
+but moe and ssm, as in the JAX package; the resilience tier; no mesh).  ``quantize_tree``
 turns every large matmul weight into ``{"codes": int8, "scale": f32}``
 (int4: nibble-packed codes plus a marker leaf); at decode time each of
 those weights is streamed once per step by the ``pim_matvec`` kernel.
@@ -61,7 +61,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models import (common, decode_step, init_cache, init_paged_cache, prefill,
                                  prefill_hidden, verify_hidden)
-from repro_torch.models.lm import cache_stacks
+from repro_torch.models.lm import seq_stacks, state_stacks
 from repro_torch.models.attention import CHUNKED_THRESHOLD, tree_tensors
 from repro_torch.models.common import dtype_of, resolve_device, unembed
 from repro_torch.quant import quantize_slices, should_quantize
@@ -706,8 +706,9 @@ def tail_verify(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, pos
 
 def _copy_page(cache: dict, src: int, dst: int, keys) -> None:
     """Copy-on-write fork on the device: pool page ``src`` into ``dst``
-    across every paged leaf (``keys`` from ``cache_stacks``; K/V or latent,
-    the page axis right after the lead dims), in place."""
+    across every paged leaf (``keys`` from ``seq_stacks``; K/V or latent,
+    the page axis right after the lead dims; per-slot state has no pages),
+    in place."""
     for name, lead in keys:
         at = (slice(None),) * len(lead)
         for leaf in cache[name].values():
@@ -765,7 +766,10 @@ class ChunkState:
     leaf (B, ...), a request's row written at its admit).  With a draft
     model (``draft_cfg``), its pool ``dcache``: the target pool's geometry,
     storage of its own, and the target's block tables as the same tensor,
-    so that one upload serves both pools."""
+    so that one upload serves both pools.  The per-slot state of a state
+    stack (the ssm family's, in either pool) is what a chunk step's warm-up
+    would advance for every slot: ``stash_states`` keeps a copy that
+    ``restore_states`` writes back."""
 
     def __init__(self, cfg: ModelConfig, slots: int, store_seq: int, num_pages: int,
                  page_size: int, chunk: int, device, draft_cfg: Optional[ModelConfig] = None):
@@ -773,6 +777,7 @@ class ChunkState:
             return torch.zeros(shape, dtype=dtype, device=device)
 
         self.cache = init_paged_cache(cfg, slots, store_seq, num_pages, page_size, device)
+        self._cfg = cfg
         self.page_size = page_size
         self.extras = ExtrasBuffers(device, lead=(slots,))
         self.draft_cfg = draft_cfg
@@ -800,6 +805,24 @@ class ChunkState:
         self._admits: dict[int, AdmitState] = {}
         self._windows: dict[int, WindowState] = {}
         self._spec: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._stash: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+    def _state_leaves(self):
+        for cfg, cache in ((self._cfg, self.cache), (self.draft_cfg, self.dcache)):
+            if cache is not None:
+                for key, _ in state_stacks(cfg):
+                    yield from cache[key].values()
+
+    def stash_states(self) -> None:
+        """Keep a copy of every per-slot state leaf (both pools'), for
+        ``restore_states``."""
+        self._stash = [(leaf, leaf.clone()) for leaf in self._state_leaves()]
+
+    def restore_states(self) -> None:
+        """Write the stashed state back, if any, and drop the copy."""
+        for leaf, kept in self._stash:
+            leaf.copy_(kept)
+        self._stash = []
 
     def stops(self, n: int) -> torch.Tensor:
         if n not in self._stops:
@@ -839,6 +862,7 @@ class ChunkState:
         for t in self._stops.values():
             t.fill_(-1)
         self.extras.zero_()
+        self._stash = []
 
 
 def decode_chunk_step(params, cfg: ModelConfig, st: ChunkState, stops: torch.Tensor, *,
@@ -873,18 +897,20 @@ def decode_chunk_step(params, cfg: ModelConfig, st: ChunkState, stops: torch.Ten
 def admit_miss(params, cfg: ModelConfig, st: ChunkState, a: AdmitState, *, greedy: bool,
                top_k: int, draft_params=None, extras: Optional[dict] = None) -> None:
     """An uncached admit on static buffers: ``admit_prefill`` of ``a``'s
-    prompt into ``a``'s pages of ``st``'s pool, with row ``a.slot`` of the
-    per-slot ``extras`` (buffers of ``st``), draw 0 with ``st``'s base key
-    and temperature, the token written to ``a.tok``.  With a draft model
-    (``draft_params``) the prompt is prefilled into the same page ids of the
-    draft pool too, with the same row of extras; the token always comes
-    from the target."""
+    prompt into ``a``'s pages of ``st``'s pool and into row ``a.slot`` of
+    its per-slot state (the prompt's true length ``a.length`` masking the
+    pads out of it), with row ``a.slot`` of the per-slot ``extras``
+    (buffers of ``st``), draw 0 with ``st``'s base key and temperature, the
+    token written to ``a.tok``.  With a draft model (``draft_params``) the
+    prompt is prefilled into the same page ids and slot row of the draft
+    pool too, with the same row of extras; the token always comes from the
+    target."""
     ex = _tree_map(lambda t: t.index_select(0, a.slot.reshape(1)), extras)
-    a.tok.copy_(admit_prefill(params, cfg, st.cache, a.prompt, a.length, None, a.pages, a.rid,
-                              st.base, st.temperature, ex, greedy=greedy, top_k=top_k))
+    a.tok.copy_(admit_prefill(params, cfg, st.cache, a.prompt, a.length, a.slot, a.pages,
+                              a.rid, st.base, st.temperature, ex, greedy=greedy, top_k=top_k))
     if draft_params is not None:
         prefill(draft_params, st.draft_cfg, a.prompt, st.dcache, ex, length=a.length,
-                pages=a.pages)
+                pages=a.pages, slot=a.slot)
 
 
 def admit_cached(params, cfg: ModelConfig, st: ChunkState, w: WindowState, *, greedy: bool,
@@ -899,7 +925,8 @@ def admit_cached(params, cfg: ModelConfig, st: ChunkState, w: WindowState, *, gr
 
 # Families whose admit prefill and tail window compute the same function of
 # the prompt, so a prefix-cache hit is the answer a miss would give (the JAX
-# package's ``_PREFIX_FAMILIES``).
+# package's ``_PREFIX_FAMILIES``; the ssm family's per-slot state is not in
+# the shared pages).
 _PREFIX_FAMILIES = ("dense", "vlm", "encdec")
 # The most admit graphs (uncached admits per padded prompt length, cached
 # admits per tail window width) an engine keeps on the card; the least
@@ -910,9 +937,11 @@ MAX_ADMIT_GRAPHS = 64
 
 class ContinuousBatchingEngine:
     """Continuous-batching scheduler over a paged KV cache (twin of the JAX
-    package's, for the dense, moe, vlm and encdec families, with n-gram,
-    tree and draft-model speculation, the prefix cache (never hit on moe,
-    MLA included) and the resilience tier, without a mesh).  A request's ``extras`` are written
+    package's, for the dense, moe, ssm, vlm and encdec families, with
+    n-gram, tree and draft-model speculation, the prefix cache (never hit
+    on moe, MLA included, or ssm) and the resilience tier, without a
+    mesh).  The ssm family's per-slot state lives beside the pool, one row
+    a slot, which each admit rewrites from zero.  A request's ``extras`` are written
     into its slot's row of the per-slot buffers at its admit
     (``_set_slot_extras``), which the chunk steps and admits read.
 
@@ -1085,10 +1114,11 @@ class ContinuousBatchingEngine:
     def _round_reset(self) -> None:
         """Where a chunk step's warm-up may run in the middle of a serve: every
         block-table row (both pools') zeroed, so its cache writes land in the
-        trash page; the round's ``_load`` then overwrites every buffer it
-        wrote."""
+        trash page, and the per-slot state stashed; the round's ``_load``
+        then overwrites every buffer it wrote and restores the state."""
         self._state.it.zero_()
         self._state.cache["block_tables"].zero_()
+        self._state.stash_states()
 
     def chunk_step(self, n_stops: int, *, greedy: bool, top_k: int):
         """The chunk step: ``decode_chunk_step`` on the current parameters,
@@ -1255,14 +1285,16 @@ class ContinuousBatchingEngine:
     def _admit_uncached(self, slot: int, seq: np.ndarray, spad: int, pages: list[int], rid: int,
                         greedy: bool, top_k: int) -> int:
         """The miss: ``admit_step``'s replay (or run) on the prompt padded to
-        ``spad``, its pages and the slot's extras; returns draw 0."""
-        step = self.admit_step(spad, greedy=greedy, top_k=top_k)
+        ``spad``, its pages and the slot's extras; returns draw 0.  The slot
+        is set first: a warm-up before a capture prefills into that slot's
+        row of the per-slot state, which the admit then writes again."""
         a = self._state.admit(spad)
+        a.slot.fill_(slot)
+        step = self.admit_step(spad, greedy=greedy, top_k=top_k)
         prompt = np.zeros((1, spad), np.int32)
         prompt[0, :len(seq)] = seq
         a.prompt.copy_(torch.from_numpy(prompt))
         a.ints.copy_(torch.from_numpy(np.array([*pages, len(seq), rid], np.int64)))
-        a.slot.fill_(slot)
         step()
         return int(a.tok)
 
@@ -1330,7 +1362,7 @@ class ContinuousBatchingEngine:
             for p in matched:
                 self._pool.acquire(p)
             fork = self._pool.alloc(1)[0]
-            _copy_page(self._state.cache, matched[-1], fork, cache_stacks(self.cfg))
+            _copy_page(self._state.cache, matched[-1], fork, seq_stacks(self.cfg))
             self._pool.release(matched[-1])
             pages = matched[:-1] + [fork]
             tail_start = n - 1
@@ -1469,8 +1501,10 @@ class ContinuousBatchingEngine:
 
     def _load(self) -> None:
         """Round start: the host's block tables and per-slot arrays into the
-        static buffers, and the iteration back to row 0."""
+        static buffers, the iteration back to row 0, and the per-slot state
+        as it was before a warm-up (``_round_reset``)."""
         st = self._state
+        st.restore_states()
         for buf, host in ((st.cache["block_tables"], self._bt), (st.tok, self._tok),
                           (st.pos, self._pos), (st.n_out, self._n_out),
                           (st.max_new, self._max_new), (st.done, self._done),

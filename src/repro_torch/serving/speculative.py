@@ -38,8 +38,15 @@ as plain decode chunks, probing host-side (``propose_first_host``).
 Every ported family speculates: a vlm or encdec window, the draft model's
 steps included, reads the rows' (or slots') ``extras``, the static buffers
 their engine holds; a moe window routes each row's tokens as one dispatch
-group.  The caches are built, zeroed and relocated over every stack of
-``models.lm.cache_stacks``, K/V or MLA latents (``models.lm.stack_layout``).
+group; an ssm window runs each row's recurrence step by step from its state
+and returns every step's state (a tree window runs each chain from a copy
+of the row's state), and the commit writes the kept step into the live
+state in place.  The caches are built, zeroed and relocated over every
+stack of ``models.lm.cache_stacks``, K/V, MLA latents or per-row state
+(``models.lm.stack_layout``; a state stack has no columns to widen or
+relocate).  Every commit takes the cache the window returned
+(``verify_step``'s, or a draft chain's ``stack_verify_caches``), which
+holds the per-step states.
 
 Everything here runs on tensors of static shape: a window never reads a
 value of the device on the host, so on the card each window, the draft
@@ -61,7 +68,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (commit_verify, init_cache, prefill, stack_verify_caches,
                                  tree_relocate, verify_step)
 from repro_torch.models.attention import tree_tensors
-from repro_torch.models.lm import cache_stacks, check_family, seq_axis
+from repro_torch.models.lm import cache_stacks, check_family, seq_axis, stack_layout
 
 from .sampling import (TAG_TOKEN, TAG_WINDOW, categorical, fold_in, prng_key, rejection_sample,
                        row_keys, sample_rows, split, tree_reject_sample, typical_accept_sample,
@@ -393,7 +400,8 @@ class SpecState:
     inside the store.  Tree windows of ``fan`` > 1 chains of depth ``k``
     run on a dense cache of their own (``tree_cache(fan, k)``): ``max_seq +
     fan*k`` positions, so that the relocation's gathers from the tree
-    columns past the last token stay inside the store."""
+    columns past the last token stay inside the store; its state stacks
+    are the batch's own."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_seq: int, cache: dict, device,
                  draft_cfg: Optional[ModelConfig] = None):
@@ -430,7 +438,8 @@ class SpecState:
         ``k`` (made at first use and kept: a captured window reads it).  A
         one-chain tree is the linear window, whose relocation is the
         identity and gathers nothing past the window: it runs on the
-        batch's own cache, so it is linear speculation bit for bit."""
+        batch's own cache, so it is linear speculation bit for bit.  A state
+        stack has no sequence axis: the tree cache shares the batch's."""
         if fan == 1:
             return self.cache
         if (fan, k) not in self._tcaches:
@@ -438,6 +447,9 @@ class SpecState:
             # dims) widened
             self._tcaches[fan, k] = {}
             for key, lead in cache_stacks(self.cfg):
+                if stack_layout(self.cfg, key) == "state":
+                    self._tcaches[fan, k][key] = self.cache[key]
+                    continue
                 ax = len(lead) + seq_axis(self.cfg, key)
                 self._tcaches[fan, k][key] = {
                     name: torch.zeros(leaf.shape[:ax] + (self.max_seq + fan * k,)
@@ -521,14 +533,13 @@ def spec_window(params, cfg: ModelConfig, st: SpecState, *, spec: SpecConfig, gr
     wkeys = None if greedy else fold_in(st.wkeys, st.wctr)
     if spec.tree_fan:
         fan = spec.tree_fan
-        cache = st.tree_cache(fan, k)
         chains = propose_ngram_tree(st.hist[:, :ms], st.s + st.n_em, fan, k, spec.ngram_n)
-        g, a, cf = _tree_verify(params, cfg, cache, st.tok, chains, pos, greedy=greedy,
-                                temperature=st.temperature, top_k=top_k, wkeys=wkeys,
-                                extras=extras)
+        g, a, cf, vc = _tree_verify(params, cfg, st.tree_cache(fan, k), st.tok, chains, pos,
+                                    greedy=greedy, temperature=st.temperature, top_k=top_k,
+                                    wkeys=wkeys, extras=extras)
         m = torch.where(live, torch.minimum(a + 1, st.n_new - st.n_em), 0)
         _emit_window(st, g, m, live)
-        _tree_commit(cfg, cache, pos, m, cf, fan, k)
+        _tree_commit(cfg, vc, pos, m, cf, fan, k)
         return
     if spec.mode == "draft":
         drafts, q, dstack = draft_propose(
@@ -581,21 +592,22 @@ def _tree_verify(params, cfg: ModelConfig, cache: dict, tok: torch.Tensor, chain
     """A tree window: the current token and the chains (B, F, D) in node
     order, verified at ``pos`` (B,) against ``cache`` (dense or paged) with
     the rows' ``extras``, then accepted greedily or by
-    ``tree_reject_sample``.  Returns (g (B, D+1), a, cf)."""
+    ``tree_reject_sample``.  Returns (g (B, D+1), a, cf, the verify cache
+    for ``_tree_commit``)."""
     b, fan, depth = chains.shape
     window = torch.cat([tok, chains.reshape(b, fan * depth)], dim=1)
-    lg, _ = verify_step(params, cfg, window, cache, pos, extras, tree=(fan, depth))
+    lg, vc = verify_step(params, cfg, window, cache, pos, extras, tree=(fan, depth))
     if greedy:
-        return greedy_tree_accept(chains, lg)
-    return tree_reject_sample(wkeys, chains, torch.softmax(warp_logits(lg, temperature, top_k),
-                                                           dim=-1))
+        return (*greedy_tree_accept(chains, lg), vc)
+    return (*tree_reject_sample(wkeys, chains,
+                                torch.softmax(warp_logits(lg, temperature, top_k), dim=-1)), vc)
 
 
 def _tree_commit(cfg: ModelConfig, cache: dict, pos: torch.Tensor, m: torch.Tensor,
                  cf: torch.Tensor, fan: int, depth: int) -> None:
-    """A tree window's cache commit: the ``m - 1`` kept proposals of chain
-    ``cf`` relocated to the linear columns, then ``commit_verify`` at the
-    deepest kept node."""
+    """A tree window's commit of its verify cache ``cache``: the ``m - 1``
+    kept proposals of chain ``cf`` relocated to the linear columns, then
+    ``commit_verify`` at the deepest kept node (node order)."""
     acc = torch.clamp_min(m - 1, 0)
     tree_relocate(cfg, cache, pos, acc, cf, fan=fan, depth=depth)
     commit_verify(cfg, cache, torch.where(acc > 0, cf * depth + acc, 0))
@@ -629,9 +641,9 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
     fan = spec.tree_fan
     if fan:
         chains = propose_ngram_tree(st.hist[:, :w], st.pos + 1, fan, k, spec.ngram_n)
-        g, a, cf = _tree_verify(params, cfg, st.cache, st.tok, chains, st.pos, greedy=greedy,
-                                temperature=st.temperature, top_k=top_k, wkeys=wkeys,
-                                extras=extras)
+        g, a, cf, vc = _tree_verify(params, cfg, st.cache, st.tok, chains, st.pos,
+                                    greedy=greedy, temperature=st.temperature, top_k=top_k,
+                                    wkeys=wkeys, extras=extras)
     else:
         if spec.mode == "draft":
             drafts, q, dstack = draft_propose(
@@ -640,7 +652,7 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
         else:
             drafts, q = propose_ngram(st.hist[:, :w], st.pos + 1, k, spec.ngram_n), None
         window = torch.cat([st.tok, drafts], dim=1)
-        lg, _ = verify_step(params, cfg, window, st.cache, st.pos, extras)
+        lg, vc = verify_step(params, cfg, window, st.cache, st.pos, extras)
         g, a = _accept(window, drafts, lg, greedy=greedy, temperature=st.temperature,
                        top_k=top_k, wkeys=wkeys, q=q, **_verify_kw(spec))
     if spec.adaptive:
@@ -660,10 +672,10 @@ def spec_chunk_step(params, cfg: ModelConfig, st, stops: torch.Tensor, emits: to
     st.hist[rows, torch.where(emit_mask, st.pos[:, None] + 1 + j, w)] = g
     st.tok.copy_(_last_emitted(g, m, st.tok))
     if fan:
-        _tree_commit(cfg, st.cache, st.pos, m, cf, fan, k)
+        _tree_commit(cfg, vc, st.pos, m, cf, fan, k)
     else:
         sel = torch.clamp_min(m - 1, 0)
-        commit_verify(cfg, st.cache, sel)
+        commit_verify(cfg, vc, sel)
         if spec.mode == "draft":
             commit_verify(st.draft_cfg, dstack, sel)
     st.pos += m

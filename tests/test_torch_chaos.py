@@ -23,6 +23,8 @@ from repro.serving import resilience as jax_res  # noqa: E402
 from repro_torch.runtime import fault  # noqa: E402
 from repro_torch.serving import chaos, resilience  # noqa: E402
 
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
+
 CONFIGS = {
     "rates": dict(seed=3, fault_rate=0.3, crash_rate=0.1, straggle_rate=0.4, straggle_s=0.2,
                   squeeze_rate=0.5, squeeze_frac=0.3, corrupt_rate=0.25),

@@ -36,6 +36,7 @@ from repro_torch.serving import ContinuousBatchingEngine, ServingEngine, quantiz
 
 from torch_helpers import (  # noqa: E402,F401
     CPU, ENCDEC, GATE, VLM, cross_extras, cross_model, one_thread, prompt)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -66,14 +67,15 @@ def _t(ex):
 def test_registry_configs_equal_the_reference(arch):
     """Every field of the two new configs, full and reduced, nested vision
     and audio configs included, equals the reference's; the registry holds
-    its eight ids (moonshot-v1-16b-a3b since the moe slice,
-    deepseek-v2-lite-16b since MLA's) in the reference's order."""
+    its nine ids (moonshot-v1-16b-a3b since the moe slice,
+    deepseek-v2-lite-16b since MLA's, falcon-mamba-7b since the ssm
+    slice's) in the reference's order."""
     for mine, want in ((get_config(arch), jax_get_config(arch)),
                        (get_reduced(arch), jax_get_reduced(arch))):
         got = _fields(mine)
         ref = {k: v for k, v in _fields(want).items() if k in got}
         assert got == ref, arch
-    assert ARCH_IDS == [a for a in JAX_ARCH_IDS if a in ARCH_IDS] and len(ARCH_IDS) == 8
+    assert ARCH_IDS == [a for a in JAX_ARCH_IDS if a in ARCH_IDS] and len(ARCH_IDS) == 9
     assert get_config(VLM).vision.cross_attn_every == 5 and get_config(ENCDEC).dec_layers == 12
 
 

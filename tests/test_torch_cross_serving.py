@@ -32,6 +32,7 @@ from repro_torch.serving import (  # noqa: E402
 from torch_helpers import (  # noqa: E402,F401
     CPU, ENCDEC, VLM, assert_greedy_match, assert_serve_match, cross_extras, cross_model,
     one_thread, prompt, serve_deciding, serve_events)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

@@ -41,6 +41,7 @@ from repro_torch.serving import (  # noqa: E402
 from torch_helpers import (  # noqa: E402,F401
     ENCDEC, VLM, assert_greedy_match, cross_extras, cross_model, one_thread, prompt,
     reduced_pair, serve_deciding)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

@@ -34,6 +34,7 @@ from repro_torch.serving import (  # noqa: E402
 
 from torch_helpers import (  # noqa: E402,F401
     CPU, assert_greedy_match, one_thread, prompt, reduced_model, serve_deciding)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -111,14 +112,15 @@ def test_draft_propose_matches_jax(k, greedy, paged):
 
 def test_stack_verify_caches_is_the_chains_last_cache():
     """Dense: the last cache of the chain (JAX's takes its leaves too);
-    the families with per-step state are not ported."""
+    the hybrid family is not ported (the ssm family's chain is held in
+    tests/test_torch_ssm.py)."""
     jcfg, _, tcfg, _ = reduced_model()
     chain = [lm.init_cache(tcfg, 1, 4, CPU) for _ in range(3)]
     assert lm.stack_verify_caches(tcfg, chain) is chain[-1]
     jchain = [jax_lm.init_cache(jcfg, 1, 4) for _ in range(3)]
     assert jax_lm.stack_verify_caches(jcfg, jchain)["layers"] is jchain[-1]["layers"]
     with pytest.raises(NotImplementedError):
-        lm.stack_verify_caches(tcfg.replace(family="ssm"), chain)
+        lm.stack_verify_caches(tcfg.replace(family="hybrid"), chain)
 
 
 def _engines(bits):

@@ -27,6 +27,7 @@ from repro_torch.serving.sampling import (  # noqa: E402
     TAG_TOKEN, draw_keys, gumbel, prng_key, warp_logits)
 
 from torch_helpers import CPU, assert_greedy_match, prompt, reduced_model  # noqa: E402
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 LOGIT_TOL = 1e-4
 

@@ -29,7 +29,8 @@ def _imported_roots(path: Path):
 def test_port_sources_import_no_jax_and_no_reference_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / name for name in SCRIPTS]
     assert len(files) >= 12 and all(f.is_file() for f in files)
-    assert {PKG / "models" / "mla.py", PKG / "configs" / "deepseek_v2_lite.py"} <= set(files)
+    assert {PKG / "models" / "mla.py", PKG / "configs" / "deepseek_v2_lite.py",
+            PKG / "models" / "mamba.py", PKG / "configs" / "falcon_mamba_7b.py"} <= set(files)
     bad = {(str(f.relative_to(ROOT)), r) for f in files for r in _imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, bad

@@ -17,6 +17,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.models import common as tc  # noqa: E402
 
 from torch_helpers import CPU, to_numpy  # noqa: E402
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 
 def _quantized(kdim, n, bits, seed=2):

@@ -29,6 +29,7 @@ from repro_torch.models import attention, init_cache, prefill  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 from torch_helpers import CPU, assert_greedy_match, prompt, reduced_model  # noqa: E402
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 SEQ, THRESHOLD, KV_CHUNK = 64, 32, 24
 

@@ -36,6 +36,7 @@ from repro_torch.models.draw import layerwise_params, quantized_params  # noqa: 
 from repro_torch.serving import quantize_tree  # noqa: E402
 
 from torch_helpers import CPU, one_thread, prompt, reduced_model, to_numpy  # noqa: E402,F401
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

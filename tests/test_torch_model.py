@@ -25,6 +25,7 @@ from repro_torch.models import decode_step, init_cache, init_params, prefill  # 
 from repro_torch.serving import quantize_tree  # noqa: E402
 
 from torch_helpers import CPU, prompt, reduced_model, to_numpy  # noqa: E402
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 
 @pytest.fixture

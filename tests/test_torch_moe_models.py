@@ -30,6 +30,7 @@ from repro_torch.models.draw import layerwise_params, quantized_params  # noqa: 
 from repro_torch.serving import quantize_tree  # noqa: E402
 
 from torch_helpers import CPU, MOE, moe_model, one_thread, prompt  # noqa: E402,F401
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

@@ -31,6 +31,7 @@ from repro_torch.serving import (  # noqa: E402
 from torch_helpers import (  # noqa: E402,F401
     CPU, assert_greedy_match, assert_serve_match, moe_model, one_thread, prompt,
     serve_deciding, serve_events)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

@@ -37,6 +37,7 @@ from repro_torch.serving import (  # noqa: E402
 from torch_helpers import (  # noqa: E402,F401
     MOE, assert_greedy_match, assert_serve_match, one_thread, prompt, reduced_model,
     serve_deciding, serve_events)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -218,18 +219,18 @@ def test_a_moe_model_drafts_for_another():
 
 def test_speculate_refuses_a_draft_of_an_unported_family():
     """``speculate=`` accepts the moe family, target and draft, and raises
-    NotImplementedError at once where the draft model's family has no
-    verify window (an ssm config), on both engines; an n-gram window
-    ignores the draft config."""
+    NotImplementedError at once where the draft model's family is not
+    ported (a hybrid config), on both engines; an n-gram window ignores the
+    draft config."""
     _, _, tcfg, tq = _trees(MLA)
-    ssm = ModelConfig(arch_id="ssm", family="ssm", n_layers=1, d_model=8, n_heads=1,
-                      n_kv_heads=1, d_ff=8, vocab=tcfg.vocab)
+    hybrid = ModelConfig(arch_id="hybrid", family="hybrid", n_layers=1, d_model=8, n_heads=1,
+                         n_kv_heads=1, d_ff=8, vocab=tcfg.vocab)
     draft = SpecConfig(k=2, mode="draft")
     toks = torch.zeros((1, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="'ssm' is not ported"):
+    with pytest.raises(NotImplementedError, match="'hybrid' is not ported"):
         ContinuousBatchingEngine(tcfg, tq, slots=1, max_seq=8, device="cpu", speculate=draft,
-                                 draft_cfg=ssm, draft_params={})
-    eng = ServingEngine(tcfg, tq, max_seq=12, device="cpu", draft_cfg=ssm, draft_params={})
-    with pytest.raises(NotImplementedError, match="'ssm' is not ported"):
+                                 draft_cfg=hybrid, draft_params={})
+    eng = ServingEngine(tcfg, tq, max_seq=12, device="cpu", draft_cfg=hybrid, draft_params={})
+    with pytest.raises(NotImplementedError, match="'hybrid' is not ported"):
         eng.generate(toks, 3, speculate=draft)
     assert eng.generate(toks, 3, speculate=2).shape == (1, 3)

@@ -32,6 +32,7 @@ from repro_torch.serving import (  # noqa: E402
 
 from torch_helpers import (  # noqa: E402
     assert_serve_match, prompt, reduced_model, serve_deciding, serve_events)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 LOGIT_TOL = 1e-4
 GEOMETRY = dict(slots=2, max_seq=24, page_size=4, chunk=3, page_alloc_seed=1, pim_bits=8)

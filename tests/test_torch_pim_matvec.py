@@ -26,6 +26,7 @@ from torch_helpers import CPU, ldmatrix_x4, mma_m16n8k16, to_numpy  # noqa: E402
 from torch_helpers import bf16_from_bits as _bf16  # noqa: E402
 from torch_helpers import widen_int4 as _widen_int4  # noqa: E402
 from torch_helpers import widen_int8 as _widen_int8  # noqa: E402
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 

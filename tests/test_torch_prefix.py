@@ -17,6 +17,8 @@ from repro.serving.prefix import PagePool as JaxPool
 from repro_torch.serving import prefix
 from repro_torch.serving.prefix import PagePool
 
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
+
 NUM_PAGES = 12
 
 

@@ -29,6 +29,7 @@ from repro_torch.serving import (  # noqa: E402
 
 from torch_helpers import (  # noqa: E402
     CPU, assert_serve_match, reduced_model, serve_deciding, serve_events)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 LOGIT_TOL = 1e-4
 PS = 4

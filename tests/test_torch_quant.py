@@ -17,6 +17,7 @@ from repro_torch.quant import pack_int4, quantize_symmetric, unpack_int4  # noqa
 from repro_torch.serving import pim_bytes, quantize_tree  # noqa: E402
 
 from torch_helpers import reduced_model, to_numpy  # noqa: E402
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 
 def _assert_tree_equal(want, got, path=""):

@@ -42,6 +42,7 @@ from repro_torch.serving import (  # noqa: E402
 
 from torch_helpers import (  # noqa: E402,F401
     assert_serve_match, one_thread, reduced_model, serve_deciding)
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

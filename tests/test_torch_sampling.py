@@ -21,6 +21,8 @@ from repro.serving import sampling as jsampling  # noqa: E402
 from repro.serving.engine import sample_logits as jax_sample_logits  # noqa: E402
 from repro_torch.serving import sample_logits, sampling  # noqa: E402
 
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
+
 SEEDS = (0, 7, 2**31 - 1, -1)
 DRAWS = (0, 1, 31, 2**31 - 1)
 ROWS = 5

@@ -31,6 +31,7 @@ from repro_torch.serving import sampling as tsamp  # noqa: E402
 from repro_torch.serving import speculative as tspec  # noqa: E402
 
 from torch_helpers import CPU, one_thread, prompt, reduced_model  # noqa: E402,F401
+from torch_helpers import jax_maps_bounded  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 

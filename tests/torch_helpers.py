@@ -6,6 +6,8 @@ bridge carries them to the port, so both run on the same weights.
 """
 import dataclasses
 import functools
+import gc
+import os
 
 import jax
 import numpy as np
@@ -33,6 +35,33 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# Memory maps a test process may hold before a module that drives the JAX
+# package starts with JAX's compile caches cleared.  Every compiled XLA
+# program keeps maps of its own, and a process past the kernel's limit
+# (vm.max_map_count, 65,530 by default) segfaults inside XLA's compiler.
+MAX_MAPS = 30000
+
+
+def _maps() -> int:
+    try:
+        with open(f"/proc/{os.getpid()}/maps") as f:
+            return sum(1 for _ in f)
+    except OSError:  # no procfs: nothing to bound
+        return 0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_maps_bounded():
+    """Autouse in a module that imports it: clear JAX's compile caches before
+    the module when this process holds more than MAX_MAPS memory maps (the
+    programs of earlier modules), so a worker that runs many modules does
+    not reach the kernel's map limit."""
+    if _maps() > MAX_MAPS:
+        jax.clear_caches()
+        gc.collect()
+    yield
 
 
 def to_numpy(tree):
